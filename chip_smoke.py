@@ -7,21 +7,33 @@ Phases, each printing its own lines; any failure raises and the script
 exits nonzero without printing the final result line:
 
 1. device: the card's name and power limit (nvidia-smi); no CUDA -> exit 1.
-2. build: one nvcc call compiles ``segma_tpu_torch/csrc/*.cu``; ptxas's
-   registers, spills and shared memory of each kernel are printed.
+2. build: one nvcc per ``segma_tpu_torch/csrc/*.cu``, all started together,
+   then one link; ptxas's registers, spills and shared memory of each
+   kernel are printed.
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
-   at the main path's shapes (and a ragged small shape), then timed with
+   at the main paths' shapes (and ragged small shapes), then timed with
    CUDA events beside its plain version, a library call where one exists,
-   and its roofline bound.
-4. slice: full-width Whisper-base ``surgical_hydra`` (random weights from a
-   seed) serves a synthetic 10-minute int16 WAV through
+   and its roofline bound. The flash backward is checked at the training
+   shape (32, 199, 12, 64), at (64, 1500, 8, 64) and at (2, 70, 2, 64),
+   and the forward's output and log-sum-exp with the lse pointer set (the
+   route training takes) at the same shapes.
+4. serving slice: full-width Whisper-base ``surgical_hydra`` (random
+   weights from a seed) serves a synthetic 10-minute int16 WAV through
    ``run_inference_on_audios``; the launch counters show that the path went
-   through both kernels, twice (first and second run in the process); the
-   RTTM is parsed; one more run under torch.profiler prints device time by
-   kernel; the card's logits for the first two chunks are held against the
-   same model on the CPU plain path.
-5. the ``kernels`` JSON line and the ``kernels:`` launch line.
-6. last line: ``{"ok": true, "device": {...}}``.
+   through both forward kernels, twice (first and second run in the
+   process); the RTTM is parsed; one more run under torch.profiler prints
+   device time by kernel; the card's logits for the first two chunks are
+   held against the same model on the CPU plain path.
+5. training slice: full-width HuBERT-base ``surgical_hubert_hydra`` (random
+   weights from a seed, transformer trainable, front end frozen) trains two
+   epochs through ``Trainer.fit`` on a synthetic dataset written here (8
+   train and 4 val files of 64 s: 4 steps of 32 crops per epoch). Checked:
+   the step-1 loss (dropout 0) against the CPU plain path, finite losses,
+   non-zero q/k/v projection gradients after step 1, an unchanged front end,
+   and 12 flash forward and 12 flash backward launches per step. One more
+   warm step runs under torch.profiler.
+6. the ``kernels`` JSON line and the ``kernels:`` launch line.
+7. last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -44,6 +56,11 @@ PEAK_BYTES_PER_S = 3.35e12
 
 LOGMEL_ATOL = 1e-5  # f32 frontend, IEEE FMA in the kernel
 FLASH_ATOL = FLASH_RTOL = 2e-2  # bf16 output rounding against f32 scores
+# backward: P and dS round to bf16 before their products, the gradients to
+# bf16 on the way out; held per tensor at FLASH_BWD_REL * max(1, max|ref|)
+FLASH_BWD_REL = 2e-2
+LSE_ATOL = 1e-3  # f32 running max and sum against torch.logsumexp
+TRAIN_ATTN_SHAPE = (32, 199, 12, 64)  # HuBERT-base training: batch 32, 4 s
 # Card (bf16 kernels, cuDNN LSTM) against CPU (bf16 plain path) logits: both
 # round to bf16 at every encoder op, in other orders, through six layers
 LOGITS_ATOL = 1e-2
@@ -107,7 +124,8 @@ def phase_build() -> float:
     report = _build.build()
     _build.library()
     secs = time.perf_counter() - t0
-    print(f"build: {secs:.1f} s ({len(_build.sources())} sources, one nvcc call)", flush=True)
+    print(f"build: {secs:.1f} s ({len(_build.sources())} sources, one nvcc each in parallel)",
+          flush=True)
     for line in report:
         print(f"ptxas: {line}", flush=True)
     return secs
@@ -198,6 +216,105 @@ def flash_checks(card: str) -> dict:
     }
 
 
+def check_rel(name: str, got, ref, rel: float) -> float:
+    """max|got - ref| <= rel * max(1, max|ref|), per tensor."""
+    import torch
+
+    got, ref = got.float(), ref.float()
+    if got.shape != ref.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite output")
+    max_err = float((got - ref).abs().max())
+    limit = rel * max(1.0, float(ref.abs().max()))
+    if max_err > limit:
+        raise AssertionError(f"{name}: max abs err {max_err:.3e} exceeds {limit:.3e}")
+    print(f"check {name}: max_abs_err {max_err:.3e} (limit {limit:.3e} = {rel} * max(1, max|ref|))",
+          flush=True)
+    return max_err
+
+
+def flash_bwd_checks(card: str) -> tuple[dict, dict]:
+    """The backward kernels against ``attention_bwd_plain`` on the same bf16
+    inputs (q, k, v, dO random; out and lse from the forward kernel), and the
+    forward on the training route (lse pointer set): its output against
+    ``attention_plain``, its log-sum-exp against ``attention_lse_plain``.
+    Returns the backward's row and the forward's errors and times at the
+    training slice's shape."""
+    import torch
+
+    from segma_tpu_torch.ops import attention
+
+    torch.set_grad_enabled(False)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    sm = 64**-0.5
+    errs, out_errs, lse_errs = [], [], []
+    for shape in (TRAIN_ATTN_SHAPE, (INNER_BATCH, 1500, 8, 64), (2, 70, 2, 64)):
+        q, k, v, dout = (
+            torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
+            for _ in range(4)
+        )
+        out, lse = attention.flash_attn_fwd(q, k, v, sm, with_lse=True)
+        out_errs.append(check_close(
+            f"flash_attn_fwd with lse {shape}", out,
+            attention.attention_plain(q, k, v, sm, torch.float32), FLASH_ATOL, FLASH_RTOL,
+        ))
+        lse_errs.append(check_close(
+            f"flash_attn_fwd lse {shape}", lse, attention.attention_lse_plain(q, k, sm), LSE_ATOL,
+        ))
+        got = attention.flash_attn_bwd(q, k, v, out, lse, dout, sm)
+        ref = attention.attention_bwd_plain(q, k, v, out, lse, dout, sm)
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            errs.append(check_rel(f"flash_attn_bwd {name} {shape}", a, b, FLASH_BWD_REL))
+        del q, k, v, dout, out, lse, got, ref
+        torch.cuda.empty_cache()
+
+    q, k, v, dout = (
+        torch.randn(TRAIN_ATTN_SHAPE, device="cuda", generator=g).to(torch.bfloat16)
+        for _ in range(4)
+    )
+    out, lse = attention.flash_attn_fwd(q, k, v, sm, with_lse=True)
+    b, s, h, d = q.shape
+    ms = time_ms(lambda: attention.flash_attn_bwd(q, k, v, out, lse, dout, sm), iters=50)
+    plain_ms = time_ms(lambda: attention.attention_bwd_plain(q, k, v, out, lse, dout, sm), iters=10)
+    with torch.enable_grad():
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        ref_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=sm)
+        dout_t = dout.transpose(1, 2)
+        library_ms = time_ms(
+            lambda: torch.autograd.grad(ref_out, (qt, kt, vt), dout_t, retain_graph=True),
+            iters=50,
+        )
+    flops = 10 * b * h * s * s * d  # five S x S x D products
+    n_bytes = 8 * q.numel() * 2 + lse.numel() * 4  # q k v out dO dq dk dv, lse
+    bms, by = bound_ms(flops, PEAK_BF16_FLOPS, n_bytes)
+    fwd_lse_ms = time_ms(lambda: attention.flash_attn_fwd(q, k, v, sm, with_lse=True), iters=50)
+    fwd_ms = time_ms(lambda: attention.flash_attn_fwd(q, k, v, sm), iters=50)
+    torch.set_grad_enabled(True)
+    print(
+        f"time flash_attn_bwd {TRAIN_ATTN_SHAPE} [{card}]: kernels {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, sdpa backward {library_ms:.3f} ms, bound {bms:.3f} ms "
+        f"({by}, bf16 tensor-core peak)", flush=True,
+    )
+    print(
+        f"time flash_attn_fwd {TRAIN_ATTN_SHAPE} [{card}]: with lse {fwd_lse_ms:.3f} ms, "
+        f"without {fwd_ms:.3f} ms", flush=True,
+    )
+    row = {
+        "name": "flash_attn_bwd", "route": "cuda",
+        "source": "segma_tpu_torch/csrc/flash_attn_bwd.cu",
+        "replaces": "segma_tpu/ops/attention.py:148",
+        "tpu_kernels": [
+            "jax/experimental/pallas/ops/tpu/flash_attention.py:941 _flash_attention_bwd_dkv",
+            "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 _flash_attention_bwd_dq",
+        ],
+        "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+    }
+    return row, {"lse_max_abs_err": max(lse_errs), "with_lse_max_abs_err": max(out_errs),
+                 "train_shape_ms": fwd_ms, "train_shape_lse_ms": fwd_lse_ms}
+
+
 def write_wav(path: Path, n_samples: int, seed: int = 0) -> np.ndarray:
     """Synthetic 16 kHz int16 mono WAV: noise bursts and tones."""
     rng = np.random.default_rng(seed)
@@ -216,20 +333,22 @@ def write_wav(path: Path, n_samples: int, seed: int = 0) -> np.ndarray:
 
 def surgical_hydra_config():
     """``config/default.yml`` with model.name=surgical_hydra and
-    model.config.encoder=whisper_base_random, built in code."""
+    model.config.encoder=whisper_base_random, built in code so that the
+    script needs no pyyaml; tests/test_torch_train.py holds it equal to
+    ``load_config``."""
     from segma_tpu_torch.config import (
         AudioConfig, Config, DataConfig, LSTMConfig, ModelConfig,
         SurgicalHydraConfig, TrainConfig,
     )
 
     return Config(
-        data=DataConfig(classes=["KCHI", "OCH", "MAL", "FEM"]),
+        data=DataConfig(classes=["KCHI", "OCH", "MAL", "FEM"], dataset_path="data/baby_train"),
         audio=AudioConfig(
             chunk_duration_s=4.0, sample_rate=16_000, strict_frames=False,
             reference_tail=False,
         ),
         model=ModelConfig(
-            name="surgical_hydra",
+            name="surgical_hydra", chkp_path="models",
             config=SurgicalHydraConfig(
                 encoder="whisper_base_random", encoder_layers=[],
                 reduction="weighted",
@@ -315,7 +434,7 @@ def phase_slice(card: str) -> dict:
             raise AssertionError("RTTM holds a malformed segment")
         if rttm.read_text() != (Path(tmp) / "out0" / "raw_rttm" / "smoke.rttm").read_text():
             raise AssertionError("two runs over the same WAV wrote different RTTMs")
-        profile_slice(card, lambda: run_inference_on_audios(
+        profile_run(card, "serve", lambda: run_inference_on_audios(
             cfg, wav_dir, None, Path(tmp) / "out_prof", model=model, device="cuda",
             batch_size=INNER_BATCH,
         ), wall)
@@ -333,8 +452,207 @@ def phase_slice(card: str) -> dict:
     check_close("surgical_hydra logits, card vs CPU (2 chunks, bf16)", got, ref, LOGITS_ATOL)
     return launches
 
+TRAIN_CLASSES = ["KCHI", "OCH", "MAL", "FEM"]  # data.classes of config/default.yml
+TRAIN_FILES, VAL_FILES, TEST_FILES = 8, 4, 1  # a test split is required by the dataset
+TRAIN_FILE_S = 64.0
+TRAIN_EPOCHS = 2
+LOSS_ATOL = 2e-2  # card (bf16 kernels) against CPU (bf16 plain path), step-1 loss
 
-def profile_slice(card: str, fn, wall_s: float) -> None:
+
+def write_dataset(root: Path, classes: list[str], n_files: tuple[int, int, int],
+                  duration_s: float, seed: int = 0) -> None:
+    """A synthetic SegmaFileDataset tree (wav/ aa/ rttm/ uem/ and the split
+    lists), the layout of scripts/generate_data.py: per file, 4 to 9 labeled
+    events of 0.2 to 3 s, label i rendered as a 440 * (i + 1) Hz tone in a
+    16 kHz PCM16 WAV, over a noise floor at -40 dBFS.
+
+    The noise floor matters for a randomly initialised HuBERT: its biases
+    are zero, so an all-silent crop maps to exactly-zero activations, and
+    each post-norm LayerNorm's backward then scales the gradient by
+    1 / sqrt(eps) (two per layer, ~1e60 over twelve), which overflows, in
+    the JAX package as in the port (tests/test_torch_train.py,
+    test_silent_batch_gradients_explode_as_in_jax)."""
+    from segma_tpu_torch.annotation import AudioAnnotation
+
+    rng = np.random.default_rng(seed)
+    for sub in ("wav", "aa", "rttm", "uem"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    uid_iter = iter(f"{i:04d}" for i in range(sum(n_files)))
+    n = int(duration_s * 16_000)
+    for split, count in zip(("train", "val", "test"), n_files):
+        uids = [next(uid_iter) for _ in range(count)]
+        (root / f"{split}.txt").write_text("".join(u + "\n" for u in uids))
+        for uid in uids:
+            k = int(rng.integers(4, 10))
+            starts = np.sort(rng.uniform(0.0, duration_s - 3.0, size=k))
+            lengths = rng.uniform(0.2, 3.0, size=k)
+            which = rng.integers(len(classes), size=k)
+            events = [AudioAnnotation(uid, float(t0), float(dt), classes[c])
+                      for t0, dt, c in zip(starts, lengths, which)]
+            track = (0.01 * rng.standard_normal(n)).astype(np.float32)
+            for ev, c in zip(events, which):
+                a = int(ev.start_time_s * 16_000)
+                b = min(n, a + int(ev.duration_s * 16_000))
+                track[a:b] = np.sin(2 * np.pi * 440 * (c + 1) * np.arange(b - a) / 16_000)
+            with wave.open(str(root / "wav" / f"{uid}.wav"), "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(16_000)
+                w.writeframes((np.clip(track, -1, 1) * 32767).astype("<i2").tobytes())
+            (root / "aa" / f"{uid}.aa").write_text("".join(ev.write() + "\n" for ev in events))
+            (root / "rttm" / f"{uid}.rttm").write_text(
+                "".join(ev.to_rttm() + "\n" for ev in events))
+            (root / "uem" / f"{uid}.uem").write_text(f"{uid} NA 0.000 {duration_s}")
+
+
+def surgical_hubert_hydra_config(dataset_path: Path):
+    """``config/default.yml`` with model.name=surgical_hubert_hydra,
+    audio.strict_frames=true, data.dataset_path, train.seed=0,
+    train.max_epochs=2 and train.dataloader.num_workers=1, built in code
+    so that the script needs no pyyaml; tests/test_torch_train.py holds it
+    equal to ``load_config``."""
+    from segma_tpu_torch.config import (
+        AudioConfig, Config, DataConfig, DataloaderConfig, ModelConfig,
+        SurgicalHubertHydraConfig, TrainConfig,
+    )
+
+    return Config(
+        data=DataConfig(classes=list(TRAIN_CLASSES), dataset_path=str(dataset_path)),
+        audio=AudioConfig(chunk_duration_s=4.0, sample_rate=16_000, strict_frames=True),
+        model=ModelConfig(
+            name="surgical_hubert_hydra", chkp_path="models",
+            config=SurgicalHubertHydraConfig(
+                wav_encoder="hubert_base", encoder_layers=[], reduction="weighted",
+                classifier=256,
+            ),
+        ),
+        train=TrainConfig(
+            lr=1e-3, batch_size=32, max_epochs=TRAIN_EPOCHS, seed=0, precision="bf16",
+            dataloader=DataloaderConfig(num_workers=1),
+        ),
+    )
+
+
+def phase_train(card: str) -> dict:
+    """Train full-width HuBERT-base ``surgical_hubert_hydra`` (random
+    weights from seed 0) for two epochs through ``Trainer.fit`` on a
+    synthetic dataset, with its checks; returns the launch counts."""
+    import warnings
+
+    import torch
+
+    from segma_tpu_torch.data import SegmaFileDataset, SegmentationDataLoader
+    from segma_tpu_torch.models import Models
+    from segma_tpu_torch.ops import attention, logmel
+    from segma_tpu_torch.train import Trainer
+    from segma_tpu_torch.utils.encoders import MultiLabelEncoder
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "data"
+        write_dataset(root, TRAIN_CLASSES, (TRAIN_FILES, VAL_FILES, TEST_FILES), TRAIN_FILE_S)
+        cfg = surgical_hubert_hydra_config(root)
+        enc = MultiLabelEncoder(cfg.data.classes)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # random encoder weights, on purpose
+            model = Models["surgical_hubert_hydra"](
+                enc, cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+            model_cpu = Models["surgical_hubert_hydra"](
+                enc, cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+        n_layers = model.module.enc_cfg.n_layers
+        ds = SegmaFileDataset.from_config(cfg)
+        ds.load(use_cache=False)
+        dm = SegmentationDataLoader(ds, enc, cfg, model.conv_settings)
+
+        # step 1's batch without dropout: card (kernels, training route) against
+        # CPU (plain path)
+        sampler = dm.train_dataloader().sampler  # with one worker, it makes every batch
+        sampler.reseed(0)
+        batch = sampler.sample_batch(cfg.train.batch_size)
+        x, y = (torch.from_numpy(batch[k]) for k in ("x", "y"))
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            loss_cpu = float(model_cpu.loss(model_cpu.module(x), y)[0])
+        cpu_s = time.perf_counter() - t0
+        # with autograd recording, as in training: the forward takes FlashAttention
+        loss_card = float(model.loss(model.module(x.cuda()), y.cuda())[0].detach())
+        print(f"check surgical_hubert_hydra step-1 loss, card vs CPU (batch 32, bf16, dropout 0): "
+              f"card {loss_card:.6f}, CPU {loss_cpu:.6f}, |diff| {abs(loss_card - loss_cpu):.3e} "
+              f"(atol {LOSS_ATOL}; CPU forward {cpu_s:.1f} s)", flush=True)
+        if not abs(loss_card - loss_cpu) <= LOSS_ATOL:
+            raise AssertionError("step-1 loss on the card differs from the CPU plain path")
+        del model_cpu
+
+        frozen_before = {k: v.clone() for k, v in model.split_state()[1].items()}
+        trainer = Trainer(model=model, config=cfg, run_dir=Path(tmp) / "run")
+        grad_norms: dict[str, float] = {}
+        step = trainer.train_step
+
+        def first_step_probe(b, generator):
+            out = step(b, generator)
+            if not grad_norms:
+                for name, p in model.module.named_parameters():
+                    if ".attention." in name and name.endswith(("q_proj.weight", "k_proj.weight",
+                                                                "v_proj.weight")):
+                        grad_norms[name] = float(p.grad.norm()) if p.grad is not None else 0.0
+            return out
+
+        trainer.train_step = first_step_probe
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        logmel.launches = attention.launches = attention.bwd_launches = 0
+        t0 = time.perf_counter()
+        result = trainer.fit(dm)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_attn_fwd": attention.launches, "flash_attn_bwd": attention.bwd_launches,
+                    "logmel": logmel.launches}
+        peak = torch.cuda.max_memory_allocated()
+
+        history = result["history"]
+        n_steps, n_val = len(dm.train_dataloader()), len(dm.val_dataloader())
+        if len(history) != TRAIN_EPOCHS:
+            raise AssertionError(f"fit ran {len(history)} epochs, not {TRAIN_EPOCHS}")
+        for h in history:
+            print(f"train epoch {h['epoch']} [{card}]: train/loss {h['train/loss']:.6f}, "
+                  f"val/loss {h['val/loss']:.6f}, val/f1_score {h['val/f1_score']:.4f}, "
+                  f"train time {h['train_time_s']:.3f} s, epoch time {h['time_s']:.3f} s",
+                  flush=True)
+            if not all(np.isfinite([h["train/loss"], h["val/loss"]])):
+                raise AssertionError(f"epoch {h['epoch']}: non-finite loss")
+        bad = {k: v for k, v in grad_norms.items() if not (np.isfinite(v) and v > 0)}
+        if len(grad_norms) != 3 * n_layers or bad:
+            raise AssertionError(f"q/k/v projection gradients after step 1: {bad or grad_norms}")
+        print(f"check q/k/v projection gradient norms after step 1: {len(grad_norms)} weights, "
+              f"min {min(grad_norms.values()):.3e}, max {max(grad_norms.values()):.3e}", flush=True)
+        after = model.split_state()[1]
+        changed = [k for k, v in after.items() if not torch.equal(v, frozen_before[k])]
+        if changed or not frozen_before:
+            raise AssertionError(f"frozen feature_extractor parameters changed: {changed}")
+        print(f"check frozen front end unchanged: {len(frozen_before)} tensors", flush=True)
+        want = {"flash_attn_fwd": n_layers * (n_steps + n_val) * TRAIN_EPOCHS,
+                "flash_attn_bwd": n_layers * n_steps * TRAIN_EPOCHS, "logmel": 0}
+        if launches != want:
+            raise AssertionError(f"training launch counts {launches} != {want}")
+
+        warm = history[-1]["train_time_s"]
+        audio_s = n_steps * cfg.train.batch_size * cfg.audio.chunk_duration_s
+        print(
+            f"train slice [{card}]: {TRAIN_EPOCHS} epochs of {n_steps} steps (batch "
+            f"{cfg.train.batch_size}, 4 s crops) + {n_val} val batches, fit wall {wall:.3f} s; "
+            f"warm step {1e3 * warm / n_steps:.3f} ms, {audio_s / warm:.2f} audio s per s; "
+            f"peak device memory {peak} B ({peak / 2**30:.2f} GiB); launches {launches} = "
+            f"{launches['flash_attn_fwd'] // (n_steps + n_val) // TRAIN_EPOCHS} fwd per step or "
+            f"val batch, {launches['flash_attn_bwd'] // n_steps // TRAIN_EPOCHS} bwd per step",
+            flush=True,
+        )
+        gen = torch.Generator("cuda").manual_seed(1)
+        warm_batch = trainer._put(batch)
+        profile_run(card, "train step", lambda: trainer.train_step(warm_batch, gen),
+                    warm / n_steps)
+    return launches
+
+
+def profile_run(card: str, label: str, fn, wall_s: float) -> None:
     """One more main-path run under torch.profiler: device time by kernel,
     and the device's busy share of ``wall_s``, the same run's wall time
     without the profiler."""
@@ -349,12 +667,12 @@ def profile_slice(card: str, fn, wall_s: float) -> None:
     wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy_us = sum(e.self_device_time_total for e in events)
-    print(f"profile [{card}]: wall under the profiler {wall_us / 1e3:.1f} ms, device busy "
+    print(f"profile {label} [{card}]: wall under the profiler {wall_us / 1e3:.1f} ms, device busy "
           f"{busy_us / 1e3:.1f} ms = {100 * busy_us / (wall_s * 1e6):.1f}% of the "
           f"unprofiled wall {wall_s * 1e3:.1f} ms (kernels may overlap)", flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
-        print(f"profile kernel: {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x {e.key[:100]}",
-              flush=True)
+        print(f"profile {label} kernel: {e.self_device_time_total / 1e3:9.2f} ms "
+              f"{e.count:6d}x {e.key[:100]}", flush=True)
 
 
 def main() -> int:
@@ -373,12 +691,21 @@ def main() -> int:
     phase_build()
     with torch.inference_mode():
         rows = [logmel_checks(card), flash_checks(card)]
+    bwd_row, fwd_train = flash_bwd_checks(card)
+    rows[1].update(fwd_train)
+    rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], fwd_train["with_lse_max_abs_err"])
+    rows.append(bwd_row)
     torch.cuda.empty_cache()
-    launches = phase_slice(card)
+    serve = phase_slice(card)
+    torch.cuda.empty_cache()
+    train = phase_train(card)
+    # each row's launches come from the path that runs it: serving for the
+    # forward kernels (as before), training for the backward
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = serve[row["name"]] if row["name"] in serve else train[row["name"]]
+    rows[1]["launches_train"] = train["flash_attn_fwd"]
     print(json.dumps({"kernels": rows}), flush=True)
-    print(f"kernels: {json.dumps(launches)}", flush=True)
+    print(f"kernels: {json.dumps({'serve': serve, 'train': train})}", flush=True)
     print(card, flush=True)
     print(json.dumps({
         "ok": True,

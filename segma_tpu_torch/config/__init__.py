@@ -1,11 +1,13 @@
-"""Config subset the serving slice reads (counterpart of
-``segma_tpu/config/base.py``).
+"""Config subset the port reads (counterpart of ``segma_tpu/config/base.py``).
 
-Only what inference over ``surgical_hydra`` needs is modelled: the audio
-geometry, the label classes, the model's hyper-parameters and the compute
-precision. ``load_config`` reads the same YAML files as the JAX package
-(``default.yml`` plus the per-model YAML) with ``a.b.c=value`` overrides;
-sections and training fields this port does not model yet are skipped.
+What serving ``surgical_hydra`` and training ``surgical_hubert_hydra`` need
+is modelled: the dataset, the audio geometry, the label classes, the models'
+hyper-parameters and the training fields of the host-data, one-process,
+per-step path. ``load_config`` reads the same YAML files as the JAX package
+(``default.yml`` plus the per-model YAML) with ``a.b.c=value`` overrides.
+The ``wandb`` and ``mesh`` sections are skipped. A training key of the JAX
+schema that the port does not model yet is accepted only at the value that
+means "off" (``UNPORTED_TRAIN``); any other value raises ``ConfigError``.
 ``pyyaml`` is imported inside ``load_config`` only, so a program that builds
 its ``Config`` in code does not need it.
 """
@@ -40,6 +42,8 @@ class AudioConfig:
 @dataclass
 class DataConfig:
     classes: list[str]
+    dataset_path: str = ""
+    dataset_multiplier: float = 1.0
 
 
 @dataclass
@@ -61,15 +65,68 @@ class SurgicalHydraConfig:
 
 
 @dataclass
+class SurgicalHubertHydraConfig:
+    wav_encoder: str
+    encoder_layers: list[int]
+    reduction: str
+    classifier: int
+    freeze_encoder: bool = False
+
+
+@dataclass
 class ModelConfig:
     name: str
     chkp_path: str | None = None
-    config: SurgicalHydraConfig | None = None
+    config: SurgicalHydraConfig | SurgicalHubertHydraConfig | None = None
+
+
+@dataclass
+class SchedulerConfig:
+    patience: int = 3  # plateau epochs before the LR drops tenfold
+
+
+@dataclass
+class DataloaderConfig:
+    num_workers: int = 8  # sampler threads; 1 gives a deterministic batch order
 
 
 @dataclass
 class TrainConfig:
+    lr: float = 1e-3
+    batch_size: int = 32
+    max_epochs: int = 100
+    validation_metric: str = "loss"  # loss | f1_score
+    extra_val_metrics: list[str] = field(default_factory=lambda: ["loss", "f1_score"])
+    seed: int | None = None
     precision: str = "bf16"  # compute dtype: bf16 | f32
+    log_every_n_steps: int = 50  # per-step loss records; 0 disables
+    early_stop_patience: int = 10
+    class_weights: list[float] | None = None
+    scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
+    dataloader: DataloaderConfig = field(default_factory=DataloaderConfig)
+
+
+# JAX training keys the port does not model yet -> the values it accepts
+# (each means the feature is off; data_cache "auto" resolves to the host path,
+# the only one ported)
+UNPORTED_TRAIN: dict[str, tuple] = {
+    "dispatch": ("step",),
+    "data_cache": ("host", "auto"),
+    "device_cache_budget_gb": (12.0,),
+    "grad_accum_steps": (1,),
+    "transport": ("f32",),
+    "remat": (False,),
+    "profiler": (None,),
+    "debug_nans": (False,),
+    "save_top_k": (5,),
+    "host_rss_limit_gb": (None,),
+    "val_every_n_epochs": (1,),
+}
+UNPORTED_SCHEDULER: dict[str, tuple] = {
+    "type": ("plateau",),
+    "warmup_steps": (0,),
+    "min_lr_ratio": (0.0,),
+}
 
 
 @dataclass
@@ -80,20 +137,42 @@ class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
 
 
-_MODEL_CONFIG_TYPES: dict[str, type] = {"surgical_hydra": SurgicalHydraConfig}
+_MODEL_CONFIG_TYPES: dict[str, type] = {
+    "surgical_hydra": SurgicalHydraConfig,
+    "surgical_hubert_hydra": SurgicalHubertHydraConfig,
+}
+_NESTED: dict[tuple[type, str], type] = {
+    (SurgicalHydraConfig, "lstm"): LSTMConfig,
+    (TrainConfig, "scheduler"): SchedulerConfig,
+    (TrainConfig, "dataloader"): DataloaderConfig,
+}
+_UNPORTED: dict[type, dict[str, tuple]] = {
+    TrainConfig: UNPORTED_TRAIN,
+    SchedulerConfig: UNPORTED_SCHEDULER,
+}
 
 
 def _build(cls: type, data: dict, path: str) -> Any:
-    """Strict dict -> dataclass for the modelled fields (unknown keys raise)."""
+    """Strict dict -> dataclass for the modelled fields (unknown keys raise;
+    unported keys raise unless they hold their "off" value)."""
     if not isinstance(data, dict):
         raise ConfigError(f"{path}: expected a mapping for {cls.__name__}")
+    data = dict(data)
+    for name, accepted in _UNPORTED.get(cls, {}).items():
+        if name in data:
+            value = data.pop(name)
+            if value not in accepted:
+                raise ConfigError(
+                    f"{path}.{name}={value!r} is not ported yet; the port accepts "
+                    f"{' or '.join(map(repr, accepted))}"
+                )
     fields = {f.name: f for f in dataclasses.fields(cls)}
     unknown = sorted(set(data) - set(fields))
     if unknown:
         raise ConfigError(f"{path}: unknown keys {unknown} for {cls.__name__}")
     kwargs = {}
     for name, value in data.items():
-        sub = {"lstm": LSTMConfig}.get(name) if cls is SurgicalHydraConfig else None
+        sub = _NESTED.get((cls, name))
         kwargs[name] = _build(sub, value, f"{path}.{name}") if sub else value
     missing = [
         n for n, f in fields.items()
@@ -118,12 +197,26 @@ def config_from_dict(config_d: dict) -> Config:
         model_d["config"] = _build(
             _MODEL_CONFIG_TYPES[name], model_d["config"], "config.model.config"
         )
-    train_d = config_d.get("train") or {}
+    data_d = dict(config_d["data"])
+    data_d["classes"] = list(data_d["classes"])
+    train = _build(TrainConfig, config_d.get("train") or {}, "config.train")
+    train.lr = float(train.lr)
+    if train.validation_metric not in ("loss", "f1_score"):
+        raise ConfigError(
+            f"config.train.validation_metric={train.validation_metric!r}: the port "
+            "monitors 'loss' or 'f1_score'"
+        )
+    unported = sorted(set(train.extra_val_metrics) - {"loss", "f1_score"})
+    if unported:
+        raise ConfigError(
+            f"config.train.extra_val_metrics: {unported} are not ported yet "
+            "(the port computes 'loss' and 'f1_score')"
+        )
     return Config(
-        data=DataConfig(classes=list(config_d["data"]["classes"])),
+        data=_build(DataConfig, data_d, "config.data"),
         audio=_build(AudioConfig, config_d["audio"], "config.audio"),
         model=_build(ModelConfig, model_d, "config.model"),
-        train=TrainConfig(precision=train_d.get("precision", "bf16")),
+        train=train,
     )
 
 
@@ -168,7 +261,7 @@ def load_config(config_path: Path | str, cli_extra_args: list[str] | None = None
 
 
 __all__ = [
-    "AudioConfig", "Config", "ConfigError", "DataConfig", "LSTMConfig",
-    "ModelConfig", "SurgicalHydraConfig", "TrainConfig", "config_from_dict",
-    "load_config",
+    "AudioConfig", "Config", "ConfigError", "DataConfig", "DataloaderConfig",
+    "LSTMConfig", "ModelConfig", "SchedulerConfig", "SurgicalHubertHydraConfig",
+    "SurgicalHydraConfig", "TrainConfig", "config_from_dict", "load_config",
 ]

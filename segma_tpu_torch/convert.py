@@ -1,12 +1,14 @@
-"""Weight bridge: a JAX ``surgical_hydra`` parameter tree -> the port's
-``state_dict``.
+"""Weight bridge: a JAX ``surgical_hydra`` or ``surgical_hubert_hydra``
+parameter tree -> the port's ``state_dict``.
 
 The input is the flax params tree as nested dicts of numpy arrays (what
 ``jax.tree.map(np.asarray, params)`` gives); no JAX is needed here.
 
-- conv kernels (k, in, out) -> (out, in, k); dense kernels (in, out) ->
-  (out, in); LayerNorm ``scale`` -> ``weight``; ``layers_{i}`` ->
-  ``layers.{i}``; ``embed_positions`` and ``layer_weights`` as they are;
+- conv kernels (k, in, out) -> (out, in, k), grouped ones (k, in/groups,
+  out) -> (out, in/groups, k) alike; dense kernels (in, out) -> (out, in);
+  LayerNorm and GroupNorm ``scale`` -> ``weight``; ``layers_{i}`` ->
+  ``layers.{i}``; ``embed_positions`` and ``layer_weights`` as they are; the
+  HuBERT ``feature_extractor.conv_{i}`` keep their names;
 - the BiLSTM cells ``OptimizedLSTMCell_{k}`` come in the order layer0-fwd,
   layer0-bwd, layer1-fwd, ...; each cell's per-gate kernels (``i{g}`` input,
   ``h{g}`` hidden with the bias) stack in gate order i, f, g, o into
@@ -79,8 +81,9 @@ def flax_to_torch(params: dict[str, Any], bidirectional: bool = True) -> dict[st
 
 
 def load_flax_params(module: torch.nn.Module, params: dict[str, Any]) -> None:
-    """Load a JAX params tree into a ``WhisperSegModule`` (strict: every key
-    must match)."""
-    state = flax_to_torch(params, module.lstm_shared.cfg.bidirectional)
+    """Load a JAX params tree into a ``WhisperSegModule`` or a
+    ``HubertSegModule`` (strict: every key must match)."""
+    lstm = getattr(module, _LSTM_MODULE, None)
+    state = flax_to_torch(params, lstm.cfg.bidirectional if lstm is not None else True)
     device = next(module.parameters()).device
     module.load_state_dict({k: v.to(device) for k, v in state.items()}, strict=True)

@@ -23,42 +23,28 @@
 // running max and sum in the exp2 domain, and adds P V into its f32
 // accumulators with P taken straight from the score registers. Rows past S
 // compute on zeros and are not stored.
+//
+// Given a non-null lse pointer it also writes each row's log-sum-exp of the
+// scaled scores (natural log, f32, laid out (B, H, S)), which the backward
+// kernels (flash_attn_bwd.cu) use to recompute P. The running max and sum
+// already hold it; with a null pointer (serving) nothing else changes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
-constexpr int D = 64;       // head dim (Whisper, HuBERT)
 constexpr int BQ = 64;      // query rows per block, 16 per warp
 constexpr int BK = 64;      // keys per tile
-constexpr int WARPS = 4;
-constexpr int LDS = 72;     // padded shared row, in bf16 elements (144 B)
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 __global__ void __launch_bounds__(WARPS * 32)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S,
-                 int H, float scale_log2) {
+                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                 float* __restrict__ lse, int S, int H, float scale_log2) {
   __shared__ __align__(16) __nv_bfloat16 ks[BK][LDS];   // K tile, [key][d]
   __shared__ __align__(16) __nv_bfloat16 vts[D][LDS];   // V tile transposed, [d][key]
 
@@ -183,6 +169,12 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / l0;
   const float inv1 = 1.f / l1;
+  if (lse != nullptr && t == 0) {
+    // ln(sum exp(score * sm_scale)) = (max + log2(sum)) * ln 2, in the log2 domain
+    const size_t row0 = ((size_t)b * H + h) * S;
+    if (r0 < S) lse[row0 + r0] = (m0 + log2f(l0)) * 0.6931471805599453f;
+    if (r1 < S) lse[row0 + r1] = (m1 + log2f(l1)) * 0.6931471805599453f;
+  }
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     const int c = n * 8 + 2 * t;
@@ -199,15 +191,16 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 
 }  // namespace
 
-// q, k, v, o: contiguous (batch, seq, heads, 64) bf16. scale_log2 is
-// sm_scale * log2(e). Returns cudaGetLastError() after the launch.
+// q, k, v, o: contiguous (batch, seq, heads, 64) bf16. lse: null, or
+// contiguous (batch, heads, seq) f32. scale_log2 is sm_scale * log2(e).
+// Returns cudaGetLastError() after the launch.
 extern "C" int segma_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                                    int batch, int seq, int heads, float scale_log2,
-                                    void* stream) {
+                                    void* lse, int batch, int seq, int heads,
+                                    float scale_log2, void* stream) {
   dim3 grid((seq + BQ - 1) / BQ, heads, batch);
   flash_fwd_kernel<<<grid, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), seq, heads,
-      scale_log2);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), seq, heads, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }

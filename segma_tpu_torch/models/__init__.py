@@ -2,7 +2,8 @@
 
 Builders take ``(label_encoder, config, device="cuda", generator=None)``
 and return a ``SegmentationModel`` with random weights drawn from
-``generator``. Only ``surgical_hydra`` is ported.
+``generator``. Ported: ``surgical_hydra`` (serving) and
+``surgical_hubert_hydra`` (training).
 """
 
 from __future__ import annotations
@@ -25,6 +26,17 @@ def _lazy_whisper(name: str) -> ModelBuilder:
     return build
 
 
+def _lazy_hubert(name: str) -> ModelBuilder:
+    def build(label_encoder, config, device="cuda", generator=None, **kwargs):
+        from segma_tpu_torch.models.hubert import build_hubert_model
+
+        return build_hubert_model(
+            name, label_encoder, config, device=device, generator=generator, **kwargs
+        )
+
+    return build
+
+
 class _Registry(dict):
     """Model registry with a helpful unknown-name error."""
 
@@ -37,6 +49,7 @@ class _Registry(dict):
 
 Models: dict[str, ModelBuilder] = _Registry({
     "surgical_hydra": _lazy_whisper("surgical_hydra"),
+    "surgical_hubert_hydra": _lazy_hubert("surgical_hubert_hydra"),
 })
 
 __all__ = ["ConvolutionSettings", "Models", "SegmentationModel"]

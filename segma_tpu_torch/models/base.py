@@ -1,9 +1,16 @@
-"""Model wrapper: module + receptive-field geometry (the inference half of
-``segma_tpu/models/base.py``)."""
+"""Model wrapper: module + receptive-field geometry + the hydra objective
+(counterpart of ``segma_tpu/models/base.py``).
+
+Hydra loss: per-head binary cross-entropy with logits, mean over
+(batch x windows) rows, summed over heads. Frozen parameters (top-level
+submodules named in ``frozen_prefixes``) take no gradient and are left out
+of the optimizer, the role of ``optax.masked`` over ``trainable_mask``.
+"""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Sequence
 
 import torch
 from torch import nn
@@ -12,7 +19,31 @@ from segma_tpu_torch.config import Config
 from segma_tpu_torch.models.geometry import ConvolutionSettings
 from segma_tpu_torch.utils.encoders import MultiLabelEncoder
 
-__all__ = ["ConvolutionSettings", "SegmentationModel"]
+__all__ = ["ConvolutionSettings", "SegmentationModel", "bce_with_logits", "hydra_loss"]
+
+
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Elementwise numerically-stable binary cross-entropy with logits.
+
+    At logits exactly 0 (zero-bias heads on all-zero features) the gradient
+    takes JAX's subgradients, max: 1/2 to each side and |x|: 1, so it is
+    ``-targets`` as in the reference; torch's clamp and abs would give
+    ``1 - targets``."""
+    magnitude = torch.where(logits >= 0, logits, -logits)
+    return (torch.maximum(logits, torch.zeros_like(logits)) - logits * targets
+            + torch.log1p(torch.exp(-magnitude)))
+
+
+def hydra_loss(
+    logits: torch.Tensor, targets: torch.Tensor, class_weights: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(total, per_label): per-label BCE means over all rows, optionally
+    weighted per label, summed across labels."""
+    elt = bce_with_logits(logits, targets)
+    per_label = elt.reshape(-1, elt.shape[-1]).mean(0)
+    if class_weights is not None:
+        per_label = per_label * class_weights
+    return per_label.sum(), per_label
 
 
 @dataclass
@@ -28,6 +59,13 @@ class SegmentationModel:
     label_encoder: MultiLabelEncoder
     config: Config
     device: torch.device
+    frozen_prefixes: tuple[str, ...] = ()
+    class_weights: Sequence[float] | None = None
+
+    def __post_init__(self) -> None:
+        for name, p in self.module.named_parameters():
+            if name.split(".")[0] in self.frozen_prefixes:
+                p.requires_grad_(False)
 
     @property
     def n_labels(self) -> int:
@@ -46,10 +84,31 @@ class SegmentationModel:
         self.device = torch.device(device)
         return self
 
+    def trainable_parameters(self) -> list[nn.Parameter]:
+        """Parameters the optimizer updates (outside ``frozen_prefixes``)."""
+        return [p for p in self.module.parameters() if p.requires_grad]
+
+    def split_state(self) -> tuple[dict, dict]:
+        """(trainable, frozen) ``state_dict`` entries by top-level prefix."""
+        state = self.module.state_dict()
+        frozen = {k: v for k, v in state.items() if k.split(".")[0] in self.frozen_prefixes}
+        return {k: v for k, v in state.items() if k not in frozen}, frozen
+
     def apply(self, wav: torch.Tensor) -> torch.Tensor:
         """Forward pass: (B, T) waveforms -> (B, n_windows, n_labels) logits."""
         with torch.inference_mode():
             return self.module(wav)
+
+    def loss(
+        self, logits: torch.Tensor, targets: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(total, per_label) training loss of the hydra objective (the
+        only one ported: the multiclass and powerset models are not)."""
+        weights = (
+            None if self.class_weights is None
+            else torch.as_tensor(self.class_weights, dtype=torch.float32, device=logits.device)
+        )
+        return hydra_loss(logits, targets, weights)
 
     def inference_transform(self, logits: torch.Tensor) -> torch.Tensor:
         """Raw module outputs -> per-label logits: the identity for hydra heads."""

@@ -1,0 +1,141 @@
+"""``surgical_hubert_hydra``: HuBERT encoder + layer-weighted sum + hydra
+heads on raw waveforms (counterpart of ``segma_tpu/models/hubert/builders.py``).
+
+- the CNN feature extractor is always frozen: it runs under
+  ``torch.no_grad()`` and its parameters take no gradient; the transformer
+  trains unless ``freeze_encoder`` is set;
+- the weighted reduction runs over the configured layers (every layer by
+  default), then dropout 0.5 in training only, then fused hydra heads in f32.
+
+Frame geometry: conv stack (10,3,3,3,3,2,2)/(5,2,2,2,2,2,2) -> rf_step 320,
+199 frames per 4 s chunk (strict). Loading a HuBERT snapshot is not ported:
+without one the encoder is random, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import warnings
+from pathlib import Path
+
+import torch
+from torch import nn
+
+from segma_tpu_torch import resolve_device
+from segma_tpu_torch.config import Config
+from segma_tpu_torch.models.base import ConvolutionSettings, SegmentationModel
+from segma_tpu_torch.models.hubert.encoder import (
+    FeatureExtractor,
+    HubertEncoderConfig,
+    HubertTransformer,
+)
+from segma_tpu_torch.models.layers import HydraHeads, LayerWeightedSum
+from segma_tpu_torch.models.whisper.builders import init_random_
+from segma_tpu_torch.utils.encoders import MultiLabelEncoder
+
+HUBERT_CONV_SETTINGS = ConvolutionSettings(
+    kernels=(10, 3, 3, 3, 3, 2, 2),
+    strides=(5, 2, 2, 2, 2, 2, 2),
+    paddings=(0, 0, 0, 0, 0, 0, 0),
+)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout with the keep mask drawn from ``generator`` (flax's
+    ``nn.Dropout`` semantics: kept values scaled by 1 / (1 - rate))."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class HubertSegModule(nn.Module):
+    """(B, T) waveform -> (B, frames, n_labels) logits."""
+
+    def __init__(
+        self,
+        enc_cfg: HubertEncoderConfig,
+        n_labels: int,
+        reduction: str = "weighted",
+        encoder_layers: tuple[int, ...] = (),
+        freeze_encoder: bool = False,
+        dropout: float = 0.5,
+        dtype: torch.dtype = torch.bfloat16,
+    ) -> None:
+        super().__init__()
+        self.enc_cfg = enc_cfg
+        self.freeze_encoder = freeze_encoder
+        self.dropout = dropout
+        # 1-indexed layer picks; () = every layer
+        self.picks = (
+            sorted(i - 1 for i in encoder_layers)
+            if encoder_layers
+            else list(range(enc_cfg.n_layers))
+        )
+        self.feature_extractor = FeatureExtractor(enc_cfg, dtype)
+        self.encoder = HubertTransformer(enc_cfg, dtype)
+        self.layer_mix = LayerWeightedSum(len(self.picks), reduction)
+        self.heads = HydraHeads(enc_cfg.hidden_size, n_labels)
+
+    def forward(
+        self, wav: torch.Tensor, train: bool = False, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
+        """``train=True`` applies dropout with masks from ``generator``."""
+        with torch.no_grad():  # the CNN front end is always frozen
+            feats = self.feature_extractor(wav)
+        _, hidden = self.encoder(feats, output_hidden_states=True)
+        layer_outputs = hidden[1:]
+        stacked = torch.stack([layer_outputs[i] for i in self.picks])
+        if self.freeze_encoder:
+            stacked = stacked.detach()
+        x = self.layer_mix(stacked)
+        if train and self.dropout > 0:
+            if generator is None:
+                raise ValueError("training with dropout needs a torch.Generator")
+            x = dropout(x, self.dropout, generator)
+        return self.heads(x).float()
+
+
+def build_hubert_model(
+    name: str,
+    label_encoder: MultiLabelEncoder,
+    config: Config,
+    device: str | torch.device | None = "cuda",
+    generator: torch.Generator | None = None,
+    enc_cfg: HubertEncoderConfig | None = None,
+) -> SegmentationModel:
+    """Build ``surgical_hubert_hydra`` with random weights from ``generator``
+    (seed 0 when None) on ``device``. ``enc_cfg`` overrides HuBERT-base."""
+    if name != "surgical_hubert_hydra":
+        raise KeyError(f"unknown hubert variant {name!r}")
+    dev = resolve_device(device)
+    mc = config.model.config
+    if Path(mc.wav_encoder).exists():
+        raise NotImplementedError(
+            f"loading the HuBERT snapshot {mc.wav_encoder!r} is not ported yet"
+        )
+    warnings.warn(
+        f"hubert snapshot {mc.wav_encoder!r} not found — encoder randomly "
+        "initialized (fine for tests and timing, wrong for real training)",
+        stacklevel=3,
+    )
+    dtype = torch.float32 if config.train.precision == "f32" else torch.bfloat16
+    module = HubertSegModule(
+        enc_cfg=enc_cfg or HubertEncoderConfig.base(),
+        n_labels=len(label_encoder.base_labels),
+        reduction=mc.reduction,
+        encoder_layers=tuple(mc.encoder_layers or ()),
+        freeze_encoder=mc.freeze_encoder,
+        dtype=dtype,
+    )
+    init_random_(module, generator or torch.Generator().manual_seed(0))
+    module.to(dev)
+    frozen = ("feature_extractor",) + (("encoder",) if mc.freeze_encoder else ())
+    return SegmentationModel(
+        name=name,
+        module=module,
+        conv_settings=HUBERT_CONV_SETTINGS,
+        label_encoder=label_encoder,
+        config=config,
+        device=dev,
+        frozen_prefixes=frozen,
+        class_weights=config.train.class_weights,
+    )

@@ -44,6 +44,33 @@ def test_no_forbidden_import_statement():
     assert not bad, bad
 
 
+# modules of each slice that must stay inside the boundary
+REQUIRED = (
+    "segma_tpu_torch.inference", "segma_tpu_torch.ops.attention",
+    "segma_tpu_torch.models.hubert.encoder", "segma_tpu_torch.models.hubert.builders",
+    "segma_tpu_torch.data.loaders", "segma_tpu_torch.data.file_dataset",
+    "segma_tpu_torch.data.intervals", "segma_tpu_torch.data.utils", "segma_tpu_torch.train",
+    "segma_tpu_torch.ops.metrics", "segma_tpu_torch.utils.logging",
+)
+
+
+def test_scan_covers_the_training_slice():
+    scanned = {
+        ".".join(p.relative_to(REPO).with_suffix("").parts) for p in _port_files()
+    }
+    assert set(REQUIRED) <= scanned, sorted(set(REQUIRED) - scanned)
+
+
+def test_scan_catches_a_forbidden_import(tmp_path):
+    for src in ("import jax.numpy as jnp", "from flax import linen",
+                "from segma_tpu.data import loaders"):
+        tree = ast.parse(src)
+        names = [
+            n.name for node in ast.walk(tree) if isinstance(node, ast.Import) for n in node.names
+        ] + [node.module for node in ast.walk(tree) if isinstance(node, ast.ImportFrom)]
+        assert any(_forbidden(n) for n in names), src
+
+
 def test_importing_every_module_loads_no_jax():
     code = f"""
 import importlib, pkgutil, sys
@@ -52,14 +79,17 @@ for m in pkgutil.walk_packages(segma_tpu_torch.__path__, "segma_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 chip_smoke.surgical_hydra_config()
+chip_smoke.surgical_hubert_hydra_config("data")
 forbidden = {FORBIDDEN!r}
 bad = sorted(n for n in sys.modules if any(n == f or n.startswith(f + ".") for f in forbidden))
+missing = sorted(set({REQUIRED!r}) - set(sys.modules))
 print("LOADED", len([n for n in sys.modules if n.startswith("segma_tpu_torch")]))
 assert not bad, bad
+assert not missing, missing
 """
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_loaded = int(proc.stdout.split("LOADED")[1].split()[0])
-    assert n_loaded >= 15  # every module of the package was imported
+    assert n_loaded >= 25  # every module of the package was imported

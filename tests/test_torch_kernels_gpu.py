@@ -18,6 +18,8 @@ from segma_tpu_torch.ops import attention, logmel
 
 LOGMEL_ATOL = 1e-5  # f32 frontend, IEEE FMA in the kernel
 FLASH_TOL = 2e-2  # bf16 output rounding against f32 scores
+FLASH_BWD_REL = 2e-2  # per tensor, times max(1, max|ref|): P and dS round to bf16
+LSE_ATOL = 1e-3
 
 
 def _cuda() -> None:
@@ -107,3 +109,95 @@ def test_tiny_surgical_hydra_card_matches_cpu():
     )
     got = models[0].apply(wav.cuda()).cpu()
     torch.testing.assert_close(got, models[1].apply(wav), atol=1e-2, rtol=0)
+
+
+def _bf16(rng, shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda().to(torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape", [(32, 199, 12, 64), (64, 1500, 8, 64), (2, 70, 2, 64)],
+    ids=["hubert-train", "many-tiles", "partial-tile"],
+)
+def test_flash_backward_kernel_matches_plain(shape):
+    _cuda()
+    rng = np.random.default_rng(3)
+    q, k, v, dout = (_bf16(rng, shape) for _ in range(4))
+    out, lse = attention.flash_attn_fwd(q, k, v, 64**-0.5, with_lse=True)
+    before = attention.bwd_launches
+    got = attention.flash_attn_bwd(q, k, v, out, lse, dout, 64**-0.5)
+    torch.cuda.synchronize()
+    assert attention.bwd_launches == before + 1
+    ref = attention.attention_bwd_plain(q, k, v, out, lse, dout, 64**-0.5)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all(), name
+        limit = FLASH_BWD_REL * max(1.0, float(b.abs().max()))
+        assert float((a.float() - b).abs().max()) <= limit, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(32, 199, 12, 64), (3, 65, 2, 64), (1, 1, 2, 64)])
+def test_flash_forward_lse_output(shape):
+    _cuda()
+    rng = np.random.default_rng(4)
+    q, k, v = (_bf16(rng, shape) for _ in range(3))
+    out, lse = attention.flash_attn_fwd(q, k, v, 64**-0.5, with_lse=True)
+    torch.cuda.synchronize()
+    assert lse.shape == (shape[0], shape[2], shape[1]) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, attention.attention_lse_plain(q, k, 64**-0.5),
+                               atol=LSE_ATOL, rtol=0)
+    # the output does not change with the LSE written
+    torch.testing.assert_close(out, attention.flash_attn_fwd(q, k, v, 64**-0.5), atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+def test_gradients_reach_qkv_projections_through_the_kernels():
+    """A tiny HuBERT on the card: attention_core records FlashAttention, its
+    backward launches the backward kernels once per layer, and every q/k/v
+    projection gets a finite, non-zero gradient close to the CPU plain
+    path's (same weights, f32 master weights, bf16 compute)."""
+    _cuda()
+    from segma_tpu_torch.config import (
+        AudioConfig, Config, DataConfig, ModelConfig, SurgicalHubertHydraConfig,
+    )
+    from segma_tpu_torch.models import Models
+    from segma_tpu_torch.models.hubert.encoder import HubertEncoderConfig
+    from segma_tpu_torch.utils.encoders import MultiLabelEncoder
+
+    cfg = Config(
+        data=DataConfig(classes=["KCHI", "OCH", "MAL", "FEM"]),
+        audio=AudioConfig(chunk_duration_s=4.0, sample_rate=16_000, strict_frames=True),
+        model=ModelConfig(name="surgical_hubert_hydra", config=SurgicalHubertHydraConfig(
+            wav_encoder="hubert_random", encoder_layers=[], reduction="weighted", classifier=256,
+        )),
+    )
+    enc_cfg = HubertEncoderConfig(hidden_size=128, n_layers=2, n_heads=2, ffn_dim=256,
+                                  conv_dim=(64,) * 7, pos_conv_kernel=16, pos_conv_groups=4)
+    rng = np.random.default_rng(5)
+    wav = torch.from_numpy((rng.standard_normal((2, 64_000)) * 0.1).astype(np.float32))
+    y = torch.from_numpy((rng.random((2, 199, 4)) > 0.7).astype(np.float32))
+    grads = []
+    for device in ("cuda", "cpu"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            model = Models["surgical_hubert_hydra"](
+                MultiLabelEncoder(cfg.data.classes), cfg, device=device,
+                generator=torch.Generator().manual_seed(0), enc_cfg=enc_cfg,
+            )
+        before = attention.bwd_launches
+        logits = model.module(wav.to(device), train=False)
+        loss, _ = model.loss(logits, y.to(device))
+        loss.backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert attention.bwd_launches == before + enc_cfg.n_layers
+        grads.append({
+            n: p.grad.float().cpu() for n, p in model.module.named_parameters()
+            if n.endswith(("q_proj.weight", "k_proj.weight", "v_proj.weight"))
+        })
+    assert len(grads[0]) == 3 * enc_cfg.n_layers
+    for name, g in grads[0].items():
+        assert torch.isfinite(g).all() and g.norm() > 0, name
+        ref = grads[1][name]
+        assert float((g - ref).norm()) <= 5e-2 * float(ref.norm()), name
