@@ -13,10 +13,13 @@ exits nonzero without printing the final result line:
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
    at the main paths' shapes (and ragged small shapes), then timed with
    CUDA events beside its plain version, a library call where one exists,
-   and its roofline bound. The flash backward is checked at the training
-   shape (32, 199, 12, 64), at (64, 1500, 8, 64) and at (2, 70, 2, 64),
-   and the forward's output and log-sum-exp with the lse pointer set (the
-   route training takes) at the same shapes.
+   and its roofline bound. The flash forward's output and log-sum-exp are
+   checked at FLASH_SHAPES (both main paths and the edges of its 128-row,
+   128-key tiling), bitwise equal with and without the LSE and over two
+   launches; its bound is the larger of the bf16 products at the tensor-core
+   peak and its exp2 at 16 per SM per clock. The flash backward is checked
+   at the training shape (32, 199, 12, 64), at (64, 1500, 8, 64) and at
+   (2, 70, 2, 64), on the forward's output and log-sum-exp.
 4. serving slice: full-width Whisper-base ``surgical_hydra`` (random
    weights from a seed) serves a synthetic 10-minute int16 WAV through
    ``run_inference_on_audios``; the launch counters show that the path went
@@ -171,7 +174,31 @@ def logmel_checks(card: str) -> dict:
     }
 
 
+# The forward's shapes: both main paths, then the edges of its tiling (128
+# query rows per work item, 128 keys per tile): exact tiles, one row or key
+# past a tile, a partial first tile, a single key.
+FLASH_SHAPES = (
+    (INNER_BATCH, 1500, 8, 64), TRAIN_ATTN_SHAPE, (2, 128, 2, 64), (2, 129, 2, 64),
+    (2, 256, 2, 64), (3, 65, 2, 64), (1, 1, 2, 64),
+)
+EXP2_PER_SM_CLOCK = 16  # special-function unit, compute capability 9.0
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.split()
+    return float(out[0]) * 1e6
+
+
 def flash_checks(card: str) -> dict:
+    """The forward against ``attention_plain`` (output) and
+    ``attention_lse_plain`` (log-sum-exp) at FLASH_SHAPES, its output bitwise
+    the same with and without the LSE and over two launches, then timed at the
+    serving shape beside its plain version, SDPA and two bounds: bf16 products
+    at the tensor-core peak, and B H S^2 exp2 at 16 per SM per clock at the
+    card's max SM clock."""
     import torch
     import torch.nn.functional as F
 
@@ -179,17 +206,28 @@ def flash_checks(card: str) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(2)
     sm = 64**-0.5
-    errs = []
-    for shape in ((INNER_BATCH, 1500, 8, 64), (2, 199, 8, 64)):
+    errs, lse_errs = [], []
+    for shape in FLASH_SHAPES:
         q, k, v = (
             torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
             for _ in range(3)
         )
+        out, lse = attention.flash_attn_fwd(q, k, v, sm, with_lse=True)
         errs.append(check_close(
-            f"flash_attn_fwd {shape}", attention.flash_attn_fwd(q, k, v, sm),
-            attention.attention_plain(q, k, v, sm, torch.float32),
+            f"flash_attn_fwd {shape}", out, attention.attention_plain(q, k, v, sm, torch.float32),
             FLASH_ATOL, FLASH_RTOL,
         ))
+        lse_errs.append(check_close(
+            f"flash_attn_fwd lse {shape}", lse, attention.attention_lse_plain(q, k, sm), LSE_ATOL,
+        ))
+        if not torch.equal(out, attention.flash_attn_fwd(q, k, v, sm)):
+            raise AssertionError(f"flash_attn_fwd {shape}: output differs without the LSE")
+        if not torch.equal(out, attention.flash_attn_fwd(q, k, v, sm, with_lse=True)[0]):
+            raise AssertionError(f"flash_attn_fwd {shape}: two launches differ")
+        del q, k, v, out, lse
+        torch.cuda.empty_cache()
+    print(f"check flash_attn_fwd: bitwise equal with and without the LSE, and over two "
+          f"launches, at {len(FLASH_SHAPES)} shapes", flush=True)
     q, k, v = (
         torch.randn((INNER_BATCH, 1500, 8, 64), device="cuda", generator=g).to(torch.bfloat16)
         for _ in range(3)
@@ -201,18 +239,27 @@ def flash_checks(card: str) -> dict:
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=sm), iters=20)
     flops = 4 * b * h * s * s * d
     n_bytes = 4 * q.numel() * 2
-    bms, by = bound_ms(flops, PEAK_BF16_FLOPS, n_bytes)
+    bf16_ms, by = bound_ms(flops, PEAK_BF16_FLOPS, n_bytes)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = max_sm_clock_hz()
+    exp_ms = b * h * s * s / (EXP2_PER_SM_CLOCK * n_sm * clock) * 1e3
+    bms = max(bf16_ms, exp_ms)
+    bound_op = "bf16 tensor core" if bf16_ms >= exp_ms else "exp2 special-function unit"
     print(
-        f"time flash_attn_fwd (64, 1500, 8, 64) [{card}]: kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, sdpa {library_ms:.3f} ms, bound {bms:.3f} ms "
-        f"({by}, bf16 tensor-core peak)", flush=True,
+        f"time flash_attn_fwd (64, 1500, 8, 64) [{card}]: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, sdpa {library_ms:.4f} ms; bounds: bf16 products "
+        f"{bf16_ms:.4f} ms ({by}, bf16 tensor-core peak), exp2 {exp_ms:.4f} ms "
+        f"({b * h * s * s:.4g} exp2 at {EXP2_PER_SM_CLOCK}/SM/clock x {n_sm} SMs x "
+        f"{clock / 1e6:.0f} MHz); binding: {bound_op}", flush=True,
     )
     return {
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "segma_tpu_torch/csrc/flash_attn.cu",
         "replaces": "segma_tpu/ops/attention.py:148",
-        "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+        "max_abs_err": max(errs), "lse_max_abs_err": max(lse_errs), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": "operations",
+        "bound_op": bound_op, "bf16_bound_ms": bf16_ms, "exp2_bound_ms": exp_ms,
+        "library_ms": library_ms,
     }
 
 
@@ -692,8 +739,10 @@ def main() -> int:
     with torch.inference_mode():
         rows = [logmel_checks(card), flash_checks(card)]
     bwd_row, fwd_train = flash_bwd_checks(card)
-    rows[1].update(fwd_train)
-    rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], fwd_train["with_lse_max_abs_err"])
+    fwd = rows[1]
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], fwd_train.pop("with_lse_max_abs_err"))
+    fwd["lse_max_abs_err"] = max(fwd["lse_max_abs_err"], fwd_train.pop("lse_max_abs_err"))
+    fwd.update(fwd_train)  # the training shape's times, with and without the LSE
     rows.append(bwd_row)
     torch.cuda.empty_cache()
     serve = phase_slice(card)

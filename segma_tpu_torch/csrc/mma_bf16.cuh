@@ -1,7 +1,8 @@
-// The tensor-core fragment helpers that flash_attn.cu and flash_attn_bwd.cu
-// share: one warp-wide mma.sync m16n8k16 (bf16 in, f32 accumulate) and the
-// bf16 pair loads and packs that build its fragments, with the tile layout
-// both kernels agree on. Included by those sources; not compiled on its own.
+// The tensor-core fragment helpers of the flash backward (flash_attn_bwd.cu):
+// one warp-wide mma.sync m16n8k16 (bf16 in, f32 accumulate) and the bf16 pair
+// loads and packs that build its fragments, with the tile layout its two
+// kernels agree on. Included by that source; not compiled on its own. The
+// forward (flash_attn.cu) takes its Hopper helpers from sm90.cuh.
 
 #pragma once
 

@@ -63,7 +63,8 @@ def _stale() -> bool:
 
 def build() -> list[str]:
     """Compile every kernel source into the shared library. Returns what
-    ptxas said of each kernel: its registers, spills and shared memory."""
+    ptxas said of each kernel: its registers, spills and shared memory, and
+    any warning (a serialised wgmma, an ignored setmaxnreg)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = os.getpid()
     objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
@@ -90,7 +91,7 @@ def build() -> list[str]:
     os.replace(tmp, LIB_PATH)
     return [
         line.strip() for line in "".join(outputs).splitlines()
-        if "entry function" in line or "registers" in line or "spill" in line
+        if any(w in line for w in ("entry function", "registers", "spill", "warning"))
     ]
 
 

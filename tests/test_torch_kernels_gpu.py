@@ -45,9 +45,15 @@ def test_logmel_kernel_matches_plain(shape):
     torch.testing.assert_close(got, logmel.log_mel_spectrogram_plain(wav), atol=LOGMEL_ATOL, rtol=0)
 
 
+# The forward's tiling is 128 query rows per work item and 128 keys per tile:
+# exact tiles, one past a tile, one short of two tiles, and many work items
+# per block (B H = 512).
+FLASH_EDGE_SHAPES = [(2, 128, 2, 64), (2, 129, 2, 64), (2, 255, 2, 64), (64, 199, 8, 64)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "shape", [(2, 1500, 8, 64), (2, 199, 8, 64), (3, 65, 2, 64), (1, 1, 2, 64)]
+    "shape", [(2, 1500, 8, 64), (2, 199, 8, 64), (3, 65, 2, 64), (1, 1, 2, 64), *FLASH_EDGE_SHAPES]
 )
 def test_flash_kernel_matches_plain(shape):
     _cuda()
@@ -137,7 +143,9 @@ def test_flash_backward_kernel_matches_plain(shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(32, 199, 12, 64), (3, 65, 2, 64), (1, 1, 2, 64)])
+@pytest.mark.parametrize(
+    "shape", [(32, 199, 12, 64), (3, 65, 2, 64), (1, 1, 2, 64), *FLASH_EDGE_SHAPES]
+)
 def test_flash_forward_lse_output(shape):
     _cuda()
     rng = np.random.default_rng(4)
@@ -149,6 +157,17 @@ def test_flash_forward_lse_output(shape):
                                atol=LSE_ATOL, rtol=0)
     # the output does not change with the LSE written
     torch.testing.assert_close(out, attention.flash_attn_fwd(q, k, v, 64**-0.5), atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+def test_flash_forward_two_launches_bitwise_equal():
+    """No atomics, and a work item's arithmetic does not depend on the block
+    that runs it: the same inputs give the same bits."""
+    _cuda()
+    rng = np.random.default_rng(6)
+    q, k, v = (_bf16(rng, (64, 1500, 8, 64)) for _ in range(3))
+    first = attention.flash_attn_fwd(q, k, v, 64**-0.5)
+    assert torch.equal(first, attention.flash_attn_fwd(q, k, v, 64**-0.5))
 
 
 @pytest.mark.gpu
