@@ -18,8 +18,13 @@ exits nonzero without printing the final result line:
    128-key tiling), bitwise equal with and without the LSE and over two
    launches; its bound is the larger of the bf16 products at the tensor-core
    peak and its exp2 at 16 per SM per clock. The flash backward is checked
-   at the training shape (32, 199, 12, 64), at (64, 1500, 8, 64) and at
-   (2, 70, 2, 64), on the forward's output and log-sum-exp.
+   at FLASH_BWD_SHAPES (the training shape (32, 199, 12, 64), (64, 1500, 8,
+   64), (2, 70, 2, 64) and the edges of its tiling), on the forward's output
+   and log-sum-exp, and bitwise over two launches. Kernels and library calls
+   are timed in turns (``time_turns``: the median of 5 groups of 20 calls,
+   the device held by a spin kernel while the host queues each group), and
+   every SDPA backend that takes the shape is timed; the fastest is the
+   ``library_ms``.
 4. serving slice: full-width Whisper-base ``surgical_hydra`` (random
    weights from a seed) serves a synthetic 10-minute int16 WAV through
    ``run_inference_on_audios``; the launch counters show that the path went
@@ -33,8 +38,9 @@ exits nonzero without printing the final result line:
    train and 4 val files of 64 s: 4 steps of 32 crops per epoch). Checked:
    the step-1 loss (dropout 0) against the CPU plain path, finite losses,
    non-zero q/k/v projection gradients after step 1, an unchanged front end,
-   and 12 flash forward and 12 flash backward launches per step. One more
-   warm step runs under torch.profiler.
+   and 12 flash forward and 12 flash backward launches per step. Then
+   WARM_STEP_REPEATS steps on one batch, timed, and one more under
+   torch.profiler (the 15 longest kernels and the port's own).
 6. the ``kernels`` JSON line and the ``kernels:`` launch line.
 7. last line: ``{"ok": true, "device": {...}}``.
 """
@@ -95,6 +101,83 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_turns(fns: dict, groups: int = 5, iters: int = 20) -> dict[str, list[float]]:
+    """Device time per call of each function in ``fns``, taken in turns: in
+    each of ``groups`` groups every function runs ``iters`` times between two
+    CUDA events. A spin kernel queued before each run holds the device while
+    the host queues the run, so the events time the device's work, not the
+    host's launch rate. Returns each function's per-group means in ms."""
+    import torch
+
+    host_s = 0.0
+    for fn in fns.values():  # warm-up, and the host's time to queue one run
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_s = max(host_s, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    spin_cycles = int(2 * host_s * max_sm_clock_hz())
+    times: dict[str, list[float]] = {name: [] for name in fns}
+    for _ in range(groups):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(spin_cycles)
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end) / iters)
+    return times
+
+
+def median(xs: list[float]) -> float:
+    return float(np.median(xs))
+
+
+def spread(xs: list[float]) -> str:
+    return f"median {median(xs):.4f} ms (groups {min(xs):.4f} to {max(xs):.4f})"
+
+
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+
+
+def sdpa_calls(q, k, v, sm: float, dout=None) -> dict:
+    """One call per SDPA backend that takes these contiguous (B, H, S, D)
+    inputs: its forward, or, given ``dout``, the backward of a forward it
+    recorded. A backend that refuses the inputs is printed and left out."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    calls = {}
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name)
+        try:
+            if dout is None:
+                def call(backend=backend):
+                    with sdpa_kernel(backend):
+                        return F.scaled_dot_product_attention(q, k, v, scale=sm)
+            else:
+                with torch.enable_grad(), sdpa_kernel(backend):
+                    ins = tuple(x.detach().requires_grad_() for x in (q, k, v))
+                    out = F.scaled_dot_product_attention(*ins, scale=sm)
+
+                def call(out=out, ins=ins):
+                    return torch.autograd.grad(out, ins, dout, retain_graph=True)
+            call()
+            torch.cuda.synchronize()
+        except RuntimeError as err:
+            print(f"sdpa {name}: refuses {tuple(q.shape)}: {str(err).splitlines()[0][:120]}",
+                  flush=True)
+            continue
+        calls[f"sdpa {name}"] = call
+    return calls
 
 
 def bound_ms(flops: float, peak_flops: float, n_bytes: float) -> tuple[float, str]:
@@ -196,11 +279,11 @@ def flash_checks(card: str) -> dict:
     """The forward against ``attention_plain`` (output) and
     ``attention_lse_plain`` (log-sum-exp) at FLASH_SHAPES, its output bitwise
     the same with and without the LSE and over two launches, then timed at the
-    serving shape beside its plain version, SDPA and two bounds: bf16 products
+    serving shape beside its plain version, every SDPA backend (in turns) and
+    two bounds: bf16 products
     at the tensor-core peak, and B H S^2 exp2 at 16 per SM per clock at the
     card's max SM clock."""
     import torch
-    import torch.nn.functional as F
 
     from segma_tpu_torch.ops import attention
 
@@ -233,10 +316,15 @@ def flash_checks(card: str) -> dict:
         for _ in range(3)
     )
     b, s, h, d = q.shape
-    ms = time_ms(lambda: attention.flash_attn_fwd(q, k, v, sm), iters=20)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    times = time_turns({"kernel": lambda: attention.flash_attn_fwd(q, k, v, sm),
+                        **sdpa_calls(qt, kt, vt, sm)})
+    ms = median(times.pop("kernel"))
+    library = {name: median(t) for name, t in times.items()}
+    library_ms = min(library.values()) if library else None
+    for name, t in times.items():
+        print(f"time {name} forward (64, 8, 1500, 64) [{card}]: {spread(t)}", flush=True)
     plain_ms = time_ms(lambda: attention.attention_plain(q, k, v, sm, torch.bfloat16), iters=3)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=sm), iters=20)
     flops = 4 * b * h * s * s * d
     n_bytes = 4 * q.numel() * 2
     bf16_ms, by = bound_ms(flops, PEAK_BF16_FLOPS, n_bytes)
@@ -247,7 +335,7 @@ def flash_checks(card: str) -> dict:
     bound_op = "bf16 tensor core" if bf16_ms >= exp_ms else "exp2 special-function unit"
     print(
         f"time flash_attn_fwd (64, 1500, 8, 64) [{card}]: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.3f} ms, sdpa {library_ms:.4f} ms; bounds: bf16 products "
+        f"plain {plain_ms:.3f} ms, fastest sdpa {library_ms} ms; bounds: bf16 products "
         f"{bf16_ms:.4f} ms ({by}, bf16 tensor-core peak), exp2 {exp_ms:.4f} ms "
         f"({b * h * s * s:.4g} exp2 at {EXP2_PER_SM_CLOCK}/SM/clock x {n_sm} SMs x "
         f"{clock / 1e6:.0f} MHz); binding: {bound_op}", flush=True,
@@ -259,7 +347,7 @@ def flash_checks(card: str) -> dict:
         "max_abs_err": max(errs), "lse_max_abs_err": max(lse_errs), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": "operations",
         "bound_op": bound_op, "bf16_bound_ms": bf16_ms, "exp2_bound_ms": exp_ms,
-        "library_ms": library_ms,
+        "library_ms": library_ms, "library_backends_ms": library,
     }
 
 
@@ -281,13 +369,59 @@ def check_rel(name: str, got, ref, rel: float) -> float:
     return max_err
 
 
+# The backward's shapes: the training shape, many tiles, a partial tile, and
+# the edges of its tiling (128 resident rows per work item, 64 streamed rows
+# per tile): one row, one short of, at and one past each tile edge.
+FLASH_BWD_EDGE_S = (1, 63, 64, 65, 127, 128, 129, 255, 256)
+FLASH_BWD_SHAPES = (
+    TRAIN_ATTN_SHAPE, (INNER_BATCH, 1500, 8, 64), (2, 70, 2, 64),
+    *((2, s, 3, 64) for s in FLASH_BWD_EDGE_S),
+)
+
+
+def time_flash_bwd(card: str, q, k, v, out, lse, dout, sm: float, plain_iters: int) -> dict:
+    """The backward kernels and every SDPA backend's backward on the same
+    inputs, in turns; the plain version; the bound. Prints one line each."""
+    import torch
+
+    from segma_tpu_torch.ops import attention
+
+    b, s, h, d = q.shape
+    qt, kt, vt, dout_t = (x.transpose(1, 2).contiguous() for x in (q, k, v, dout))
+    times = time_turns({
+        "kernel": lambda: attention.flash_attn_bwd(q, k, v, out, lse, dout, sm),
+        **sdpa_calls(qt, kt, vt, sm, dout_t),
+    })
+    kernel = times.pop("kernel")
+    library = {name: median(t) for name, t in times.items()}
+    plain_ms = time_ms(lambda: attention.attention_bwd_plain(q, k, v, out, lse, dout, sm),
+                       iters=plain_iters)
+    flops = 10 * b * h * s * s * d  # five S x S x D products
+    n_bytes = 8 * q.numel() * 2 + lse.numel() * 4  # q k v out dO dq dk dv, lse
+    bms, by = bound_ms(flops, PEAK_BF16_FLOPS, n_bytes)
+    print(f"time flash_attn_bwd {tuple(q.shape)} [{card}]: kernels {spread(kernel)}", flush=True)
+    for name, t in times.items():
+        print(f"time {name} backward {(b, h, s, d)} [{card}]: {spread(t)}", flush=True)
+    ms = median(kernel)
+    fastest = min(library.values()) if library else None
+    print(
+        f"time flash_attn_bwd {tuple(q.shape)} [{card}]: kernels {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, fastest sdpa backward {fastest} ms, bound {bms:.4f} ms ({by}, "
+        f"{flops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB; {100 * bms / ms:.1f}% of it)",
+        flush=True,
+    )
+    return {"ms": ms, "ms_groups": kernel, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": fastest, "library_backends_ms": library}
+
+
 def flash_bwd_checks(card: str) -> tuple[dict, dict]:
     """The backward kernels against ``attention_bwd_plain`` on the same bf16
-    inputs (q, k, v, dO random; out and lse from the forward kernel), and the
-    forward on the training route (lse pointer set): its output against
-    ``attention_plain``, its log-sum-exp against ``attention_lse_plain``.
-    Returns the backward's row and the forward's errors and times at the
-    training slice's shape."""
+    inputs (q, k, v, dO random; out and lse from the forward kernel) at
+    FLASH_BWD_SHAPES, two launches bitwise equal, and the forward on the
+    training route (lse pointer set): its output against ``attention_plain``,
+    its log-sum-exp against ``attention_lse_plain``. Then timed at the
+    training shape and at (64, 1500, 8, 64). Returns the backward's row and
+    the forward's errors and times at the training slice's shape."""
     import torch
 
     from segma_tpu_torch.ops import attention
@@ -296,7 +430,7 @@ def flash_bwd_checks(card: str) -> tuple[dict, dict]:
     g = torch.Generator(device="cuda").manual_seed(3)
     sm = 64**-0.5
     errs, out_errs, lse_errs = [], [], []
-    for shape in (TRAIN_ATTN_SHAPE, (INNER_BATCH, 1500, 8, 64), (2, 70, 2, 64)):
+    for shape in FLASH_BWD_SHAPES:
         q, k, v, dout = (
             torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
             for _ in range(4)
@@ -313,39 +447,36 @@ def flash_bwd_checks(card: str) -> tuple[dict, dict]:
         ref = attention.attention_bwd_plain(q, k, v, out, lse, dout, sm)
         for name, a, b in zip(("dq", "dk", "dv"), got, ref):
             errs.append(check_rel(f"flash_attn_bwd {name} {shape}", a, b, FLASH_BWD_REL))
+        if shape == TRAIN_ATTN_SHAPE:
+            again = attention.flash_attn_bwd(q, k, v, out, lse, dout, sm)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"flash_attn_bwd {shape}: two launches differ")
+            print(f"check flash_attn_bwd {shape}: two launches bitwise equal", flush=True)
         del q, k, v, dout, out, lse, got, ref
         torch.cuda.empty_cache()
+
+    # many tiles, where the products bind: not on a main path
+    big = [torch.randn((INNER_BATCH, 1500, 8, 64), device="cuda", generator=g).to(torch.bfloat16)
+           for _ in range(4)]
+    big_out, big_lse = attention.flash_attn_fwd(*big[:3], sm, with_lse=True)
+    many = time_flash_bwd(card, *big[:3], big_out, big_lse, big[3], sm, plain_iters=2)
+    del big, big_out, big_lse
+    torch.cuda.empty_cache()
 
     q, k, v, dout = (
         torch.randn(TRAIN_ATTN_SHAPE, device="cuda", generator=g).to(torch.bfloat16)
         for _ in range(4)
     )
     out, lse = attention.flash_attn_fwd(q, k, v, sm, with_lse=True)
-    b, s, h, d = q.shape
-    ms = time_ms(lambda: attention.flash_attn_bwd(q, k, v, out, lse, dout, sm), iters=50)
-    plain_ms = time_ms(lambda: attention.attention_bwd_plain(q, k, v, out, lse, dout, sm), iters=10)
-    with torch.enable_grad():
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-        ref_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=sm)
-        dout_t = dout.transpose(1, 2)
-        library_ms = time_ms(
-            lambda: torch.autograd.grad(ref_out, (qt, kt, vt), dout_t, retain_graph=True),
-            iters=50,
-        )
-    flops = 10 * b * h * s * s * d  # five S x S x D products
-    n_bytes = 8 * q.numel() * 2 + lse.numel() * 4  # q k v out dO dq dk dv, lse
-    bms, by = bound_ms(flops, PEAK_BF16_FLOPS, n_bytes)
-    fwd_lse_ms = time_ms(lambda: attention.flash_attn_fwd(q, k, v, sm, with_lse=True), iters=50)
-    fwd_ms = time_ms(lambda: attention.flash_attn_fwd(q, k, v, sm), iters=50)
+    timed = time_flash_bwd(card, q, k, v, out, lse, dout, sm, plain_iters=10)
+    fwd = time_turns({
+        "with lse": lambda: attention.flash_attn_fwd(q, k, v, sm, with_lse=True),
+        "without": lambda: attention.flash_attn_fwd(q, k, v, sm),
+    })
     torch.set_grad_enabled(True)
     print(
-        f"time flash_attn_bwd {TRAIN_ATTN_SHAPE} [{card}]: kernels {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, sdpa backward {library_ms:.3f} ms, bound {bms:.3f} ms "
-        f"({by}, bf16 tensor-core peak)", flush=True,
-    )
-    print(
-        f"time flash_attn_fwd {TRAIN_ATTN_SHAPE} [{card}]: with lse {fwd_lse_ms:.3f} ms, "
-        f"without {fwd_ms:.3f} ms", flush=True,
+        f"time flash_attn_fwd {TRAIN_ATTN_SHAPE} [{card}]: with lse {spread(fwd['with lse'])}, "
+        f"without {spread(fwd['without'])}", flush=True,
     )
     row = {
         "name": "flash_attn_bwd", "route": "cuda",
@@ -355,11 +486,12 @@ def flash_bwd_checks(card: str) -> tuple[dict, dict]:
             "jax/experimental/pallas/ops/tpu/flash_attention.py:941 _flash_attention_bwd_dkv",
             "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 _flash_attention_bwd_dq",
         ],
-        "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+        "max_abs_err": max(errs), **timed,
+        "many_tiles": {"shape": [INNER_BATCH, 1500, 8, 64], **many},
     }
     return row, {"lse_max_abs_err": max(lse_errs), "with_lse_max_abs_err": max(out_errs),
-                 "train_shape_ms": fwd_ms, "train_shape_lse_ms": fwd_lse_ms}
+                 "train_shape_ms": median(fwd["without"]),
+                 "train_shape_lse_ms": median(fwd["with lse"])}
 
 
 def write_wav(path: Path, n_samples: int, seed: int = 0) -> np.ndarray:
@@ -504,6 +636,7 @@ TRAIN_FILES, VAL_FILES, TEST_FILES = 8, 4, 1  # a test split is required by the 
 TRAIN_FILE_S = 64.0
 TRAIN_EPOCHS = 2
 LOSS_ATOL = 2e-2  # card (bf16 kernels) against CPU (bf16 plain path), step-1 loss
+WARM_STEP_REPEATS = 5
 
 
 def write_dataset(root: Path, classes: list[str], n_files: tuple[int, int, int],
@@ -694,6 +827,18 @@ def phase_train(card: str) -> dict:
         )
         gen = torch.Generator("cuda").manual_seed(1)
         warm_batch = trainer._put(batch)
+        # the same step repeated on one batch, without the loader: the
+        # spread of its wall time is the host's
+        step_ms = []
+        for _ in range(WARM_STEP_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(warm_batch, gen)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        print(f"train step repeated on one batch [{card}]: {WARM_STEP_REPEATS} steps, median "
+              f"{median(step_ms):.3f} ms (min {min(step_ms):.3f}, max {max(step_ms):.3f})",
+              flush=True)
         profile_run(card, "train step", lambda: trainer.train_step(warm_batch, gen),
                     warm / n_steps)
     return launches
@@ -717,9 +862,12 @@ def profile_run(card: str, label: str, fn, wall_s: float) -> None:
     print(f"profile {label} [{card}]: wall under the profiler {wall_us / 1e3:.1f} ms, device busy "
           f"{busy_us / 1e3:.1f} ms = {100 * busy_us / (wall_s * 1e6):.1f}% of the "
           f"unprofiled wall {wall_s * 1e3:.1f} ms (kernels may overlap)", flush=True)
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
-        print(f"profile {label} kernel: {e.self_device_time_total / 1e3:9.2f} ms "
-              f"{e.count:6d}x {e.key[:100]}", flush=True)
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    # the 15 longest, and the port's own kernels wherever they rank
+    for rank, e in enumerate(ranked):
+        if rank < 15 or any(k in e.key for k in ("flash_", "logmel_")):
+            print(f"profile {label} kernel: {e.self_device_time_total / 1e3:9.2f} ms "
+                  f"{e.count:6d}x #{rank + 1} {e.key[:100]}", flush=True)
 
 
 def main() -> int:

@@ -109,10 +109,8 @@ def library() -> ctypes.CDLL:
             f = ctypes.c_float
             lib.segma_flash_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, f, p]
             lib.segma_flash_attn_fwd.restype = i
-            lib.segma_flash_attn_bwd_dq.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, f, p]
-            lib.segma_flash_attn_bwd_dq.restype = i
-            lib.segma_flash_attn_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, f, p]
-            lib.segma_flash_attn_bwd_dkv.restype = i
+            lib.segma_flash_attn_bwd.argtypes = [p] * 10 + [i, i, i, f, f, p]
+            lib.segma_flash_attn_bwd.restype = i
             _lib = lib
     return _lib
 

@@ -23,6 +23,7 @@ HEAD_DIM = 64  # the kernels' head dim (Whisper, HuBERT)
 
 launches = 0  # forward kernel launches since the last reset (chip_smoke.py reads it)
 bwd_launches = 0  # backward launches (each runs the dq and the dkv kernel)
+BWD_ROWS = 128  # rows of a backward work item (csrc/flash_attn_bwd.cu BR)
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -112,8 +113,9 @@ def flash_attn_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
     lse: torch.Tensor, dout: torch.Tensor, sm_scale: float,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward kernels (dq, then dk and dv) on contiguous
-    (B, S, H, 64) bf16 CUDA tensors and the forward's (B, H, S) f32 lse."""
+    """Launch the backward kernels (the dq pass, then the dk/dv pass) on
+    contiguous (B, S, H, 64) bf16 CUDA tensors and the forward's (B, H, S)
+    f32 lse."""
     global bwd_launches
     b, s, h = _check_inputs("flash_attn_bwd", q=q, k=k, v=v, out=out, dout=dout)
     if lse.shape != (b, h, s) or lse.dtype != torch.float32 or not lse.is_contiguous():
@@ -123,20 +125,16 @@ def flash_attn_bwd(
         )
     lib = _build.library()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    dsum = torch.empty_like(lse)  # rowsum(dout * out), written by the dq kernel
-    scale_log2 = sm_scale * math.log2(math.e)
-    err = lib.segma_flash_attn_bwd_dq(
+    # each row's (lse log2(e), rowsum(dout * out)), written by the dq pass for
+    # the dk/dv pass, padded to whole work items of BWD_ROWS rows
+    s_pad = -(-s // BWD_ROWS) * BWD_ROWS
+    pairs = torch.empty((b, h, s_pad, 2), dtype=torch.float32, device=q.device)
+    err = lib.segma_flash_attn_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), b, s, h, scale_log2, sm_scale,
-        _stream(q),
+        lse.data_ptr(), pairs.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, s, h, sm_scale * math.log2(math.e), sm_scale, _stream(q),
     )
-    _build.check(err, "segma_flash_attn_bwd_dq")
-    err = lib.segma_flash_attn_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, scale_log2, sm_scale,
-        _stream(q),
-    )
-    _build.check(err, "segma_flash_attn_bwd_dkv")
+    _build.check(err, "segma_flash_attn_bwd")
     bwd_launches += 1
     return dq, dk, dv
 

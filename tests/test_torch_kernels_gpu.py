@@ -121,10 +121,17 @@ def _bf16(rng, shape):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda().to(torch.bfloat16)
 
 
+# The backward's tiling is 128 resident rows per work item and 64 streamed
+# rows per tile: one row, one short of, at and one past each tile edge.
+FLASH_BWD_EDGE_S = (1, 63, 64, 65, 127, 128, 129, 255, 256)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "shape", [(32, 199, 12, 64), (64, 1500, 8, 64), (2, 70, 2, 64)],
-    ids=["hubert-train", "many-tiles", "partial-tile"],
+    "shape",
+    [(32, 199, 12, 64), (64, 1500, 8, 64), (2, 70, 2, 64),
+     *((2, s, 3, 64) for s in FLASH_BWD_EDGE_S)],
+    ids=["hubert-train", "many-tiles", "partial-tile", *(f"s{s}" for s in FLASH_BWD_EDGE_S)],
 )
 def test_flash_backward_kernel_matches_plain(shape):
     _cuda()
@@ -168,6 +175,20 @@ def test_flash_forward_two_launches_bitwise_equal():
     q, k, v = (_bf16(rng, (64, 1500, 8, 64)) for _ in range(3))
     first = attention.flash_attn_fwd(q, k, v, 64**-0.5)
     assert torch.equal(first, attention.flash_attn_fwd(q, k, v, 64**-0.5))
+
+
+@pytest.mark.gpu
+def test_flash_backward_two_launches_bitwise_equal():
+    """Two passes without atomics, each work item's arithmetic independent of
+    the block that runs it: the same inputs give the same bits."""
+    _cuda()
+    rng = np.random.default_rng(7)
+    q, k, v, dout = (_bf16(rng, (32, 199, 12, 64)) for _ in range(4))
+    out, lse = attention.flash_attn_fwd(q, k, v, 64**-0.5, with_lse=True)
+    first = attention.flash_attn_bwd(q, k, v, out, lse, dout, 64**-0.5)
+    second = attention.flash_attn_bwd(q, k, v, out, lse, dout, 64**-0.5)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.gpu
