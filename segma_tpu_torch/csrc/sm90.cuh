@@ -1,13 +1,17 @@
 // Hopper (sm_90a) building blocks for the flash kernels, forward
-// (flash_attn.cu) and backward (flash_attn_bwd.cu): TMA tensor maps and
-// loads, mbarriers, named barriers, register reallocation, and wgmma with its
-// shared-memory descriptors. Included by the sources; not compiled on its own.
+// (flash_attn.cu) and backward (flash_attn_bwd.cu), and the log-mel kernel
+// (logmel.cu): TMA tensor maps and loads, mbarriers, named barriers, register
+// reallocation, wgmma (bf16, and TF32 for log-mel's 3xTF32 products) with its
+// shared-memory descriptors, cp.async. Included by the sources; not compiled
+// on its own.
 //
-// Tiles are loaded by TMA with 128-byte swizzle: a row of 64 bf16 is exactly
-// 128 bytes, rows are stored back to back, and the 16-byte chunks of row r are
-// permuted by XOR with (r mod 8) within each 1024-byte group of 8 rows. wgmma
-// reads that layout directly (descriptor layout type 1, SWIZZLE_128B), so a
-// tile's base must be 1024-byte aligned.
+// The flash tiles are loaded by TMA with 128-byte swizzle: a row of 64 bf16
+// is exactly 128 bytes, rows are stored back to back, and the 16-byte chunks
+// of row r are permuted by XOR with (r mod 8) within each 1024-byte group of
+// 8 rows. wgmma reads that layout directly (descriptor layout type 1,
+// SWIZZLE_128B), so a tile's base must be 1024-byte aligned. Log-mel's basis
+// tiles are rows of 16 f32 (64 bytes) with 64-byte swizzle (layout type 2,
+// 512-byte groups of 8 rows).
 
 #pragma once
 
@@ -315,6 +319,88 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float* d, const uint32_t* 
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ------------------------------------------------ f32 through TF32 (logmel.cu)
+
+// wgmma descriptor of a 64-byte-swizzled tile at shared address `addr`
+// (512-byte aligned, or advanced from such a base within a row): rows of 64
+// bytes (16 f32), groups of 8 rows 512 bytes apart. As for sw128_desc, the
+// leading byte offset is not read (a TF32 k-step's 8 columns are 32 bytes,
+// within one row) and is set to the same 512 bytes.
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(512 >> 4) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+}
+
+// f32 rounded to TF32 (10 mantissa bits, to nearest, ties away from zero),
+// returned as the f32 bit pattern with its low 13 bits zero: exactly what a
+// TF32 product reads
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d (64 x 80, f32) += A (64 x 8) B (8 x 80), TF32 in. A is in registers as
+// the m16n8k8 TF32 A fragments of each warp's 16 rows: a[0] (row, k), a[1]
+// (row + 8, k), a[2] (row, k + 4), a[3] (row + 8, k + 4), with row = 16 warp
+// + lane / 4 and k = lane % 4. B is in shared memory through a descriptor,
+// K-major (TF32 has no transposed form): each of its 80 columns is a row of
+// the tile. The accumulator layout of the bf16 forms over 10 column blocks:
+// d[4 j + 2 i + e] is (row + 8 i, column 8 j + 2 (lane % 4) + e).
+__device__ __forceinline__ void wgmma_m64n80k8_tf32_rs(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d = A B, the same product writing d without reading it
+__device__ __forceinline__ void wgmma_m64n80k8_tf32_rs_zero_d(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
+        "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]),
+        "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]),
+        "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+}
+
+// 4 bytes from global src to shared dst, or 4 zero bytes when !valid (src is
+// then not read), asynchronously; cp_async_mbar_arrive makes mbarrier bar
+// see one arrival once all of this thread's earlier copies have landed
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
 }  // namespace

@@ -8,7 +8,11 @@ mel projection, ``log10(max(., 1e-10))``, with Whisper's last frame dropped.
 The per-example max-8 clamp and ``(x + 4) / 4`` are applied by ``finish``.
 
 ``log10_mel`` launches the CUDA kernel for a CUDA tensor and takes the plain
-version only for a CPU tensor.
+version only for a CPU tensor. The kernel reads the waveform unpadded (it
+reflects the edges as it loads) and runs the DFT as 3xTF32 products: the
+tables it reads are built here (``_kernel_tables``), with the TF32 split
+(``split_tf32``) and the sparse filterbank (``mel_bin_tables``) that the
+CPU tests check.
 """
 
 from __future__ import annotations
@@ -22,7 +26,9 @@ import torch.nn.functional as F
 from segma_tpu_torch.ops import _build
 from segma_tpu_torch.ops.melspec import HOP_LENGTH, N_FFT, N_MELS, dft_basis, mel_filterbank
 
-N_BINS_PAD = 224  # the kernel walks the 201 bins in 7 chunks of 32
+N_BINS = 200  # bins 0..199: bin 200 (like bin 0) has no weight in the filterbank
+N_CHUNK_BINS = 40  # the kernel's bin chunk: its products are re and im of 40 bins
+MEL_FIRST, MEL_LAST = 1 << 8, 1 << 9  # a run's first and last bin (csrc/logmel.cu)
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 
@@ -43,18 +49,76 @@ def _plain_tables(device: torch.device) -> tuple[torch.Tensor, ...]:
     return tuple(torch.from_numpy(a).to(device) for a in (cos_b, sin_b, fb))
 
 
+def tf32_round(a: np.ndarray) -> np.ndarray:
+    """f32 rounded to TF32 (10 mantissa bits, to nearest, ties away from zero),
+    as the kernel's ``cvt.rna.tf32.f32`` does: the low 13 bits become zero."""
+    bits = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split_tf32(a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The 3xTF32 split: ``hi = tf32(a)``, ``lo = tf32(a - hi)``."""
+    a = np.asarray(a, dtype=np.float32)
+    hi = tf32_round(a)
+    return hi, tf32_round(a - hi)
+
+
+def mel_runs() -> list[tuple[int, int, np.ndarray]]:
+    """The slaney filterbank as one run of bins per mel: (mel, first bin,
+    weights), the bins of each filter being contiguous."""
+    fb = mel_filterbank()
+    runs = []
+    for m in range(fb.shape[1]):
+        nz = np.flatnonzero(fb[:, m])
+        if len(nz) == 0 or nz[-1] - nz[0] + 1 != len(nz) or nz[-1] >= N_BINS:
+            raise ValueError(f"mel {m}: bins {nz} are not one run below {N_BINS}")
+        runs.append((m, int(nz[0]), fb[nz[0] : nz[-1] + 1, m].copy()))
+    return runs
+
+
+def mel_bin_tables() -> tuple[np.ndarray, np.ndarray]:
+    """The kernel's sparse filterbank, walked bin by bin.
+
+    ``meta`` and ``weights`` are (chunks, 2, 40): for each chunk of 40 bins
+    and each parity of mel, the weight of bin k in the one mel of that parity
+    whose run holds it (0 where none does), and that mel's index with
+    MEL_FIRST at its run's first bin and MEL_LAST at its last. Each bin feeds
+    at most two filters, mels m and m + 1, so a lane that handles one parity
+    sums one run at a time, carrying it across a chunk edge."""
+    n_chunks = N_BINS // N_CHUNK_BINS
+    meta = np.zeros((n_chunks, 2, N_CHUNK_BINS), np.int32)
+    weights = np.zeros((n_chunks, 2, N_CHUNK_BINS), np.float32)
+    for m, k0, w in mel_runs():
+        for i, wi in enumerate(w):
+            ch, col = divmod(k0 + i, N_CHUNK_BINS)
+            if weights[ch, m % 2, col] != 0:
+                raise ValueError(f"bin {k0 + i} feeds two mels of parity {m % 2}")
+            weights[ch, m % 2, col] = wi
+            meta[ch, m % 2, col] = (
+                m | (MEL_FIRST if i == 0 else 0) | (MEL_LAST if i == len(w) - 1 else 0)
+            )
+    return meta, weights
+
+
+def kernel_basis() -> np.ndarray:
+    """The basis as the kernel reads it: (2, 400, 400) f32, the TF32 ``hi``
+    and ``lo`` parts of bins 0..199, bins-major (a TF32 wgmma reads B K-major
+    only), each part in chunks of 40 cos rows followed by the same 40 bins'
+    sin rows, so that one product's 80 columns give re and im of 40 bins."""
+    cos_b, sin_b = dft_basis()
+    n_chunks = N_BINS // N_CHUNK_BINS
+    rows = np.stack([cos_b[:, :N_BINS].T, sin_b[:, :N_BINS].T])  # (2, 200, 400)
+    rows = rows.reshape(2, n_chunks, N_CHUNK_BINS, N_FFT).transpose(1, 0, 2, 3)
+    return np.stack(split_tf32(rows.reshape(2 * N_BINS, N_FFT)))
+
+
 @lru_cache(maxsize=8)
 def _kernel_tables(device: torch.device) -> tuple[torch.Tensor, ...]:
-    """Basis (400, 224) x2 and filterbank (224, 80), zero-padded past bin 201."""
-    cos_b, sin_b = dft_basis()
-    fb = mel_filterbank()
-    pad = N_BINS_PAD - cos_b.shape[1]
-    cos_p = np.pad(cos_b, ((0, 0), (0, pad)))
-    sin_p = np.pad(sin_b, ((0, 0), (0, pad)))
-    fb_p = np.pad(fb, ((0, pad), (0, 0)))
+    """``kernel_basis`` and the sparse filterbank's ``meta`` and ``weights``
+    (``mel_bin_tables``), on ``device``."""
     return tuple(
         torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        for a in (cos_p, sin_p, fb_p)
+        for a in (kernel_basis(), *mel_bin_tables())
     )
 
 
@@ -83,14 +147,16 @@ def log10_mel_cuda(wav: torch.Tensor) -> torch.Tensor:
     b, t = wav.shape
     if t <= N_FFT // 2:
         raise ValueError(f"waveform of {t} samples is too short to reflect-pad")
+    if b == 0:
+        raise ValueError("empty batch")
+    wav = wav.contiguous()  # read unpadded: the kernel reflects the edges as it loads
     n_frames = _n_frames(t)
-    padded = _reflect_pad(wav).contiguous()
-    cos_p, sin_p, fb_p = _kernel_tables(wav.device)
+    basis, meta, weights = _kernel_tables(wav.device)
     out = torch.empty((b, n_frames, N_MELS), dtype=torch.float32, device=wav.device)
     lib = _build.library()
     err = lib.segma_logmel(
-        padded.data_ptr(), cos_p.data_ptr(), sin_p.data_ptr(), fb_p.data_ptr(),
-        out.data_ptr(), b, padded.shape[1], n_frames,
+        wav.data_ptr(), basis.data_ptr(), meta.data_ptr(), weights.data_ptr(),
+        out.data_ptr(), b, t, n_frames,
         torch.cuda.current_stream(wav.device).cuda_stream,
     )
     _build.check(err, "segma_logmel")
@@ -115,3 +181,4 @@ def finish(log_spec: torch.Tensor) -> torch.Tensor:
 def log_mel_spectrogram_plain(wav: torch.Tensor) -> torch.Tensor:
     """The whole plain log-mel, on whatever device ``wav`` lies."""
     return finish(log10_mel_plain(wav))
+

@@ -20,7 +20,9 @@ def _forbidden(name: str) -> bool:
 
 
 def _port_files() -> list[Path]:
-    return sorted((REPO / "segma_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted((REPO / "segma_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "logmel_ablations.py",
+    ]
 
 
 def test_forbidden_matcher():
