@@ -18,7 +18,9 @@ exits nonzero without printing the final result line:
    reflect edges (T = 201, 16001, 42080), against a float64 computation on
    white noise over the whole serving batch and on wide-range signals
    (tone, brown noise, quiet int16 noise): at most twice the f32 plain
-   version's own error; and bitwise over two launches; it is timed
+   version's own error, and on each wide-range signal at most
+   LOGMEL_BULK_FACTOR times as many outputs more than 1e-5 off as the plain
+   version; and bitwise over two launches; it is timed
    on an all-signal input and on the padded chunks beside the plain
    version, a cuFFT composition (a yardstick, never called by the port)
    and ``finish``, with its bound (bytes, or the FFT and sparse mel's
@@ -34,7 +36,12 @@ exits nonzero without printing the final result line:
    are timed in turns (``time_turns``: the median of 5 groups of 20 calls,
    the device held by a spin kernel while the host queues each group), and
    every SDPA backend that takes the shape is timed; the fastest is the
-   ``library_ms``.
+   ``library_ms``. The f32 forward and backward (IEEE f32 on the CUDA cores)
+   are checked at FLASH_F32_SHAPES and FLASH_F32_BWD_SHAPES against their
+   plain versions in f32 and in float64 (the JAX suite's f32 pins), bitwise
+   with and without the LSE and over two launches, and timed at both main
+   paths' shapes beside every SDPA backend that takes f32 (the refusals are
+   printed), with their bounds at the f32 CUDA-core peak.
 4. serving slice: full-width Whisper-base ``surgical_hydra`` (random
    weights from a seed) serves a synthetic 10-minute int16 WAV through
    ``run_inference_on_audios``; the launch counters show that the path went
@@ -51,8 +58,20 @@ exits nonzero without printing the final result line:
    and 12 flash forward and 12 flash backward launches per step. Then
    WARM_STEP_REPEATS steps on one batch, timed, and one more under
    torch.profiler (the 15 longest kernels and the port's own).
-6. the ``kernels`` JSON line and the ``kernels:`` launch line.
-7. last line: ``{"ok": true, "device": {...}}``.
+6. f32 serving, under PyTorch's default TF32 flags: the serving slice's WAV
+   through ``surgical_hydra`` with train.precision=f32, through the f32
+   forward kernel, profiled; the card's logits against the CPU f32 plain
+   path at LOGITS_F32_ATOL; the flags unchanged by the run.
+7. f32 train, checkpoint, serve: ``surgical_hubert_hydra`` in f32 trains two
+   epochs through ``Trainer.fit`` (the f32 forward and backward kernels on
+   every attention), writing JAX-format checkpoints; the run directory is
+   served through ``run_inference_on_audios(checkpoint=...)`` on the card,
+   RTTMs out; the models ``load_model_for_inference`` rebuilds from
+   best.ckpt and last/ give the in-memory model's logits at that epoch, bit
+   for bit; one warm f32 step profiled.
+8. the ``kernels`` JSON line (log-mel, the bf16 and the f32 flash forward
+   and backward) and the ``kernels:`` launch line, per path.
+9. last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -78,15 +97,35 @@ PEAK_BYTES_PER_S = 3.35e12
 # version, on inputs with a flat spectrum; on wide-range signals both are held
 # to float64 instead (logmel_checks)
 LOGMEL_ATOL = 1e-5
+# On the wide-range signals, the kernel may have at most this many times as
+# many outputs more than LOGMEL_ATOL from float64 as the f32 plain version:
+# 1, as exact in the bulk as an f32 implementation. Without each frame's
+# mean taken out the kernel had 2.4x on brown noise: its tensor-core sums
+# truncate, and the frame's offset scaled every product; with the mean out
+# it has none there (csrc/logmel.cu, PERF.md). The maximum keeps its own
+# rule above.
+LOGMEL_BULK_FACTOR = 1.0
 FLASH_ATOL = FLASH_RTOL = 2e-2  # bf16 output rounding against f32 scores
 # backward: P and dS round to bf16 before their products, the gradients to
 # bf16 on the way out; held per tensor at FLASH_BWD_REL * max(1, max|ref|)
 FLASH_BWD_REL = 2e-2
 LSE_ATOL = 1e-3  # f32 running max and sum against torch.logsumexp
+# f32 kernels: the JAX suite's f32 pins against its einsum attention, 2e-5 on
+# the forward and 5e-5 on the gradients (tests/test_ops_attention.py:52, :74),
+# the gradients per tensor times max(1, max|ref|) as for bf16, since at S =
+# 199 with N(0, 1) inputs dq and dk reach |10|; the LSE is a log of sums of
+# order S, held at 1e-5
+FLASH_F32_ATOL = 2e-5
+FLASH_F32_BWD_REL = 5e-5
+LSE_F32_ATOL = 1e-5
 TRAIN_ATTN_SHAPE = (32, 199, 12, 64)  # HuBERT-base training: batch 32, 4 s
 # Card (bf16 kernels, cuDNN LSTM) against CPU (bf16 plain path) logits: both
 # round to bf16 at every encoder op, in other orders, through six layers
 LOGITS_ATOL = 1e-2
+# f32 on the card (IEEE f32 kernels and cuBLAS, cuDNN without TF32) against
+# the CPU f32 plain path: the suite's f32 logits pin
+# (tests/test_torch_surgical_hydra.py, tests/test_torch_hubert.py)
+LOGITS_F32_ATOL = 1e-4
 
 INNER_BATCH = 64
 N_CHUNKS = 150  # chunks in the synthetic WAV (~10 min at 16 kHz)
@@ -203,7 +242,7 @@ def bound_ms(flops: float, peak_flops: float, n_bytes: float) -> tuple[float, st
 def check_close(name: str, got, ref, atol: float, rtol: float = 0.0) -> float:
     import torch
 
-    got, ref = got.float(), ref.float()
+    got, ref = got.double(), ref.double()
     if got.shape != ref.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
     if not torch.isfinite(got).all():
@@ -358,11 +397,17 @@ def logmel_checks(card: str) -> dict:
         limit = max(2 * plain_err, LOGMEL_ATOL)
         if not err <= limit:
             raise AssertionError(f"logmel {name}: {err:.3e} from float64 exceeds {limit:.3e}")
+        count, plain_count = int((off > LOGMEL_ATOL).sum()), int((plain_off > LOGMEL_ATOL).sum())
         print(f"check logmel {name} against float64: kernel {err:.3e}, plain {plain_err:.3e} "
               f"(limit {limit:.3e} = max(2 x plain, {LOGMEL_ATOL})); outputs more than "
-              f"{LOGMEL_ATOL} off: kernel {int((off > LOGMEL_ATOL).sum())}, plain "
-              f"{int((plain_off > LOGMEL_ATOL).sum())} of {off.numel()}", flush=True)
-        wide[name] = {"max_abs_err": err, "plain_max_abs_err": plain_err}
+              f"{LOGMEL_ATOL} off: kernel {count}, plain {plain_count} of {off.numel()}",
+              flush=True)
+        if not name.startswith("white") and not count <= LOGMEL_BULK_FACTOR * plain_count:
+            raise AssertionError(f"logmel {name}: {count} outputs more than {LOGMEL_ATOL} from "
+                                 f"float64, over {LOGMEL_BULK_FACTOR} x the plain version's "
+                                 f"{plain_count}")
+        wide[name] = {"max_abs_err": err, "plain_max_abs_err": plain_err,
+                      "outputs_off": count, "plain_outputs_off": plain_count}
 
     window = torch.hann_window(400, device="cuda")
     fb = logmel._plain_tables(full.device)[2]
@@ -502,7 +547,7 @@ def check_rel(name: str, got, ref, rel: float) -> float:
     """max|got - ref| <= rel * max(1, max|ref|), per tensor."""
     import torch
 
-    got, ref = got.float(), ref.float()
+    got, ref = got.double(), ref.double()
     if got.shape != ref.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
     if not torch.isfinite(got).all():
@@ -640,6 +685,162 @@ def flash_bwd_checks(card: str) -> tuple[dict, dict]:
                  "train_shape_ms": median(fwd["without"]),
                  "train_shape_lse_ms": median(fwd["with lse"])}
 
+# The f32 kernels' shapes: both main paths, then the edges of their tiling
+# (128 query rows per forward block, 64 per backward block, 64 keys per
+# tile): one row, one short of, at and one past each edge.
+FLASH_F32_EDGE_S = (1, 63, 64, 65, 127, 128, 129)
+FLASH_F32_SHAPES = ((INNER_BATCH, 1500, 8, 64), TRAIN_ATTN_SHAPE,
+                    *((2, s, 3, 64) for s in FLASH_F32_EDGE_S))
+FLASH_F32_BWD_SHAPES = (TRAIN_ATTN_SHAPE, *((2, s, 3, 64) for s in FLASH_F32_EDGE_S))
+
+
+def f32_attention_bounds(b: int, s: int, h: int, d: int, products: int, tensors: int) -> tuple:
+    """(ms, by) of ``products`` S x S x D f32 products at the f32 CUDA-core
+    peak, against ``tensors`` (B, S, H, D) f32 tensors and one (B, H, S) f32
+    lse read or written once."""
+    return bound_ms(2 * products * b * h * s * s * d, PEAK_F32_FLOPS,
+                    tensors * b * s * h * d * 4 + b * h * s * 4)
+
+
+def flash_f32_checks(card: str) -> tuple[dict, dict]:
+    """The f32 forward against ``attention_plain`` in f32 and in float64 and
+    its LSE against ``attention_lse_plain`` at FLASH_F32_SHAPES, bitwise the
+    same with and without the LSE and over two launches; the f32 backward
+    against ``attention_bwd_plain`` in f32 and in float64 at
+    FLASH_F32_BWD_SHAPES, bitwise over two launches. Then each timed in turns
+    beside every SDPA backend that takes f32 (the refusals are printed), its
+    plain version and its bound at the f32 CUDA-core peak. Returns the two
+    kernels' rows."""
+    import torch
+
+    from segma_tpu_torch.ops import attention
+
+    torch.set_grad_enabled(False)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    sm = 64**-0.5
+    errs, errs64, lse_errs = [], [], []
+    for shape in FLASH_F32_SHAPES:
+        q, k, v = (torch.randn(shape, device="cuda", generator=g) for _ in range(3))
+        out, lse = attention.flash_attn_fwd(q, k, v, sm, with_lse=True)
+        errs.append(check_close(f"flash_attn_fwd f32 {shape}", out,
+                                attention.attention_plain(q, k, v, sm, torch.float32),
+                                FLASH_F32_ATOL))
+        errs64.append(check_close(
+            f"flash_attn_fwd f32 {shape} against float64", out,
+            attention.attention_plain(q.double(), k.double(), v.double(), sm, torch.float64),
+            FLASH_F32_ATOL))
+        lse_errs.append(check_close(f"flash_attn_fwd f32 lse {shape}", lse,
+                                    attention.attention_lse_plain(q, k, sm), LSE_F32_ATOL))
+        if not torch.equal(out, attention.flash_attn_fwd(q, k, v, sm)):
+            raise AssertionError(f"flash_attn_fwd f32 {shape}: output differs without the LSE")
+        if not torch.equal(out, attention.flash_attn_fwd(q, k, v, sm, with_lse=True)[0]):
+            raise AssertionError(f"flash_attn_fwd f32 {shape}: two launches differ")
+        del q, k, v, out, lse
+        torch.cuda.empty_cache()
+    print(f"check flash_attn_fwd f32: bitwise equal with and without the LSE, and over two "
+          f"launches, at {len(FLASH_F32_SHAPES)} shapes", flush=True)
+    bwd_errs, bwd_errs64 = [], []
+    for shape in FLASH_F32_BWD_SHAPES:
+        q, k, v, dout = (torch.randn(shape, device="cuda", generator=g) for _ in range(4))
+        out, lse = attention.flash_attn_fwd(q, k, v, sm, with_lse=True)
+        got = attention.flash_attn_bwd(q, k, v, out, lse, dout, sm)
+        ref = attention.attention_bwd_plain(q, k, v, out, lse, dout, sm)
+        ref64 = attention.attention_bwd_plain(*(x.double() for x in (q, k, v, out, lse, dout)), sm)
+        for name, a, b, c in zip(("dq", "dk", "dv"), got, ref, ref64):
+            bwd_errs.append(check_rel(f"flash_attn_bwd f32 {name} {shape}", a, b, FLASH_F32_BWD_REL))
+            bwd_errs64.append(check_rel(f"flash_attn_bwd f32 {name} {shape} against float64", a, c,
+                                        FLASH_F32_BWD_REL))
+        again = attention.flash_attn_bwd(q, k, v, out, lse, dout, sm)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_attn_bwd f32 {shape}: two launches differ")
+        del q, k, v, dout, out, lse, got, ref, ref64, again
+        torch.cuda.empty_cache()
+    print(f"check flash_attn_bwd f32: bitwise equal over two launches at "
+          f"{len(FLASH_F32_BWD_SHAPES)} shapes", flush=True)
+
+    timed = {}
+    for label, shape, iters, plain_iters in (("serving", (INNER_BATCH, 1500, 8, 64), 5, 2),
+                                             ("training", TRAIN_ATTN_SHAPE, 20, 10)):
+        q, k, v = (torch.randn(shape, device="cuda", generator=g) for _ in range(3))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        times = time_turns({"kernel": lambda: attention.flash_attn_fwd(q, k, v, sm),
+                            "kernel with lse": lambda: attention.flash_attn_fwd(q, k, v, sm,
+                                                                                with_lse=True),
+                            **sdpa_calls(qt, kt, vt, sm)}, iters=iters)
+        for name, t in times.items():
+            print(f"time flash_attn_fwd f32 {name} {shape} [{card}]: {spread(t)}", flush=True)
+        b, s, h, d = shape
+        library = {n: median(t) for n, t in times.items() if n.startswith("sdpa")}
+        timed[label] = {
+            "ms": median(times["kernel"]), "lse_ms": median(times["kernel with lse"]),
+            "plain_ms": time_ms(lambda: attention.attention_plain(q, k, v, sm, torch.float32),
+                                iters=plain_iters),
+            "library_backends_ms": library,
+            "library_ms": min(library.values()) if library else None,
+            "bound": f32_attention_bounds(b, s, h, d, products=2, tensors=4),
+        }
+        if label == "training":
+            dout = torch.randn(shape, device="cuda", generator=g)
+            out, lse = attention.flash_attn_fwd(q, k, v, sm, with_lse=True)
+            bt = time_turns({
+                "kernel": lambda: attention.flash_attn_bwd(q, k, v, out, lse, dout, sm),
+                **sdpa_calls(qt, kt, vt, sm, dout.transpose(1, 2).contiguous()),
+            })
+            for name, t in bt.items():
+                print(f"time flash_attn_bwd f32 {name} {shape} [{card}]: {spread(t)}", flush=True)
+            blib = {n: median(t) for n, t in bt.items() if n.startswith("sdpa")}
+            bwd_timed = {
+                "ms": median(bt["kernel"]),
+                "plain_ms": time_ms(lambda: attention.attention_bwd_plain(q, k, v, out, lse, dout,
+                                                                          sm), iters=plain_iters),
+                "library_backends_ms": blib, "library_ms": min(blib.values()) if blib else None,
+                "bound": f32_attention_bounds(b, s, h, d, products=5, tensors=8),
+            }
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    torch.set_grad_enabled(True)
+    for label, t in timed.items():
+        bms, by = t["bound"]
+        print(f"time flash_attn_fwd f32 {label} [{card}]: kernel {t['ms']:.4f} ms (with lse "
+              f"{t['lse_ms']:.4f}), plain {t['plain_ms']:.4f} ms, fastest sdpa {t['library_ms']} "
+              f"ms; bound {bms:.4f} ms ({by}, f32 CUDA-core peak; {100 * bms / t['ms']:.1f}% "
+              f"of it)", flush=True)
+    bms, by = bwd_timed["bound"]
+    print(f"time flash_attn_bwd f32 {TRAIN_ATTN_SHAPE} [{card}]: kernels {bwd_timed['ms']:.4f} "
+          f"ms, plain {bwd_timed['plain_ms']:.4f} ms, fastest sdpa backward "
+          f"{bwd_timed['library_ms']} ms; bound {bms:.4f} ms ({by}, f32 CUDA-core peak; "
+          f"{100 * bms / bwd_timed['ms']:.1f}% of it)", flush=True)
+    serve, train = timed["serving"], timed["training"]
+    fwd_row = {
+        "name": "flash_attn_fwd_f32", "route": "cuda",
+        "source": "segma_tpu_torch/csrc/flash_attn_f32.cu",
+        "replaces": "segma_tpu/ops/attention.py:148",
+        "max_abs_err": max(errs), "max_abs_err_vs_float64": max(errs64),
+        "lse_max_abs_err": max(lse_errs), "ms": serve["ms"], "plain_ms": serve["plain_ms"],
+        "bound_ms": serve["bound"][0], "bound_by": serve["bound"][1],
+        "library_ms": serve["library_ms"], "library_backends_ms": serve["library_backends_ms"],
+        "train_shape": list(TRAIN_ATTN_SHAPE), "train_shape_ms": train["ms"],
+        "train_shape_lse_ms": train["lse_ms"], "train_shape_plain_ms": train["plain_ms"],
+        "train_shape_bound_ms": train["bound"][0],
+        "train_shape_library_ms": train["library_ms"],
+        "train_shape_library_backends_ms": train["library_backends_ms"],
+    }
+    bwd_row = {
+        "name": "flash_attn_bwd_f32", "route": "cuda",
+        "source": "segma_tpu_torch/csrc/flash_attn_bwd_f32.cu",
+        "replaces": "segma_tpu/ops/attention.py:148",
+        "tpu_kernels": [
+            "jax/experimental/pallas/ops/tpu/flash_attention.py:941 _flash_attention_bwd_dkv",
+            "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 _flash_attention_bwd_dq",
+        ],
+        "max_abs_err": max(bwd_errs), "max_abs_err_vs_float64": max(bwd_errs64),
+        "ms": bwd_timed["ms"], "plain_ms": bwd_timed["plain_ms"],
+        "bound_ms": bwd_timed["bound"][0], "bound_by": bwd_timed["bound"][1],
+        "library_ms": bwd_timed["library_ms"],
+        "library_backends_ms": bwd_timed["library_backends_ms"],
+    }
+    return fwd_row, bwd_row
+
 
 def write_wav(path: Path, n_samples: int, seed: int = 0) -> np.ndarray:
     """Synthetic 16 kHz int16 mono WAV: noise bursts and tones."""
@@ -657,11 +858,11 @@ def write_wav(path: Path, n_samples: int, seed: int = 0) -> np.ndarray:
     return pcm
 
 
-def surgical_hydra_config():
-    """``config/default.yml`` with model.name=surgical_hydra and
-    model.config.encoder=whisper_base_random, built in code so that the
-    script needs no pyyaml; tests/test_torch_train.py holds it equal to
-    ``load_config``."""
+def surgical_hydra_config(precision: str = "bf16"):
+    """``config/default.yml`` with model.name=surgical_hydra,
+    model.config.encoder=whisper_base_random and train.precision, built in
+    code so that the script needs no pyyaml; tests/test_torch_train.py holds
+    it equal to ``load_config``."""
     from segma_tpu_torch.config import (
         AudioConfig, Config, DataConfig, LSTMConfig, ModelConfig,
         SurgicalHydraConfig, TrainConfig,
@@ -682,7 +883,7 @@ def surgical_hydra_config():
                 classifier=256,
             ),
         ),
-        train=TrainConfig(precision="bf16"),
+        train=TrainConfig(precision=precision),
     )
 
 
@@ -728,8 +929,7 @@ def phase_slice(card: str) -> dict:
             """One main-path run from zeroed launch counters."""
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            logmel.launches = 0
-            attention.launches = 0
+            reset_launches()
             t0 = time.perf_counter()
             done = run_inference_on_audios(
                 cfg, wav_dir, None, Path(tmp) / f"out{run}", model=model, device="cuda",
@@ -837,12 +1037,12 @@ def write_dataset(root: Path, classes: list[str], n_files: tuple[int, int, int],
             (root / "uem" / f"{uid}.uem").write_text(f"{uid} NA 0.000 {duration_s}")
 
 
-def surgical_hubert_hydra_config(dataset_path: Path):
+def surgical_hubert_hydra_config(dataset_path: Path, precision: str = "bf16"):
     """``config/default.yml`` with model.name=surgical_hubert_hydra,
     audio.strict_frames=true, data.dataset_path, train.seed=0,
-    train.max_epochs=2 and train.dataloader.num_workers=1, built in code
-    so that the script needs no pyyaml; tests/test_torch_train.py holds it
-    equal to ``load_config``."""
+    train.max_epochs=2, train.dataloader.num_workers=1 and train.precision,
+    built in code so that the script needs no pyyaml;
+    tests/test_torch_train.py holds it equal to ``load_config``."""
     from segma_tpu_torch.config import (
         AudioConfig, Config, DataConfig, DataloaderConfig, ModelConfig,
         SurgicalHubertHydraConfig, TrainConfig,
@@ -859,7 +1059,7 @@ def surgical_hubert_hydra_config(dataset_path: Path):
             ),
         ),
         train=TrainConfig(
-            lr=1e-3, batch_size=32, max_epochs=TRAIN_EPOCHS, seed=0, precision="bf16",
+            lr=1e-3, batch_size=32, max_epochs=TRAIN_EPOCHS, seed=0, precision=precision,
             dataloader=DataloaderConfig(num_workers=1),
         ),
     )
@@ -931,7 +1131,7 @@ def phase_train(card: str) -> dict:
         trainer.train_step = first_step_probe
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        logmel.launches = attention.launches = attention.bwd_launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         result = trainer.fit(dm)
         torch.cuda.synchronize()
@@ -996,6 +1196,250 @@ def phase_train(card: str) -> dict:
     return launches
 
 
+def reset_launches() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from segma_tpu_torch.ops import attention, logmel
+
+    logmel.launches = 0
+    attention.launches = attention.bwd_launches = 0
+    attention.launches_f32 = attention.bwd_launches_f32 = 0
+
+
+def read_launches() -> dict:
+    from segma_tpu_torch.ops import attention, logmel
+
+    return {"logmel": logmel.launches, "flash_attn_fwd": attention.launches,
+            "flash_attn_bwd": attention.bwd_launches,
+            "flash_attn_fwd_f32": attention.launches_f32,
+            "flash_attn_bwd_f32": attention.bwd_launches_f32}
+
+
+def tf32_flags() -> tuple[bool, bool]:
+    import torch
+
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+def phase_serve_f32(card: str) -> dict:
+    """The serving slice's WAV through full-width ``surgical_hydra`` with
+    train.precision=f32, under PyTorch's default TF32 flags: the f32
+    forward kernel on every attention, the flags unchanged after the run,
+    the RTTM parsed, device time by kernel, and the card's logits for the
+    first two chunks against the same model on the CPU f32 plain path at
+    LOGITS_F32_ATOL. Returns the launch counts of the run."""
+    import warnings
+
+    import torch
+
+    from segma_tpu_torch.annotation import AudioAnnotation
+    from segma_tpu_torch.inference import Chunkyfier, _bucket, run_inference_on_audios
+    from segma_tpu_torch.models import Models
+    from segma_tpu_torch.models.geometry import ConvolutionSettings
+    from segma_tpu_torch.utils.encoders import MultiLabelEncoder
+
+    cfg = surgical_hydra_config("f32")
+    enc = MultiLabelEncoder(cfg.data.classes)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # random encoder weights, on purpose
+        model, model_cpu = (
+            Models["surgical_hydra"](enc, cfg, device=dev, generator=torch.Generator().manual_seed(0))
+            for dev in ("cuda", "cpu")
+        )
+    n_layers = model.module.enc_cfg.n_layers
+    ck = Chunkyfier(INNER_BATCH, cfg.audio.chunk_duration_f, ConvolutionSettings((320,), (320,), (0,)))
+    n_samples = N_CHUNKS * ck.chunk_stride + ck.missing_n_frames + 8_000
+    n_chunks = _bucket(-(-ck.total_frames(n_samples) // ck.n_windows))
+    n_inner = -(-n_chunks // min(INNER_BATCH, n_chunks))
+    flags = tf32_flags()
+    with tempfile.TemporaryDirectory() as tmp:
+        wav_dir = Path(tmp) / "wav"
+        wav_dir.mkdir()
+        pcm = write_wav(wav_dir / "smoke.wav", n_samples)
+        walls = []
+        for run in range(2):
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            run_inference_on_audios(cfg, wav_dir, None, Path(tmp) / f"out{run}", model=model,
+                                    device="cuda", batch_size=INNER_BATCH)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches = read_launches()
+            want = {"logmel": n_inner, "flash_attn_fwd": 0, "flash_attn_bwd": 0,
+                    "flash_attn_fwd_f32": n_layers * n_inner, "flash_attn_bwd_f32": 0}
+            if launches != want:
+                raise AssertionError(f"f32 serving launch counts {launches} != {want}")
+        if tf32_flags() != flags:
+            raise AssertionError(f"f32 serving changed the TF32 flags {flags} to {tf32_flags()}")
+        rttm = (Path(tmp) / "out1" / "raw_rttm" / "smoke.rttm").read_text()
+        segs = [AudioAnnotation.from_rttm(ln) for ln in rttm.splitlines() if ln.strip()]
+        if any(s.duration_s <= 0 or s.label not in cfg.data.classes for s in segs):
+            raise AssertionError("f32 RTTM holds a malformed segment")
+        print(f"slice f32 serving [{card}]: walls {walls[0]:.3f} s and {walls[1]:.3f} s "
+              f"({n_samples / 16_000 / walls[1]:.2f}x real time warm), {len(segs)} RTTM "
+              f"segments, launches {launches}, TF32 flags (cuDNN, matmul) {flags} before and "
+              f"after", flush=True)
+        profile_run(card, "serve f32", lambda: run_inference_on_audios(
+            cfg, wav_dir, None, Path(tmp) / "out_prof", model=model, device="cuda",
+            batch_size=INNER_BATCH,
+        ), walls[1])
+    x = torch.from_numpy(pcm[: 2 * ck.chunk_stride + ck.missing_n_frames].astype(np.float32) / 32768.0)
+    chunks = torch.stack([x[i * ck.chunk_stride : i * ck.chunk_stride + ck.chunk_duration_f]
+                          for i in range(2)])
+    with torch.inference_mode():
+        got = model.apply(chunks.cuda()).cpu()
+        ref = model_cpu.apply(chunks)
+    check_close("surgical_hydra logits, card vs CPU (2 chunks, f32, default TF32 flags)", got, ref,
+                LOGITS_F32_ATOL)
+    return launches
+
+
+def phase_train_f32(card: str) -> dict:
+    """Train full-width HuBERT-base ``surgical_hubert_hydra`` with
+    train.precision=f32 for two epochs through ``Trainer.fit`` on the card,
+    under PyTorch's default TF32 flags, writing checkpoints; the model is
+    ``checkpoint.build_model``'s, its weights drawn from train.seed. Checked:
+    finite losses, the f32 forward and backward kernels on every attention
+    and no bf16 one, the checkpoints (top-k, last/, best.ckpt, the frozen
+    fingerprint). Then the run directory is served through
+    ``run_inference_on_audios(checkpoint=...)`` on the card, RTTMs out, and
+    the model ``load_model_for_inference`` rebuilds gives the logits of the
+    in-memory model at the same epoch, bit for bit: the best epoch's (a
+    snapshot taken during fit) for best.ckpt, the final weights for last/.
+    Returns the training run's launch counts."""
+    import warnings
+
+    import torch
+
+    from segma_tpu_torch import checkpoint
+    from segma_tpu_torch.annotation import AudioAnnotation
+    from segma_tpu_torch.data import SegmaFileDataset, SegmentationDataLoader
+    from segma_tpu_torch.inference import InferencePipeline, _load_mono, run_inference_on_audios
+    from segma_tpu_torch.train import Trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "data"
+        write_dataset(root, TRAIN_CLASSES, (TRAIN_FILES, VAL_FILES, TEST_FILES), TRAIN_FILE_S)
+        cfg = surgical_hubert_hydra_config(root, "f32")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # random encoder weights, on purpose
+            model = checkpoint.build_model(cfg, device="cuda")
+        n_layers = model.module.enc_cfg.n_layers
+        ds = SegmaFileDataset.from_config(cfg)
+        ds.load(use_cache=False)
+        dm = SegmentationDataLoader(ds, model.label_encoder, cfg, model.conv_settings)
+        run_dir = Path(tmp) / "run"
+        trainer = Trainer(model=model, config=cfg, run_dir=run_dir)
+        best_state: dict = {}
+        ckpt_step = trainer.ckpt.step
+
+        def snapshot_best(epoch, score, trainable, meta):
+            before = trainer.ckpt.best_path
+            ckpt_step(epoch, score, trainable, meta)
+            if trainer.ckpt.best_path != before:
+                best_state.clear()
+                best_state.update({k: v.clone() for k, v in model.module.state_dict().items()})
+
+        trainer.ckpt.step = snapshot_best
+        flags = tf32_flags()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        history = trainer.fit(dm)["history"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        n_steps, n_val = len(dm.train_dataloader()), len(dm.val_dataloader())
+        want = {"logmel": 0, "flash_attn_fwd": 0, "flash_attn_bwd": 0,
+                "flash_attn_fwd_f32": n_layers * (n_steps + n_val) * TRAIN_EPOCHS,
+                "flash_attn_bwd_f32": n_layers * n_steps * TRAIN_EPOCHS}
+        if launches != want:
+            raise AssertionError(f"f32 training launch counts {launches} != {want}")
+        if tf32_flags() != flags:
+            raise AssertionError(f"f32 training changed the TF32 flags {flags} to {tf32_flags()}")
+        for h in history:
+            print(f"train f32 epoch {h['epoch']} [{card}]: train/loss {h['train/loss']:.6f}, "
+                  f"val/loss {h['val/loss']:.6f}, train time {h['train_time_s']:.3f} s, epoch "
+                  f"time {h['time_s']:.3f} s", flush=True)
+            if not all(np.isfinite([h["train/loss"], h["val/loss"]])):
+                raise AssertionError(f"f32 epoch {h['epoch']}: non-finite loss")
+        warm = history[-1]["train_time_s"]
+        print(f"train f32 slice [{card}]: fit wall {wall:.3f} s, warm step "
+              f"{1e3 * warm / n_steps:.3f} ms, launches {launches}", flush=True)
+
+        ckdir = run_dir / "checkpoints"
+        kept = sorted(p.name for p in ckdir.glob("epoch=*"))
+        best = (ckdir / "best.ckpt").resolve()
+        meta = checkpoint.load_meta(ckdir / "last")
+        fingerprint = checkpoint.frozen_fingerprint(checkpoint.flax_split(model)[1])
+        if (len(kept) != TRAIN_EPOCHS or best.name not in kept or meta["epoch"] != TRAIN_EPOCHS - 1
+                or meta["frozen_fingerprint"] != fingerprint):
+            raise AssertionError(f"checkpoints: kept {kept}, best {best.name}, last meta {meta}")
+        print(f"check f32 checkpoints: {kept}, best.ckpt -> {best.name}, last/ epoch "
+              f"{meta['epoch']}, frozen fingerprint {fingerprint[:12]}", flush=True)
+
+        x = torch.from_numpy(np.stack([
+            write_wav(Path(tmp) / f"probe{i}.wav", cfg.audio.chunk_duration_f, seed=10 + i)
+            for i in range(4)]).astype(np.float32) / 32768.0).cuda()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            served_last = checkpoint.load_model_for_inference(cfg, ckdir / "last", device="cuda")
+            served_best = checkpoint.load_model_for_inference(cfg, run_dir, device="cuda")
+        pairs = [("last/", served_last, model.apply(x))]
+        model.module.load_state_dict(best_state)  # the in-memory model at the best epoch
+        pairs.append((f"best.ckpt ({best.name})", served_best, model.apply(x)))
+        for label, served, want_logits in pairs:
+            got = served.apply(x)
+            diff = float((got - want_logits).abs().max())
+            if not torch.equal(got, want_logits):
+                raise AssertionError(f"served {label} logits differ from the trained model's "
+                                     f"by up to {diff:.3e}")
+            print(f"check served {label} logits equal the in-memory model's at that epoch "
+                  f"(4 chunks, bitwise; max |diff| {diff})", flush=True)
+        del served_last, served_best
+
+        # serve the run directory (its best.ckpt) on the card, and the in-memory
+        # model at that epoch, each threshold at the median of the label's
+        # frame probabilities on the test file so that both write segments
+        test_wavs = [root / "wav" / f"{u}.wav" for u in (root / "test.txt").read_text().split()]
+        pipe = InferencePipeline(model, batch_size=INNER_BATCH, device="cuda")
+        probs = np.concatenate([
+            1 / (1 + np.exp(-pipe.logits_for_audio(_load_mono(p)))) for p in test_wavs])
+        thresholds = {label: {"lower_bound": float(np.median(probs[:, i])), "upper_bound": 1.0}
+                      for i, label in enumerate(model.label_encoder.base_labels)}
+        reset_launches()
+        files = run_inference_on_audios(cfg, root / "wav", run_dir, Path(tmp) / "served",
+                                        uris=root / "test.txt", thresholds=thresholds,
+                                        device="cuda", batch_size=INNER_BATCH)
+        torch.cuda.synchronize()
+        served_launches = read_launches()
+        run_inference_on_audios(cfg, root / "wav", None, Path(tmp) / "in_memory", model=model,
+                                uris=root / "test.txt", thresholds=thresholds, device="cuda",
+                                batch_size=INNER_BATCH)
+        if files != test_wavs or served_launches["flash_attn_fwd_f32"] == 0:
+            raise AssertionError(f"served {files} with launches {served_launches}")
+        n_segs = 0
+        for p in files:
+            rttm = (Path(tmp) / "served" / "raw_rttm" / f"{p.stem}.rttm").read_text()
+            if rttm != (Path(tmp) / "in_memory" / "raw_rttm" / f"{p.stem}.rttm").read_text():
+                raise AssertionError(f"{p.name}: the checkpoint's RTTM differs from the trained "
+                                     "model's")
+            segs = [AudioAnnotation.from_rttm(ln) for ln in rttm.splitlines() if ln.strip()]
+            if not segs or any(s.duration_s <= 0 or s.label not in cfg.data.classes for s in segs):
+                raise AssertionError(f"{p.name}: served RTTM is empty or malformed")
+            n_segs += len(segs)
+        print(f"check f32 serving of the checkpoint [{card}]: {len(files)} file(s), {n_segs} "
+              f"RTTM segments (thresholds at the median probability), the same RTTM as the "
+              f"in-memory model's; launches {served_launches}", flush=True)
+        sampler = dm.train_dataloader().sampler
+        sampler.reseed(0)
+        batch = trainer._put(sampler.sample_batch(cfg.train.batch_size))
+        gen = torch.Generator("cuda").manual_seed(1)
+        trainer.train_step(batch, gen)
+        profile_run(card, "train f32 step", lambda: trainer.train_step(batch, gen), warm / n_steps)
+    return launches
+
+
 def profile_run(card: str, label: str, fn, wall_s: float) -> list[str]:
     """One more main-path run under torch.profiler: device time by kernel,
     and the device's busy share of ``wall_s``, the same run's wall time
@@ -1045,17 +1489,35 @@ def main() -> int:
     fwd["lse_max_abs_err"] = max(fwd["lse_max_abs_err"], fwd_train.pop("lse_max_abs_err"))
     fwd.update(fwd_train)  # the training shape's times, with and without the LSE
     rows.append(bwd_row)
+    rows.extend(flash_f32_checks(card))
     torch.cuda.empty_cache()
     serve = phase_slice(card)
     torch.cuda.empty_cache()
     train = phase_train(card)
+    torch.cuda.empty_cache()
+    # the f32 phases run under PyTorch's defaults, which let cuDNN take TF32:
+    # the f32 model itself keeps its convolutions and LSTM in IEEE f32
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("f32 phases: PyTorch's default flags, allow_tf32 True for cuDNN, False for matmul",
+          flush=True)
+    serve_f32 = phase_serve_f32(card)
+    torch.cuda.empty_cache()
+    train_f32 = phase_train_f32(card)
     # each row's launches come from the path that runs it: serving for the
-    # forward kernels (as before), training for the backward
+    # forward kernels, training for the backward ones (bf16 and f32)
     for row in rows:
-        row["launches"] = serve[row["name"]] if row["name"] in serve else train[row["name"]]
-    rows[1]["launches_train"] = train["flash_attn_fwd"]
+        name = row["name"]
+        if name.endswith("_f32"):
+            row["launches"] = serve_f32[name] if "fwd" in name else train_f32[name]
+        else:
+            row["launches"] = serve[name] if name in serve else train[name]
+    by_name = {row["name"]: row for row in rows}
+    by_name["flash_attn_fwd"]["launches_train"] = train["flash_attn_fwd"]
+    by_name["flash_attn_fwd_f32"]["launches_train"] = train_f32["flash_attn_fwd_f32"]
     print(json.dumps({"kernels": rows}), flush=True)
-    print(f"kernels: {json.dumps({'serve': serve, 'train': train})}", flush=True)
+    print(f"kernels: {json.dumps({'serve': serve, 'train': train, 'serve_f32': serve_f32, 'train_f32': train_f32})}",
+          flush=True)
     print(card, flush=True)
     print(json.dumps({
         "ok": True,

@@ -78,8 +78,6 @@ def main(names: list[str]) -> int:
     b, t = 64, 480_000
     g = torch.Generator(device="cuda").manual_seed(1)
     wav = torch.randn((b, t), device="cuda", generator=g) * 0.1
-    basis, meta, weights = logmel._kernel_tables(wav.device)
-    out = torch.empty((b, t // 160, 80), device="cuda")
     for name, (so, proc) in procs.items():
         text = proc.communicate()[0]
         for line in text.splitlines():
@@ -88,16 +86,9 @@ def main(names: list[str]) -> int:
         if proc.returncode != 0:
             raise RuntimeError(f"ablation {name} did not build")
         lib = ctypes.CDLL(str(so))
-        lib.segma_logmel.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-
-        def call(lib=lib):
-            err = lib.segma_logmel(wav.data_ptr(), basis.data_ptr(), meta.data_ptr(),
-                                   weights.data_ptr(), out.data_ptr(), b, t, t // 160,
-                                   torch.cuda.current_stream().cuda_stream)
-            if err != 0:
-                raise RuntimeError(f"segma_logmel returned {err}")
-
-        fns[name] = call
+        lib.segma_logmel.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.segma_logmel.restype = ctypes.c_int
+        fns[name] = lambda lib=lib: logmel.launch(lib, wav)
     times = chip_smoke.time_turns({"kept": lambda: logmel.log10_mel_cuda(wav), **fns})
     for name, ms in times.items():
         print(f"time logmel {name} ({b}, {t}) [{card}]: {chip_smoke.spread(ms)}", flush=True)

@@ -1,10 +1,11 @@
 """segma_tpu_torch: the PyTorch and CUDA port of segma_tpu for NVIDIA Hopper.
 
 Sliding-window speech segmentation (``surgical_hydra``: Whisper-base encoder,
-layer-weighted sum, BiLSTM, per-label heads) with the log-mel frontend and
-flash attention as hand-written CUDA kernels (``csrc/``). The package imports
-torch and numpy only. Its entry points run on the card unless the caller
-passes ``device="cpu"``.
+layer-weighted sum, BiLSTM, per-label heads; ``surgical_hubert_hydra``) with
+the log-mel frontend and flash attention as hand-written CUDA kernels
+(``csrc/``), training, and checkpoints in the JAX package's format. The
+package imports torch and numpy, and msgpack and yaml for checkpoints. Its
+entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations

@@ -101,6 +101,7 @@ class TrainConfig:
     precision: str = "bf16"  # compute dtype: bf16 | f32
     log_every_n_steps: int = 50  # per-step loss records; 0 disables
     early_stop_patience: int = 10
+    save_top_k: int = 5  # epoch checkpoints kept by the monitored metric; -1 keeps all
     class_weights: list[float] | None = None
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     dataloader: DataloaderConfig = field(default_factory=DataloaderConfig)
@@ -118,7 +119,6 @@ UNPORTED_TRAIN: dict[str, tuple] = {
     "remat": (False,),
     "profiler": (None,),
     "debug_nans": (False,),
-    "save_top_k": (5,),
     "host_rss_limit_gb": (None,),
     "val_every_n_epochs": (1,),
 }

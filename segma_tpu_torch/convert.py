@@ -1,5 +1,6 @@
-"""Weight bridge: a JAX ``surgical_hydra`` or ``surgical_hubert_hydra``
-parameter tree -> the port's ``state_dict``.
+"""Weight bridge between a JAX ``surgical_hydra`` or ``surgical_hubert_hydra``
+parameter tree and the port's ``state_dict``, both ways (``flax_to_torch``,
+``torch_to_flax``).
 
 The input is the flax params tree as nested dicts of numpy arrays (what
 ``jax.tree.map(np.asarray, params)`` gives); no JAX is needed here.
@@ -15,6 +16,9 @@ The input is the flax params tree as nested dicts of numpy arrays (what
   ``weight_ih_l{n}[_reverse]`` and ``weight_hh_l{n}[_reverse]``; ``h{g}.bias``
   goes into ``bias_hh`` and ``bias_ih`` is zero (the inverse of
   ``segma_tpu/convert_reference.py:_convert_lstm``).
+
+``torch_to_flax`` inverts it; an LSTM's two biases go into ``h{g}.bias`` as
+their sum, the one bias a flax cell has.
 """
 
 from __future__ import annotations
@@ -78,6 +82,65 @@ def flax_to_torch(params: dict[str, Any], bidirectional: bool = True) -> dict[st
         for name, t in lstm_state(params[_LSTM_MODULE], bidirectional).items():
             state[f"{_LSTM_MODULE}.lstm.{name}"] = t
     return state
+
+
+def _flax_path(name: str) -> list[str]:
+    """``encoder.layers.0.attention`` -> ``['encoder', 'layers_0', 'attention']``."""
+    parts: list[str] = []
+    for part in name.split(".") if name else []:
+        if part.isdigit() and parts:
+            parts[-1] = f"{parts[-1]}_{part}"
+        else:
+            parts.append(part)
+    return parts
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
+def lstm_cells(lstm: torch.nn.LSTM) -> dict[str, Any]:
+    """``torch.nn.LSTM`` parameters -> flax BiLSTM cells (``lstm_state``'s
+    inverse): per gate, ``i{g}`` and ``h{g}`` kernels and the sum of the two
+    biases as ``h{g}.bias``."""
+    n_dirs = 2 if lstm.bidirectional else 1
+    cells: dict[str, Any] = {}
+    for layer in range(lstm.num_layers):
+        for direction in range(n_dirs):
+            suffix = f"l{layer}" + ("_reverse" if direction else "")
+            w_ih, w_hh, b_ih, b_hh = (
+                np.split(_numpy(getattr(lstm, f"{kind}_{suffix}")), 4)
+                for kind in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")
+            )
+            cell = {}
+            for g, wi, wh, bi, bh in zip(_GATES, w_ih, w_hh, b_ih, b_hh):
+                cell[f"i{g}"] = {"kernel": np.ascontiguousarray(wi.T)}
+                cell[f"h{g}"] = {"kernel": np.ascontiguousarray(wh.T), "bias": bh + bi}
+            cells[f"OptimizedLSTMCell_{layer * n_dirs + direction}"] = cell
+    return cells
+
+
+def torch_to_flax(module: torch.nn.Module) -> dict[str, Any]:
+    """A ``WhisperSegModule`` or ``HubertSegModule`` -> the JAX params tree
+    (nested dicts of f32 numpy arrays, flax's names and layouts)."""
+    tree: dict[str, Any] = {}
+    for name, t in module.state_dict().items():
+        if name.split(".")[0] == _LSTM_MODULE:
+            continue
+        *mods, leaf = name.split(".")
+        owner = module.get_submodule(".".join(mods))
+        a = _numpy(t)
+        if leaf == "weight" and isinstance(owner, (torch.nn.Linear, torch.nn.Conv1d)):
+            leaf, a = "kernel", (a.transpose(2, 1, 0) if a.ndim == 3 else a.T)
+        elif leaf == "weight" and isinstance(owner, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
+            leaf = "scale"
+        node = tree
+        for part in _flax_path(".".join(mods)):
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(a)
+    if hasattr(module, _LSTM_MODULE):
+        tree[_LSTM_MODULE] = lstm_cells(getattr(module, _LSTM_MODULE).lstm)
+    return tree
 
 
 def load_flax_params(module: torch.nn.Module, params: dict[str, Any]) -> None:

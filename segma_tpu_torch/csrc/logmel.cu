@@ -26,13 +26,26 @@
 // hi B_hi keeps about 21 bits of every product at three TF32 products, a
 // floor of 0.37 ms at the tensor cores' 495 TFLOP/s.
 //
-// Accumulation. The tensor cores' f32 sums truncate, so a sum carried through
-// all 150 products of a chunk drifts toward zero by more than the f32 plain
-// version's own error where a bin's terms cancel. Here the small terms
-// lo B_hi + hi B_lo (2^-11 of the others) go to their own accumulator, where
-// that drift is negligible; the large terms hi B_hi of each 16 samples go to
-// a fresh one (zero_d), added into the chunk's sum in IEEE f32 on the CUDA
-// cores; the two are added at the chunk's end.
+// Accumulation. The tensor cores' f32 sums truncate: each sum a product
+// group ends in loses up to one ulp of the terms it adds, twice the reach of
+// a round to nearest. Where a bin's terms cancel, that error is large next to
+// the bin. So the large terms hi B_hi of each 16 samples go to a fresh
+// accumulator (zero_d), added into the chunk's sum in IEEE f32 on the CUDA
+// cores; the small terms lo B_hi + hi B_lo (2^-11 of the others) stay in one
+// accumulator across the chunk (restarting it per block makes no output more
+// exact); the two are added at the chunk's end.
+//
+// Each frame's mean out first. A signal with low-frequency content rides on
+// an offset that is large next to its quiet bins (brown noise, hum, a
+// microphone's DC): every product, so every truncation, scales with it. The
+// consumers take each frame's mean m (its 400 samples summed in f32 in a
+// fixed order) out of its samples before the split, carrying the rounding of
+// x - m exactly into the low part (TwoSum), and add m times the basis' column
+// sums (ops/logmel.py, kernel_colsums: 200 and -100 at bins 0 and 1, about 0
+// elsewhere) to each bin at the chunk's end: the DFT is linear. On brown
+// noise this takes the outputs more than 1e-5 from float64 from 2.4x the
+// plain version's count to none (PERF.md). A fresh large-term accumulator
+// per 8 samples, without the mean taken out, took out only 12% of them.
 //
 // Design. A work item is 128 consecutive frames of one example; one
 // persistent block per SM walks the items. Three warpgroups:
@@ -47,7 +60,8 @@
 //    cp.async, with the reflection folded into the source index: no padded
 //    copy of the waveform exists. Two span buffers let the next item's
 //    samples land while this one runs.
-//  - Warpgroups 1 and 2: 64 frames each. Sample n of frame r is span row
+//  - Warpgroups 1 and 2: 64 frames each. Per item, the means of the frames
+//    from the span first. Sample n of frame r is span row
 //    r + n / 160, column n % 160 (frames overlap by 240 samples), which a
 //    register A operand reads at any offset: each thread loads its m16n8k8
 //    fragments and splits them with cvt.rna.tf32. Per k-step of 8 samples,
@@ -160,11 +174,13 @@ __device__ __forceinline__ void add_block(float (&acc)[40], float (&blk)[40]) {
 __global__ void __launch_bounds__(THREADS, 1)
 logmel_kernel(const __grid_constant__ CUtensorMap map_basis, const float* __restrict__ wav,
               const int* __restrict__ mel_meta, const float* __restrict__ mel_weights,
+              const float* __restrict__ colsum,
               float* __restrict__ out, int T, int n_frames, int n_ft, int n_items) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * STAGES + 2 * SPAN_BUFS + 2];
   __shared__ int s_meta[MEL_TABLE];
   __shared__ float s_weight[MEL_TABLE];
+  __shared__ float s_colsum[NCHUNK * 2 * NCB];
 
   // 64-byte swizzled tiles need 512-byte aligned bases
   const uint32_t raw = smem_addr(smem_raw);
@@ -183,6 +199,7 @@ logmel_kernel(const __grid_constant__ CUtensorMap map_basis, const float* __rest
     s_meta[i] = mel_meta[i];
     s_weight[i] = mel_weights[i];
   }
+  for (int i = threadIdx.x; i < NCHUNK * 2 * NCB; i += THREADS) s_colsum[i] = colsum[i];
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full_bar + 8 * s, 1);
@@ -283,6 +300,21 @@ logmel_kernel(const __grid_constant__ CUtensorMap map_basis, const float* __rest
       // this thread's fragment rows: 64 c + 16 warp + lane / 4, and + 8
       const float* arow = span + (64 * c + 16 * warp + lane / 4) * SPAN_LD + quad;
       mbar_wait(span_full + 8 * buf, (round / SPAN_BUFS) & 1);
+      // the means of this thread's frames, rows r and r + 8: the 4 threads of a
+      // quad read all 400 samples of both between them, in a fixed order
+      float mean0 = 0.f, mean1 = 0.f;
+      for (int kb = 0; kb < NKB; ++kb) {
+        float x[2][4];
+        load_fragments(x, arow, kb);
+        mean0 += (x[0][0] + x[0][2]) + (x[1][0] + x[1][2]);
+        mean1 += (x[0][1] + x[0][3]) + (x[1][1] + x[1][3]);
+      }
+      mean0 += __shfl_xor_sync(0xffffffffu, mean0, 1);
+      mean0 += __shfl_xor_sync(0xffffffffu, mean0, 2);
+      mean1 += __shfl_xor_sync(0xffffffffu, mean1, 1);
+      mean1 += __shfl_xor_sync(0xffffffffu, mean1, 2);
+      mean0 *= 1.f / NFFT;
+      mean1 *= 1.f / NFFT;
 
       for (int ch = 0; ch < NCHUNK; ++ch, ++pchunk) {
         // acc[4 j + 2 i + e] is (row + 8 i, column 8 j + 2 quad + e): re of bin
@@ -310,8 +342,14 @@ logmel_kernel(const __grid_constant__ CUtensorMap map_basis, const float* __rest
           for (int s = 0; s < 2; ++s) {
 #pragma unroll
             for (int r = 0; r < 4; ++r) {
-              hi[s][r] = to_tf32(x[s][r]);
-              lo[s][r] = to_tf32(x[s][r] - __uint_as_float(hi[s][r]));
+              // x - mean as xc + err exactly (TwoSum), split into TF32 hi and
+              // lo; x[s][0], x[s][2] are of row r, x[s][1], x[s][3] of row r + 8
+              const float m = (r & 1) ? mean1 : mean0;
+              const float xc = x[s][r] - m;
+              const float bb = xc - x[s][r];
+              const float err = (x[s][r] - (xc - bb)) + (-m - bb);
+              hi[s][r] = to_tf32(xc);
+              lo[s][r] = to_tf32((xc - __uint_as_float(hi[s][r])) + err);
             }
           }
           // the stage: B_hi then B_lo, 80 rows each (40 cos, 40 sin bins); k-step
@@ -337,6 +375,16 @@ logmel_kernel(const __grid_constant__ CUtensorMap map_basis, const float* __rest
         add_block(acc, blk);
 #pragma unroll
         for (int i = 0; i < 40; ++i) acc[i] += sml[i];
+        // the means' share: mean times the column sum of the basis, per bin
+#pragma unroll
+        for (int j = 0; j < 10; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float cs = s_colsum[ch * 2 * NCB + 8 * j + 2 * quad + e];
+            acc[4 * j + e] = fmaf(mean0, cs, acc[4 * j + e]);
+            acc[4 * j + 2 + e] = fmaf(mean1, cs, acc[4 * j + 2 + e]);
+          }
+        }
 
         // power into the shared tile, once the mel warps have read the last one
         if (pchunk > 0) mbar_wait(power_empty, (pchunk - 1) & 1);
@@ -366,11 +414,13 @@ logmel_kernel(const __grid_constant__ CUtensorMap map_basis, const float* __rest
 // 400) f32, 16-byte aligned: the hi and the lo part, each 5 chunks of 40 cos
 // rows then 40 sin rows, one row of 400 samples per bin.
 // mel_meta (int) and mel_weights (f32), (5, 2, 40) each: the sparse
-// filterbank bin by bin, from ops/logmel.py. out: (batch, n_frames, 80) f32
+// filterbank bin by bin, from ops/logmel.py. colsum: (5, 80) f32, per chunk
+// the column sums of its 40 cos then 40 sin rows of the f32 basis (ops/logmel.py,
+// kernel_colsums). out: (batch, n_frames, 80) f32
 // with n_frames = T / 160. Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue when the tensor map cannot be encoded.
 extern "C" int segma_logmel(const float* wav, const float* basis, const int* mel_meta,
-                            const float* mel_weights, float* out, int batch, int T, int n_frames,
+                            const float* mel_weights, const float* colsum, float* out, int batch, int T, int n_frames,
                             void* stream) {
   const EncodeTiledFn encode = encode_tiled();
   alignas(64) CUtensorMap map;
@@ -393,6 +443,6 @@ extern "C" int segma_logmel(const float* wav, const float* basis, const int* mel
   cudaFuncSetAttribute(logmel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   logmel_kernel<<<n_items < n_sm ? n_items : n_sm, THREADS, SMEM_BYTES,
                   static_cast<cudaStream_t>(stream)>>>(
-      map, wav, mel_meta, mel_weights, out, T, n_frames, n_ft, n_items);
+      map, wav, mel_meta, mel_weights, colsum, out, T, n_frames, n_ft, n_items);
   return static_cast<int>(cudaGetLastError());
 }

@@ -571,19 +571,26 @@ def run_inference_on_audios(
     """Batch entry point: per-file inference over ``wavs`` with RTTMs under
     ``output / rttm_dirname``. Returns the files that got an RTTM, in order.
 
-    ``model`` is required and carries its own config (``config`` is read
-    only to build a model from a checkpoint, which is not ported yet), so
-    ``checkpoint`` must be None. Files are read and served one after the
-    other; a file that cannot be decoded is reported and skipped.
+    The model is ``model`` (which carries its own config), or else the one
+    ``checkpoint.load_model_for_inference`` builds from ``config`` (a
+    ``Config`` or a YAML path) and ``checkpoint`` (a checkpoint dir, a
+    ``best.ckpt`` link or a run dir; None: the random weights of
+    ``train.seed``). Passing both ``model`` and ``checkpoint`` raises. Files
+    are read and served one after the other; a file that cannot be decoded
+    is reported and skipped.
     """
     dev = resolve_device(device)
     output = Path(output)
     thresholds = load_thresholds(thresholds)
     files_to_infer_on, n_files = get_list_of_files_to_process(Path(wavs), recursive, uris)
-    if model is None or checkpoint is not None:
-        raise NotImplementedError(
-            "loading checkpoints is not ported: pass model= and checkpoint=None"
-        )
+    if model is not None and checkpoint is not None:
+        raise ValueError("pass model= or checkpoint=, not both")
+    if model is None:
+        from segma_tpu_torch.checkpoint import load_model_for_inference
+        from segma_tpu_torch.config import load_config
+
+        cfg = config if isinstance(config, Config) else load_config(config)
+        model = load_model_for_inference(cfg, checkpoint, device=dev)
     pipeline = InferencePipeline(model, batch_size=batch_size, device=dev)
     thr = thresholds or default_thresholds(model.label_encoder.base_labels)
     failed: list[Path] = []

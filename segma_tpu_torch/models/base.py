@@ -9,8 +9,9 @@ of the optimizer, the role of ``optax.masked`` over ``trainable_mask``.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Sequence
+from typing import ContextManager, Sequence
 
 import torch
 from torch import nn
@@ -19,7 +20,22 @@ from segma_tpu_torch.config import Config
 from segma_tpu_torch.models.geometry import ConvolutionSettings
 from segma_tpu_torch.utils.encoders import MultiLabelEncoder
 
-__all__ = ["ConvolutionSettings", "SegmentationModel", "bce_with_logits", "hydra_loss"]
+__all__ = [
+    "ConvolutionSettings", "SegmentationModel", "bce_with_logits", "hydra_loss", "ieee_f32",
+]
+
+
+def ieee_f32(dtype: torch.dtype) -> ContextManager:
+    """For a model that computes in f32: cuDNN (the conv stems, HuBERT's
+    positional conv, the LSTM) without TF32 while the context is open, the
+    caller's flags restored on exit. PyTorch's default lets cuDNN take TF32
+    for f32 inputs (``torch.backends.cudnn.allow_tf32``); f32 matmuls
+    already run in IEEE f32 by default. Other dtypes: no change."""
+    if dtype != torch.float32:
+        return contextlib.nullcontext()
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -70,6 +86,11 @@ class SegmentationModel:
     @property
     def n_labels(self) -> int:
         return len(self.label_encoder.base_labels)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The encoder's compute dtype (``train.precision``)."""
+        return self.module.encoder.dtype
 
     @property
     def n_windows(self) -> int:

@@ -22,7 +22,7 @@ from torch import nn
 
 from segma_tpu_torch import resolve_device
 from segma_tpu_torch.config import Config
-from segma_tpu_torch.models.base import ConvolutionSettings, SegmentationModel
+from segma_tpu_torch.models.base import ConvolutionSettings, SegmentationModel, ieee_f32
 from segma_tpu_torch.models.hubert.encoder import (
     FeatureExtractor,
     HubertEncoderConfig,
@@ -79,19 +79,20 @@ class HubertSegModule(nn.Module):
         self, wav: torch.Tensor, train: bool = False, generator: torch.Generator | None = None
     ) -> torch.Tensor:
         """``train=True`` applies dropout with masks from ``generator``."""
-        with torch.no_grad():  # the CNN front end is always frozen
-            feats = self.feature_extractor(wav)
-        _, hidden = self.encoder(feats, output_hidden_states=True)
-        layer_outputs = hidden[1:]
-        stacked = torch.stack([layer_outputs[i] for i in self.picks])
-        if self.freeze_encoder:
-            stacked = stacked.detach()
-        x = self.layer_mix(stacked)
-        if train and self.dropout > 0:
-            if generator is None:
-                raise ValueError("training with dropout needs a torch.Generator")
-            x = dropout(x, self.dropout, generator)
-        return self.heads(x).float()
+        with ieee_f32(self.encoder.dtype):
+            with torch.no_grad():  # the CNN front end is always frozen
+                feats = self.feature_extractor(wav)
+            _, hidden = self.encoder(feats, output_hidden_states=True)
+            layer_outputs = hidden[1:]
+            stacked = torch.stack([layer_outputs[i] for i in self.picks])
+            if self.freeze_encoder:
+                stacked = stacked.detach()
+            x = self.layer_mix(stacked)
+            if train and self.dropout > 0:
+                if generator is None:
+                    raise ValueError("training with dropout needs a torch.Generator")
+                x = dropout(x, self.dropout, generator)
+            return self.heads(x).float()
 
 
 def build_hubert_model(

@@ -17,7 +17,7 @@ from torch import nn
 
 from segma_tpu_torch import resolve_device
 from segma_tpu_torch.config import Config, LSTMConfig
-from segma_tpu_torch.models.base import ConvolutionSettings, SegmentationModel
+from segma_tpu_torch.models.base import ConvolutionSettings, SegmentationModel, ieee_f32
 from segma_tpu_torch.models.layers import BiLSTM, HydraHeads, LayerWeightedSum
 from segma_tpu_torch.models.whisper.encoder import WhisperEncoder, WhisperEncoderConfig
 from segma_tpu_torch.ops.melspec import whisper_input_features
@@ -66,13 +66,14 @@ class WhisperSegModule(nn.Module):
         self.heads = HydraHeads(self.lstm_shared.out_features, n_labels)
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
-        feats = whisper_input_features(wav)  # (B, 80, 3000)
-        _, hidden = self.encoder(feats, output_hidden_states=True)
-        layer_outputs = hidden[1:]  # per-layer outputs, HF indexing
-        x = self.layer_mix(torch.stack([layer_outputs[i] for i in self.picks]))
-        # truncation after the LSTM: it runs over the padded 1500 frames
-        x = self.lstm_shared(x, keep=self.n_windows)
-        return self.heads(x).float()
+        with ieee_f32(self.encoder.dtype):
+            feats = whisper_input_features(wav)  # (B, 80, 3000)
+            _, hidden = self.encoder(feats, output_hidden_states=True)
+            layer_outputs = hidden[1:]  # per-layer outputs, HF indexing
+            x = self.layer_mix(torch.stack([layer_outputs[i] for i in self.picks]))
+            # truncation after the LSTM: it runs over the padded 1500 frames
+            x = self.lstm_shared(x, keep=self.n_windows)
+            return self.heads(x).float()
 
 
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -151,4 +152,5 @@ def build_whisper_model(
         label_encoder=label_encoder,
         config=config,
         device=dev,
+        frozen_prefixes=("encoder",),  # as the JAX builder: the encoder is frozen
     )

@@ -104,13 +104,17 @@ def library() -> ctypes.CDLL:
                 build()
             lib = ctypes.CDLL(str(LIB_PATH))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.segma_logmel.argtypes = [p, p, p, p, p, i, i, i, p]
+            lib.segma_logmel.argtypes = [p, p, p, p, p, p, i, i, i, p]
             lib.segma_logmel.restype = i
             f = ctypes.c_float
             lib.segma_flash_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, f, p]
             lib.segma_flash_attn_fwd.restype = i
             lib.segma_flash_attn_bwd.argtypes = [p] * 10 + [i, i, i, f, f, p]
             lib.segma_flash_attn_bwd.restype = i
+            lib.segma_flash_attn_fwd_f32.argtypes = [p, p, p, p, p, i, i, i, f, p]
+            lib.segma_flash_attn_fwd_f32.restype = i
+            lib.segma_flash_attn_bwd_f32.argtypes = [p] * 10 + [i, i, i, f, f, p]
+            lib.segma_flash_attn_bwd_f32.restype = i
             _lib = lib
     return _lib
 

@@ -112,13 +112,25 @@ def kernel_basis() -> np.ndarray:
     return np.stack(split_tf32(rows.reshape(2 * N_BINS, N_FFT)))
 
 
+def kernel_colsums() -> np.ndarray:
+    """(5, 80) f32: per chunk of 40 bins, the column sums over the 400
+    samples of the f32 cos and then sin basis (``dft_basis``), summed in
+    float64. The kernel takes each frame's mean out of its samples before the
+    products and adds mean x column sum back: the DFT is linear."""
+    cos_b, sin_b = dft_basis()
+    sums = np.stack([b[:, :N_BINS].astype(np.float64).sum(0) for b in (cos_b, sin_b)])
+    n_chunks = N_BINS // N_CHUNK_BINS
+    return sums.reshape(2, n_chunks, N_CHUNK_BINS).transpose(1, 0, 2).reshape(
+        n_chunks, 2 * N_CHUNK_BINS).astype(np.float32)
+
+
 @lru_cache(maxsize=8)
 def _kernel_tables(device: torch.device) -> tuple[torch.Tensor, ...]:
-    """``kernel_basis`` and the sparse filterbank's ``meta`` and ``weights``
-    (``mel_bin_tables``), on ``device``."""
+    """``kernel_basis``, the sparse filterbank's ``meta`` and ``weights``
+    (``mel_bin_tables``) and ``kernel_colsums``, on ``device``."""
     return tuple(
         torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        for a in (kernel_basis(), *mel_bin_tables())
+        for a in (kernel_basis(), *mel_bin_tables(), kernel_colsums())
     )
 
 
@@ -137,6 +149,23 @@ def log10_mel_plain(wav: torch.Tensor) -> torch.Tensor:
     return torch.log10(torch.clamp(mel, min=1e-10))
 
 
+def launch(lib, wav: torch.Tensor) -> torch.Tensor:
+    """Launch ``segma_logmel`` of the kernel library ``lib`` on a contiguous
+    (B, T) f32 CUDA waveform, T > 200; not counted (``logmel_ablations.py``
+    launches its variants of the kernel through it)."""
+    b, t = wav.shape
+    n_frames = _n_frames(t)
+    basis, meta, weights, colsum = _kernel_tables(wav.device)
+    out = torch.empty((b, n_frames, N_MELS), dtype=torch.float32, device=wav.device)
+    err = lib.segma_logmel(
+        wav.data_ptr(), basis.data_ptr(), meta.data_ptr(), weights.data_ptr(),
+        colsum.data_ptr(), out.data_ptr(), b, t, n_frames,
+        torch.cuda.current_stream(wav.device).cuda_stream,
+    )
+    _build.check(err, "segma_logmel")
+    return out
+
+
 def log10_mel_cuda(wav: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on a (B, T) f32 CUDA waveform."""
     global launches
@@ -149,17 +178,8 @@ def log10_mel_cuda(wav: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"waveform of {t} samples is too short to reflect-pad")
     if b == 0:
         raise ValueError("empty batch")
-    wav = wav.contiguous()  # read unpadded: the kernel reflects the edges as it loads
-    n_frames = _n_frames(t)
-    basis, meta, weights = _kernel_tables(wav.device)
-    out = torch.empty((b, n_frames, N_MELS), dtype=torch.float32, device=wav.device)
-    lib = _build.library()
-    err = lib.segma_logmel(
-        wav.data_ptr(), basis.data_ptr(), meta.data_ptr(), weights.data_ptr(),
-        out.data_ptr(), b, t, n_frames,
-        torch.cuda.current_stream(wav.device).cuda_stream,
-    )
-    _build.check(err, "segma_logmel")
+    # read unpadded: the kernel reflects the edges as it loads
+    out = launch(_build.library(), wav.contiguous())
     launches += 1
     return out
 

@@ -15,13 +15,18 @@ Dropout masks come from a ``torch.Generator`` on the training device,
 seeded from ``(train.seed, epoch)``; they cannot reproduce JAX's dropout
 stream.
 
-Not ported yet: checkpoints and resume (``fit`` writes none), epoch
+``fit`` writes a checkpoint after every epoch in the JAX package's format
+(``checkpoint.CheckpointManager``: top-k by the monitored metric, ``last/``,
+``best.ckpt``), with the frozen parameters' fingerprint in its metadata.
+
+Not ported yet: optimizer and train state in ``last/`` and resume, epoch
 dispatch and the device audio cache, gradient accumulation, the cosine
 schedule, int16 transport, remat, AUROC metrics and multi-process training.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -31,8 +36,9 @@ import numpy as np
 import torch
 
 from segma_tpu_torch import resolve_device
+from segma_tpu_torch.checkpoint import CheckpointManager, flax_split, frozen_fingerprint
 from segma_tpu_torch.config import Config
-from segma_tpu_torch.models.base import SegmentationModel
+from segma_tpu_torch.models.base import SegmentationModel, ieee_f32
 from segma_tpu_torch.ops.metrics import binary_counts, f1_from_counts
 from segma_tpu_torch.utils.logging import MetricsLogger
 
@@ -128,13 +134,15 @@ def make_train_step(
 ) -> Callable[[dict[str, torch.Tensor], torch.Generator | None], tuple[torch.Tensor, torch.Tensor]]:
     """One step: forward with ``train=True``, hydra loss, backward, AdamW.
     The step updates the module's parameters in place and returns the
-    (loss, per_label) of the batch, on the device."""
+    (loss, per_label) of the batch, on the device. An f32 model's step runs
+    without TF32 in cuDNN, its backward included (``ieee_f32``)."""
 
     def train_step(batch: dict[str, torch.Tensor], generator: torch.Generator | None):
         optimizer.zero_grad(set_to_none=True)
-        logits = model.module(batch["x"], train=True, generator=generator)
-        loss, per_label = model.loss(logits, batch["y"])
-        loss.backward()
+        with ieee_f32(model.compute_dtype):
+            logits = model.module(batch["x"], train=True, generator=generator)
+            loss, per_label = model.loss(logits, batch["y"])
+            loss.backward()
         optimizer.step()
         return loss.detach(), per_label.detach()
 
@@ -161,7 +169,9 @@ def _sync(device: torch.device) -> None:
 @dataclass
 class Trainer:
     """The training loop over a datamodule's loaders. Runs on the card
-    unless ``device="cpu"``."""
+    unless ``device="cpu"``. Checkpoints go to ``run_dir / "checkpoints"``;
+    a model built by ``checkpoint.build_model`` (weights from ``train.seed``)
+    can be served from them by ``checkpoint.load_model_for_inference``."""
 
     model: SegmentationModel
     config: Config
@@ -182,6 +192,10 @@ class Trainer:
         self.train_step = make_train_step(self.model, self.optimizer)
         self.scheduler = ReduceLROnPlateau(self.mode, tc.scheduler.patience)
         self.early_stopping = EarlyStopping(self.mode, patience=tc.early_stop_patience)
+        self.ckpt = CheckpointManager(
+            self.run_dir / "checkpoints", monitor=self.monitor, mode=self.mode,
+            save_top_k=tc.save_top_k,
+        )
 
     def _put(self, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         return {k: torch.from_numpy(v).to(self.device, non_blocking=True) for k, v in batch.items()}
@@ -231,8 +245,8 @@ class Trainer:
 
     def fit(self, datamodule: Any) -> dict[str, Any]:
         """Train for ``max_epochs`` (or ``train.max_epochs``) epochs, with
-        validation, plateau LR and early stopping after each. Writes
-        ``metrics.jsonl`` under ``run_dir``; writes no checkpoints."""
+        validation, plateau LR, a checkpoint and early stopping after each.
+        Writes ``metrics.jsonl`` and ``checkpoints/`` under ``run_dir``."""
         tc = self.config.train
         seed = tc.seed if tc.seed is not None else 0
         trainable, frozen = self.model.split_state()
@@ -240,6 +254,14 @@ class Trainer:
             "n_params_trainable": sum(int(v.numel()) for v in trainable.values()),
             "n_params_frozen": sum(int(v.numel()) for v in frozen.values()),
         })
+        # metadata of every checkpoint: the config, the monitored metric and
+        # the frozen tree's fingerprint, which inference checks its rebuilt
+        # frozen parameters against
+        meta: dict[str, Any] = {"config": dataclasses.asdict(self.config),
+                                "monitor": self.monitor}
+        frozen_tree = flax_split(self.model)[1]
+        if frozen_tree:
+            meta["frozen_fingerprint"] = frozen_fingerprint(frozen_tree)
         train_loader = datamodule.train_dataloader()
         val_loader = datamodule.val_dataloader()
         max_epochs = self.max_epochs or tc.max_epochs
@@ -267,6 +289,7 @@ class Trainer:
                 raise ValueError(f"monitored metric {self.monitor!r} missing from val metrics")
             if self.scheduler.step(monitored):
                 set_learning_rate(self.optimizer, tc.lr * self.scheduler.scale)
+            self.ckpt.step(epoch, monitored, flax_split(self.model)[0], meta)
             if self.early_stopping.step(monitored):
                 self.logger.log({"early_stop": epoch})
                 break

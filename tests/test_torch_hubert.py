@@ -198,3 +198,22 @@ def test_dropout_only_in_training():
     assert not torch.allclose(tr_a, eval_a) and not torch.allclose(tr_a, tr_c)
     with pytest.raises(ValueError, match="Generator"):
         model.module(wav, train=True)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_f32_model_keeps_cudnn_out_of_tf32(precision):
+    """An f32 model runs with cuDNN's TF32 off (its convolutions, on the
+    card, would otherwise take TF32 under PyTorch's default flags), and the
+    caller's flag is back after the call; a bf16 model leaves it alone."""
+    _, _, model = build_pair(precision)
+    seen = []
+    model.module.feature_extractor.register_forward_pre_hook(
+        lambda *_: seen.append(torch.backends.cudnn.allow_tf32))
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        model.apply(torch.from_numpy(_wav(16_000)))
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    assert seen == [precision != "f32"]

@@ -296,7 +296,7 @@ def test_entry_points_raise_without_cuda(models, monkeypatch, synthetic_dataset,
         tinf.InferencePipeline(model)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Models["surgical_hydra"](MultiLabelEncoder(cfg.data.classes), cfg)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    with pytest.raises(FileNotFoundError, match="checkpoint"):
         tinf.run_inference_on_audios(cfg, synthetic_dataset / "wav", "ckpt", tmp_path, device="cpu")
 
 

@@ -194,18 +194,35 @@ def _f32(a: np.ndarray) -> np.ndarray:
     return a.astype(np.float32).astype(np.float64)
 
 
-def _log10_mel_3xtf32(wav: np.ndarray) -> np.ndarray:
+def _log10_mel_3xtf32(
+    wav: np.ndarray, large_block: int = 16, restart_small: bool = False, large_sum=_rz32,
+    remove_mean: bool = True,
+) -> np.ndarray:
     """A numpy emulation of the kernel's arithmetic. Samples split in TF32
     (``split_tf32``, as ``cvt.rna.tf32.f32``); per k-step of 8 samples and
     chunk, the small terms lo B_hi then hi B_lo go into one tensor-core sum,
-    the large terms hi B_hi into a fresh one per 16 samples, each sum rounded
-    toward zero to f32 at every product; each block's large sum joins the
-    chunk's f32 sum on the CUDA cores (round to nearest), the small sum at
-    the chunk's end. Power, the sparse mel runs in bin order and log10 in
-    f32."""
+    the large terms hi B_hi into a fresh one per ``large_block`` samples
+    (the kernel: 16), each sum rounded toward zero to f32
+    (``large_sum`` for the large terms) at every product; each block's large
+    sum joins the chunk's f32 sum on the CUDA cores (round to nearest), the
+    small sum at the chunk's end (with ``restart_small``, per block like the
+    large one). With ``remove_mean`` (the kernel), each frame's f32 mean is
+    taken out of its samples before the split, x - mean rounded in f32 and
+    its rounding error carried exactly into the low part (TwoSum), and mean
+    x column sum of the basis (``kernel_colsums``) added to each bin at the
+    chunk's end. Power, the sparse mel runs in bin order and log10 in f32."""
     b_hi, b_lo = (p.astype(np.float64) for p in logmel.kernel_basis())
     frames = _span_frames(wav).reshape(-1, 400)
-    a_hi, a_lo = (p.astype(np.float64) for p in logmel.split_tf32(frames))
+    mean = np.zeros((frames.shape[0], 1), np.float32)
+    if remove_mean:
+        mean = (frames.astype(np.float64).sum(1, keepdims=True) / 400).astype(np.float32)
+    xc = frames - mean  # in f32
+    err = (frames.astype(np.float64) - mean) - xc  # exact: TwoSum's error term
+    hi = logmel.tf32_round(xc)
+    a_hi = hi.astype(np.float64)
+    a_lo = logmel.tf32_round(((xc - hi).astype(np.float64) + err).astype(np.float32))
+    a_lo = a_lo.astype(np.float64)
+    colsums = logmel.kernel_colsums().astype(np.float64)
     n = logmel.N_CHUNK_BINS
     power = np.zeros((frames.shape[0], logmel.N_BINS + 1), np.float32)
     for c in range(logmel.N_BINS // n):
@@ -218,10 +235,13 @@ def _log10_mel_3xtf32(wav: np.ndarray) -> np.ndarray:
             s = slice(k, k + 8)
             sml = _rz32(sml + a_lo[:, s] @ bh[s])
             sml = _rz32(sml + a_hi[:, s] @ bl[s])
-            blk = _rz32(blk + a_hi[:, s] @ bh[s])
-            if (k + 8) % 16 == 0:
+            blk = large_sum(blk + a_hi[:, s] @ bh[s])
+            if (k + 8) % large_block == 0:
                 acc, blk = _f32(acc + blk), np.zeros_like(blk)
-        acc = _f32(acc + sml).astype(np.float32)
+                if restart_small:
+                    acc, sml = _f32(acc + sml), np.zeros_like(sml)
+        acc = _f32(_f32(acc + sml) + mean.astype(np.float64) * colsums[c])
+        acc = acc.astype(np.float32)
         re, im = acc[:, :n], acc[:, n:]
         power[:, n * c : n * (c + 1)] = re * re + im * im
     mel = np.zeros((frames.shape[0], 80), np.float32)
@@ -260,3 +280,72 @@ def test_logmel_bound_is_the_bytes_at_the_serving_shape():
     assert b["fft_ops_ms"] == pytest.approx(0.0299, abs=1e-4)
     assert b["dense_dft_3xtf32_ms"] == pytest.approx(0.3742, abs=1e-4)
     assert b["dense_dft_f32_ms"] == pytest.approx(1.0138, abs=1e-4)
+
+
+def _bulk_count(got: np.ndarray, ref: np.ndarray) -> int:
+    return int((np.abs(got - ref) > ATOL).sum())
+
+
+@pytest.fixture(scope="module")
+def brown_bulk():
+    """Brown noise as chip_smoke.py draws it at (64, 64000), its first 4
+    rows: (waveform, float64 reference, the f32 plain version's count of
+    outputs more than 1e-5 from it)."""
+    wav = np.ascontiguousarray(
+        chip_smoke.wide_range_signals(8, 64 * 64_000)["brown"].reshape(64, 64_000)[:4])
+    ref = _log_mel_float64(wav)
+    plain = logmel.log_mel_spectrogram_plain(torch.from_numpy(wav)).numpy()
+    return wav, ref, _bulk_count(plain, ref)
+
+
+def _emulated_count(brown_bulk, **kw) -> int:
+    wav, ref, _ = brown_bulk
+    return _bulk_count(logmel.finish(torch.from_numpy(_log10_mel_3xtf32(wav, **kw))).numpy(), ref)
+
+
+def test_large_term_truncations_set_the_bulk_count(brown_bulk):
+    """Which accumulator sets how many brown-noise outputs lie more than 1e-5
+    from float64 (the kernel without the frame's mean taken out: 2.4x the
+    plain version's count on the card), and what the kernel does about it.
+    In the emulation with
+    truncating sums, without the frame's mean taken out: restarting the
+    small-term accumulator per block does not lower the count (one more
+    rounding per block); summing the large terms to nearest instead of
+    toward zero brings it to the plain version's; a fresh large-term sum per
+    8 samples takes out part of the excess (on the card: 12%). With each
+    frame's mean taken out first (the kernel), the large terms no longer
+    carry the frame's offset, and no output is more than 1e-5 off."""
+    _, _, plain = brown_bulk
+    no_mean = _emulated_count(brown_bulk, remove_mean=False)
+    restarted = _emulated_count(brown_bulk, restart_small=True, remove_mean=False)
+    nearest = _emulated_count(brown_bulk, large_sum=_f32, remove_mean=False)
+    per8 = _emulated_count(brown_bulk, large_block=8, remove_mean=False)
+    kernel = _emulated_count(brown_bulk)
+    print(f"brown (4, 64000) outputs more than 1e-5 from float64: plain {plain}, mean kept "
+          f"{no_mean}, "
+          f"small sum restarted {restarted}, large sums to nearest {nearest}, per 8 samples "
+          f"{per8}, kernel (mean out) {kernel}")
+    assert no_mean > 1.5 * plain
+    assert restarted >= 0.95 * no_mean
+    assert nearest <= 1.1 * plain
+    assert per8 < no_mean
+    assert kernel <= 0.1 * plain
+
+
+def test_kernel_colsums_carry_the_mean():
+    """The column sums of the f32 basis: 200 at bin 0's cos row and -100 at
+    bin 1's (the periodic Hann window's spectrum), under 1e-4 elsewhere; the
+    DFT of x is the DFT of x - m plus m times them, for any m."""
+    sums = logmel.kernel_colsums()
+    assert sums.shape == (5, 80)
+    cos_sums, sin_sums = sums[:, :40].reshape(-1), sums[:, 40:].reshape(-1)
+    assert cos_sums[0] == pytest.approx(200, abs=1e-3)
+    assert cos_sums[1] == pytest.approx(-100, abs=1e-3)
+    assert np.abs(cos_sums[2:]).max() < 1e-4 and np.abs(sin_sums).max() < 1e-4
+    cos_b, sin_b = (b[:, : logmel.N_BINS].astype(np.float64) for b in logmel.dft_basis())
+    x = _span_frames(_wav((1, 16_000), seed=6) + np.float32(0.3)).reshape(-1, 400)
+    x = x.astype(np.float64)
+    m = x.mean(1, keepdims=True)
+    for basis, col in ((cos_b, cos_sums), (sin_b, sin_sums)):
+        np.testing.assert_allclose((x - m) @ basis + m * col.astype(np.float64), x @ basis,
+                                   atol=1e-9 * np.abs(x @ basis).max())

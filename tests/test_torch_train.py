@@ -288,7 +288,10 @@ def test_trainer_fit_smoke_on_cpu(tmp_path):
     assert any("val/f1_score" in r for r in records)
     assert any("train/loss_step" in r for r in records)
     assert all(torch.equal(v, frozen[k]) for k, v in model.split_state()[1].items())
-    assert not list((tmp_path / "run").glob("checkpoints"))  # fit writes no checkpoints
+    # a checkpoint per epoch (the default save_top_k of 5 keeps both), last/, best.ckpt
+    ckdir = tmp_path / "run" / "checkpoints"
+    assert len(list(ckdir.glob("epoch=*"))) == 2
+    assert (ckdir / "last" / "params.msgpack").exists() and (ckdir / "best.ckpt").is_symlink()
 
 
 def test_trainer_defaults_to_the_card(tmp_path):
