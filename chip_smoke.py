@@ -36,12 +36,15 @@ exits nonzero without printing the final result line:
    are timed in turns (``time_turns``: the median of 5 groups of 20 calls,
    the device held by a spin kernel while the host queues each group), and
    every SDPA backend that takes the shape is timed; the fastest is the
-   ``library_ms``. The f32 forward and backward (IEEE f32 on the CUDA cores)
-   are checked at FLASH_F32_SHAPES and FLASH_F32_BWD_SHAPES against their
-   plain versions in f32 and in float64 (the JAX suite's f32 pins), bitwise
-   with and without the LSE and over two launches, and timed at both main
-   paths' shapes beside every SDPA backend that takes f32 (the refusals are
-   printed), with their bounds at the f32 CUDA-core peak.
+   ``library_ms``. The f32 forward (IEEE f32 on the CUDA cores) and
+   backward (3xTF32 on wgmma) are checked at FLASH_F32_SHAPES and
+   FLASH_F32_BWD_SHAPES against their plain versions in f32 and in float64
+   (the JAX suite's f32 pins), bitwise with and without the LSE and over
+   two launches, and timed at both main paths' shapes beside every SDPA
+   backend that takes f32 (the refusals are printed), with their bounds at
+   the f32 CUDA-core peak and as 3xTF32 at the tensor-core peak; the
+   backward's and SDPA's f32 gradients are printed against the float64
+   gradient.
 4. serving slice: full-width Whisper-base ``surgical_hydra`` (random
    weights from a seed) serves a synthetic 10-minute int16 WAV through
    ``run_inference_on_audios``; the launch counters show that the path went
@@ -685,21 +688,35 @@ def flash_bwd_checks(card: str) -> tuple[dict, dict]:
                  "train_shape_ms": median(fwd["without"]),
                  "train_shape_lse_ms": median(fwd["with lse"])}
 
-# The f32 kernels' shapes: both main paths, then the edges of their tiling
-# (128 query rows per forward block, 64 per backward block, 64 keys per
-# tile): one row, one short of, at and one past each edge.
+# The f32 kernels' shapes: both main paths, then the edges of their tiling:
+# one row, one short of, at and one past each edge. The forward: 128 query
+# rows per block, 64 keys per tile. The backward: 128 resident rows per work
+# item (64 per consumer warpgroup), 32 streamed rows per tile.
 FLASH_F32_EDGE_S = (1, 63, 64, 65, 127, 128, 129)
+FLASH_F32_BWD_EDGE_S = (1, 31, 32, 33, 63, 64, 65, 95, 96, 97, 127, 128, 129)
 FLASH_F32_SHAPES = ((INNER_BATCH, 1500, 8, 64), TRAIN_ATTN_SHAPE,
                     *((2, s, 3, 64) for s in FLASH_F32_EDGE_S))
-FLASH_F32_BWD_SHAPES = (TRAIN_ATTN_SHAPE, *((2, s, 3, 64) for s in FLASH_F32_EDGE_S))
+FLASH_F32_BWD_SHAPES = (TRAIN_ATTN_SHAPE, *((2, s, 3, 64) for s in FLASH_F32_BWD_EDGE_S))
 
 
-def f32_attention_bounds(b: int, s: int, h: int, d: int, products: int, tensors: int) -> tuple:
-    """(ms, by) of ``products`` S x S x D f32 products at the f32 CUDA-core
-    peak, against ``tensors`` (B, S, H, D) f32 tensors and one (B, H, S) f32
-    lse read or written once."""
-    return bound_ms(2 * products * b * h * s * s * d, PEAK_F32_FLOPS,
-                    tensors * b * s * h * d * 4 + b * h * s * 4)
+def f32_attention_bounds(b: int, s: int, h: int, d: int, products: int, tensors: int) -> dict:
+    """The least time for ``products`` S x S x D f32 products against
+    ``tensors`` (B, S, H, D) f32 tensors and one (B, H, S) f32 lse read or
+    written once: ``bound_ms`` (``bound_by``) with the products in IEEE f32
+    at the CUDA-core peak, ``bound_3xtf32_ms`` (``bound_3xtf32_by``) with
+    each as three TF32 products at the tensor-core peak."""
+    flops = 2 * products * b * h * s * s * d
+    n_bytes = tensors * b * s * h * d * 4 + b * h * s * 4
+    ms, by = bound_ms(flops, PEAK_F32_FLOPS, n_bytes)
+    tf32_ms, tf32_by = bound_ms(3 * flops, PEAK_TF32_FLOPS, n_bytes)
+    return {"bound_ms": ms, "bound_by": by, "bound_3xtf32_ms": tf32_ms,
+            "bound_3xtf32_by": tf32_by}
+
+
+def grad_shares(got, ref) -> list[float]:
+    """Each gradient's max |got - ref| over max(1, max|ref|), in float64."""
+    return [float((a.double() - r).abs().max()) / max(1.0, float(r.abs().max()))
+            for a, r in zip(got, ref)]
 
 
 def flash_f32_checks(card: str) -> tuple[dict, dict]:
@@ -709,8 +726,10 @@ def flash_f32_checks(card: str) -> tuple[dict, dict]:
     against ``attention_bwd_plain`` in f32 and in float64 at
     FLASH_F32_BWD_SHAPES, bitwise over two launches. Then each timed in turns
     beside every SDPA backend that takes f32 (the refusals are printed), its
-    plain version and its bound at the f32 CUDA-core peak. Returns the two
-    kernels' rows."""
+    plain version and its bounds (the f32 CUDA-core peak, and 3xTF32 at the
+    tensor-core peak); at the training shape the backward's gradients and
+    SDPA EFFICIENT's are printed against the float64 gradient (information,
+    not a gate). Returns the two kernels' rows."""
     import torch
 
     from segma_tpu_torch.ops import attention
@@ -782,10 +801,27 @@ def flash_f32_checks(card: str) -> tuple[dict, dict]:
         if label == "training":
             dout = torch.randn(shape, device="cuda", generator=g)
             out, lse = attention.flash_attn_fwd(q, k, v, sm, with_lse=True)
+            bcalls = sdpa_calls(qt, kt, vt, sm, dout.transpose(1, 2).contiguous())
             bt = time_turns({
                 "kernel": lambda: attention.flash_attn_bwd(q, k, v, out, lse, dout, sm),
-                **sdpa_calls(qt, kt, vt, sm, dout.transpose(1, 2).contiguous()),
+                **bcalls,
             })
+            # the exact gradient: forward and backward in float64
+            q64, k64, v64, do64 = (x.double() for x in (q, k, v, dout))
+            exact = attention.attention_bwd_plain(
+                q64, k64, v64, attention.attention_plain(q64, k64, v64, sm, torch.float64),
+                attention.attention_lse_plain(q64, k64, sm), do64, sm)
+            del q64, k64, v64, do64
+            shares = {"kernel": grad_shares(attention.flash_attn_bwd(q, k, v, out, lse, dout, sm),
+                                            exact)}
+            for name, call in bcalls.items():
+                shares[name] = grad_shares((x.transpose(1, 2) for x in call()), exact)
+            for name, sh in shares.items():
+                print(f"error flash_attn_bwd f32 {name} {shape} against the float64 gradient: "
+                      f"dq, dk, dv max abs err / max(1, max|ref|) = "
+                      f"{', '.join(f'{x:.3e}' for x in sh)} (bar {FLASH_F32_BWD_REL})",
+                      flush=True)
+            del exact
             for name, t in bt.items():
                 print(f"time flash_attn_bwd f32 {name} {shape} [{card}]: {spread(t)}", flush=True)
             blib = {n: median(t) for n, t in bt.items() if n.startswith("sdpa")}
@@ -795,21 +831,26 @@ def flash_f32_checks(card: str) -> tuple[dict, dict]:
                                                                           sm), iters=plain_iters),
                 "library_backends_ms": blib, "library_ms": min(blib.values()) if blib else None,
                 "bound": f32_attention_bounds(b, s, h, d, products=5, tensors=8),
+                "grad_error_shares": shares,
             }
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     torch.set_grad_enabled(True)
+
+    def bounds_text(bd: dict, ms: float) -> str:
+        return (f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}, f32 CUDA-core peak; "
+                f"{100 * bd['bound_ms'] / ms:.1f}% of it), 3xTF32 bound "
+                f"{bd['bound_3xtf32_ms']:.4f} ms ({bd['bound_3xtf32_by']}, TF32 tensor-core peak; "
+                f"{100 * bd['bound_3xtf32_ms'] / ms:.1f}% of it)")
+
     for label, t in timed.items():
-        bms, by = t["bound"]
         print(f"time flash_attn_fwd f32 {label} [{card}]: kernel {t['ms']:.4f} ms (with lse "
               f"{t['lse_ms']:.4f}), plain {t['plain_ms']:.4f} ms, fastest sdpa {t['library_ms']} "
-              f"ms; bound {bms:.4f} ms ({by}, f32 CUDA-core peak; {100 * bms / t['ms']:.1f}% "
-              f"of it)", flush=True)
-    bms, by = bwd_timed["bound"]
+              f"ms; {bounds_text(t['bound'], t['ms'])}", flush=True)
     print(f"time flash_attn_bwd f32 {TRAIN_ATTN_SHAPE} [{card}]: kernels {bwd_timed['ms']:.4f} "
           f"ms, plain {bwd_timed['plain_ms']:.4f} ms, fastest sdpa backward "
-          f"{bwd_timed['library_ms']} ms; bound {bms:.4f} ms ({by}, f32 CUDA-core peak; "
-          f"{100 * bms / bwd_timed['ms']:.1f}% of it)", flush=True)
+          f"{bwd_timed['library_ms']} ms; {bounds_text(bwd_timed['bound'], bwd_timed['ms'])}",
+          flush=True)
     serve, train = timed["serving"], timed["training"]
     fwd_row = {
         "name": "flash_attn_fwd_f32", "route": "cuda",
@@ -817,11 +858,13 @@ def flash_f32_checks(card: str) -> tuple[dict, dict]:
         "replaces": "segma_tpu/ops/attention.py:148",
         "max_abs_err": max(errs), "max_abs_err_vs_float64": max(errs64),
         "lse_max_abs_err": max(lse_errs), "ms": serve["ms"], "plain_ms": serve["plain_ms"],
-        "bound_ms": serve["bound"][0], "bound_by": serve["bound"][1],
+        "bound_ms": serve["bound"]["bound_ms"], "bound_by": serve["bound"]["bound_by"],
+        "bound_3xtf32_ms": serve["bound"]["bound_3xtf32_ms"],
         "library_ms": serve["library_ms"], "library_backends_ms": serve["library_backends_ms"],
         "train_shape": list(TRAIN_ATTN_SHAPE), "train_shape_ms": train["ms"],
         "train_shape_lse_ms": train["lse_ms"], "train_shape_plain_ms": train["plain_ms"],
-        "train_shape_bound_ms": train["bound"][0],
+        "train_shape_bound_ms": train["bound"]["bound_ms"],
+        "train_shape_bound_3xtf32_ms": train["bound"]["bound_3xtf32_ms"],
         "train_shape_library_ms": train["library_ms"],
         "train_shape_library_backends_ms": train["library_backends_ms"],
     }
@@ -835,7 +878,9 @@ def flash_f32_checks(card: str) -> tuple[dict, dict]:
         ],
         "max_abs_err": max(bwd_errs), "max_abs_err_vs_float64": max(bwd_errs64),
         "ms": bwd_timed["ms"], "plain_ms": bwd_timed["plain_ms"],
-        "bound_ms": bwd_timed["bound"][0], "bound_by": bwd_timed["bound"][1],
+        "bound_ms": bwd_timed["bound"]["bound_ms"], "bound_by": bwd_timed["bound"]["bound_by"],
+        "bound_3xtf32_ms": bwd_timed["bound"]["bound_3xtf32_ms"],
+        "grad_error_shares": bwd_timed["grad_error_shares"],
         "library_ms": bwd_timed["library_ms"],
         "library_backends_ms": bwd_timed["library_backends_ms"],
     }

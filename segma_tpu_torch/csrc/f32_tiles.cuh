@@ -1,6 +1,6 @@
 // Shared-memory tiles and R x 4 register products in IEEE f32 on the CUDA
-// cores, for the f32 flash-attention kernels (flash_attn_f32.cu,
-// flash_attn_bwd_f32.cu).
+// cores, for the f32 flash-attention forward (flash_attn_f32.cu; the f32
+// backward, flash_attn_bwd_f32.cu, runs 3xTF32 on wgmma instead).
 //
 // A block is 256 threads, (ty, tx) = (tid / 16, tid % 16); a (16 R) x 64
 // product tile gives thread (ty, tx) rows R ty .. R ty + R - 1 and columns

@@ -102,12 +102,6 @@ constexpr int SMEM_BYTES =
     2 * RES_TILES * RES_BYTES + 2 * STAGES * TILE_BYTES + STAGES * PAIR_BYTES + 1024;
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -127,21 +121,6 @@ __device__ __forceinline__ uint4 lds_u4(uint32_t addr) {
                : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
                : "r"(addr));
   return v;
-}
-
-__device__ __forceinline__ float4 lds_f4(uint32_t addr) {
-  float4 v;
-  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(addr));
-  return v;
-}
-
-// Byte offset of head dims 8 chunk .. 8 chunk + 7 of row `row` in a
-// 128-byte-swizzled [row][64] tile: the 16-byte chunk c of a row lies at
-// chunk c ^ (row mod 8)
-__device__ __forceinline__ uint32_t sw128_offset(int row, int chunk) {
-  return row * 128 + ((chunk ^ (row & 7)) << 4);
 }
 
 // The A fragments (sm90.cuh) of rows row and row + 8 of a swizzled [row][64]

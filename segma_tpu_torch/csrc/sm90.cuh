@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the flash kernels, forward
-// (flash_attn.cu) and backward (flash_attn_bwd.cu), and the log-mel kernel
-// (logmel.cu): TMA tensor maps and loads, mbarriers, named barriers, register
-// reallocation, wgmma (bf16, and TF32 for log-mel's 3xTF32 products) with its
+// (flash_attn.cu) and backward (flash_attn_bwd.cu, and in f32
+// flash_attn_bwd_f32.cu), and the log-mel kernel (logmel.cu): TMA tensor maps
+// and loads, mbarriers, named barriers, register reallocation, wgmma (bf16,
+// and TF32 for the 3xTF32 products of log-mel and the f32 backward) with its
 // shared-memory descriptors, cp.async. Included by the sources; not compiled
 // on its own.
 //
@@ -46,21 +47,26 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A tensor map over a contiguous (batch, seq, heads, 64) bf16 tensor, seen as
-// 3-D {heads * 64, seq, batch}: a box of {64, rows, 1} at {h * 64, s0, b} is
-// rows x 64 of one (batch, head), 128-byte swizzled. Rows at or past seq are
-// filled with zeros and never come from the next batch. Returns false if the
-// map cannot be encoded (a misaligned pointer among others).
+// A tensor map over a contiguous (batch, seq, heads, 64) bf16 tensor (f32
+// if `f32`), seen as 3-D {heads * 64, seq, batch}: a box of {64, rows, 1}
+// at {h * 64, s0, b} is rows x 64 of one (batch, head), 128-byte swizzled;
+// in f32 a row of 64 is 256 bytes, so a box is {32, rows, 1}, half of each
+// row, at {h * 64 + 32 half, s0, b}. Rows at or past seq are filled with
+// zeros and never come from the next batch. Returns false if the map cannot
+// be encoded (a misaligned pointer among others).
 inline bool bshd_tensor_map(CUtensorMap* map, const void* ptr, int batch, int seq, int heads,
-                            int rows) {
+                            int rows, bool f32 = false) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
+  const cuuint64_t elem = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)heads * 64, (cuuint64_t)seq, (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)heads * 64 * 2, (cuuint64_t)seq * heads * 64 * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)heads * 64 * elem,
+                                 (cuuint64_t)seq * heads * 64 * elem};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / elem), (cuuint32_t)rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -136,6 +142,29 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
 
 __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A shared load. volatile: it must stay after the mbarrier wait that makes
+// the data visible.
+__device__ __forceinline__ float4 lds_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// Byte offset of the 16-byte chunk `chunk` of row `row` in a
+// 128-byte-swizzled tile of 128-byte rows: chunk c of a row lies at chunk
+// c ^ (row mod 8)
+__device__ __forceinline__ uint32_t sw128_offset(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
 }
 
 // named barriers among `count` threads (id 0 is __syncthreads')
@@ -387,6 +416,81 @@ __device__ __forceinline__ void wgmma_m64n80k8_tf32_rs_zero_d(float* d, const ui
         "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
         "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]),
         "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+}
+
+// d (64 x N, f32) += A (64 x 8) B (8 x N), or d = A B (zero_d), TF32 in, for
+// the f32 flash backward's 3xTF32 products (flash_attn_bwd_f32.cu): N = 32
+// for its score products, 64 for the products over a tile's rows. Operands
+// and accumulator layout as for wgmma_m64n80k8_tf32_rs, over N / 8 column
+// blocks; B K-major through a descriptor.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs_zero_d(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+        "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs_zero_d(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+        "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]),
+        "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
 }
 

@@ -1,8 +1,8 @@
 """Kernel 2: flash attention forward and backward, with their plain versions.
 
 bf16 inputs go to ``csrc/flash_attn.cu`` and ``csrc/flash_attn_bwd.cu``
-(wgmma), f32 inputs to ``csrc/flash_attn_f32.cu`` and
-``csrc/flash_attn_bwd_f32.cu`` (IEEE f32 on the CUDA cores): the JAX package
+(wgmma), f32 inputs to ``csrc/flash_attn_f32.cu`` (IEEE f32 on the CUDA
+cores) and ``csrc/flash_attn_bwd_f32.cu`` (3xTF32 on wgmma): the JAX package
 runs its Pallas kernel in the model's dtype, bf16 or f32.
 
 Counterpart of ``segma_tpu/ops/attention.py``. ``attention_core`` takes
@@ -31,7 +31,7 @@ launches = 0
 bwd_launches = 0
 launches_f32 = 0
 bwd_launches_f32 = 0
-BWD_ROWS = 128  # rows of a backward work item (csrc/flash_attn_bwd.cu BR)
+BWD_ROWS = 128  # rows of a backward work item (BR of csrc/flash_attn_bwd.cu and _f32.cu)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
