@@ -59,7 +59,7 @@
 //  - Warpgroups 1 and 2, the consumers, 64 resident rows each, on the same
 //    streamed tiles, so that one's tensor-core work overlaps the other's
 //    CUDA-core steps (one consumer of 64 rows per block runs 1.28x slower,
-//    bitwise equal: flash_bwd_f32_ablations.py). The score products (m64n32,
+//    bitwise equal: flash_f32_ablations.py bwd). The score products (m64n32,
 //    8 k-steps over the head dims) take A from registers: each thread loads
 //    its float4s of the raw resident rows and splits them (cvt.rna), per
 //    tile. B's head dims are permuted so that slot q + 4 h of k-step 2 j + t
@@ -82,7 +82,7 @@
 //    blocks start as the dQ pass's blocks finish, only the bulk copies of
 //    the pairs wait for the dQ pass, and it walks its items in reverse.
 //
-// What limits it (flash_bwd_f32_ablations.py, timing-only ablations): the
+// What limits it (flash_f32_ablations.py bwd, timing-only ablations): the
 // tensor-core products are about half of the critical path (one TF32
 // product instead of three takes 18% off for the score products, 13% for
 // the row products); the consumers' split of the resident rows per tile
@@ -112,18 +112,15 @@
 
 namespace {
 
+using namespace tf32x3;
+
 constexpr int NC = 2;                   // consumer warpgroups, 64 resident rows each
 constexpr int BR = 64 * NC;             // resident rows per work item
-constexpr int BT = 32;                  // streamed rows per tile
 constexpr int STAGES = 2;
 constexpr int THREADS = 128 * (NC + 1); // producer and converters, consumers
 constexpr int CONVERTERS = 96;          // warps 1-3 of warpgroup 0
-constexpr int RES_HALF = 64 * 128;      // 64 rows x 32 f32: 8 KB
 constexpr int RES_BYTES = 2 * RES_HALF; // one consumer's resident tile, raw
-constexpr int NAT_HALF = BT * 128;      // 32 rows x 32 f32: 4 KB
-constexpr int PART = 2 * NAT_HALF;      // a streamed tile's hi (or lo) part, 8 KB
 constexpr int NAT_BYTES = 2 * PART;     // hi, then lo
-constexpr int T_PART = 64 * 128;        // a transposed tile's hi (or lo) part: 64 dims x 32 rows
 constexpr int T_BYTES = 2 * T_PART;
 constexpr int PAIR_BYTES = BT * 8;      // one tile's (lse log2(e), D) pairs
 constexpr float LOG2E = 1.4426950408889634f;
@@ -142,156 +139,27 @@ struct Pass {
 static_assert(Pass<true>::SMEM_BYTES <= 232448 && Pass<false>::SMEM_BYTES <= 232448,
               "shared memory");
 
-// Shared stores. volatile: they must stay between the mbarrier wait and
-// the arrival that order them.
-__device__ __forceinline__ void sts_u4(uint32_t addr, uint32_t a, uint32_t b, uint32_t c,
-                                       uint32_t d) {
-  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(a), "r"(b), "r"(c),
-               "r"(d)
-               : "memory");
-}
-
-__device__ __forceinline__ void sts_u32(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-
-// generic-proxy writes to shared memory made visible to wgmma (async proxy)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// x as TF32 hi and lo: x = hi + lo + O(2^-22 |x|)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
 // The converters' work on one stage: each of the two landed [32][64] tiles
 // (two 128-byte-swizzled halves of 32 columns) becomes its TF32 hi part in
 // place, with its head dims permuted within each 16 (slot q + 4 h of k-step
 // 2 j + t, in chunk 2 t + h, holds dim 16 j + 4 q + 2 t + h: a 4 x 4
 // transpose of the 16 dims' four chunks), and its lo part PART bytes on;
 // the first NT tiles also go transposed into [64 dims][32 rows] tiles, row
-// c at slot (c & ~7) | (c & 7) / 2 | 4 (c & 1). Thread `tid` < 96 is row tid %
-// 32 of groups tid / 32, + 3, + 6 of the 8 (tensor, 16 dims).
+// c at slot t_slot(c). Thread `tid` < 96 is row tid % 32 of groups tid / 32,
+// + 3, + 6 of the 8 (tensor, 16 dims).
 template <int NT>
 __device__ __forceinline__ void convert_stage(uint32_t stage, int tid) {
   const int row = tid % 32;
-  const int pos = (row & ~7) | ((row & 7) >> 1) | ((row & 1) << 2);
   for (int g = tid / 32; g < 8; g += 3) {
     const int tsr = g >> 2, half = (g >> 1) & 1, jj = g & 1;
     const uint32_t nat = stage + tsr * NAT_BYTES + half * NAT_HALF;
-    float v[4][4];  // v[i][n]: head dim 32 half + 16 jj + 4 i + n
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 x = lds_f4(nat + sw128_offset(row, 4 * jj + i));
-      v[i][0] = x.x;
-      v[i][1] = x.y;
-      v[i][2] = x.z;
-      v[i][3] = x.w;
-    }
     uint32_t hi[4][4], lo[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int n = 0; n < 4; ++n) split(v[i][n], hi[i][n], lo[i][n]);
-    }
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const uint32_t at = nat + sw128_offset(row, 4 * jj + n);
-      sts_u4(at, hi[0][n], hi[1][n], hi[2][n], hi[3][n]);
-      sts_u4(at + PART, lo[0][n], lo[1][n], lo[2][n], lo[3][n]);
-    }
-    if (tsr < NT) {
-      const uint32_t t = stage + 2 * NAT_BYTES + tsr * T_BYTES;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          const int d = 32 * half + 16 * jj + 4 * i + n;
-          const uint32_t at = t + sw128_offset(d, pos >> 2) + 4 * (pos & 3);
-          sts_u32(at, hi[i][n]);
-          sts_u32(at + T_PART, lo[i][n]);
-        }
-      }
-    }
+    split16(hi, lo, nat, row, jj);
+    store16(nat, PART, row, jj, hi, lo);
+    const uint32_t t = stage + 2 * NAT_BYTES + tsr * T_BYTES;
+    if (tsr < NT) store16_t(t, t_slot(row), half, jj, hi, lo);
   }
   fence_proxy_async();
-}
-
-// The A fragments of a score product: rows row and row + 8 of a raw resident
-// tile (two 8 KB halves of 32 dims), over the 8 permuted k-steps, in TF32 hi
-// and lo. a[4 kk + i]: k-step kk's a[0..3] (sm90.cuh).
-__device__ __forceinline__ void resident_frags(uint32_t (&hi)[32], uint32_t (&lo)[32],
-                                               uint32_t tile, int row, int quad) {
-#pragma unroll
-  for (int jp = 0; jp < 4; ++jp) {
-    const uint32_t half = tile + (jp >> 1) * RES_HALF;
-    const int chunk = 4 * (jp & 1) + quad;
-    const float4 x = lds_f4(half + sw128_offset(row, chunk));
-    const float4 y = lds_f4(half + sw128_offset(row + 8, chunk));
-    const float v[2][4] = {{x.x, y.x, x.y, y.y}, {x.z, y.z, x.w, y.w}};
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        split(v[t][i], hi[4 * (2 * jp + t) + i], lo[4 * (2 * jp + t) + i]);
-      }
-    }
-  }
-}
-
-// d = A B^T over the 64 head dims, A the resident rows (resident_frags), B
-// the stage's natural tile `nat` ([32 rows][64], hi then lo): the small terms
-// into sm, the large into lg, both fresh
-__device__ __forceinline__ void score_product(float (&lg)[16], float (&sm)[16],
-                                              const uint32_t (&hi)[32], const uint32_t (&lo)[32],
-                                              uint32_t nat) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const uint32_t at = nat + (kk >> 2) * NAT_HALF + (kk & 3) * 32;
-    const uint64_t b_hi = sw128_desc(at), b_lo = sw128_desc(at + PART);
-    if (kk == 0) {
-      wgmma_m64n32k8_tf32_rs_zero_d(sm, &lo[0], b_hi);
-      wgmma_m64n32k8_tf32_rs(sm, &hi[0], b_lo);
-      wgmma_m64n32k8_tf32_rs_zero_d(lg, &hi[0], b_hi);
-    } else {
-      wgmma_m64n32k8_tf32_rs(sm, &lo[4 * kk], b_hi);
-      wgmma_m64n32k8_tf32_rs(sm, &hi[4 * kk], b_lo);
-      wgmma_m64n32k8_tf32_rs(lg, &hi[4 * kk], b_hi);
-    }
-  }
-}
-
-// The score accumulator c (c[4 j + 2 i + e] is (row + 8 i, column 8 j + 2
-// quad + e)) as the A fragments of a product over its 32 columns, in TF32 hi
-// and lo: column 8 j + 2 quad + e is k-step j's slot quad + 4 e.
-__device__ __forceinline__ void acc_frags(uint32_t (&hi)[16], uint32_t (&lo)[16],
-                                          const float (&c)[16]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float v[4] = {c[4 * j], c[4 * j + 2], c[4 * j + 1], c[4 * j + 3]};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split(v[i], hi[4 * j + i], lo[4 * j + i]);
-  }
-}
-
-// blk = A T over the tile's 32 rows, fresh: A from acc_frags, T the stage's
-// transposed tile ([64 dims][32 rows], hi then lo); per k-step the small
-// terms, then the large
-__device__ __forceinline__ void row_product(float (&blk)[32], const uint32_t (&hi)[16],
-                                            const uint32_t (&lo)[16], uint32_t t) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t b_hi = sw128_desc(t + kk * 32), b_lo = sw128_desc(t + T_PART + kk * 32);
-    if (kk == 0) {
-      wgmma_m64n64k8_tf32_rs_zero_d(blk, &lo[0], b_hi);
-    } else {
-      wgmma_m64n64k8_tf32_rs(blk, &lo[4 * kk], b_hi);
-    }
-    wgmma_m64n64k8_tf32_rs(blk, &hi[4 * kk], b_lo);
-    wgmma_m64n64k8_tf32_rs(blk, &hi[4 * kk], b_hi);
-  }
 }
 
 // acc += blk in IEEE f32, once the products that wrote blk are done
@@ -300,14 +168,6 @@ __device__ __forceinline__ void add_block(float (&acc)[N], float (&blk)[N]) {
   fence_regs<N>(blk);
 #pragma unroll
   for (int i = 0; i < N; ++i) acc[i] += blk[i];
-}
-
-// s = lg + sm in IEEE f32, once both are done
-__device__ __forceinline__ void join(float (&lg)[16], float (&sm)[16]) {
-  fence_regs<16>(lg);
-  fence_regs<16>(sm);
-#pragma unroll
-  for (int i = 0; i < 16; ++i) lg[i] += sm[i];
 }
 
 // rows r0 and r0 + 8 of a 64 x 64 accumulator, times mul, stored where they
@@ -325,23 +185,6 @@ __device__ __forceinline__ void store_rows(float* dst, size_t row_stride, int r0
       }
     }
   }
-}
-
-// A consumer warp is done with what `bar` guards
-__device__ __forceinline__ void release(uint32_t bar, int lane) {
-  __syncwarp();
-  if (lane == 0) mbar_arrive(bar);
-}
-
-// A work item is BR resident rows of one (batch, head): item = (b H + h)
-// n_rt + rt
-struct Item {
-  int rt, h, b;
-};
-
-__device__ __forceinline__ Item decode(int item, int n_rt, int H) {
-  const int bh = item / n_rt;
-  return {item - bh * n_rt, bh % H, bh / H};
 }
 
 // Shared addresses and mbarriers (+ 8 stage)

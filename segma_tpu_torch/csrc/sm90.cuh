@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks for the flash kernels, forward
-// (flash_attn.cu) and backward (flash_attn_bwd.cu, and in f32
-// flash_attn_bwd_f32.cu), and the log-mel kernel (logmel.cu): TMA tensor maps
-// and loads, mbarriers, named barriers, register reallocation, wgmma (bf16,
-// and TF32 for the 3xTF32 products of log-mel and the f32 backward) with its
-// shared-memory descriptors, cp.async. Included by the sources; not compiled
-// on its own.
+// (flash_attn.cu, and in f32 flash_attn_f32.cu) and backward
+// (flash_attn_bwd.cu, and in f32 flash_attn_bwd_f32.cu), and the log-mel
+// kernel (logmel.cu): TMA tensor maps and loads, mbarriers, named barriers,
+// register reallocation, wgmma (bf16, and TF32 for the 3xTF32 products of
+// log-mel and the f32 flash kernels) with its shared-memory descriptors,
+// cp.async; and, in namespace tf32x3, the tiles and products the two f32
+// flash kernels share. Included by the sources; not compiled on its own.
 //
 // The flash tiles are loaded by TMA with 128-byte swizzle: a row of 64 bf16
 // is exactly 128 bytes, rows are stored back to back, and the 16-byte chunks
@@ -420,8 +421,8 @@ __device__ __forceinline__ void wgmma_m64n80k8_tf32_rs_zero_d(float* d, const ui
 }
 
 // d (64 x N, f32) += A (64 x 8) B (8 x N), or d = A B (zero_d), TF32 in, for
-// the f32 flash backward's 3xTF32 products (flash_attn_bwd_f32.cu): N = 32
-// for its score products, 64 for the products over a tile's rows. Operands
+// the f32 flash kernels' 3xTF32 products: N = 32 for the score products, 64
+// for the products over a tile's rows. Operands
 // and accumulator layout as for wgmma_m64n80k8_tf32_rs, over N / 8 column
 // blocks; B K-major through a descriptor.
 __device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float* d, const uint32_t* a, uint64_t b) {
@@ -494,6 +495,39 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_rs_zero_d(float* d, const ui
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
 }
 
+// d (64 x 32, f32) += A (64 x 8) B (8 x 32), or d = A B (zero_d), TF32 in,
+// both operands in shared memory through descriptors, both K-major: the f32
+// flash forward's score products (flash_attn_f32.cu), A its pre-split Q.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_ss(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_ss_zero_d(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+        "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+      : "l"(a), "l"(b), "r"(0));
+}
+
 // 4 bytes from global src to shared dst, or 4 zero bytes when !valid (src is
 // then not read), asynchronously; cp_async_mbar_arrive makes mbarrier bar
 // see one arrival once all of this thread's earlier copies have landed
@@ -506,5 +540,200 @@ __device__ __forceinline__ void cp_async_4(uint32_t dst, const float* src, bool 
 __device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
+
+// ------------------------- f32 flash attention in 3xTF32 (flash_attn_f32.cu,
+// flash_attn_bwd_f32.cu)
+//
+// Tiles of f32 rows of 64 come by TMA as two 128-byte-swizzled halves of 32
+// columns (bshd_tensor_map(..., f32 = true)). A streamed tile is BT = 32
+// rows, a consumer's resident tile 64. The converter warps rewrite a
+// streamed tile in place as its TF32 hi part, its lo part PART bytes on, with
+// the head dims permuted within each 16 (slot q + 4 h of k-step 2 j + t holds
+// dim 16 j + 4 q + 2 t + h), and write a transposed tile ([64 dims][32 rows],
+// hi, then lo T_PART bytes on) with row c at slot (c & ~7) | (c & 7) / 2 |
+// 4 (c & 1), so that a score accumulator's registers are the A fragments of
+// the product over its columns.
+namespace tf32x3 {
+
+constexpr int BT = 32;                // streamed rows per tile
+constexpr int NAT_HALF = BT * 128;    // 32 rows x 32 f32: 4 KB
+constexpr int PART = 2 * NAT_HALF;    // a streamed tile's hi (or lo) part, 8 KB
+constexpr int RES_HALF = 64 * 128;    // 64 rows x 32 f32: 8 KB
+constexpr int T_PART = 64 * 128;      // a transposed tile's hi (or lo) part: 64 dims x 32 rows
+
+// Shared stores. volatile: they must stay between the mbarrier wait and
+// the arrival that order them.
+__device__ __forceinline__ void sts_u4(uint32_t addr, uint32_t a, uint32_t b, uint32_t c,
+                                       uint32_t d) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(a), "r"(b), "r"(c),
+               "r"(d)
+               : "memory");
+}
+
+__device__ __forceinline__ void sts_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// generic-proxy writes to shared memory made visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// x as TF32 hi and lo: x = hi + lo + O(2^-22 |x|)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// The converters' pieces. Head dims 16 jj .. 16 jj + 15 (chunks 4 jj .. 4 jj
+// + 3) of row `row` of a landed half tile, split: hi[i][n], lo[i][n] of dim
+// 16 jj + 4 i + n
+__device__ __forceinline__ void split16(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4], uint32_t half,
+                                        int row, int jj) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 x = lds_f4(half + sw128_offset(row, 4 * jj + i));
+    split(x.x, hi[i][0], lo[i][0]);
+    split(x.y, hi[i][1], lo[i][1]);
+    split(x.z, hi[i][2], lo[i][2]);
+    split(x.w, hi[i][3], lo[i][3]);
+  }
+}
+
+// those 16 dims back in place as hi, permuted (chunk 4 jj + n holds dims 16
+// jj + n, + 4, + 8, + 12: a 4 x 4 transpose of the four chunks), and as lo
+// `lo_off` bytes on
+__device__ __forceinline__ void store16(uint32_t half, uint32_t lo_off, int row, int jj,
+                                        const uint32_t (&hi)[4][4], const uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const uint32_t at = half + sw128_offset(row, 4 * jj + n);
+    sts_u4(at, hi[0][n], hi[1][n], hi[2][n], hi[3][n]);
+    sts_u4(at + lo_off, lo[0][n], lo[1][n], lo[2][n], lo[3][n]);
+  }
+}
+
+// the slot of row c of a streamed tile in its transposed tile
+__device__ __forceinline__ int t_slot(int c) {
+  return (c & ~7) | ((c & 7) >> 1) | ((c & 1) << 2);
+}
+
+// those 16 dims of half `half` into the transposed tile t, hi, then lo
+// T_PART bytes on, at the row's slot `pos`
+__device__ __forceinline__ void store16_t(uint32_t t, int pos, int half, int jj,
+                                          const uint32_t (&hi)[4][4], const uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int d = 32 * half + 16 * jj + 4 * i + n;
+      const uint32_t at = t + sw128_offset(d, pos >> 2) + 4 * (pos & 3);
+      sts_u32(at, hi[i][n]);
+      sts_u32(at + T_PART, lo[i][n]);
+    }
+  }
+}
+
+// The A fragments of a score product: rows row and row + 8 of a raw resident
+// tile (two 8 KB halves of 32 dims), over the 8 permuted k-steps, in TF32 hi
+// and lo. a[4 kk + i]: k-step kk's a[0..3] (wgmma_m64n80k8_tf32_rs).
+__device__ __forceinline__ void resident_frags(uint32_t (&hi)[32], uint32_t (&lo)[32],
+                                               uint32_t tile, int row, int quad) {
+#pragma unroll
+  for (int jp = 0; jp < 4; ++jp) {
+    const uint32_t half = tile + (jp >> 1) * RES_HALF;
+    const int chunk = 4 * (jp & 1) + quad;
+    const float4 x = lds_f4(half + sw128_offset(row, chunk));
+    const float4 y = lds_f4(half + sw128_offset(row + 8, chunk));
+    const float v[2][4] = {{x.x, y.x, x.y, y.y}, {x.z, y.z, x.w, y.w}};
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        split(v[t][i], hi[4 * (2 * jp + t) + i], lo[4 * (2 * jp + t) + i]);
+      }
+    }
+  }
+}
+
+// d = A B^T over the 64 head dims, A the resident rows (resident_frags), B
+// the stage's natural tile `nat` ([32 rows][64], hi then lo): the small terms
+// into sm, the large into lg, both fresh
+__device__ __forceinline__ void score_product(float (&lg)[16], float (&sm)[16],
+                                              const uint32_t (&hi)[32], const uint32_t (&lo)[32],
+                                              uint32_t nat) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint32_t at = nat + (kk >> 2) * NAT_HALF + (kk & 3) * 32;
+    const uint64_t b_hi = sw128_desc(at), b_lo = sw128_desc(at + PART);
+    if (kk == 0) {
+      wgmma_m64n32k8_tf32_rs_zero_d(sm, &lo[0], b_hi);
+      wgmma_m64n32k8_tf32_rs(sm, &hi[0], b_lo);
+      wgmma_m64n32k8_tf32_rs_zero_d(lg, &hi[0], b_hi);
+    } else {
+      wgmma_m64n32k8_tf32_rs(sm, &lo[4 * kk], b_hi);
+      wgmma_m64n32k8_tf32_rs(sm, &hi[4 * kk], b_lo);
+      wgmma_m64n32k8_tf32_rs(lg, &hi[4 * kk], b_hi);
+    }
+  }
+}
+
+// The score accumulator c (c[4 j + 2 i + e] is (row + 8 i, column 8 j + 2
+// quad + e)) as the A fragments of a product over its 32 columns, in TF32 hi
+// and lo: column 8 j + 2 quad + e is k-step j's slot quad + 4 e.
+__device__ __forceinline__ void acc_frags(uint32_t (&hi)[16], uint32_t (&lo)[16],
+                                          const float (&c)[16]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float v[4] = {c[4 * j], c[4 * j + 2], c[4 * j + 1], c[4 * j + 3]};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split(v[i], hi[4 * j + i], lo[4 * j + i]);
+  }
+}
+
+// blk = A T over the tile's 32 rows, fresh: A from acc_frags, T the stage's
+// transposed tile ([64 dims][32 rows], hi then lo); per k-step the small
+// terms, then the large
+__device__ __forceinline__ void row_product(float (&blk)[32], const uint32_t (&hi)[16],
+                                            const uint32_t (&lo)[16], uint32_t t) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t b_hi = sw128_desc(t + kk * 32), b_lo = sw128_desc(t + T_PART + kk * 32);
+    if (kk == 0) {
+      wgmma_m64n64k8_tf32_rs_zero_d(blk, &lo[0], b_hi);
+    } else {
+      wgmma_m64n64k8_tf32_rs(blk, &lo[4 * kk], b_hi);
+    }
+    wgmma_m64n64k8_tf32_rs(blk, &hi[4 * kk], b_lo);
+    wgmma_m64n64k8_tf32_rs(blk, &hi[4 * kk], b_hi);
+  }
+}
+
+// s = lg + sm in IEEE f32, once both are done
+__device__ __forceinline__ void join(float (&lg)[16], float (&sm)[16]) {
+  fence_regs<16>(lg);
+  fence_regs<16>(sm);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) lg[i] += sm[i];
+}
+
+// A consumer warp is done with what `bar` guards
+__device__ __forceinline__ void release(uint32_t bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// A work item is 128 rows of one (batch, head), resident for the item:
+// item = (b H + h) n_rt + rt
+struct Item {
+  int rt, h, b;
+};
+
+__device__ __forceinline__ Item decode(int item, int n_rt, int H) {
+  const int bh = item / n_rt;
+  return {item - bh * n_rt, bh % H, bh / H};
+}
+
+}  // namespace tf32x3
 
 }  // namespace

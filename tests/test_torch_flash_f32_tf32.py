@@ -1,7 +1,8 @@
-"""The f32 flash backward's arithmetic (csrc/flash_attn_bwd_f32.cu), emulated
-in numpy and held against ``attention_bwd_plain`` in float64.
+"""The f32 flash kernels' arithmetic (csrc/flash_attn_f32.cu, the forward, and
+csrc/flash_attn_bwd_f32.cu, the backward), emulated in numpy and held against
+``attention_plain`` and ``attention_bwd_plain`` in float64.
 
-The kernel runs every product in 3xTF32 on ``wgmma``: each f32 operand is
+Both kernels run every product in 3xTF32 on ``wgmma``: each f32 operand is
 split into hi = tf32(x) and lo = tf32(x - hi) (``cvt.rna.tf32.f32``), and a
 product is lo·B_hi + hi·B_lo + hi·B_hi. A tensor-core sum truncates: each
 ``wgmma`` k-step of 8 adds its products to the accumulator and rounds toward
@@ -20,6 +21,18 @@ zero (``_rz32``). What the kernel does about it, and what this file emulates:
 - P = exp2(S scale log2(e) - lse log2(e)) with one rounding (``fmaf``);
   dS = P (dP - D); keys past S masked in the dQ pass, queries past S given
   lse = +inf in the dK/dV pass.
+- The forward (``emulate_fwd``) streams keys in the same tiles of 32: the
+  score product as above, keys past S at -inf, the exp2-domain online
+  softmax (with c = scale log2(e): the running max m of the raw scores and
+  its scaled value ms = m c rounded to f32, ``alpha = exp2(ms_old -
+  ms)``, ``P = exp2(fmaf(s, c, -ms))``, each thread's row sum over its 8
+  columns of the tile, ``l = fmaf(l, alpha, sum)``), then P V as a product
+  over the tile's rows into a fresh accumulator, added as ``O = fmaf(O,
+  alpha, O_tile)`` in IEEE f32; at the end the four threads' row sums, O /
+  l, and the LSE (ms + log2 l) ln 2. Taking alpha and the LSE from the
+  rounded ms, the value P was taken against, keeps the LSE within 1.2e-6
+  of float64 at S = 1500; from the exact m c (an ``fmaf``) each change of
+  the max would leave up to half an ulp of ms in l, 5e-6 in all.
 
 The kernel's B tiles are written with their k index permuted so that the f32
 accumulator's columns (2 q, 2 q + 1 of each 8) are the TF32 A fragment's k
@@ -33,9 +46,12 @@ import numpy as np
 import pytest
 import torch
 
+import flash_f32_ablations
 from segma_tpu_torch.ops import attention, logmel
 
-FLASH_F32_BWD_REL = 5e-5  # chip_smoke.py, tests/test_torch_kernels_gpu.py
+FLASH_F32_ATOL = 2e-5  # chip_smoke.py, tests/test_torch_kernels_gpu.py
+LSE_F32_ATOL = 1e-5
+FLASH_F32_BWD_REL = 5e-5
 SM = 64**-0.5
 LOG2E = np.float32(1.4426950408889634)
 BT = 32  # streamed rows per tile (csrc/flash_attn_bwd_f32.cu)
@@ -157,6 +173,53 @@ def emulate_bwd(q, k, v, o, lse, do, sm: float, fresh: bool = True, three: bool 
     )
 
 
+def emulate_fwd(q, k, v, sm: float, three: bool = True, running_o: bool = False):
+    """(out (B, S, H, 64), lse (B, H, S)), float64 holding f32 values, as the
+    forward kernel computes them from f32 (B, S, H, 64) q, k and v. Without
+    ``three``, one TF32 product in both products; with ``running_o``, O in
+    one tensor-core accumulator across the tiles (scaled by alpha on the CUDA
+    cores, then P V summed into it, truncating) instead of a fresh one per
+    tile."""
+    b, s, h, d = q.shape
+    n_tiles = -(-s // BT)
+
+    def bhsd(x, rows):
+        out = np.zeros((b, h, rows, d), np.float32)  # keys past S: TMA's zero rows
+        out[:, :, :s] = np.asarray(x, np.float32).transpose(0, 2, 1, 3)
+        return out.astype(np.float64)
+
+    q = bhsd(q, s)
+    k, v = bhsd(k, n_tiles * BT), bhsd(v, n_tiles * BT)
+    c = np.float32(sm * np.log2(np.e))
+    m = np.full((b, h, s), -np.inf)  # the running max of the raw scores
+    ms = np.full((b, h, s), -np.inf)  # m c in f32
+    part = np.zeros((b, h, s, 4))  # the row sum of each of the 4 threads of a row
+    o = np.zeros((b, h, s, d))
+    for j in range(n_tiles):
+        t = slice(BT * j, BT * j + BT)
+        sc = _score(q, k[:, :, t], three=three)
+        sc[..., np.arange(BT * j, BT * j + BT) >= s] = -np.inf
+        m = np.maximum(m, sc.max(-1))
+        ms_old, ms = ms, _f32(m * np.float64(c))
+        alpha = np.exp2(_f32(ms_old - ms))
+        p = _exp2_rows(sc, ms[..., None], c)
+        # thread quad holds columns 8 n + 2 quad + e, summed n, then e, ascending
+        p4 = p.reshape(b, h, s, 4, 4, 2)
+        tile_sum = np.zeros((b, h, s, 4))
+        for n in range(4):
+            for e in range(2):
+                tile_sum = _f32(tile_sum + p4[..., n, :, e])
+        part = _f32(part * alpha[..., None] + tile_sum)
+        if running_o:
+            o = _rows(_f32(o * alpha[..., None]), p, v[:, :, t], fresh=False, three=three)
+        else:
+            o = _f32(o * alpha[..., None] + _rows(0.0, p, v[:, :, t], three=three))
+    total = _f32(_f32(part[..., 0] + part[..., 1]) + _f32(part[..., 2] + part[..., 3]))
+    out = _f32(o * _f32(1.0 / total)[..., None])
+    lse = _f32(_f32(ms + _f32(np.log2(total))) * np.float64(np.float32(np.log(2))))
+    return out.transpose(0, 2, 1, 3), lse
+
+
 def _case(s: int, seed: int):
     """f32 q, k, v, dO ~ N(0, 1) at (2, s, 3, 64), out and lse from the f32
     plain forward (the kernel's inputs come from the f32 forward kernel)."""
@@ -231,12 +294,72 @@ def test_one_tf32_product_misses_the_f32_bar():
     assert max(one) > 1.0
 
 
+def _fwd_case(s: int, seed: int):
+    """f32 q, k, v ~ N(0, 1): (2, s, 3, 64), or (1, 1500, 2, 64) at the
+    serving length, where numpy takes seconds."""
+    shape = (1, s, 2, 64) if s == 1500 else (2, s, 3, 64)
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) for _ in range(3)]
+
+
+def _fwd_errors(ins, **kwargs) -> tuple[float, float, float, float]:
+    """The emulated forward's max |error| against the float64 and the f32
+    plain output, then its LSE's against the float64 and the f32 plain LSE."""
+    out, lse = emulate_fwd(*(x.numpy() for x in ins), SM, **kwargs)
+    q64, k64, v64 = (x.double() for x in ins)
+    refs = (attention.attention_plain(q64, k64, v64, SM, torch.float64),
+            attention.attention_plain(*ins, SM, torch.float32),
+            attention.attention_lse_plain(q64, k64, SM),
+            attention.attention_lse_plain(*ins[:2], SM))
+    return tuple(float(np.abs(got - ref.numpy()).max())
+                 for got, ref in zip((out, out, lse, lse), refs))
+
+
+# the forward's tiling: one row; one short of, at and one past a key tile of
+# 32, a consumer's 64 query rows and a work item of 128 (chip_smoke's
+# FLASH_F32_EDGE_S); HuBERT's 199 and Whisper's 1500
+FWD_S = (1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 199, 1500)
+
+
+@pytest.mark.parametrize("s", FWD_S)
+def test_forward_emulation_meets_the_f32_bar_against_float64(s):
+    """The emulated forward within FLASH_F32_ATOL of float64 and of the f32
+    plain version, its LSE within LSE_F32_ATOL of both."""
+    e64, e32, l64, l32 = _fwd_errors(_fwd_case(s, seed=400 + s))
+    print(f"S={s}: out {e64:.3e} from float64, {e32:.3e} from f32; lse {l64:.3e}, {l32:.3e}")
+    assert max(e64, e32) <= FLASH_F32_ATOL
+    assert max(l64, l32) <= LSE_F32_ATOL
+
+
+def test_forward_one_tf32_product_misses_the_f32_bar():
+    """Why three products in the forward too: one TF32 product each (the
+    scores and P V) misses 2e-5 against float64 at the training length."""
+    e64, _, l64, _ = _fwd_errors(_fwd_case(199, seed=8), three=False)
+    print(f"S=199, one TF32 product: out {e64:.3e}, lse {l64:.3e} from float64")
+    assert e64 > FLASH_F32_ATOL
+
+
+@pytest.mark.parametrize("s", [199, 1500])
+def test_forward_fresh_o_tiles_beat_one_running_tensor_core_sum(s):
+    """O in one tensor-core accumulator across the key tiles (scaled by
+    alpha, then P V summed into it, truncating at every k-step) lands at
+    least twice as far from float64 as the kernel's fresh accumulator per
+    tile, added to O in IEEE f32."""
+    ins = _fwd_case(s, seed=500 + s)
+    kernel = _fwd_errors(ins)[0]
+    running = _fwd_errors(ins, running_o=True)[0]
+    print(f"S={s}: out from float64, fresh O tiles {kernel:.3e}, one running sum {running:.3e}")
+    assert kernel <= FLASH_F32_ATOL
+    assert running >= 2 * kernel
+
+
 def test_f32_bounds_cuda_cores_and_3xtf32():
-    """chip_smoke.py's two bounds for the f32 rows: the f32 backward at the
-    training shape (five products, eight tensors) 0.1453 ms at the f32
-    CUDA-core peak and 0.0590 ms as 3xTF32 at the TF32 peak, both above the
-    bytes' 0.0235 ms; the forward (two products, four tensors) 4.4017 and
-    1.7873 ms at the serving shape, 0.0581 and 0.0236 ms at the training one."""
+    """chip_smoke.py's two bounds for the f32 rows (bound_ms the 3xTF32 one):
+    the f32 backward at the training shape (five products, eight tensors)
+    0.1453 ms at the f32 CUDA-core peak and 0.0590 ms as 3xTF32 at the TF32
+    peak, both above the bytes' 0.0235 ms; the forward (two products, four
+    tensors) 4.4017 and 1.7873 ms at the serving shape, 0.0581 and 0.0236 ms
+    at the training one."""
     import chip_smoke
 
     bwd = chip_smoke.f32_attention_bounds(32, 199, 12, 64, products=5, tensors=8)
@@ -249,3 +372,17 @@ def test_f32_bounds_cuda_cores_and_3xtf32():
     train = chip_smoke.f32_attention_bounds(32, 199, 12, 64, products=2, tensors=4)
     assert train["bound_ms"] == pytest.approx(0.0581, abs=1e-4)
     assert train["bound_3xtf32_ms"] == pytest.approx(0.0236, abs=1e-4)
+    # the kernels' rows: bound_ms is the 3xTF32 bound, the products' form on the card
+    row = chip_smoke.row_bounds(serve)
+    assert row == {"bound_ms": serve["bound_3xtf32_ms"], "bound_by": "operations",
+                   "bound_cuda_cores_ms": serve["bound_ms"]}
+
+
+@pytest.mark.parametrize("kernel,name", [(k, n) for k in flash_f32_ablations.KERNELS
+                                         for n in flash_f32_ablations.entries(k)])
+def test_ablation_patches_find_their_text(kernel, name):
+    """Every variant and ablation of flash_f32_ablations.py finds the text it
+    patches in the kernel's source and in sm90.cuh (on the card the script
+    would stop at the first that does not), and changes it."""
+    sources = flash_f32_ablations.read_sources(kernel)
+    assert flash_f32_ablations.patched(sources, kernel, name) != sources

@@ -21,7 +21,7 @@ def _forbidden(name: str) -> bool:
 
 def _port_files() -> list[Path]:
     return sorted((REPO / "segma_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "logmel_ablations.py",
+        REPO / "chip_smoke.py", REPO / "logmel_ablations.py", REPO / "flash_f32_ablations.py",
     ]
 
 

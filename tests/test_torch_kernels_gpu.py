@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from chip_smoke import (
-    FLASH_F32_BWD_EDGE_S, LOGMEL_BULK_FACTOR, log_mel_float64, wide_range_signals,
+    FLASH_F32_BWD_EDGE_S, FLASH_F32_EDGE_S, LOGMEL_BULK_FACTOR, log_mel_float64,
+    wide_range_signals,
 )
 from segma_tpu_torch.ops import attention, logmel
 
@@ -313,10 +314,10 @@ def _f32(rng, shape):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
 
 
-# The f32 kernels' tiling: 128 query rows per forward block, 64 keys per
-# tile; the backward 128 resident rows per work item (64 per consumer), 32
-# streamed rows per tile (chip_smoke.FLASH_F32_BWD_EDGE_S).
-FLASH_F32_EDGE_S = (1, 63, 64, 65, 127, 128, 129)
+# The f32 kernels' tiling (chip_smoke.FLASH_F32_EDGE_S and
+# FLASH_F32_BWD_EDGE_S): the forward 128 query rows per work item (64 per
+# consumer), 32 keys per tile; the backward 128 resident rows per work item
+# (64 per consumer), 32 streamed rows per tile.
 
 
 @pytest.mark.gpu
