@@ -61,20 +61,29 @@ exits nonzero without printing the final result line:
    and 12 flash forward and 12 flash backward launches per step. Then
    WARM_STEP_REPEATS steps on one batch, timed, and one more under
    torch.profiler (the 15 longest kernels and the port's own).
-6. f32 serving, under PyTorch's default TF32 flags: the serving slice's WAV
+6. the reference workflow (``phase_workflow``, bf16, full width): exact
+   resume of HuBERT-base from ``last/`` under cuDNN's deterministic
+   algorithms, bit for bit against the uninterrupted run and apart from a
+   resume with fresh moments; a Whisper-base snapshot in HF's layout
+   through the predict CLI (``inference.main``, ``--save-logits``), the
+   saved logits against ``logits_for_audio`` and the CPU; a HuBERT-base
+   snapshot trained one epoch, its checkpoint served and another snapshot
+   refused; ``tune.main`` against a brute-force F1 grid; ``evaluate.main``.
+7. f32 serving, under PyTorch's default TF32 flags: the serving slice's WAV
    through ``surgical_hydra`` with train.precision=f32, through the f32
    forward kernel, profiled; the card's logits against the CPU f32 plain
    path at LOGITS_F32_ATOL; the flags unchanged by the run.
-7. f32 train, checkpoint, serve: ``surgical_hubert_hydra`` in f32 trains two
+8. f32 train, checkpoint, serve: ``surgical_hubert_hydra`` in f32 trains two
    epochs through ``Trainer.fit`` (the f32 forward and backward kernels on
    every attention), writing JAX-format checkpoints; the run directory is
    served through ``run_inference_on_audios(checkpoint=...)`` on the card,
    RTTMs out; the models ``load_model_for_inference`` rebuilds from
    best.ckpt and last/ give the in-memory model's logits at that epoch, bit
    for bit; one warm f32 step profiled.
-8. the ``kernels`` JSON line (log-mel, the bf16 and the f32 flash forward
-   and backward) and the ``kernels:`` launch line, per path.
-9. last line: ``{"ok": true, "device": {...}}``.
+9. the ``kernels`` JSON line (log-mel, the bf16 and the f32 flash forward
+   and backward) and the ``kernels:`` launch line, per path (the
+   workflow's resumed fit and predict CLI run among them).
+10. last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1385,9 +1394,9 @@ def phase_train_f32(card: str) -> dict:
         best_state: dict = {}
         ckpt_step = trainer.ckpt.step
 
-        def snapshot_best(epoch, score, trainable, meta):
+        def snapshot_best(epoch, score, trainable, meta, **state):
             before = trainer.ckpt.best_path
-            ckpt_step(epoch, score, trainable, meta)
+            ckpt_step(epoch, score, trainable, meta, **state)
             if trainer.ckpt.best_path != before:
                 best_state.clear()
                 best_state.update({k: v.clone() for k, v in model.module.state_dict().items()})
@@ -1492,6 +1501,478 @@ def phase_train_f32(card: str) -> dict:
     return launches
 
 
+# -- the reference workflow: exact resume, snapshots, predict, tune, evaluate --------
+
+WHISPER_BASE = dict(d_model=512, encoder_attention_heads=8, encoder_layers=6,
+                    encoder_ffn_dim=2048, num_mel_bins=80, max_source_positions=1500)
+HUBERT_BASE = dict(hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                   intermediate_size=3072, conv_dim=[512] * 7, conv_kernel=[10, 3, 3, 3, 3, 2, 2],
+                   conv_stride=[5, 2, 2, 2, 2, 2, 2], num_conv_pos_embeddings=128,
+                   num_conv_pos_embedding_groups=16)
+TUNE_GRID = 10  # tune.main's default precision 0.1: round(linspace(0, 1, 10), 1)
+
+
+def write_safetensors(path: Path, tensors: dict[str, np.ndarray]) -> None:
+    """An F32 ``.safetensors`` file as HF's ``save_pretrained`` writes one: a
+    u64 little-endian header length, the JSON header (padded to 8 bytes),
+    then the tensors' bytes in order."""
+    import struct
+
+    header: dict = {"__metadata__": {"format": "pt"}}
+    offset = 0
+    for name, a in tensors.items():
+        header[name] = {"dtype": "F32", "shape": list(a.shape),
+                        "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with path.open("wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for a in tensors.values():
+            f.write(np.ascontiguousarray(a, "<f4").tobytes())
+
+
+def _snapshot_tensors(seed: int):
+    rng = np.random.default_rng(seed)
+
+    def weight(*shape: int) -> np.ndarray:  # N(0, 1 / fan_in), fan_in over all but dim 0
+        return (rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))).astype(np.float32)
+
+    def vec(n: int, base: float = 0.0) -> np.ndarray:
+        return (base + 0.02 * rng.standard_normal(n)).astype(np.float32)
+
+    return weight, vec
+
+
+def write_whisper_snapshot(out: Path, seed: int) -> dict[str, np.ndarray]:
+    """A random Whisper-base encoder snapshot in HF's layout: config.json and
+    model.safetensors with ``model.encoder.*`` keys (k_proj without bias).
+    Returns the tensors written."""
+    weight, vec = _snapshot_tensors(seed)
+    d, ffn = WHISPER_BASE["d_model"], WHISPER_BASE["encoder_ffn_dim"]
+    t = {"model.encoder.conv1.weight": weight(d, WHISPER_BASE["num_mel_bins"], 3),
+         "model.encoder.conv1.bias": vec(d),
+         "model.encoder.conv2.weight": weight(d, d, 3), "model.encoder.conv2.bias": vec(d),
+         "model.encoder.embed_positions.weight":
+             (0.02 * np.random.default_rng(seed + 1).standard_normal(
+                 (WHISPER_BASE["max_source_positions"], d))).astype(np.float32)}
+    for i in range(WHISPER_BASE["encoder_layers"]):
+        pre = f"model.encoder.layers.{i}."
+        t[pre + "self_attn_layer_norm.weight"] = vec(d, 1.0)
+        t[pre + "self_attn_layer_norm.bias"] = vec(d)
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            t[pre + f"self_attn.{proj}.weight"] = weight(d, d)
+            if proj != "k_proj":
+                t[pre + f"self_attn.{proj}.bias"] = vec(d)
+        t[pre + "final_layer_norm.weight"] = vec(d, 1.0)
+        t[pre + "final_layer_norm.bias"] = vec(d)
+        t[pre + "fc1.weight"], t[pre + "fc1.bias"] = weight(ffn, d), vec(ffn)
+        t[pre + "fc2.weight"], t[pre + "fc2.bias"] = weight(d, ffn), vec(d)
+    t["model.encoder.layer_norm.weight"], t["model.encoder.layer_norm.bias"] = vec(d, 1.0), vec(d)
+    out.mkdir(parents=True)
+    (out / "config.json").write_text(json.dumps({"model_type": "whisper", **WHISPER_BASE}))
+    write_safetensors(out / "model.safetensors", t)
+    return t
+
+
+def write_hubert_snapshot(out: Path, seed: int) -> dict[str, np.ndarray]:
+    """A random HuBERT-base snapshot in HF's ``HubertModel`` layout:
+    config.json and model.safetensors, the positional conv weight-normed as
+    ``parametrizations.weight.original0`` (g, (1, 1, k)) and ``original1``
+    (v). Returns the tensors written."""
+    weight, vec = _snapshot_tensors(seed)
+    h, ffn = HUBERT_BASE["hidden_size"], HUBERT_BASE["intermediate_size"]
+    t: dict[str, np.ndarray] = {}
+    c_in = 1
+    for i, (c, k) in enumerate(zip(HUBERT_BASE["conv_dim"], HUBERT_BASE["conv_kernel"])):
+        t[f"feature_extractor.conv_layers.{i}.conv.weight"] = weight(c, c_in, k)
+        c_in = c
+    c = HUBERT_BASE["conv_dim"][0]
+    t["feature_extractor.conv_layers.0.layer_norm.weight"] = vec(c, 1.0)
+    t["feature_extractor.conv_layers.0.layer_norm.bias"] = vec(c)
+    t["feature_projection.layer_norm.weight"] = vec(c, 1.0)
+    t["feature_projection.layer_norm.bias"] = vec(c)
+    t["feature_projection.projection.weight"] = weight(h, c)
+    t["feature_projection.projection.bias"] = vec(h)
+    groups, k = HUBERT_BASE["num_conv_pos_embedding_groups"], HUBERT_BASE["num_conv_pos_embeddings"]
+    v = weight(h, h // groups, k)
+    g = np.sqrt((v.astype(np.float64) ** 2).sum(axis=(0, 1), keepdims=True)).astype(np.float32)
+    t["encoder.pos_conv_embed.conv.parametrizations.weight.original0"] = g
+    t["encoder.pos_conv_embed.conv.parametrizations.weight.original1"] = v
+    t["encoder.pos_conv_embed.conv.bias"] = vec(h)
+    t["encoder.layer_norm.weight"], t["encoder.layer_norm.bias"] = vec(h, 1.0), vec(h)
+    for i in range(HUBERT_BASE["num_hidden_layers"]):
+        pre = f"encoder.layers.{i}."
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            t[pre + f"attention.{proj}.weight"], t[pre + f"attention.{proj}.bias"] = (
+                weight(h, h), vec(h))
+        t[pre + "layer_norm.weight"], t[pre + "layer_norm.bias"] = vec(h, 1.0), vec(h)
+        t[pre + "feed_forward.intermediate_dense.weight"] = weight(ffn, h)
+        t[pre + "feed_forward.intermediate_dense.bias"] = vec(ffn)
+        t[pre + "feed_forward.output_dense.weight"] = weight(h, ffn)
+        t[pre + "feed_forward.output_dense.bias"] = vec(h)
+        t[pre + "final_layer_norm.weight"], t[pre + "final_layer_norm.bias"] = vec(h, 1.0), vec(h)
+    t["masked_spec_embed"] = vec(h)  # in HF snapshots, unused by the encoder
+    out.mkdir(parents=True)
+    (out / "config.json").write_text(json.dumps({
+        "model_type": "hubert", "feat_extract_norm": "group", "do_stable_layer_norm": False,
+        **HUBERT_BASE}))
+    write_safetensors(out / "model.safetensors", t)
+    return t
+
+
+def write_config(path: Path, cfg) -> Path:
+    """A Config as a file the CLIs' ``--config`` reads: JSON, which YAML
+    parses, so the script needs no pyyaml."""
+    import dataclasses
+
+    path.write_text(json.dumps(dataclasses.asdict(cfg)))
+    return path
+
+
+def rttm_frames(path: Path, labels: list[str], step_s: float = 0.02) -> np.ndarray:
+    """(frames, labels) 0/1 of an RTTM on the 20 ms grid: frame int(start /
+    step) up to ceil(end / step), the grid as long as the last segment's end."""
+    import math
+
+    segs = []
+    for line in path.read_text().splitlines():
+        f = line.split()
+        if f and f[7] in labels:
+            segs.append((float(f[3]), float(f[4]), labels.index(f[7])))
+    n = math.ceil(max((s + d for s, d, _ in segs), default=0.0) / step_s)
+    out = np.zeros((n, len(labels)))
+    for start, dur, li in segs:
+        out[int(start / step_s) : min(math.ceil((start + dur) / step_s), n), li] = 1.0
+    return out
+
+
+def brute_force_thresholds(root: Path, logits_dir: Path, labels: list[str]) -> dict:
+    """Per label, the first threshold of round(linspace(0, 1, 10), 1) with
+    the highest frame F1 (zero division 1) of sigmoid(logits) > threshold in
+    float64 over the val files, each file's logits and RTTM grid padded with
+    zeros to the longer: tune.py's contract, computed by brute force."""
+    uris = [u for u in (root / "val.txt").read_text().split()]
+    truth, probs = [], []
+    for uri in uris:
+        data = np.load(logits_dir / f"{uri}-logits_dict_t.npz")
+        p = 1.0 / (1.0 + np.exp(-np.stack([data[lb] for lb in labels], 1).astype(np.float64)))
+        t = rttm_frames(root / "rttm" / f"{uri}.rttm", labels)
+        n = max(len(p), len(t))
+        probs.append(np.pad(p, ((0, n - len(p)), (0, 0))))
+        truth.append(np.pad(t, ((0, n - len(t)), (0, 0))) > 0.5)
+    probs, truth = np.concatenate(probs), np.concatenate(truth)
+    grid = np.round(np.linspace(0, 1, TUNE_GRID), 1)
+    best = {}
+    for li, label in enumerate(labels):
+        scores = []
+        for thr in grid:
+            pred = probs[:, li] > thr
+            tp = int((pred & truth[:, li]).sum())
+            fp = int((pred & ~truth[:, li]).sum())
+            fn = int((~pred & truth[:, li]).sum())
+            scores.append(1.0 if 2 * tp + fp + fn == 0 else 2 * tp / (2 * tp + fp + fn))
+        best[label] = {"lower_bound": float(grid[int(np.argmax(scores))]), "upper_bound": 1.0}
+    return best
+
+
+def _trainable_state(model) -> dict:
+    return {k: v.detach().float().cpu().clone() for k, v in model.module.named_parameters()
+            if v.requires_grad}
+
+
+def _max_dist(a: dict, b: dict) -> float:
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+def phase_workflow(card: str) -> dict:
+    """The reference workflow on the card, in bf16 at full width:
+
+    1. exact resume, with cuDNN's deterministic algorithms: HuBERT-base
+       ``surgical_hubert_hydra`` (the training slice's config) trains 2
+       epochs, twice; 1 epoch, then a fresh model
+       and Trainer ``fit(..., resume_from=<run>/checkpoints/last)`` to epoch
+       2; and once more from a copy of last/ without opt_state.msgpack. If
+       the two uninterrupted runs agree bit for bit, the resumed run's
+       trainable parameters and epoch-1 loss must too; else it may differ
+       from the uninterrupted run by no more than the repeat does. The run
+       with fresh moments must differ by more than the repeat.
+    2. snapshots and the predict CLI: a random Whisper-base snapshot in HF's
+       layout (config.json, model.safetensors from ``write_safetensors``)
+       serves the val WAVs through ``inference.main([..., "--save-logits"])``
+       in this process: the encoder on the card equals the arrays written,
+       each saved .npz equals ``logits_for_audio`` of the same model bit for
+       bit, the first two chunks' logits agree with the CPU plain path at
+       LOGITS_ATOL, the RTTMs parse. Then a HuBERT-base snapshot (positional
+       conv as ``original0``/``original1``) trains 1 epoch, its checkpoint
+       serves with the fingerprint accepted, and another snapshot is refused.
+    3. tune and evaluate: ``tune.main`` on the val RTTMs and logits equals
+       ``brute_force_thresholds``; the test WAVs are predicted with them;
+       ``evaluate.main`` writes fscore.csv, every score finite in [0, 1].
+
+    Returns the launch counts of the resumed fit and of the predict CLI's run."""
+    import csv
+    import dataclasses
+    import shutil
+    import warnings
+
+    import torch
+
+    from segma_tpu_torch import checkpoint, evaluate, inference, tune
+    from segma_tpu_torch.annotation import AudioAnnotation
+    from segma_tpu_torch.data import SegmaFileDataset, SegmentationDataLoader
+    from segma_tpu_torch.inference import (
+        Chunkyfier, InferencePipeline, _bucket, _load_mono, load_thresholds,
+        run_inference_on_audios,
+    )
+    from segma_tpu_torch.models.geometry import ConvolutionSettings
+    from segma_tpu_torch.train import Trainer
+
+    walls: dict[str, float] = {}
+    launches: dict[str, dict] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        root = tmp / "data"
+        write_dataset(root, TRAIN_CLASSES, (TRAIN_FILES, VAL_FILES, TEST_FILES), TRAIN_FILE_S)
+        labels = list(TRAIN_CLASSES)
+
+        # 1. exact resume
+        cfg = surgical_hubert_hydra_config(root)
+        ds = SegmaFileDataset.from_config(cfg)
+        ds.load(use_cache=False)
+
+        def fit(run: str, epochs: int, resume_from: Path | None = None):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # random encoder weights, on purpose
+                model = checkpoint.build_model(cfg, device="cuda")
+            dm = SegmentationDataLoader(ds, model.label_encoder, cfg, model.conv_settings)
+            trainer = Trainer(model=model, config=cfg, run_dir=tmp / run, max_epochs=epochs)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            result = trainer.fit(dm, resume_from=resume_from)
+            torch.cuda.synchronize()
+            walls[f"fit {run}"] = time.perf_counter() - t0
+            out = (_trainable_state(model), result["history"], read_launches(),
+                   len(dm.train_dataloader()), len(dm.val_dataloader()))
+            del model, trainer, result
+            torch.cuda.empty_cache()
+            return out
+
+        # a bit-exact trajectory on the card needs cuDNN's deterministic
+        # algorithms: under the default ones two identical bf16 runs differ
+        # within the first epoch (the positional conv's backward)
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=False, deterministic=True,
+                         allow_tf32=cudnn.allow_tf32):
+            full, h_full, _, n_steps, n_val = fit("full", TRAIN_EPOCHS)
+            repeat, h_repeat, _, _, _ = fit("repeat", TRAIN_EPOCHS)
+            fit("first", 1)
+            last = tmp / "first" / "checkpoints" / "last"
+            files = sorted(p.name for p in last.iterdir())
+            if files != ["meta.yaml", "opt_state.msgpack", "params.msgpack", "train_state.yaml"]:
+                raise AssertionError(f"last/ holds {files}")
+            resumed, h_res, resume_launches, _, _ = fit("resumed", TRAIN_EPOCHS, last)
+            no_moments = tmp / "last_without_moments"
+            shutil.copytree(last, no_moments)
+            (no_moments / "opt_state.msgpack").unlink()
+            fresh, _, _, _, _ = fit("fresh_moments", TRAIN_EPOCHS, no_moments)
+        n_layers = HUBERT_BASE["num_hidden_layers"]
+        want = {"logmel": 0, "flash_attn_fwd": n_layers * (n_steps + n_val),
+                "flash_attn_bwd": n_layers * n_steps, "flash_attn_fwd_f32": 0,
+                "flash_attn_bwd_f32": 0}
+        if [h["epoch"] for h in h_res] != [1] or resume_launches != want:
+            raise AssertionError(f"resumed fit ran epochs {[h['epoch'] for h in h_res]} with "
+                                 f"launches {resume_launches} (want {want})")
+        launches["resume"] = resume_launches
+        d_repeat, d_resume, d_fresh = (_max_dist(full, x) for x in (repeat, resumed, fresh))
+        loss_full, loss_res = h_full[1]["train/loss"], h_res[0]["train/loss"]
+        print(f"workflow resume [{card}] (cuDNN deterministic): max |trainable - "
+              f"uninterrupted| after epoch 2: "
+              f"repeat {d_repeat:.3e}, resumed {d_resume:.3e}, fresh moments {d_fresh:.3e}; "
+              f"epoch-1 train/loss uninterrupted {loss_full!r}, repeat "
+              f"{h_repeat[1]['train/loss']!r}, resumed {loss_res!r}", flush=True)
+        if d_repeat == 0.0:
+            if d_resume != 0.0 or loss_res != loss_full:
+                raise AssertionError("the uninterrupted runs agree bit for bit, the resumed "
+                                     "run does not")
+            print("check exact resume: bit for bit, parameters and epoch-1 loss", flush=True)
+        elif not d_resume <= d_repeat:
+            raise AssertionError(f"resumed run differs by {d_resume:.3e}, more than the "
+                                 f"repeat's {d_repeat:.3e}")
+        if not d_fresh > d_repeat:
+            raise AssertionError(f"resume with fresh moments differs by {d_fresh:.3e}, no more "
+                                 f"than the repeat's {d_repeat:.3e}: the moments did nothing")
+
+        # 2. a Whisper-base snapshot through the predict CLI
+        t0 = time.perf_counter()
+        written = write_whisper_snapshot(tmp / "whisper_base", seed=5)
+        walls["write Whisper-base snapshot"] = time.perf_counter() - t0
+        wcfg = surgical_hydra_config()
+        wcfg = dataclasses.replace(wcfg, data=dataclasses.replace(
+            wcfg.data, dataset_path=str(root)), model=dataclasses.replace(
+            wcfg.model, config=dataclasses.replace(wcfg.model.config,
+                                                   encoder=str(tmp / "whisper_base"))))
+        config_path = write_config(tmp / "whisper_config.yml", wcfg)
+        model = checkpoint.build_model(wcfg, device="cuda")
+        state = model.module.state_dict()
+        hf_names = {k: "encoder." + k.removeprefix("model.encoder.").replace(
+            "embed_positions.weight", "embed_positions") for k in written}
+        encoder_keys = {k for k in state if k.startswith("encoder.")}
+        if set(hf_names.values()) != encoder_keys:
+            raise AssertionError(f"snapshot keys {sorted(set(hf_names.values()) ^ encoder_keys)}")
+        off = [k for k, name in hf_names.items()
+               if not torch.equal(state[name].cpu(), torch.from_numpy(written[k]))]
+        if off:
+            raise AssertionError(f"encoder weights on the card differ from the snapshot: {off}")
+        print(f"check Whisper-base snapshot: {len(written)} tensors on the card equal the "
+              f"arrays written, exactly in f32", flush=True)
+        trainable, frozen = checkpoint.flax_split(model)
+        checkpoint.save_params(tmp / "whisper_ck", trainable,
+                               {"frozen_fingerprint": checkpoint.frozen_fingerprint(frozen)})
+        del model
+        val_uris = (root / "val.txt").read_text().split()
+        ck = Chunkyfier(INNER_BATCH, wcfg.audio.chunk_duration_f,
+                        ConvolutionSettings((320,), (320,), (0,)))
+        n_samples = int(TRAIN_FILE_S * 16_000)
+        n_chunks = _bucket(-(-ck.total_frames(n_samples) // ck.n_windows))
+        n_inner = -(-n_chunks // min(INNER_BATCH, n_chunks))
+        predict = ["--config", str(config_path), "--wavs", str(root / "wav"),
+                   "--checkpoint", str(tmp / "whisper_ck"), "--batch-size", str(INNER_BATCH),
+                   "--device", "cuda"]
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        inference.main([*predict, "--uris", str(root / "val.txt"), "--output",
+                        str(tmp / "val_out"), "--save-logits"])
+        torch.cuda.synchronize()
+        walls["predict CLI, val"] = time.perf_counter() - t0
+        launches["predict"] = read_launches()
+        want = {"logmel": n_inner * len(val_uris),
+                "flash_attn_fwd": WHISPER_BASE["encoder_layers"] * n_inner * len(val_uris),
+                "flash_attn_bwd": 0, "flash_attn_fwd_f32": 0, "flash_attn_bwd_f32": 0}
+        if launches["predict"] != want:
+            raise AssertionError(f"predict CLI launch counts {launches['predict']} != {want}")
+        served = checkpoint.load_model_for_inference(wcfg, tmp / "whisper_ck", device="cuda")
+        pipe = InferencePipeline(served, batch_size=INNER_BATCH, device="cuda")
+        n_segs = 0
+        for uri in val_uris:
+            data = np.load(tmp / "val_out" / "logits" / f"{uri}-logits_dict_t.npz")
+            saved = np.stack([data[lb] for lb in labels], axis=1)
+            direct = pipe.logits_for_audio(_load_mono(root / "wav" / f"{uri}.wav"))
+            if saved.shape != direct.shape or not np.array_equal(saved, direct):
+                raise AssertionError(f"{uri}: saved logits differ from logits_for_audio")
+            rttm = (tmp / "val_out" / "raw_rttm" / f"{uri}.rttm").read_text()
+            segs = [AudioAnnotation.from_rttm(ln) for ln in rttm.splitlines() if ln.strip()]
+            if any(sg.duration_s <= 0 or sg.label not in labels for sg in segs):
+                raise AssertionError(f"{uri}: malformed RTTM segment")
+            n_segs += len(segs)
+        print(f"check predict CLI: {len(val_uris)} val files, saved logits equal "
+              f"logits_for_audio bit for bit, {n_segs} RTTM segments parse; launches "
+              f"{launches['predict']}", flush=True)
+        first = _load_mono(root / "wav" / f"{val_uris[0]}.wav")[: 2 * ck.chunk_stride
+                                                              + ck.missing_n_frames]
+        x = torch.from_numpy(first.astype(np.float32) / 32768.0)
+        chunks = torch.stack([x[i * ck.chunk_stride : i * ck.chunk_stride + ck.chunk_duration_f]
+                              for i in range(2)])
+        model_cpu = checkpoint.load_model_for_inference(wcfg, tmp / "whisper_ck", device="cpu")
+        with torch.inference_mode():
+            ref = model_cpu.apply(chunks).reshape(-1, len(labels))
+        data = np.load(tmp / "val_out" / "logits" / f"{val_uris[0]}-logits_dict_t.npz")
+        got = torch.from_numpy(np.stack([data[lb] for lb in labels], axis=1)[: ref.shape[0]])
+        check_close("saved logits of the first two chunks, card vs CPU (Whisper-base snapshot, "
+                    "bf16)", got, ref, LOGITS_ATOL)
+        del served, pipe, model_cpu
+        torch.cuda.empty_cache()
+
+        # a HuBERT-base snapshot: train one epoch, serve the checkpoint
+        t0 = time.perf_counter()
+        write_hubert_snapshot(tmp / "hubert_base", seed=6)
+        write_hubert_snapshot(tmp / "hubert_other", seed=7)
+        walls["write two HuBERT-base snapshots"] = time.perf_counter() - t0
+        hcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, config=dataclasses.replace(cfg.model.config,
+                                                  wav_encoder=str(tmp / "hubert_base"))))
+        model = checkpoint.build_model(hcfg, device="cuda")
+        dm = SegmentationDataLoader(ds, model.label_encoder, hcfg, model.conv_settings)
+        t0 = time.perf_counter()
+        history = Trainer(model=model, config=hcfg, run_dir=tmp / "hubert_run",
+                          max_epochs=1).fit(dm)["history"]
+        torch.cuda.synchronize()
+        walls["fit 1 epoch on the HuBERT-base snapshot"] = time.perf_counter() - t0
+        if not np.isfinite([history[0]["train/loss"], history[0]["val/loss"]]).all():
+            raise AssertionError(f"training on the snapshot: non-finite loss {history[0]}")
+        hlast = tmp / "hubert_run" / "checkpoints" / "last"
+        served = checkpoint.load_model_for_inference(hcfg, hlast, device="cuda")
+        probe = torch.from_numpy(np.stack([
+            write_wav(tmp / f"probe{i}.wav", hcfg.audio.chunk_duration_f, seed=20 + i)
+            for i in range(2)]).astype(np.float32) / 32768.0).cuda()
+        if not torch.equal(served.apply(probe), model.apply(probe)):
+            raise AssertionError("the checkpoint served over the snapshot gives other logits")
+        t0 = time.perf_counter()
+        served_files = run_inference_on_audios(hcfg, root / "wav", hlast, tmp / "hubert_out",
+                                               uris=root / "test.txt", device="cuda",
+                                               batch_size=INNER_BATCH)
+        walls["serve the HuBERT checkpoint, test"] = time.perf_counter() - t0
+        for path in served_files:
+            rttm = (tmp / "hubert_out" / "raw_rttm" / f"{path.stem}.rttm").read_text()
+            for ln in rttm.splitlines():
+                if ln.strip() and AudioAnnotation.from_rttm(ln).label not in labels:
+                    raise AssertionError(f"{path.name}: malformed RTTM line {ln!r}")
+        if not served_files:
+            raise AssertionError("serving the HuBERT checkpoint wrote no RTTM")
+        other = dataclasses.replace(hcfg, model=dataclasses.replace(
+            hcfg.model, config=dataclasses.replace(hcfg.model.config,
+                                                   wav_encoder=str(tmp / "hubert_other"))))
+        refused = None
+        try:
+            checkpoint.load_model_for_inference(other, hlast, device="cuda")
+        except ValueError as e:
+            refused = str(e)
+        if refused is None or "fingerprint" not in refused:
+            raise AssertionError(f"serving over another snapshot was not refused: {refused}")
+        print(f"check HuBERT-base snapshot: 1 epoch, train/loss {history[0]['train/loss']:.6f}, "
+              f"val/loss {history[0]['val/loss']:.6f}; its checkpoint serves with the fingerprint "
+              f"accepted (logits equal the trained model's; {len(served_files)} test RTTM(s)); "
+              f"another snapshot refused: {refused[:80]}...", flush=True)
+        del model, served
+        torch.cuda.empty_cache()
+
+        # 3. tune on val, predict test with the thresholds, evaluate
+        t0 = time.perf_counter()
+        tune.main(["--config", str(config_path), "--val-ds", str(root), "--val-logits",
+                   str(tmp / "val_out" / "logits"), "--output", str(tmp / "tune")])
+        walls["tune CLI"] = time.perf_counter() - t0
+        tuned = load_thresholds(tmp / "tune" / "best_thresholds.yml")
+        brute = brute_force_thresholds(root, tmp / "val_out" / "logits", labels)
+        if tuned != brute:
+            raise AssertionError(f"tune.main {tuned} != brute-force F1 grid {brute}")
+        print(f"check tune CLI: best_thresholds.yml equals the float64 brute-force F1 grid: "
+              f"{ {k: v['lower_bound'] for k, v in tuned.items()} }", flush=True)
+        t0 = time.perf_counter()
+        inference.main([*predict, "--uris", str(root / "test.txt"), "--output",
+                        str(tmp / "test_out"), "--thresholds",
+                        str(tmp / "tune" / "best_thresholds.yml")])
+        walls["predict CLI, test, tuned thresholds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        evaluate.main(["--gt", str(root / "rttm"), "--pred", str(tmp / "test_out" / "raw_rttm"),
+                       "-c", str(config_path), "--frame-f1"])
+        walls["evaluate CLI"] = time.perf_counter() - t0
+        with (tmp / "test_out" / "fscore.csv").open() as f:
+            rows = list(csv.reader(f))
+        scores = [float(v) for row in rows[1:] for v in row[1:]]
+        if rows[-1][0] != "TOTAL" or not scores or not all(
+                np.isfinite(v) and 0.0 <= v <= 1.0 for v in scores):
+            raise AssertionError(f"fscore.csv: {rows}")
+        print(f"check evaluate CLI: fscore.csv {rows[0]} TOTAL {rows[-1][1:]}, every score "
+              f"finite in [0, 1]", flush=True)
+    print(f"workflow walls [{card}]: " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()),
+          flush=True)
+    return launches
+
+
+
 def profile_run(card: str, label: str, fn, wall_s: float) -> list[str]:
     """One more main-path run under torch.profiler: device time by kernel,
     and the device's busy share of ``wall_s``, the same run's wall time
@@ -1547,6 +2028,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = phase_train(card)
     torch.cuda.empty_cache()
+    workflow = phase_workflow(card)
+    torch.cuda.empty_cache()
     # the f32 phases run under PyTorch's defaults, which let cuDNN take TF32:
     # the f32 model itself keeps its convolutions and LSTM in IEEE f32
     torch.backends.cudnn.allow_tf32 = True
@@ -1568,8 +2051,10 @@ def main() -> int:
     by_name["flash_attn_fwd"]["launches_train"] = train["flash_attn_fwd"]
     by_name["flash_attn_fwd_f32"]["launches_train"] = train_f32["flash_attn_fwd_f32"]
     print(json.dumps({"kernels": rows}), flush=True)
-    print(f"kernels: {json.dumps({'serve': serve, 'train': train, 'serve_f32': serve_f32, 'train_f32': train_f32})}",
-          flush=True)
+    paths = {"serve": serve, "train": train, "workflow_resume": workflow["resume"],
+             "workflow_predict": workflow["predict"], "serve_f32": serve_f32,
+             "train_f32": train_f32}
+    print(f"kernels: {json.dumps(paths)}", flush=True)
     print(card, flush=True)
     print(json.dumps({
         "ok": True,

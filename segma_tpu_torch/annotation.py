@@ -37,12 +37,24 @@ class AudioAnnotation:
         return self.start_time_s + self.duration_s
 
     @property
+    def start_time_ms(self) -> float:
+        return second_to_millisecond(self.start_time_s)
+
+    @property
     def duration_ms(self) -> float:
         return second_to_millisecond(self.duration_s)
 
     @property
+    def end_time_ms(self) -> float:
+        return second_to_millisecond(self.end_time_s)
+
+    @property
     def start_time_f(self) -> int:
         return seconds_to_frames(self.start_time_s)
+
+    @property
+    def duration_f(self) -> int:
+        return seconds_to_frames(self.duration_s)
 
     @property
     def end_time_f(self) -> int:
@@ -75,3 +87,14 @@ class AudioAnnotation:
             duration_s=float(fields[4]),
             label=fields[7],
         )
+
+    def __str__(self) -> str:
+        p = self.PRECISION
+        return (
+            f"{self.uid}: [{round(self.start_time_s, p)} s, "
+            f"{round(self.end_time_s, p)} s] "
+            f"({round(self.duration_s, p)} s) label={self.label}"
+        )
+
+    def __repr__(self) -> str:
+        return self.write()

@@ -16,12 +16,17 @@ written here, and this module restores one written there.
 ```
 <run_dir>/checkpoints/
 ├── epoch=03-val_loss=0.123/   (one per kept epoch: params.msgpack, meta.yaml)
-├── last/                      (the most recent epoch)
+├── last/                      (the most recent epoch, and opt_state.msgpack
+│                               and train_state.yaml for an exact resume)
 └── best.ckpt -> <best dir>
 ```
 
-Not ported yet: optimizer state and train state in ``last/``, and resuming
-from them (``find_resumable``).
+``last/opt_state.msgpack`` holds the AdamW state as optax's tree of the JAX
+package's optimizer, ``masked(inject_hyperparams(adamw))`` over the whole
+parameter tree (``opt_state_tree``), so each package resumes from the
+other's ``last/``. ``train_state.yaml`` holds the plateau scheduler's and
+early stopping's counters. A missing or torn file of either resumes with a
+fresh state and a warning, as in JAX.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import numpy as np
 import torch
 
 from segma_tpu_torch.config import Config
-from segma_tpu_torch.convert import flax_to_torch, torch_to_flax
+from segma_tpu_torch.convert import flax_to_torch, load_flax_subtrees, torch_to_flax
 from segma_tpu_torch.models.base import SegmentationModel
 from segma_tpu_torch.utils.logging import log
 
@@ -81,18 +86,26 @@ def flax_split(model: SegmentationModel) -> tuple[dict, dict]:
     return {k: v for k, v in tree.items() if k not in frozen}, frozen
 
 
+def _masked(tree: Any) -> Any:
+    """optax's ``MaskedNode`` at every leaf of a frozen subtree: an empty map."""
+    return {k: _masked(v) for k, v in tree.items()} if isinstance(tree, dict) else {}
+
+
+def _bidirectional(model: SegmentationModel) -> bool:
+    lstm = getattr(model.module, "lstm_shared", None)
+    return lstm.cfg.bidirectional if lstm is not None else True
+
+
 def load_trainable(model: SegmentationModel, trainable: dict) -> None:
     """Load a trainable flax tree into the model's module: every parameter
     outside ``frozen_prefixes``, and nothing else."""
-    lstm = getattr(model.module, "lstm_shared", None)
-    state = flax_to_torch(trainable, lstm.cfg.bidirectional if lstm is not None else True)
-    want = {k for k in model.module.state_dict() if k.split(".")[0] not in model.frozen_prefixes}
-    if set(state) != want:
+    want = {k.split(".")[0] for k in model.module.state_dict()} - set(model.frozen_prefixes)
+    if set(trainable) != want:
         raise ValueError(
-            f"checkpoint tree does not match the model's trainable parameters: missing "
-            f"{sorted(want - set(state))[:5]}, unexpected {sorted(set(state) - want)[:5]}"
+            f"checkpoint tree does not match the model's trainable parameters: top-level "
+            f"keys {sorted(trainable)}, the model's {sorted(want)}"
         )
-    model.module.load_state_dict({k: v.to(model.device) for k, v in state.items()}, strict=False)
+    load_flax_subtrees(model.module, trainable, _bidirectional(model))
 
 
 def _leaves(tree: dict, prefix: str = ""):
@@ -176,6 +189,137 @@ def to_msgpack(tree: dict) -> bytes:
 def msgpack_restore(blob: bytes) -> dict:
     """flax's ``msgpack_restore``: the tree, arrays read-only, without a template."""
     return _unchunk(msgpack.unpackb(blob, ext_hook=_unpack_ext, raw=False))
+
+
+# -- optimizer and train state ------------------------------------------------------
+
+
+def _f32(x: float) -> np.ndarray:
+    return np.asarray(x, np.float32)
+
+
+def opt_state_tree(model: SegmentationModel, optimizer: torch.optim.Optimizer) -> dict:
+    """The AdamW state of ``optimizer`` over ``model`` as optax's state tree
+    of ``masked(inject_hyperparams(adamw)(learning_rate=lr), trainable_mask)``
+    initialised over the whole flax tree (flax's ``to_state_dict``)::
+
+        {inner_state: {count, hyperparams: {learning_rate, b1, b2, eps,
+                       eps_root, weight_decay}, hyperparams_states: {},
+                       inner_state: {'0': {count, mu, nu}, '1': {}, '2': {}}}}
+
+    ``mu`` and ``nu`` are ``exp_avg`` and ``exp_avg_sq`` in the parameters'
+    flax layout, each frozen leaf an empty map (optax's ``MaskedNode``); both
+    counts are AdamW's ``step``, which must be one for every parameter;
+    counts are int32 and hyperparameters f32 scalars. Before the first step
+    the moments are zeros and the counts 0, as ``optax.adamw(...).init``."""
+    named = {n: p for n, p in model.module.named_parameters() if p.requires_grad}
+    states = {n: optimizer.state.get(p, {}) for n, p in named.items()}
+    steps = {float(st["step"]) for st in states.values() if st}
+    if len(steps) > 1 or (steps and not all(states.values())):
+        raise ValueError(
+            f"AdamW steps differ between parameters ({sorted(steps)}, "
+            f"{sum(not st for st in states.values())} without state): optax's tree "
+            "has one count"
+        )
+    count = np.asarray(steps.pop() if steps else 0, np.int32)
+
+    def moment(key: str) -> dict:
+        tensors = {n: states[n][key] if states[n] else torch.zeros_like(p)
+                   for n, p in named.items()}
+        return torch_to_flax(model.module, tensors, moments=True)
+
+    frozen = {n: t for n, t in model.module.state_dict().items()
+              if n.split(".")[0] in model.frozen_prefixes}
+    masked = _masked(torch_to_flax(model.module, frozen)) if frozen else {}
+    mu, nu = moment("exp_avg"), moment("exp_avg_sq")
+    group = optimizer.param_groups[0]
+    return {"inner_state": {
+        "count": count,
+        "hyperparams": {
+            "learning_rate": _f32(group["lr"]), "b1": _f32(group["betas"][0]),
+            "b2": _f32(group["betas"][1]), "eps": _f32(group["eps"]), "eps_root": _f32(0.0),
+            "weight_decay": _f32(group["weight_decay"]),
+        },
+        "hyperparams_states": {},
+        "inner_state": {
+            "0": {"count": count, "mu": {**mu, **masked}, "nu": {**nu, **masked}},
+            "1": {}, "2": {},
+        },
+    }}
+
+
+def restore_opt_state(model: SegmentationModel, optimizer: torch.optim.Optimizer,
+                      tree: dict) -> None:
+    """Set ``optimizer``'s AdamW state from optax's tree (``opt_state_tree``'s
+    inverse): each trainable parameter's ``step``, ``exp_avg`` and
+    ``exp_avg_sq``, matched by name through ``flax_to_torch``, and every
+    group's learning rate, which carries the plateau scale. The other
+    hyperparameters must be the optimizer's own (at f32). A tree of another
+    structure raises before anything is set."""
+    template = opt_state_tree(model, optimizer)
+    tree = _match(template, tree, "opt_state")
+    inner = tree["inner_state"]
+    adam, hp = inner["inner_state"]["0"], inner["hyperparams"]
+    for key, want in template["inner_state"]["hyperparams"].items():
+        if key != "learning_rate" and hp[key] != want:
+            raise ValueError(f"opt_state: {key} {float(hp[key])} is not the optimizer's "
+                             f"{float(want)}")
+    trainable = {k: v for k, v in adam["mu"].items() if k not in model.frozen_prefixes}
+    mu = flax_to_torch(trainable, _bidirectional(model), moments=True)
+    nu = flax_to_torch({k: adam["nu"][k] for k in trainable}, _bidirectional(model),
+                       moments=True)
+    step = float(adam["count"])
+    new = {}
+    for name, p in model.module.named_parameters():
+        if p.requires_grad:
+            new[p] = {"step": torch.tensor(step),
+                      "exp_avg": mu[name].to(p.device, p.dtype),
+                      "exp_avg_sq": nu[name].to(p.device, p.dtype)}
+    for p, st in new.items():
+        optimizer.state[p] = st
+    for group in optimizer.param_groups:
+        group["lr"] = float(hp["learning_rate"])
+
+
+def load_opt_state(path: Path | str, model: SegmentationModel,
+                   optimizer: torch.optim.Optimizer) -> bool:
+    """Restore optimizer state from a ``last/`` checkpoint; True when it was.
+
+    The moments are an exactness extra, not a correctness requirement (top-k
+    directories never carry them): a missing file resumes with fresh moments,
+    and a torn or mismatched one too, with a warning, as in JAX."""
+    p = Path(path) / "opt_state.msgpack"
+    if not p.exists():
+        return False
+    try:
+        restore_opt_state(model, optimizer, msgpack_restore(p.read_bytes()))
+        return True
+    except Exception as e:  # noqa: BLE001 — degrade, never crash resume
+        log(f"WARNING: {p}: optimizer state not restorable ({type(e).__name__}); "
+            "resuming with fresh optimizer moments")
+        return False
+
+
+def load_train_state(path: Path | str) -> dict:
+    """Scheduler and early-stopping counters from ``last/`` ({} when absent);
+    torn or alien YAML gives {} with a warning, as in JAX."""
+    import yaml
+
+    p = Path(path) / "train_state.yaml"
+    if not p.exists():
+        return {}
+    try:
+        with p.open() as f:
+            data = yaml.safe_load(f)
+        if data is None:
+            return {}
+        if not isinstance(data, dict):
+            raise ValueError(f"expected a mapping, got {type(data).__name__}")
+        return data
+    except (yaml.YAMLError, ValueError) as e:
+        log(f"WARNING: {p}: train state not restorable ({type(e).__name__}); "
+            "resuming with fresh scheduler/early-stop counters")
+        return {}
 
 
 # -- checkpoint directories ---------------------------------------------------------
@@ -304,10 +448,13 @@ class CheckpointManager:
     def _is_better(self, a: float, b: float) -> bool:
         return a < b if self.mode == "min" else a > b
 
-    def step(self, epoch: int, score: float, trainable_params: dict, meta: dict) -> None:
-        """Record one epoch's monitored score; write, evict and relink."""
+    def step(self, epoch: int, score: float, trainable_params: dict, meta: dict,
+             opt_state: dict | None = None, train_state: dict | None = None) -> None:
+        """Record one epoch's monitored score; write, evict and relink.
+        ``opt_state`` (``opt_state_tree``) and ``train_state`` go to ``last/``
+        only: they make a resume exact without growing the top-k dirs."""
         meta = {**meta, "epoch": epoch, "score": float(score)}
-        self._write_last(trainable_params, meta)
+        self._write_last(trainable_params, meta, opt_state, train_state)
         name = f"epoch={epoch:02d}-{self.monitor.replace('/', '_')}={score:.3f}"
         path = self.dirpath / name
         save_params(path, trainable_params, meta)
@@ -324,18 +471,40 @@ class CheckpointManager:
             best_link.unlink(missing_ok=True)
             best_link.symlink_to(path.resolve())
 
-    def _write_last(self, trainable_params: dict, meta: dict) -> None:
-        """Replace ``last/``: write a tmp dir, then two renames."""
+    def _write_last(self, trainable_params: dict, meta: dict, opt_state: dict | None = None,
+                    train_state: dict | None = None) -> None:
+        """Replace ``last/``: write a tmp dir, then two renames, so that a
+        resumable ``last/`` (or ``.last.old``, ``recover_last_dir``) is on disk
+        at every moment. The tmp dir starts empty: a stale one from a crashed
+        write must not carry an old opt_state.msgpack into a ``last/`` written
+        without one."""
+        import yaml
+
         last = self.dirpath / "last"
         tmp = self.dirpath / ".last.tmp"
         old = self.dirpath / ".last.old"
         shutil.rmtree(tmp, ignore_errors=True)
         save_params(tmp, trainable_params, meta)
+        if opt_state is not None:
+            (tmp / "opt_state.msgpack").write_bytes(to_msgpack(opt_state))
+        if train_state is not None:
+            with (tmp / "train_state.yaml").open("w") as f:
+                yaml.dump(train_state, f)
         shutil.rmtree(old, ignore_errors=True)
         if last.exists():
             last.rename(old)
         tmp.rename(last)
         shutil.rmtree(old, ignore_errors=True)
+
+    def refresh_last(self, epoch: int, trainable_params: dict, meta: dict,
+                     opt_state: dict | None = None, train_state: dict | None = None) -> None:
+        """Rewrite ``last/`` without top-k accounting, for an epoch that was
+        not scored."""
+        self._write_last(trainable_params, {**meta, "epoch": epoch}, opt_state, train_state)
+
+    @property
+    def last_path(self) -> Path:
+        return recover_last_dir(self.dirpath)
 
 
 def resolve_checkpoint(path: Path | str) -> Path:
@@ -376,3 +545,44 @@ def load_model_for_inference(
                 )
         load_trainable(model, load_params(ckpt_path, trainable))
     return model
+
+
+def find_resumable(checkpoints_dir: Path | str) -> Path | None:
+    """The newest checkpoint under a run's ``checkpoints/`` that parses:
+    ``last/`` (through ``recover_last_dir``), else the epoch directory of the
+    highest epoch that parses (its resume loses only the optimizer state),
+    else None. A torn checkpoint is skipped with a warning; a torn meta.yaml
+    ranks its directory last."""
+    checkpoints_dir = Path(checkpoints_dir)
+    last = recover_last_dir(checkpoints_dir)
+    if last.exists():
+        if checkpoint_is_loadable(last):
+            return last
+        log(f"WARNING: {last} is corrupted (params.msgpack does not parse); "
+            "falling back to the newest epoch checkpoint")
+
+    def epoch_of(p: Path) -> int:
+        try:
+            return int(load_meta(p).get("epoch", -1))
+        except (ValueError, TypeError):
+            return -1
+
+    epochs = sorted((p for p in checkpoints_dir.glob("epoch=*") if p.is_dir()),
+                    key=epoch_of, reverse=True)
+    for p in epochs:
+        if checkpoint_is_loadable(p):
+            return p
+        log(f"WARNING: skipping corrupted checkpoint {p}")
+    return None
+
+
+def recover_last_dir(checkpoints_dir: Path | str) -> Path:
+    """``last/`` under ``checkpoints_dir``, adopting a ``.last.old`` left by a
+    crash between ``_write_last``'s two renames (the previous epoch, still a
+    valid resume point)."""
+    checkpoints_dir = Path(checkpoints_dir)
+    last = checkpoints_dir / "last"
+    old = checkpoints_dir / ".last.old"
+    if not last.exists() and old.exists():
+        old.rename(last)
+    return last

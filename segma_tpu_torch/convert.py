@@ -19,6 +19,12 @@ The input is the flax params tree as nested dicts of numpy arrays (what
 
 ``torch_to_flax`` inverts it; an LSTM's two biases go into ``h{g}.bias`` as
 their sum, the one bias a flax cell has.
+
+Both also carry an optimizer's moments (``moments=True``): a moment tensor
+goes to the flax leaf of its parameter through the same names and layouts.
+The two LSTM biases take the same gradient, so their moments are equal and
+are the moment of the flax cell's one bias: ``torch_to_flax`` takes
+``bias_hh``'s, and ``flax_to_torch`` gives it to both.
 """
 
 from __future__ import annotations
@@ -50,8 +56,11 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
 
 
-def lstm_state(cells: dict[str, Any], bidirectional: bool = True) -> dict[str, torch.Tensor]:
-    """flax BiLSTM cells -> ``torch.nn.LSTM`` parameters."""
+def lstm_state(
+    cells: dict[str, Any], bidirectional: bool = True, moments: bool = False
+) -> dict[str, torch.Tensor]:
+    """flax BiLSTM cells -> ``torch.nn.LSTM`` parameters (their moments
+    with ``moments=True``: ``bias_ih`` takes the cell's bias as well)."""
     n_dirs = 2 if bidirectional else 1
     out: dict[str, torch.Tensor] = {}
     for k in range(len(cells)):
@@ -63,13 +72,16 @@ def lstm_state(cells: dict[str, Any], bidirectional: bool = True) -> dict[str, t
         b_hh = np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in _GATES])
         out[f"weight_ih_{suffix}"] = _tensor(w_ih)
         out[f"weight_hh_{suffix}"] = _tensor(w_hh)
-        out[f"bias_ih_{suffix}"] = _tensor(np.zeros_like(b_hh))
+        out[f"bias_ih_{suffix}"] = _tensor(b_hh if moments else np.zeros_like(b_hh))
         out[f"bias_hh_{suffix}"] = _tensor(b_hh)
     return out
 
 
-def flax_to_torch(params: dict[str, Any], bidirectional: bool = True) -> dict[str, torch.Tensor]:
-    """JAX ``WhisperSegModule`` params -> ``WhisperSegModule.state_dict()``."""
+def flax_to_torch(
+    params: dict[str, Any], bidirectional: bool = True, moments: bool = False
+) -> dict[str, torch.Tensor]:
+    """JAX ``WhisperSegModule`` params -> ``WhisperSegModule.state_dict()``
+    (or a tree of moments -> the moments of each parameter)."""
     state: dict[str, torch.Tensor] = {}
     for path, a in _flatten({k: v for k, v in params.items() if k != _LSTM_MODULE}):
         *mods, leaf = path
@@ -79,7 +91,7 @@ def flax_to_torch(params: dict[str, Any], bidirectional: bool = True) -> dict[st
             leaf = "weight"
         state[".".join([*map(_module_name, mods), leaf])] = _tensor(a)
     if _LSTM_MODULE in params:
-        for name, t in lstm_state(params[_LSTM_MODULE], bidirectional).items():
+        for name, t in lstm_state(params[_LSTM_MODULE], bidirectional, moments).items():
             state[f"{_LSTM_MODULE}.lstm.{name}"] = t
     return state
 
@@ -99,32 +111,47 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", torch.float32).numpy()
 
 
-def lstm_cells(lstm: torch.nn.LSTM) -> dict[str, Any]:
+def lstm_cells(
+    lstm: torch.nn.LSTM, tensors: dict[str, torch.Tensor] | None = None, moments: bool = False
+) -> dict[str, Any]:
     """``torch.nn.LSTM`` parameters -> flax BiLSTM cells (``lstm_state``'s
     inverse): per gate, ``i{g}`` and ``h{g}`` kernels and the sum of the two
-    biases as ``h{g}.bias``."""
+    biases as ``h{g}.bias``. ``tensors`` (by the LSTM's parameter names)
+    stands in for the parameters; with ``moments=True`` the bias is
+    ``bias_hh``'s alone."""
     n_dirs = 2 if lstm.bidirectional else 1
+    if tensors is None:
+        tensors = dict(lstm.named_parameters())
     cells: dict[str, Any] = {}
     for layer in range(lstm.num_layers):
         for direction in range(n_dirs):
             suffix = f"l{layer}" + ("_reverse" if direction else "")
             w_ih, w_hh, b_ih, b_hh = (
-                np.split(_numpy(getattr(lstm, f"{kind}_{suffix}")), 4)
+                np.split(_numpy(tensors[f"{kind}_{suffix}"]), 4)
                 for kind in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")
             )
             cell = {}
             for g, wi, wh, bi, bh in zip(_GATES, w_ih, w_hh, b_ih, b_hh):
                 cell[f"i{g}"] = {"kernel": np.ascontiguousarray(wi.T)}
-                cell[f"h{g}"] = {"kernel": np.ascontiguousarray(wh.T), "bias": bh + bi}
+                cell[f"h{g}"] = {"kernel": np.ascontiguousarray(wh.T),
+                                 "bias": bh if moments else bh + bi}
             cells[f"OptimizedLSTMCell_{layer * n_dirs + direction}"] = cell
     return cells
 
 
-def torch_to_flax(module: torch.nn.Module) -> dict[str, Any]:
+def torch_to_flax(
+    module: torch.nn.Module, tensors: dict[str, torch.Tensor] | None = None,
+    moments: bool = False,
+) -> dict[str, Any]:
     """A ``WhisperSegModule`` or ``HubertSegModule`` -> the JAX params tree
-    (nested dicts of f32 numpy arrays, flax's names and layouts)."""
+    (nested dicts of f32 numpy arrays, flax's names and layouts).
+
+    ``tensors`` (by ``state_dict`` name) stands in for the module's state,
+    each in its parameter's layout: an optimizer's moments of some of the
+    parameters, with ``moments=True``; the tree then holds those only."""
+    state = module.state_dict() if tensors is None else tensors
     tree: dict[str, Any] = {}
-    for name, t in module.state_dict().items():
+    for name, t in state.items():
         if name.split(".")[0] == _LSTM_MODULE:
             continue
         *mods, leaf = name.split(".")
@@ -138,8 +165,10 @@ def torch_to_flax(module: torch.nn.Module) -> dict[str, Any]:
         for part in _flax_path(".".join(mods)):
             node = node.setdefault(part, {})
         node[leaf] = np.ascontiguousarray(a)
-    if hasattr(module, _LSTM_MODULE):
-        tree[_LSTM_MODULE] = lstm_cells(getattr(module, _LSTM_MODULE).lstm)
+    prefix = f"{_LSTM_MODULE}.lstm."
+    lstm = {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+    if lstm:
+        tree[_LSTM_MODULE] = lstm_cells(getattr(module, _LSTM_MODULE).lstm, lstm, moments)
     return tree
 
 
@@ -150,3 +179,21 @@ def load_flax_params(module: torch.nn.Module, params: dict[str, Any]) -> None:
     state = flax_to_torch(params, lstm.cfg.bidirectional if lstm is not None else True)
     device = next(module.parameters()).device
     module.load_state_dict({k: v.to(device) for k, v in state.items()}, strict=True)
+
+
+def load_flax_subtrees(
+    module: torch.nn.Module, params: dict[str, Any], bidirectional: bool = True
+) -> None:
+    """Overlay top-level subtrees of a flax params tree (an encoder snapshot's,
+    a checkpoint's trainable tree) on a module: every state entry under those
+    top-level names must be matched, in shape too, and no other entry
+    changes."""
+    state = flax_to_torch(params, bidirectional)
+    want = {k for k in module.state_dict() if k.split(".")[0] in params}
+    if set(state) != want:
+        raise ValueError(
+            f"tree does not match the module under {sorted(params)}: missing "
+            f"{sorted(want - set(state))[:5]}, unexpected {sorted(set(state) - want)[:5]}"
+        )
+    device = next(module.parameters()).device
+    module.load_state_dict({k: v.to(device) for k, v in state.items()}, strict=False)

@@ -8,9 +8,13 @@ normalized there), and the device does:
         -> model forward in inner batches (log-mel and attention kernels)
         -> sigmoid + per-label thresholds -> run boundaries -> packed runs
 
-The host reads WAV bytes, copies O(runs) int32s back and writes RTTM lines.
-File lengths are bucketed in chunks to powers of two; long files go in
-segments of at most ``max_bucket_chunks`` chunks.
+The host reads WAV bytes, copies O(runs) int32s back and writes RTTM lines
+(and, with ``dump_logits``, each file's frame logits for the tuner). File
+lengths are bucketed in chunks to powers of two; long files go in segments of
+at most ``max_bucket_chunks`` chunks.
+
+``python -m segma_tpu_torch.inference --config ... --wavs ... --output ...``
+is the predict CLI (``main``), with the JAX package's flags and ``--device``.
 
 Chunk geometry: stride = chunk_f - missing_n_frames, missing_n_frames =
 chunk_f - n_windows * rf_step; the tail is processed iff >= 400 samples
@@ -457,6 +461,26 @@ def write_intervals(
     return out
 
 
+def save_logits(
+    logits: np.ndarray,
+    label_encoder: MultiLabelEncoder | list[str] | tuple[str, ...],
+    output_p: Path,
+    uri: str,
+) -> Path:
+    """Dump one file's (frames, labels) logits for threshold tuning:
+    ``output_p/logits/<uri>-logits_dict_t.npz``, one array per label, as the
+    JAX package writes them (``tune.load_pred_logits`` reads both)."""
+    if isinstance(label_encoder, (list, tuple)):
+        labels = list(label_encoder)
+    else:
+        labels = [label_encoder.inv_transform(i) for i in range(label_encoder.n_labels)]
+    logits_out = Path(output_p) / "logits"
+    logits_out.mkdir(parents=True, exist_ok=True)
+    out = logits_out / f"{uri}-logits_dict_t.npz"
+    np.savez(out, **{label: logits[:, i] for i, label in enumerate(labels)})
+    return out
+
+
 def _load_mono(
     audio_path: Path, transport: str = "int16", expect_sr: int | None = None
 ) -> np.ndarray:
@@ -496,9 +520,14 @@ def _finish_file(
     rttm_dirname: str,
     min_duration_s: float,
     merge_gap_s: float,
+    dump_logits: bool = False,
 ) -> list[tuple[int, int, str]]:
     if logits_dev is None:
         logits_dev = np.zeros((0, pipeline.model.n_labels), np.float32)
+    if dump_logits:
+        # the one full (T, L) download: only the tuner's dump needs it
+        logits = torch.as_tensor(logits_dev[:total_frames]).float().cpu().numpy()
+        save_logits(logits, pipeline.model.label_encoder, output_p, audio_path.stem)
     intervals = pipeline.decode_intervals(logits_dev, thresholds, valid_frames=total_frames)
     sr = pipeline.model.config.audio.sample_rate
     intervals = postprocess_intervals(
@@ -515,12 +544,14 @@ def infer_file(
     pipeline: InferencePipeline,
     output_p: Path,
     thresholds: dict | None = None,
+    dump_logits: bool = False,
     rttm_dirname: str = "raw_rttm",
     audio: np.ndarray | None = None,
     min_duration_s: float = 0.0,
     merge_gap_s: float = 0.0,
 ) -> list[tuple[int, int, str]]:
-    """One file: decode WAV -> device logits -> thresholds -> intervals -> RTTM."""
+    """One file: decode WAV -> device logits -> thresholds -> intervals -> RTTM
+    (and the logits under ``output_p/logits`` with ``dump_logits``)."""
     enc = pipeline.model.label_encoder
     if thresholds is None:
         thresholds = default_thresholds(enc.base_labels)
@@ -529,7 +560,7 @@ def infer_file(
     logits_dev, total_frames = pipeline.logits_for_audio_async(audio)
     return _finish_file(
         pipeline, audio_path, logits_dev, total_frames, thresholds, output_p,
-        rttm_dirname, min_duration_s, merge_gap_s,
+        rttm_dirname, min_duration_s, merge_gap_s, dump_logits,
     )
 
 
@@ -561,6 +592,7 @@ def run_inference_on_audios(
     thresholds: dict | str | Path | None = None,
     batch_size: int = 64,
     recursive: bool = False,
+    dump_logits: bool = False,
     rttm_dirname: str = "raw_rttm",
     model: SegmentationModel | None = None,
     min_duration_s: float = 0.0,
@@ -577,7 +609,8 @@ def run_inference_on_audios(
     ``best.ckpt`` link or a run dir; None: the random weights of
     ``train.seed``). Passing both ``model`` and ``checkpoint`` raises. Files
     are read and served one after the other; a file that cannot be decoded
-    is reported and skipped.
+    is reported and skipped. ``dump_logits`` also writes each file's logits
+    (``save_logits``) for the tuner.
     """
     dev = resolve_device(device)
     output = Path(output)
@@ -603,8 +636,9 @@ def run_inference_on_audios(
             print(f"[log] - SKIPPED '{audio_path}': {type(e).__name__}: {e}", flush=True)
             continue
         infer_file(
-            audio_path, pipeline, output, thresholds=thr, rttm_dirname=rttm_dirname,
-            audio=audio, min_duration_s=min_duration_s, merge_gap_s=merge_gap_s,
+            audio_path, pipeline, output, thresholds=thr, dump_logits=dump_logits,
+            rttm_dirname=rttm_dirname, audio=audio, min_duration_s=min_duration_s,
+            merge_gap_s=merge_gap_s,
         )
         print(
             f"[log] - ({i:>{len(str(n_files))}}/{n_files}) inference for "
@@ -618,3 +652,89 @@ def run_inference_on_audios(
             flush=True,
         )
     return [p for p in files_to_infer_on if p not in failed]
+
+
+def main(argv: list[str] | None = None) -> None:
+    """The predict CLI: the JAX package's flags, plus ``--device`` (default
+    ``cuda``; ``cpu`` runs the plain path). Unknown arguments are config
+    overrides (``key.path=value``). Flags whose parts are not ported raise."""
+    import argparse
+
+    from segma_tpu_torch.config import load_config
+
+    parser = argparse.ArgumentParser(description="segma_tpu_torch batch inference")
+    parser.add_argument("--config", default=None)
+    parser.add_argument("--uris", help="list of uris to use for prediction")
+    parser.add_argument("--wavs", required=True)
+    parser.add_argument("--checkpoint", default="models/last/best.ckpt")
+    parser.add_argument(
+        "--artifact", default=None,
+        help="predict from a frozen export directory (not ported yet)",
+    )
+    parser.add_argument("--output", required=True)
+    parser.add_argument("--thresholds", default=None)
+    parser.add_argument("--batch_size", "--batch-size", default=64, type=int)
+    parser.add_argument("--save-logits", action="store_true")
+    parser.add_argument("--recursive", action="store_true")
+    parser.add_argument("--rttm-dirname", default="raw_rttm")
+    parser.add_argument(
+        "--min-duration", type=float, default=0.0,
+        help="drop intervals shorter than this many seconds",
+    )
+    parser.add_argument(
+        "--merge-gap", type=float, default=0.0,
+        help="merge same-label intervals separated by less than this many seconds",
+    )
+    parser.add_argument(
+        "--transport", default="int16", choices=["int16", "mulaw", "adpcm", "f32"],
+        help="host->device sample encoding (mulaw: 4x fewer bytes than f32, lossy; "
+        "adpcm is not ported yet)",
+    )
+    parser.add_argument(
+        "--mesh", default="auto", choices=["auto", "off"],
+        help="auto or off: both serve on one card (multi-GPU is not ported yet)",
+    )
+    parser.add_argument(
+        "--pack-files", type=int, default=1,
+        help="files per device dispatch (only 1 is ported)",
+    )
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="cuda (the kernels) or cpu (the plain path)")
+    args, extra_args = parser.parse_known_args(argv)
+    if args.artifact is not None:
+        raise NotImplementedError(
+            "--artifact (predict from an export) is not ported yet: ROADMAP.md Queue 1, "
+            "'Streaming, serve, export and the CLIs'"
+        )
+    if args.config is None:
+        parser.error("--config is required")
+    if args.transport == "adpcm":
+        raise NotImplementedError(
+            "--transport adpcm is not ported yet: ROADMAP.md Queue 1, 'Host data path' "
+            "(ADPCM transport)"
+        )
+    if args.pack_files != 1:
+        raise NotImplementedError(
+            f"--pack-files {args.pack_files} is not ported yet: ROADMAP.md Queue 1, "
+            "'Host data path' (multi-file packing)"
+        )
+    run_inference_on_audios(
+        config=load_config(args.config, extra_args),
+        uris=args.uris,
+        wavs=args.wavs,
+        checkpoint=args.checkpoint,
+        output=args.output,
+        thresholds=args.thresholds,
+        batch_size=args.batch_size,
+        dump_logits=args.save_logits,
+        recursive=args.recursive,
+        rttm_dirname=args.rttm_dirname,
+        min_duration_s=args.min_duration,
+        merge_gap_s=args.merge_gap,
+        transport=args.transport,
+        device=args.device,
+    )
+
+
+if __name__ == "__main__":
+    main()

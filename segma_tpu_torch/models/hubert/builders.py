@@ -8,8 +8,10 @@ heads on raw waveforms (counterpart of ``segma_tpu/models/hubert/builders.py``).
   default), then dropout 0.5 in training only, then fused hydra heads in f32.
 
 Frame geometry: conv stack (10,3,3,3,3,2,2)/(5,2,2,2,2,2,2) -> rf_step 320,
-199 frames per 4 s chunk (strict). Loading a HuBERT snapshot is not ported:
-without one the encoder is random, as in the JAX package.
+199 frames per 4 s chunk (strict). When ``model.config.wav_encoder`` exists
+(an HF snapshot directory or a torchaudio checkpoint file), the front end and
+the transformer are its weights (``hubert/convert.py``); without one they are
+random, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ from torch import nn
 
 from segma_tpu_torch import resolve_device
 from segma_tpu_torch.config import Config
+from segma_tpu_torch.convert import load_flax_subtrees
 from segma_tpu_torch.models.base import ConvolutionSettings, SegmentationModel, ieee_f32
+from segma_tpu_torch.models.hubert.convert import convert_hubert_params, read_hubert_config
 from segma_tpu_torch.models.hubert.encoder import (
     FeatureExtractor,
     HubertEncoderConfig,
@@ -104,23 +108,25 @@ def build_hubert_model(
     enc_cfg: HubertEncoderConfig | None = None,
 ) -> SegmentationModel:
     """Build ``surgical_hubert_hydra`` with random weights from ``generator``
-    (seed 0 when None) on ``device``. ``enc_cfg`` overrides HuBERT-base."""
+    (seed 0 when None) on ``device``, the encoder's replaced by the snapshot
+    at ``model.config.wav_encoder`` when it exists. ``enc_cfg`` overrides the
+    encoder's size (HuBERT-base, or the snapshot's)."""
     if name != "surgical_hubert_hydra":
         raise KeyError(f"unknown hubert variant {name!r}")
     dev = resolve_device(device)
     mc = config.model.config
-    if Path(mc.wav_encoder).exists():
-        raise NotImplementedError(
-            f"loading the HuBERT snapshot {mc.wav_encoder!r} is not ported yet"
+    snapshot = Path(mc.wav_encoder)
+    if not snapshot.exists():
+        warnings.warn(
+            f"hubert snapshot {mc.wav_encoder!r} not found — encoder randomly "
+            "initialized (fine for tests and timing, wrong for real training)",
+            stacklevel=3,
         )
-    warnings.warn(
-        f"hubert snapshot {mc.wav_encoder!r} not found — encoder randomly "
-        "initialized (fine for tests and timing, wrong for real training)",
-        stacklevel=3,
-    )
+    if enc_cfg is None:
+        enc_cfg = read_hubert_config(snapshot) if snapshot.exists() else HubertEncoderConfig.base()
     dtype = torch.float32 if config.train.precision == "f32" else torch.bfloat16
     module = HubertSegModule(
-        enc_cfg=enc_cfg or HubertEncoderConfig.base(),
+        enc_cfg=enc_cfg,
         n_labels=len(label_encoder.base_labels),
         reduction=mc.reduction,
         encoder_layers=tuple(mc.encoder_layers or ()),
@@ -128,6 +134,9 @@ def build_hubert_model(
         dtype=dtype,
     )
     init_random_(module, generator or torch.Generator().manual_seed(0))
+    if snapshot.exists():
+        _, fe, tr = convert_hubert_params(snapshot)
+        load_flax_subtrees(module, {"feature_extractor": fe, "encoder": tr})
     module.to(dev)
     frozen = ("feature_extractor",) + (("encoder",) if mc.freeze_encoder else ())
     return SegmentationModel(

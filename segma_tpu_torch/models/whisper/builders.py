@@ -4,7 +4,10 @@
 Of the five variants only ``surgical_hydra`` is ported: weighted tap over
 every encoder layer, BiLSTM, per-label hydra heads, truncation to the chunk's
 ``n_windows`` after the LSTM. The log-mel frontend and the 30 s padding run
-on the device (``ops.melspec.whisper_input_features``).
+on the device (``ops.melspec.whisper_input_features``). When
+``model.config.encoder`` is a Whisper snapshot directory (config.json and
+model.safetensors or ``*.bin``), the encoder is that snapshot's
+(``whisper/convert.py``); otherwise it is random, sized by the name.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from torch import nn
 
 from segma_tpu_torch import resolve_device
 from segma_tpu_torch.config import Config, LSTMConfig
+from segma_tpu_torch.convert import load_flax_subtrees
 from segma_tpu_torch.models.base import ConvolutionSettings, SegmentationModel, ieee_f32
 from segma_tpu_torch.models.layers import BiLSTM, HydraHeads, LayerWeightedSum
 from segma_tpu_torch.models.whisper.encoder import WhisperEncoder, WhisperEncoderConfig
@@ -96,11 +100,14 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def _encoder_cfg_for(encoder_path: str) -> WhisperEncoderConfig:
-    """Name-based encoder size; a snapshot directory cannot be loaded yet."""
+    """The snapshot's config when ``encoder_path`` is one; name-based size
+    otherwise (with a warning: the encoder will be random)."""
+    # imported here: whisper.convert uses hubert.convert, whose package
+    # imports this module
+    from segma_tpu_torch.models.whisper.convert import read_encoder_config
+
     if (Path(encoder_path) / "config.json").exists():
-        raise NotImplementedError(
-            f"loading the Whisper snapshot {encoder_path!r} is not ported yet"
-        )
+        return read_encoder_config(Path(encoder_path))
     warnings.warn(
         f"whisper snapshot {encoder_path!r} not found — encoder randomly "
         "initialized (fine for tests and timing, wrong for real predictions)",
@@ -120,7 +127,9 @@ def build_whisper_model(
     enc_cfg: WhisperEncoderConfig | None = None,
 ) -> SegmentationModel:
     """Build ``name`` with random weights from ``generator`` (seed 0 when
-    None) on ``device``. ``enc_cfg`` overrides the name-based encoder size."""
+    None) on ``device``, the encoder's replaced by the snapshot at
+    ``model.config.encoder`` when there is one. ``enc_cfg`` overrides the
+    encoder's size."""
     if name not in VARIANTS:
         raise KeyError(f"unknown whisper variant {name!r}")
     if name not in PORTED_VARIANTS:
@@ -144,6 +153,10 @@ def build_whisper_model(
         dtype=dtype,
     )
     init_random_(module, generator or torch.Generator().manual_seed(0))
+    if (Path(mc.encoder) / "config.json").exists():
+        from segma_tpu_torch.models.whisper.convert import convert_encoder_params
+
+        load_flax_subtrees(module, {"encoder": convert_encoder_params(Path(mc.encoder))[1]})
     module.to(dev).eval()
     return SegmentationModel(
         name=name,

@@ -17,11 +17,16 @@ stream.
 
 ``fit`` writes a checkpoint after every epoch in the JAX package's format
 (``checkpoint.CheckpointManager``: top-k by the monitored metric, ``last/``,
-``best.ckpt``), with the frozen parameters' fingerprint in its metadata.
+``best.ckpt``), with the frozen parameters' fingerprint in its metadata, and
+the optimizer state (optax's tree) and the scheduler and early-stopping
+counters in ``last/``. ``fit(dm, resume_from=<checkpoint>)`` restores all of
+them and goes on at the next epoch. Each epoch's batches and dropout masks
+come from (seed, epoch), so a run resumed at an epoch boundary follows the
+uninterrupted run's trajectory.
 
-Not ported yet: optimizer and train state in ``last/`` and resume, epoch
-dispatch and the device audio cache, gradient accumulation, the cosine
-schedule, int16 transport, remat, AUROC metrics and multi-process training.
+Not ported yet: epoch dispatch and the device audio cache, gradient
+accumulation, the cosine schedule, int16 transport, remat, AUROC metrics,
+preemption and multi-process training.
 """
 
 from __future__ import annotations
@@ -36,7 +41,18 @@ import numpy as np
 import torch
 
 from segma_tpu_torch import resolve_device
-from segma_tpu_torch.checkpoint import CheckpointManager, flax_split, frozen_fingerprint
+from segma_tpu_torch.checkpoint import (
+    CheckpointManager,
+    flax_split,
+    frozen_fingerprint,
+    load_meta,
+    load_opt_state,
+    load_params,
+    load_train_state,
+    load_trainable,
+    opt_state_tree,
+    resolve_checkpoint,
+)
 from segma_tpu_torch.config import Config
 from segma_tpu_torch.models.base import SegmentationModel, ieee_f32
 from segma_tpu_torch.ops.metrics import binary_counts, f1_from_counts
@@ -55,17 +71,23 @@ def get_metric(metric: str) -> tuple[str, str]:
     return table[metric]
 
 
+def _f32_rate(lr: float) -> float:
+    """The learning rate as the f32 scalar optax injects (and a checkpoint's
+    optimizer state holds), so that a resumed run steps with the same rate."""
+    return float(np.float32(lr))
+
+
 def make_optimizer(model: SegmentationModel, lr: float) -> torch.optim.AdamW:
     """AdamW (optax defaults) over the trainable parameters only."""
     return torch.optim.AdamW(
-        model.trainable_parameters(), lr=lr, betas=ADAMW_BETAS, eps=ADAMW_EPS,
+        model.trainable_parameters(), lr=_f32_rate(lr), betas=ADAMW_BETAS, eps=ADAMW_EPS,
         weight_decay=ADAMW_WEIGHT_DECAY,
     )
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        group["lr"] = _f32_rate(lr)
 
 
 def get_learning_rate(optimizer: torch.optim.Optimizer) -> float:
@@ -243,12 +265,42 @@ class Trainer:
                 metrics[f"val/f1_{label}"] = float(f1[i])
         return metrics
 
-    def fit(self, datamodule: Any) -> dict[str, Any]:
-        """Train for ``max_epochs`` (or ``train.max_epochs``) epochs, with
+    def _train_state(self) -> dict:
+        """The scheduler and early-stopping counters, as JAX writes them."""
+        return {
+            "scheduler": {"best": self.scheduler.best, "bad_epochs": self.scheduler.bad_epochs,
+                          "scale": self.scheduler.scale},
+            "early_stopping": {"best": self.early_stopping.best,
+                               "bad_epochs": self.early_stopping.bad_epochs},
+        }
+
+    def _resume(self, resume_from: Path | str) -> int:
+        """Restore a checkpoint's trainable parameters and, where it has them
+        (``last/``), the optimizer state and the counters; returns the epoch
+        to start at."""
+        ckpt = resolve_checkpoint(resume_from)
+        load_trainable(self.model, load_params(ckpt, flax_split(self.model)[0]))
+        load_opt_state(ckpt, self.model, self.optimizer)
+        for obj, section in ((self.scheduler, "scheduler"),
+                             (self.early_stopping, "early_stopping")):
+            for attr, value in (load_train_state(ckpt).get(section) or {}).items():
+                setattr(obj, attr, value)
+        return int(load_meta(ckpt).get("epoch", -1)) + 1
+
+    def fit(self, datamodule: Any, resume_from: Path | str | None = None) -> dict[str, Any]:
+        """Train up to epoch ``max_epochs`` (or ``train.max_epochs``), with
         validation, plateau LR, a checkpoint and early stopping after each.
-        Writes ``metrics.jsonl`` and ``checkpoints/`` under ``run_dir``."""
+        Writes ``metrics.jsonl`` and ``checkpoints/`` under ``run_dir``.
+
+        ``resume_from`` (a checkpoint dir such as ``<run>/checkpoints/last``,
+        a ``best.ckpt`` link or a run dir) restores the trainable parameters,
+        the AdamW moments, step and learning rate, and the counters, and
+        starts at the epoch after the checkpoint's. Returns ``params`` (the
+        module's state_dict), ``history`` (this call's epochs), and the
+        manager's ``best_score`` and ``best_path``."""
         tc = self.config.train
         seed = tc.seed if tc.seed is not None else 0
+        start_epoch = 0 if resume_from is None else self._resume(resume_from)
         trainable, frozen = self.model.split_state()
         self.logger.log({
             "n_params_trainable": sum(int(v.numel()) for v in trainable.values()),
@@ -265,8 +317,9 @@ class Trainer:
         train_loader = datamodule.train_dataloader()
         val_loader = datamodule.val_dataloader()
         max_epochs = self.max_epochs or tc.max_epochs
+        self.global_step = start_epoch * len(train_loader)
         history = []
-        for epoch in range(max_epochs):
+        for epoch in range(start_epoch, max_epochs):
             for ldr in (train_loader, val_loader):
                 ldr.set_epoch(epoch)
             generator = torch.Generator(self.device).manual_seed(seed * 100_003 + epoch)
@@ -289,8 +342,14 @@ class Trainer:
                 raise ValueError(f"monitored metric {self.monitor!r} missing from val metrics")
             if self.scheduler.step(monitored):
                 set_learning_rate(self.optimizer, tc.lr * self.scheduler.scale)
-            self.ckpt.step(epoch, monitored, flax_split(self.model)[0], meta)
-            if self.early_stopping.step(monitored):
+            stop = self.early_stopping.step(monitored)
+            self.ckpt.step(epoch, monitored, flax_split(self.model)[0], meta,
+                           opt_state=opt_state_tree(self.model, self.optimizer),
+                           train_state=self._train_state())
+            if stop:
                 self.logger.log({"early_stop": epoch})
                 break
-        return {"history": history, "best_score": self.early_stopping.best}
+        best = self.ckpt.best_path
+        return {"params": self.model.module.state_dict(), "history": history,
+                "best_score": self.ckpt.best_score,
+                "best_path": None if best is None else str(best)}

@@ -1,7 +1,10 @@
-"""The PyTorch port imports nothing of JAX, flax or the JAX package.
+"""The PyTorch port imports nothing of JAX, flax, optax, the JAX package,
+``safetensors`` or ``transformers`` (the card's machine has neither of the
+last two: the port reads snapshots itself).
 
 ``"segma_tpu_torch".startswith("segma_tpu")`` is true, so the checks match
-``segma_tpu`` itself or ``segma_tpu.``-prefixed names only.
+``segma_tpu`` itself or ``segma_tpu.``-prefixed names only, and the port's
+own ``segma_tpu_torch.utils.safetensors`` is not ``safetensors``.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "segma_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "segma_tpu", "safetensors", "transformers")
 
 
 def _forbidden(name: str) -> bool:
@@ -27,9 +30,11 @@ def _port_files() -> list[Path]:
 
 def test_forbidden_matcher():
     assert _forbidden("segma_tpu") and _forbidden("segma_tpu.ops.melspec")
-    assert _forbidden("jax.numpy") and _forbidden("flax")
+    assert _forbidden("jax.numpy") and _forbidden("flax") and _forbidden("optax")
+    assert _forbidden("safetensors.numpy") and _forbidden("transformers")
     assert not _forbidden("segma_tpu_torch") and not _forbidden("segma_tpu_torch.ops")
     assert not _forbidden("jaxtyping")
+    assert not _forbidden("segma_tpu_torch.utils.safetensors")
 
 
 def test_no_forbidden_import_statement():
@@ -53,6 +58,9 @@ REQUIRED = (
     "segma_tpu_torch.data.loaders", "segma_tpu_torch.data.file_dataset",
     "segma_tpu_torch.data.intervals", "segma_tpu_torch.data.utils", "segma_tpu_torch.train",
     "segma_tpu_torch.ops.metrics", "segma_tpu_torch.utils.logging",
+    "segma_tpu_torch.checkpoint", "segma_tpu_torch.tune", "segma_tpu_torch.evaluate",
+    "segma_tpu_torch.structs.interval", "segma_tpu_torch.utils.safetensors",
+    "segma_tpu_torch.models.whisper.convert", "segma_tpu_torch.models.hubert.convert",
 )
 
 
@@ -65,7 +73,8 @@ def test_scan_covers_the_training_slice():
 
 def test_scan_catches_a_forbidden_import(tmp_path):
     for src in ("import jax.numpy as jnp", "from flax import linen",
-                "from segma_tpu.data import loaders"):
+                "from segma_tpu.data import loaders", "from safetensors.numpy import load_file",
+                "import transformers", "import optax"):
         tree = ast.parse(src)
         names = [
             n.name for node in ast.walk(tree) if isinstance(node, ast.Import) for n in node.names
