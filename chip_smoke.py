@@ -80,10 +80,20 @@ exits nonzero without printing the final result line:
    RTTMs out; the models ``load_model_for_inference`` rebuilds from
    best.ckpt and last/ give the in-memory model's logits at that epoch, bit
    for bit; one warm f32 step profiled.
-9. the ``kernels`` JSON line (log-mel, the bf16 and the f32 flash forward
-   and backward) and the ``kernels:`` launch line, per path (the
-   workflow's resumed fit and predict CLI run among them).
-10. last line: ``{"ok": true, "device": {...}}``.
+9. the reference's six models (``phase_reference_models``, bf16 and f32,
+   full width): reference ``best.ckpt`` files of the five Whisper variants
+   and of ``surgical_hubert_hydra`` imported by the import CLI and served
+   by the predict CLI over the snapshots of their encoders, against the
+   CPU; whisperidou with ``fast_context`` in bf16 and f32; whisperimax in
+   f32; whisperimax trained with the multiclass loss, its ``bias_ih`` still
+   zero. Before the phases, the three forward kernels are also checked
+   and timed at the fast_context shapes, log-mel on (64, 64000) and both
+   flash forwards on (64, 200, 8, 64) (``fast_context_kernel_times``).
+10. the ``kernels`` JSON line (log-mel, the bf16 and the f32 flash forward
+   and backward; each with its fast_context times where it has them) and
+   the ``kernels:`` launch line, per path (the workflow's resumed fit and
+   predict CLI run, and each reference-model path, among them).
+11. last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -138,6 +148,13 @@ LOGITS_ATOL = 1e-2
 # the CPU f32 plain path: the suite's f32 logits pin
 # (tests/test_torch_surgical_hydra.py, tests/test_torch_hubert.py)
 LOGITS_F32_ATOL = 1e-4
+# bf16 served logits of the reference models against their f32 model (on the
+# CPU): at most this many times as far as the CPU's bf16 plain path is, or
+# LOGITS_ATOL. Two bf16 computations in other orders differ by a few bf16
+# ulps of the logits, which LOGITS_ATOL covers for logits below 1 through six
+# layers, not for the MLP heads' logits of order 2 to 3 or HuBERT's twelve
+# layers, where the CPU's own bf16 path is 0.02 to 0.03 from f32 (PERF.md)
+LOGITS_BF16_FACTOR = 3.0
 
 INNER_BATCH = 64
 N_CHUNKS = 150  # chunks in the synthetic WAV (~10 min at 16 kHz)
@@ -1545,19 +1562,21 @@ def _snapshot_tensors(seed: int):
     return weight, vec
 
 
-def write_whisper_snapshot(out: Path, seed: int) -> dict[str, np.ndarray]:
-    """A random Whisper-base encoder snapshot in HF's layout: config.json and
-    model.safetensors with ``model.encoder.*`` keys (k_proj without bias).
-    Returns the tensors written."""
+def write_whisper_snapshot(out: Path, seed: int, dims: dict = WHISPER_BASE
+                           ) -> dict[str, np.ndarray]:
+    """A random Whisper encoder snapshot (Whisper-base unless ``dims`` says
+    otherwise) in HF's layout: config.json and model.safetensors with
+    ``model.encoder.*`` keys (k_proj without bias). Returns the tensors
+    written."""
     weight, vec = _snapshot_tensors(seed)
-    d, ffn = WHISPER_BASE["d_model"], WHISPER_BASE["encoder_ffn_dim"]
-    t = {"model.encoder.conv1.weight": weight(d, WHISPER_BASE["num_mel_bins"], 3),
+    d, ffn = dims["d_model"], dims["encoder_ffn_dim"]
+    t = {"model.encoder.conv1.weight": weight(d, dims["num_mel_bins"], 3),
          "model.encoder.conv1.bias": vec(d),
          "model.encoder.conv2.weight": weight(d, d, 3), "model.encoder.conv2.bias": vec(d),
          "model.encoder.embed_positions.weight":
              (0.02 * np.random.default_rng(seed + 1).standard_normal(
-                 (WHISPER_BASE["max_source_positions"], d))).astype(np.float32)}
-    for i in range(WHISPER_BASE["encoder_layers"]):
+                 (dims["max_source_positions"], d))).astype(np.float32)}
+    for i in range(dims["encoder_layers"]):
         pre = f"model.encoder.layers.{i}."
         t[pre + "self_attn_layer_norm.weight"] = vec(d, 1.0)
         t[pre + "self_attn_layer_norm.bias"] = vec(d)
@@ -1571,38 +1590,40 @@ def write_whisper_snapshot(out: Path, seed: int) -> dict[str, np.ndarray]:
         t[pre + "fc2.weight"], t[pre + "fc2.bias"] = weight(d, ffn), vec(d)
     t["model.encoder.layer_norm.weight"], t["model.encoder.layer_norm.bias"] = vec(d, 1.0), vec(d)
     out.mkdir(parents=True)
-    (out / "config.json").write_text(json.dumps({"model_type": "whisper", **WHISPER_BASE}))
+    (out / "config.json").write_text(json.dumps({"model_type": "whisper", **dims}))
     write_safetensors(out / "model.safetensors", t)
     return t
 
 
-def write_hubert_snapshot(out: Path, seed: int) -> dict[str, np.ndarray]:
-    """A random HuBERT-base snapshot in HF's ``HubertModel`` layout:
+def write_hubert_snapshot(out: Path, seed: int, dims: dict = HUBERT_BASE
+                          ) -> dict[str, np.ndarray]:
+    """A random HuBERT snapshot (HuBERT-base unless ``dims`` says otherwise)
+    in HF's ``HubertModel`` layout:
     config.json and model.safetensors, the positional conv weight-normed as
     ``parametrizations.weight.original0`` (g, (1, 1, k)) and ``original1``
     (v). Returns the tensors written."""
     weight, vec = _snapshot_tensors(seed)
-    h, ffn = HUBERT_BASE["hidden_size"], HUBERT_BASE["intermediate_size"]
+    h, ffn = dims["hidden_size"], dims["intermediate_size"]
     t: dict[str, np.ndarray] = {}
     c_in = 1
-    for i, (c, k) in enumerate(zip(HUBERT_BASE["conv_dim"], HUBERT_BASE["conv_kernel"])):
+    for i, (c, k) in enumerate(zip(dims["conv_dim"], dims["conv_kernel"])):
         t[f"feature_extractor.conv_layers.{i}.conv.weight"] = weight(c, c_in, k)
         c_in = c
-    c = HUBERT_BASE["conv_dim"][0]
+    c = dims["conv_dim"][0]
     t["feature_extractor.conv_layers.0.layer_norm.weight"] = vec(c, 1.0)
     t["feature_extractor.conv_layers.0.layer_norm.bias"] = vec(c)
     t["feature_projection.layer_norm.weight"] = vec(c, 1.0)
     t["feature_projection.layer_norm.bias"] = vec(c)
     t["feature_projection.projection.weight"] = weight(h, c)
     t["feature_projection.projection.bias"] = vec(h)
-    groups, k = HUBERT_BASE["num_conv_pos_embedding_groups"], HUBERT_BASE["num_conv_pos_embeddings"]
+    groups, k = dims["num_conv_pos_embedding_groups"], dims["num_conv_pos_embeddings"]
     v = weight(h, h // groups, k)
     g = np.sqrt((v.astype(np.float64) ** 2).sum(axis=(0, 1), keepdims=True)).astype(np.float32)
     t["encoder.pos_conv_embed.conv.parametrizations.weight.original0"] = g
     t["encoder.pos_conv_embed.conv.parametrizations.weight.original1"] = v
     t["encoder.pos_conv_embed.conv.bias"] = vec(h)
     t["encoder.layer_norm.weight"], t["encoder.layer_norm.bias"] = vec(h, 1.0), vec(h)
-    for i in range(HUBERT_BASE["num_hidden_layers"]):
+    for i in range(dims["num_hidden_layers"]):
         pre = f"encoder.layers.{i}."
         for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
             t[pre + f"attention.{proj}.weight"], t[pre + f"attention.{proj}.bias"] = (
@@ -1617,9 +1638,80 @@ def write_hubert_snapshot(out: Path, seed: int) -> dict[str, np.ndarray]:
     out.mkdir(parents=True)
     (out / "config.json").write_text(json.dumps({
         "model_type": "hubert", "feat_extract_norm": "group", "do_stable_layer_norm": False,
-        **HUBERT_BASE}))
+        **dims}))
     write_safetensors(out / "model.safetensors", t)
     return t
+
+
+def reference_state_dict(name: str, encoder: dict[str, np.ndarray], labels: list[str],
+                         seed: int, lstm_hidden: int = 128, lstm_layers: int = 2,
+                         classifier: int = 256) -> dict[str, np.ndarray]:
+    """A reference (PyTorch Lightning) state_dict of model ``name`` in the
+    reference's key layout: ``encoder``, a snapshot's tensors
+    (``write_whisper_snapshot``, ``write_hubert_snapshot``), under
+    ``w_encoder.`` or, for HuBERT, under torchaudio's ``wav2vec2.`` paths;
+    random heads from ``seed``: per-label ``task_heads.linear_head_<label>``
+    (hydra), ``classifier.0``/``.2`` (MLP), whisperimax's ``linear.0``/``.2``
+    and ``classifier``; an ``nn.LSTM`` with both biases random
+    (``lstm_shared.``, whisperimax's ``lstm.``); ``layer_weights``."""
+    weight, vec = _snapshot_tensors(seed)
+    sd: dict[str, np.ndarray] = {}
+    if name == "surgical_hubert_hydra":
+        for k, v in encoder.items():
+            if k == "masked_spec_embed":
+                continue
+            if k.startswith("feature_projection."):
+                k = "encoder." + k
+            elif k.startswith("encoder."):
+                k = "encoder.transformer." + k.removeprefix("encoder.")
+                k = k.replace("conv.parametrizations.weight.original0", "conv.weight_g")
+                k = k.replace("conv.parametrizations.weight.original1", "conv.weight_v")
+            sd[f"wav2vec2.{k}"] = v
+        width = encoder["feature_projection.projection.weight"].shape[0]
+        n_layers = len({k.split(".")[2] for k in encoder if k.startswith("encoder.layers.")})
+    else:
+        sd.update({"w_encoder." + k.removeprefix("model.encoder."): v
+                   for k, v in encoder.items()})
+        width = encoder["model.encoder.conv1.weight"].shape[0]
+        n_layers = len({k.split(".")[3] for k in encoder
+                        if k.startswith("model.encoder.layers.")})
+    if name in ("whisperimax", "hydra_whisper", "surgical_hydra"):
+        prefix = "lstm" if name == "whisperimax" else "lstm_shared"
+        d_in = width
+        for layer in range(lstm_layers):
+            for sfx in ("", "_reverse"):
+                sd[f"{prefix}.weight_ih_l{layer}{sfx}"] = weight(4 * lstm_hidden, d_in)
+                sd[f"{prefix}.weight_hh_l{layer}{sfx}"] = weight(4 * lstm_hidden, lstm_hidden)
+                sd[f"{prefix}.bias_ih_l{layer}{sfx}"] = vec(4 * lstm_hidden) * 5
+                sd[f"{prefix}.bias_hh_l{layer}{sfx}"] = vec(4 * lstm_hidden) * 5
+            d_in = 2 * lstm_hidden
+        width = 2 * lstm_hidden
+    if name in ("hydra_whisper", "surgical_hydra", "surgical_hubert_hydra"):
+        for label in labels:
+            sd[f"task_heads.linear_head_{label}.weight"] = weight(1, width)
+            sd[f"task_heads.linear_head_{label}.bias"] = vec(1)
+    elif name == "whisperimax":
+        sd["linear.0.weight"], sd["linear.0.bias"] = weight(128, width), vec(128)
+        sd["linear.2.weight"], sd["linear.2.bias"] = weight(128, 128), vec(128)
+        sd["classifier.weight"], sd["classifier.bias"] = weight(len(labels), 128), vec(len(labels))
+    else:
+        sd["classifier.0.weight"], sd["classifier.0.bias"] = weight(classifier, width), vec(classifier)
+        sd["classifier.2.weight"] = weight(len(labels), classifier)
+        sd["classifier.2.bias"] = vec(len(labels))
+    if name in ("surgical_whisper", "surgical_hydra", "surgical_hubert_hydra"):
+        sd["layer_weights"] = np.random.default_rng(seed + 1).standard_normal(n_layers).astype(
+            np.float32)
+    return sd
+
+
+def write_reference_ckpt(path: Path, sd: dict[str, np.ndarray]) -> Path:
+    """A reference ``best.ckpt``: ``torch.save({"state_dict": ...})`` of
+    f32 tensors."""
+    import torch
+
+    torch.save({"state_dict": {k: torch.from_numpy(np.ascontiguousarray(v))
+                               for k, v in sd.items()}}, path)
+    return path
 
 
 def write_config(path: Path, cfg) -> Path:
@@ -1972,6 +2064,369 @@ def phase_workflow(card: str) -> dict:
     return launches
 
 
+# -- the reference's six models: imported checkpoints, fast_context, multiclass --------
+
+WHISPER_VARIANTS = ("whisperidou", "whisperimax", "surgical_whisper", "hydra_whisper",
+                    "surgical_hydra")
+FAST_CONTEXT_SAMPLES = 64_000  # fast_context: the 4 s chunk itself, 400 log-mel frames
+
+
+def whisper_variant_config(name: str, encoder: str, dataset_path: str = "data/baby_train",
+                           precision: str = "bf16", fast_context: bool = False, **train):
+    """``config/default.yml`` with model.name, model.config.encoder,
+    model.config.fast_context, data.dataset_path and train.precision (and
+    any other ``train`` fields), the per-model YAML merged, built in code so
+    that the script needs no pyyaml; tests/test_torch_whisper_variants.py
+    holds it equal to ``load_config``."""
+    from segma_tpu_torch.config import (
+        AudioConfig, Config, DataConfig, HydraWhisperConfig, LSTMConfig, ModelConfig,
+        SurgicalHydraConfig, SurgicalWhisperConfig, TrainConfig, WhisperidouConfig,
+        WhisperimaxConfig,
+    )
+
+    lstm = LSTMConfig(hidden_size=128, num_layers=2, bidirectional=True, dropout=0.5)
+    mc = {
+        "whisperidou": lambda: WhisperidouConfig(encoder, [256], 256, fast_context),
+        "whisperimax": lambda: WhisperimaxConfig(encoder, lstm, [256], 256, fast_context),
+        "surgical_whisper": lambda: SurgicalWhisperConfig(encoder, [], "weighted", [256], 256,
+                                                          fast_context),
+        "hydra_whisper": lambda: HydraWhisperConfig(encoder, lstm, 256, fast_context),
+        "surgical_hydra": lambda: SurgicalHydraConfig(encoder, [], "weighted", lstm, 256,
+                                                      fast_context),
+    }[name]()
+    return Config(
+        data=DataConfig(classes=list(TRAIN_CLASSES), dataset_path=str(dataset_path)),
+        audio=AudioConfig(chunk_duration_s=4.0, sample_rate=16_000, strict_frames=False,
+                          reference_tail=False),
+        model=ModelConfig(name=name, chkp_path="models", config=mc),
+        train=TrainConfig(precision=precision, **train),
+    )
+
+
+def expected_inner_batches(cfg, n_samples: int) -> int:
+    """Inner batches ``InferencePipeline`` runs for one file of ``n_samples``
+    (one log-mel launch each, and one flash launch per encoder layer)."""
+    from segma_tpu_torch.inference import Chunkyfier, _bucket
+    from segma_tpu_torch.models.geometry import ConvolutionSettings
+
+    ck = Chunkyfier(INNER_BATCH, cfg.audio.chunk_duration_f,
+                    ConvolutionSettings((320,), (320,), (0,)))
+    total = ck.total_frames(n_samples, strict_tail=cfg.audio.strict_frames,
+                            reference_tail=cfg.audio.reference_tail)
+    n_chunks = _bucket(-(-total // ck.n_windows))
+    return -(-n_chunks // min(INNER_BATCH, n_chunks))
+
+
+def check_logits(label: str, card, cpu, cpu_f32) -> None:
+    """Served logits against the CPU plain path on the same weights. f32:
+    the card against the CPU at LOGITS_F32_ATOL * max(1, max|logit|). bf16:
+    the card's logits against the f32 model's (on the CPU), no further than
+    LOGITS_BF16_FACTOR times the CPU's bf16 logits are, or LOGITS_ATOL; the
+    card's distance from the CPU's bf16 logits is printed."""
+    import torch
+
+    scale = float(cpu.abs().max())
+    if cpu_f32 is cpu:
+        check_close(f"{label}: saved logits of the first two chunks, card vs CPU, f32 "
+                    f"(max|logit| {scale:.3f})", card, cpu, LOGITS_F32_ATOL * max(1.0, scale))
+        return
+    card_off = float((card.double() - cpu_f32.double()).abs().max())
+    cpu_off = float((cpu.double() - cpu_f32.double()).abs().max())
+    between = float((card.double() - cpu.double()).abs().max())
+    limit = max(LOGITS_ATOL, LOGITS_BF16_FACTOR * cpu_off)
+    if not (bool(torch.isfinite(card).all()) and card_off <= limit):
+        raise AssertionError(f"{label}: card bf16 logits {card_off:.3e} from the f32 model, "
+                             f"over {limit:.3e} (the CPU's bf16: {cpu_off:.3e})")
+    print(f"check {label}: saved logits of the first two chunks (max|logit| {scale:.3f}), bf16 "
+          f"from the f32 model: card {card_off:.3e}, CPU {cpu_off:.3e} (limit {limit:.3e} = "
+          f"max({LOGITS_ATOL}, {LOGITS_BF16_FACTOR} x CPU)); card vs CPU bf16 {between:.3e}",
+          flush=True)
+
+
+def fast_context_kernel_times(card: str) -> dict:
+    """The three forward kernels at the fast_context shapes: log-mel on (64,
+    64000), the bf16 and the f32 flash forward on (64, 200, 8, 64). Each is
+    held against its plain version (log-mel on white noise over the batch
+    against float64, at most twice the plain version's own error, as in
+    ``logmel_checks``; FLASH_ATOL/RTOL; FLASH_F32_ATOL and float64) and timed in turns beside it and, for
+    flash, every SDPA backend that takes the dtype; with its bound."""
+    import torch
+
+    from segma_tpu_torch.ops import attention, logmel
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    out: dict[str, dict] = {}
+    wav = torch.randn((INNER_BATCH, FAST_CONTEXT_SAMPLES), device="cuda", generator=g) * 0.1
+    # white noise over a whole batch: held to float64, as in logmel_checks
+    ref = log_mel_float64(wav)
+    plain_err = float((logmel.log_mel_spectrogram_plain(wav).double() - ref).abs().max())
+    err = float((logmel.finish(logmel.log10_mel_cuda(wav)).double() - ref).abs().max())
+    limit = max(2 * plain_err, LOGMEL_ATOL)
+    if not err <= limit:
+        raise AssertionError(f"logmel fast_context: {err:.3e} from float64 exceeds {limit:.3e}")
+    print(f"check logmel fast_context {tuple(wav.shape)} against float64: kernel {err:.3e}, "
+          f"plain {plain_err:.3e} (limit {limit:.3e} = max(2 x plain, {LOGMEL_ATOL}))", flush=True)
+    window = torch.hann_window(400, device="cuda")
+    fb = logmel._plain_tables(wav.device)[2]
+    times = time_turns({"kernel": lambda: logmel.log10_mel_cuda(wav),
+                        "plain": lambda: logmel.log10_mel_plain(wav),
+                        "stft yardstick": lambda: stft_log10_mel(wav, window, fb)})
+    for name, t in times.items():
+        print(f"time logmel fast_context {name} {tuple(wav.shape)} [{card}]: {spread(t)}",
+              flush=True)
+    bounds = logmel_bounds(*wav.shape)
+    out["logmel"] = {"shape": list(wav.shape), "max_abs_err": err,
+                     "ms": median(times["kernel"]), "plain_ms": median(times["plain"]),
+                     "stft_yardstick_ms": median(times["stft yardstick"]), "library_ms": None,
+                     "bound_ms": bounds["bound_ms"], "bound_by": bounds["bound_by"]}
+    sm = 64**-0.5
+    shape = (INNER_BATCH, 200, 8, 64)
+    b, s, h, d = shape
+    for name, dtype in (("flash_attn_fwd", torch.bfloat16), ("flash_attn_fwd_f32", torch.float32)):
+        q, k, v = (torch.randn(shape, device="cuda", generator=g).to(dtype) for _ in range(3))
+        got = attention.flash_attn_fwd(q, k, v, sm)
+        ref = attention.attention_plain(q, k, v, sm, torch.float32)
+        if dtype == torch.bfloat16:
+            err = check_close(f"{name} fast_context {shape}", got, ref, FLASH_ATOL, FLASH_RTOL)
+            bf16_ms, _ = bound_ms(4 * b * h * s * s * d, PEAK_BF16_FLOPS, 4 * q.numel() * 2)
+            n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+            exp_ms = b * h * s * s / (EXP2_PER_SM_CLOCK * n_sm * max_sm_clock_hz()) * 1e3
+            bound = {"bound_ms": max(bf16_ms, exp_ms), "bound_by": "operations"}
+        else:
+            err = check_close(f"{name} fast_context {shape}", got, ref, FLASH_F32_ATOL)
+            check_close(f"{name} fast_context {shape} against float64", got.double(),
+                        attention.attention_plain(q.double(), k.double(), v.double(), sm,
+                                                  torch.float64), FLASH_F32_ATOL)
+            bound = row_bounds(f32_attention_bounds(b, s, h, d, products=2, tensors=4))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        plain_dtype = torch.float32 if dtype == torch.float32 else torch.bfloat16
+        times = time_turns({"kernel": lambda: attention.flash_attn_fwd(q, k, v, sm),
+                            "plain": lambda: attention.attention_plain(q, k, v, sm, plain_dtype),
+                            **sdpa_calls(qt, kt, vt, sm)})
+        for label, t in times.items():
+            print(f"time {name} fast_context {label} {shape} [{card}]: {spread(t)}", flush=True)
+        library = {n: median(t) for n, t in times.items() if n.startswith("sdpa")}
+        out[name] = {"shape": list(shape), "max_abs_err": err, "ms": median(times["kernel"]),
+                     "plain_ms": median(times["plain"]), "library_backends_ms": library,
+                     "library_ms": min(library.values()) if library else None, **bound}
+        del q, k, v, qt, kt, vt, got, ref
+        torch.cuda.empty_cache()
+    for name, row in out.items():
+        print(f"time {name} fast_context {tuple(row['shape'])} [{card}]: kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library {row['library_ms']} "
+              f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+              f"{100 * row['bound_ms'] / row['ms']:.1f}% of it)", flush=True)
+    return out
+
+
+def phase_reference_models(card: str) -> dict:
+    """The reference's six models on the card, at Whisper-base and
+    HuBERT-base width, through the entry points a migrating user calls:
+
+    1. each Whisper variant: a random Whisper-base snapshot, and a reference
+       ``best.ckpt`` in the reference's key layout holding the snapshot's
+       tensors under ``w_encoder.`` and random heads (an ``nn.LSTM`` with
+       both biases random); imported by ``python -m
+       segma_tpu_torch.cli.import_checkpoint`` (whisperidou's in a process
+       of its own, the others through the same ``main`` in this one) and
+       served in bf16 by the predict CLI (``inference.main``, ``--save-logits``)
+       over the snapshot, fingerprint accepted; the saved logits of the
+       first two chunks against the CPU plain path on the same weights
+       (``check_logits``): log-mel at (B, 480000), the bf16 flash forward at
+       S = 1500;
+    2. whisperidou with fast_context, served in bf16 and in f32: log-mel at
+       (B, 64000), both flash forwards at S = 200;
+    3. the imported whisperimax served with train.precision=f32: the f32
+       flash forward at S = 1500;
+    4. surgical_hubert_hydra: a reference ``.ckpt`` with torchaudio's
+       ``wav2vec2.`` keys at HuBERT-base width, imported and served;
+    5. whisperimax (multiclass loss) trains two epochs in bf16 through
+       ``Trainer.fit`` on the snapshot: finite losses that fall from epoch 1
+       to 2, every ``bias_ih`` exactly zero afterwards, and its checkpoint
+       serves the trained model's logits.
+
+    Returns the launch counts of each path."""
+    import dataclasses
+    import warnings
+
+    import torch
+
+    from segma_tpu_torch import checkpoint, inference
+    from segma_tpu_torch.cli import import_checkpoint
+    from segma_tpu_torch.config import DataloaderConfig
+    from segma_tpu_torch.data import SegmaFileDataset, SegmentationDataLoader
+    from segma_tpu_torch.inference import Chunkyfier, _load_mono
+    from segma_tpu_torch.models.geometry import ConvolutionSettings
+    from segma_tpu_torch.train import Trainer
+
+    walls: dict[str, float] = {}
+    launches: dict[str, dict] = {}
+    labels = list(TRAIN_CLASSES)
+    repo = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        root = tmp / "data"
+        write_dataset(root, TRAIN_CLASSES, (TRAIN_FILES, VAL_FILES, TEST_FILES), TRAIN_FILE_S)
+        val_uris = (root / "val.txt").read_text().split()
+        n_samples = int(TRAIN_FILE_S * 16_000)
+        t0 = time.perf_counter()
+        whisper = write_whisper_snapshot(tmp / "whisper_base", seed=11)
+        walls["write Whisper-base snapshot"] = time.perf_counter() - t0
+
+        def first_chunks(cfg) -> torch.Tensor:
+            ck = Chunkyfier(INNER_BATCH, cfg.audio.chunk_duration_f,
+                            ConvolutionSettings((320,), (320,), (0,)))
+            pcm = _load_mono(root / "wav" / f"{val_uris[0]}.wav")
+            x = torch.from_numpy(pcm[: 2 * ck.chunk_stride + ck.missing_n_frames]
+                                 .astype(np.float32) / 32768.0)
+            return torch.stack([x[i * ck.chunk_stride : i * ck.chunk_stride
+                                  + ck.chunk_duration_f] for i in range(2)])
+
+        def serve(label: str, cfg, ckpt_dir: Path, n_layers: int, kernel: str):
+            """The predict CLI over the val WAVs from zeroed launch counts;
+            the saved logits of the first two chunks against the CPU."""
+            config_path = write_config(tmp / f"{label}.yml", cfg)
+            out = tmp / f"{label}_out"
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            inference.main(["--config", str(config_path), "--wavs", str(root / "wav"),
+                            "--uris", str(root / "val.txt"), "--checkpoint", str(ckpt_dir),
+                            "--output", str(out), "--batch-size", str(INNER_BATCH),
+                            "--save-logits", "--device", "cuda"])
+            torch.cuda.synchronize()
+            walls[f"predict CLI {label}"] = time.perf_counter() - t0
+            got = read_launches()
+            n_inner = expected_inner_batches(cfg, n_samples) * len(val_uris)
+            want = {k: 0 for k in got}
+            want[kernel] = n_layers * n_inner
+            if cfg.model.name != "surgical_hubert_hydra":
+                want["logmel"] = n_inner
+            if got != want:
+                raise AssertionError(f"{label}: launch counts {got} != {want}")
+            launches[label] = got
+            chunks = first_chunks(cfg)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                model_cpu = checkpoint.load_model_for_inference(cfg, ckpt_dir, device="cpu")
+                with torch.inference_mode():
+                    ref = model_cpu.apply(chunks).reshape(-1, len(labels))
+                    f32 = (ref if cfg.train.precision == "f32" else
+                           checkpoint.load_model_for_inference(
+                               dataclasses.replace(cfg, train=dataclasses.replace(
+                                   cfg.train, precision="f32")), ckpt_dir, device="cpu")
+                           .apply(chunks).reshape(-1, len(labels)))
+            data = np.load(out / "logits" / f"{val_uris[0]}-logits_dict_t.npz")
+            saved = torch.from_numpy(np.stack([data[lb] for lb in labels], 1)[: ref.shape[0]])
+            check_logits(label, saved, ref, f32)
+            n_segs = sum(len((out / "raw_rttm" / f"{u}.rttm").read_text().splitlines())
+                         for u in val_uris)
+            print(f"check {label}: {len(val_uris)} val files served, {n_segs} RTTM lines, "
+                  f"launches {got}", flush=True)
+            del model_cpu
+
+        imported: dict[str, Path] = {}
+        for i, name in enumerate(WHISPER_VARIANTS):
+            cfg = whisper_variant_config(name, str(tmp / "whisper_base"), str(root))
+            sd = reference_state_dict(name, whisper, labels, seed=20 + i)
+            ckpt_path = write_reference_ckpt(tmp / f"{name}.ckpt", sd)
+            args = ["--ckpt", str(ckpt_path), "--config", str(write_config(
+                tmp / f"{name}_import.yml", cfg)), "--out", str(tmp / f"{name}_imported"),
+                "--device", "cuda"]
+            t0 = time.perf_counter()
+            if i == 0:
+                subprocess.run([sys.executable, "-m", "segma_tpu_torch.cli.import_checkpoint",
+                                *args], cwd=repo, check=True, timeout=600)
+            else:
+                import_checkpoint.main(args)
+            walls[f"import {name}"] = time.perf_counter() - t0
+            imported[name] = tmp / f"{name}_imported"
+            meta = checkpoint.load_meta(imported[name])
+            if meta.get("model") != name or "frozen_fingerprint" not in meta:
+                raise AssertionError(f"{name}: imported meta {meta}")
+            serve(f"{name} bf16", cfg, imported[name], WHISPER_BASE["encoder_layers"],
+                  "flash_attn_fwd")
+            torch.cuda.empty_cache()
+
+        # fast_context: the encoder on the chunk's own 400 frames
+        for precision, kernel in (("bf16", "flash_attn_fwd"), ("f32", "flash_attn_fwd_f32")):
+            cfg = whisper_variant_config("whisperidou", str(tmp / "whisper_base"), str(root),
+                                         precision=precision, fast_context=True)
+            serve(f"whisperidou fast_context {precision}", cfg, imported["whisperidou"],
+                  WHISPER_BASE["encoder_layers"], kernel)
+        # an imported checkpoint served in f32 at the padded context
+        cfg = whisper_variant_config("whisperimax", str(tmp / "whisper_base"), str(root),
+                                     precision="f32")
+        serve("whisperimax f32", cfg, imported["whisperimax"], WHISPER_BASE["encoder_layers"],
+              "flash_attn_fwd_f32")
+        torch.cuda.empty_cache()
+
+        # surgical_hubert_hydra from torchaudio-style keys
+        t0 = time.perf_counter()
+        hubert = write_hubert_snapshot(tmp / "hubert_base", seed=12)
+        hcfg = surgical_hubert_hydra_config(root)
+        hcfg = dataclasses.replace(hcfg, model=dataclasses.replace(
+            hcfg.model, config=dataclasses.replace(hcfg.model.config,
+                                                   wav_encoder=str(tmp / "hubert_base"))))
+        sd = reference_state_dict("surgical_hubert_hydra", hubert, labels, seed=30)
+        import_checkpoint.main(["--ckpt", str(write_reference_ckpt(tmp / "hubert.ckpt", sd)),
+                                "--config", str(write_config(tmp / "hubert_import.yml", hcfg)),
+                                "--out", str(tmp / "hubert_imported"), "--device", "cuda"])
+        walls["write and import HuBERT-base"] = time.perf_counter() - t0
+        serve("surgical_hubert_hydra bf16", hcfg, tmp / "hubert_imported",
+              HUBERT_BASE["num_hidden_layers"], "flash_attn_fwd")
+        torch.cuda.empty_cache()
+
+        # whisperimax trains: the multiclass loss, the LSTM's one bias
+        tcfg = whisper_variant_config("whisperimax", str(tmp / "whisper_base"), str(root),
+                                      lr=1e-3, batch_size=32, max_epochs=TRAIN_EPOCHS, seed=0,
+                                      dataloader=DataloaderConfig(num_workers=1))
+        model = checkpoint.build_model(tcfg, device="cuda")
+        if model.loss_type != "multiclass":
+            raise AssertionError(f"whisperimax loss_type {model.loss_type}")
+        ds = SegmaFileDataset.from_config(tcfg)
+        ds.load(use_cache=False)
+        dm = SegmentationDataLoader(ds, model.label_encoder, tcfg, model.conv_settings)
+        n_steps, n_val = len(dm.train_dataloader()), len(dm.val_dataloader())
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        history = Trainer(model=model, config=tcfg, run_dir=tmp / "imax_run").fit(dm)["history"]
+        torch.cuda.synchronize()
+        walls["fit whisperimax"] = time.perf_counter() - t0
+        got = read_launches()
+        n_batches = TRAIN_EPOCHS * (n_steps + n_val)
+        want = {"logmel": n_batches, "flash_attn_fwd": WHISPER_BASE["encoder_layers"] * n_batches,
+                "flash_attn_bwd": 0, "flash_attn_fwd_f32": 0, "flash_attn_bwd_f32": 0}
+        if got != want:
+            raise AssertionError(f"whisperimax fit: launch counts {got} != {want}")
+        launches["whisperimax fit"] = got
+        losses = [h["train/loss"] for h in history]
+        if not (np.isfinite(losses + [h["val/loss"] for h in history]).all()
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"whisperimax train/loss per epoch {losses}: not finite and "
+                                 f"falling")
+        lstm = model.module.lstm_shared.lstm
+        nonzero = [n for n, p in lstm.named_parameters() if n.startswith("bias_ih") and p.any()]
+        if nonzero:
+            raise AssertionError(f"whisperimax: {nonzero} moved off zero in training")
+        served = checkpoint.load_model_for_inference(
+            tcfg, tmp / "imax_run" / "checkpoints" / "last", device="cuda")
+        probe = first_chunks(tcfg).cuda()
+        if not torch.equal(served.apply(probe), model.apply(probe)):
+            raise AssertionError("whisperimax: the checkpoint serves other logits than the "
+                                 "trained model")
+        print(f"check whisperimax fit [{card}]: {TRAIN_EPOCHS} epochs of {n_steps} steps, "
+              f"multiclass train/loss {losses}, val/loss {[h['val/loss'] for h in history]}; "
+              f"bias_ih exactly zero; last/ serves the trained logits; launches {got}",
+              flush=True)
+        del model, served
+        torch.cuda.empty_cache()
+    print(f"reference models walls [{card}]: " + ", ".join(f"{k} {v:.3f} s"
+                                                           for k, v in walls.items()), flush=True)
+    return launches
+
+
 
 def profile_run(card: str, label: str, fn, wall_s: float) -> list[str]:
     """One more main-path run under torch.profiler: device time by kernel,
@@ -2023,12 +2478,19 @@ def main() -> int:
     fwd.update(fwd_train)  # the training shape's times, with and without the LSE
     rows.append(bwd_row)
     rows.extend(flash_f32_checks(card))
+    with torch.inference_mode():
+        fast = fast_context_kernel_times(card)
+    for row in rows:
+        if row["name"] in fast:
+            row["fast_context"] = fast[row["name"]]
     torch.cuda.empty_cache()
     serve = phase_slice(card)
     torch.cuda.empty_cache()
     train = phase_train(card)
     torch.cuda.empty_cache()
     workflow = phase_workflow(card)
+    torch.cuda.empty_cache()
+    reference = phase_reference_models(card)
     torch.cuda.empty_cache()
     # the f32 phases run under PyTorch's defaults, which let cuDNN take TF32:
     # the f32 model itself keeps its convolutions and LSTM in IEEE f32
@@ -2050,10 +2512,13 @@ def main() -> int:
     by_name = {row["name"]: row for row in rows}
     by_name["flash_attn_fwd"]["launches_train"] = train["flash_attn_fwd"]
     by_name["flash_attn_fwd_f32"]["launches_train"] = train_f32["flash_attn_fwd_f32"]
+    for row in rows:  # the reference models' paths, all of them together
+        row["launches_reference_models"] = sum(path[row["name"]] for path in reference.values())
     print(json.dumps({"kernels": rows}), flush=True)
     paths = {"serve": serve, "train": train, "workflow_resume": workflow["resume"],
              "workflow_predict": workflow["predict"], "serve_f32": serve_f32,
-             "train_f32": train_f32}
+             "train_f32": train_f32,
+             **{f"reference {label}": counts for label, counts in reference.items()}}
     print(f"kernels: {json.dumps(paths)}", flush=True)
     print(card, flush=True)
     print(json.dumps({

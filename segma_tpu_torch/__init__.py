@@ -1,9 +1,10 @@
 """segma_tpu_torch: the PyTorch and CUDA port of segma_tpu for NVIDIA Hopper.
 
-Sliding-window speech segmentation (``surgical_hydra``: Whisper-base encoder,
-layer-weighted sum, BiLSTM, per-label heads; ``surgical_hubert_hydra``) with
-the log-mel frontend and flash attention as hand-written CUDA kernels
-(``csrc/``), training, and checkpoints in the JAX package's format. The
+Sliding-window speech segmentation with the reference's six models (the
+five Whisper variants, ``surgical_hydra`` by default, and
+``surgical_hubert_hydra``), the log-mel frontend and flash attention as
+hand-written CUDA kernels (``csrc/``), training, checkpoints in the JAX
+package's format, and the import of reference checkpoints. The
 package imports torch and numpy, and msgpack and yaml for checkpoints. Its
 entry points run on the card unless the caller passes ``device="cpu"``.
 """

@@ -1,9 +1,9 @@
 """Config subset the port reads (counterpart of ``segma_tpu/config/base.py``).
 
-What serving ``surgical_hydra`` and training ``surgical_hubert_hydra`` need
-is modelled: the dataset, the audio geometry, the label classes, the models'
-hyper-parameters and the training fields of the host-data, one-process,
-per-step path. ``load_config`` reads the same YAML files as the JAX package
+What serving and training the five Whisper variants and
+``surgical_hubert_hydra`` need is modelled: the dataset, the audio
+geometry, the label classes, the models' hyper-parameters and the training
+fields of the host-data, one-process, per-step path. ``load_config`` reads the same YAML files as the JAX package
 (``default.yml`` plus the per-model YAML) with ``a.b.c=value`` overrides.
 The ``wandb`` and ``mesh`` sections are skipped. A training key of the JAX
 schema that the port does not model yet is accepted only at the value that
@@ -55,6 +55,43 @@ class LSTMConfig:
 
 
 @dataclass
+class WhisperidouConfig:
+    encoder: str
+    linear: list[int]
+    classifier: int
+    # run the encoder on the chunk's own frames instead of Whisper's 30 s
+    # context (numerics differ slightly from the padded reference)
+    fast_context: bool = False
+
+
+@dataclass
+class WhisperimaxConfig:
+    encoder: str
+    lstm: LSTMConfig
+    linear: list[int]
+    classifier: int
+    fast_context: bool = False
+
+
+@dataclass
+class SurgicalWhisperConfig:
+    encoder: str
+    encoder_layers: list[int]
+    reduction: str
+    linear: list[int]
+    classifier: int
+    fast_context: bool = False
+
+
+@dataclass
+class HydraWhisperConfig:
+    encoder: str
+    lstm: LSTMConfig
+    classifier: int
+    fast_context: bool = False
+
+
+@dataclass
 class SurgicalHydraConfig:
     encoder: str
     encoder_layers: list[int]
@@ -77,7 +114,10 @@ class SurgicalHubertHydraConfig:
 class ModelConfig:
     name: str
     chkp_path: str | None = None
-    config: SurgicalHydraConfig | SurgicalHubertHydraConfig | None = None
+    config: (
+        WhisperidouConfig | WhisperimaxConfig | SurgicalWhisperConfig | HydraWhisperConfig
+        | SurgicalHydraConfig | SurgicalHubertHydraConfig | None
+    ) = None
 
 
 @dataclass
@@ -138,10 +178,16 @@ class Config:
 
 
 _MODEL_CONFIG_TYPES: dict[str, type] = {
+    "whisperidou": WhisperidouConfig,
+    "whisperimax": WhisperimaxConfig,
+    "surgical_whisper": SurgicalWhisperConfig,
+    "hydra_whisper": HydraWhisperConfig,
     "surgical_hydra": SurgicalHydraConfig,
     "surgical_hubert_hydra": SurgicalHubertHydraConfig,
 }
 _NESTED: dict[tuple[type, str], type] = {
+    (WhisperimaxConfig, "lstm"): LSTMConfig,
+    (HydraWhisperConfig, "lstm"): LSTMConfig,
     (SurgicalHydraConfig, "lstm"): LSTMConfig,
     (TrainConfig, "scheduler"): SchedulerConfig,
     (TrainConfig, "dataloader"): DataloaderConfig,
@@ -262,6 +308,8 @@ def load_config(config_path: Path | str, cli_extra_args: list[str] | None = None
 
 __all__ = [
     "AudioConfig", "Config", "ConfigError", "DataConfig", "DataloaderConfig",
-    "LSTMConfig", "ModelConfig", "SchedulerConfig", "SurgicalHubertHydraConfig",
-    "SurgicalHydraConfig", "TrainConfig", "config_from_dict", "load_config",
+    "HydraWhisperConfig", "LSTMConfig", "ModelConfig", "SchedulerConfig",
+    "SurgicalHubertHydraConfig", "SurgicalHydraConfig", "SurgicalWhisperConfig",
+    "TrainConfig", "WhisperidouConfig", "WhisperimaxConfig", "config_from_dict",
+    "load_config",
 ]

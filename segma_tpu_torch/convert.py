@@ -1,4 +1,4 @@
-"""Weight bridge between a JAX ``surgical_hydra`` or ``surgical_hubert_hydra``
+"""Weight bridge between a JAX ``WhisperSegModule`` or ``HubertSegModule``
 parameter tree and the port's ``state_dict``, both ways (``flax_to_torch``,
 ``torch_to_flax``).
 
@@ -14,17 +14,17 @@ The input is the flax params tree as nested dicts of numpy arrays (what
   layer0-bwd, layer1-fwd, ...; each cell's per-gate kernels (``i{g}`` input,
   ``h{g}`` hidden with the bias) stack in gate order i, f, g, o into
   ``weight_ih_l{n}[_reverse]`` and ``weight_hh_l{n}[_reverse]``; ``h{g}.bias``
-  goes into ``bias_hh`` and ``bias_ih`` is zero (the inverse of
-  ``segma_tpu/convert_reference.py:_convert_lstm``).
+  goes into ``bias_hh`` and ``bias_ih`` is zero (``layers.BiLSTM`` keeps it
+  zero and frozen).
 
 ``torch_to_flax`` inverts it; an LSTM's two biases go into ``h{g}.bias`` as
 their sum, the one bias a flax cell has.
 
 Both also carry an optimizer's moments (``moments=True``): a moment tensor
 goes to the flax leaf of its parameter through the same names and layouts.
-The two LSTM biases take the same gradient, so their moments are equal and
-are the moment of the flax cell's one bias: ``torch_to_flax`` takes
-``bias_hh``'s, and ``flax_to_torch`` gives it to both.
+Only ``bias_hh`` trains, so its moment is the moment of the flax cell's one
+bias: ``torch_to_flax`` takes it, and ``flax_to_torch`` gives it back to
+``bias_hh`` alone (no ``bias_ih`` entry).
 """
 
 from __future__ import annotations
@@ -59,8 +59,8 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 def lstm_state(
     cells: dict[str, Any], bidirectional: bool = True, moments: bool = False
 ) -> dict[str, torch.Tensor]:
-    """flax BiLSTM cells -> ``torch.nn.LSTM`` parameters (their moments
-    with ``moments=True``: ``bias_ih`` takes the cell's bias as well)."""
+    """flax BiLSTM cells -> ``torch.nn.LSTM`` parameters (the moments of
+    the trainable ones with ``moments=True``: no ``bias_ih``)."""
     n_dirs = 2 if bidirectional else 1
     out: dict[str, torch.Tensor] = {}
     for k in range(len(cells)):
@@ -72,7 +72,8 @@ def lstm_state(
         b_hh = np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in _GATES])
         out[f"weight_ih_{suffix}"] = _tensor(w_ih)
         out[f"weight_hh_{suffix}"] = _tensor(w_hh)
-        out[f"bias_ih_{suffix}"] = _tensor(b_hh if moments else np.zeros_like(b_hh))
+        if not moments:
+            out[f"bias_ih_{suffix}"] = _tensor(np.zeros_like(b_hh))
         out[f"bias_hh_{suffix}"] = _tensor(b_hh)
     return out
 
@@ -118,7 +119,7 @@ def lstm_cells(
     inverse): per gate, ``i{g}`` and ``h{g}`` kernels and the sum of the two
     biases as ``h{g}.bias``. ``tensors`` (by the LSTM's parameter names)
     stands in for the parameters; with ``moments=True`` the bias is
-    ``bias_hh``'s alone."""
+    ``bias_hh``'s alone, and ``bias_ih`` need not be there."""
     n_dirs = 2 if lstm.bidirectional else 1
     if tensors is None:
         tensors = dict(lstm.named_parameters())
@@ -126,15 +127,17 @@ def lstm_cells(
     for layer in range(lstm.num_layers):
         for direction in range(n_dirs):
             suffix = f"l{layer}" + ("_reverse" if direction else "")
-            w_ih, w_hh, b_ih, b_hh = (
+            w_ih, w_hh, b_hh = (
                 np.split(_numpy(tensors[f"{kind}_{suffix}"]), 4)
-                for kind in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")
+                for kind in ("weight_ih", "weight_hh", "bias_hh")
             )
+            if not moments:
+                b_hh = [bh + bi for bh, bi in
+                        zip(b_hh, np.split(_numpy(tensors[f"bias_ih_{suffix}"]), 4))]
             cell = {}
-            for g, wi, wh, bi, bh in zip(_GATES, w_ih, w_hh, b_ih, b_hh):
+            for g, wi, wh, bh in zip(_GATES, w_ih, w_hh, b_hh):
                 cell[f"i{g}"] = {"kernel": np.ascontiguousarray(wi.T)}
-                cell[f"h{g}"] = {"kernel": np.ascontiguousarray(wh.T),
-                                 "bias": bh if moments else bh + bi}
+                cell[f"h{g}"] = {"kernel": np.ascontiguousarray(wh.T), "bias": bh}
             cells[f"OptimizedLSTMCell_{layer * n_dirs + direction}"] = cell
     return cells
 

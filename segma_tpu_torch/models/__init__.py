@@ -2,8 +2,10 @@
 
 Builders take ``(label_encoder, config, device="cuda", generator=None)``
 and return a ``SegmentationModel`` with random weights drawn from
-``generator``. Ported: ``surgical_hydra`` (serving) and
-``surgical_hubert_hydra`` (training).
+``generator``. Ported: the five Whisper variants (``whisperidou``,
+``whisperimax``, ``surgical_whisper``, ``hydra_whisper``,
+``surgical_hydra``) and ``surgical_hubert_hydra``, the six models of the
+reference, each served and trained.
 """
 
 from __future__ import annotations
@@ -48,7 +50,8 @@ class _Registry(dict):
 
 
 Models: dict[str, ModelBuilder] = _Registry({
-    "surgical_hydra": _lazy_whisper("surgical_hydra"),
+    **{name: _lazy_whisper(name) for name in (
+        "whisperidou", "whisperimax", "surgical_whisper", "hydra_whisper", "surgical_hydra")},
     "surgical_hubert_hydra": _lazy_hubert("surgical_hubert_hydra"),
 })
 

@@ -1,10 +1,18 @@
-"""Model wrapper: module + receptive-field geometry + the hydra objective
+"""Model wrapper: module + receptive-field geometry + objective
 (counterpart of ``segma_tpu/models/base.py``).
 
-Hydra loss: per-head binary cross-entropy with logits, mean over
-(batch x windows) rows, summed over heads. Frozen parameters (top-level
-submodules named in ``frozen_prefixes``) take no gradient and are left out
-of the optimizer, the role of ``optax.masked`` over ``trainable_mask``.
+- hydra models: per-head binary cross-entropy with logits, mean over
+  (batch x windows) rows, summed over heads;
+- multiclass models: softmax cross-entropy against the multi-hot target
+  rows, class weights multiplying the targets, mean over rows. As in the
+  JAX package, on raw logits: the reference applies ``cross_entropy`` to
+  outputs it has already softmaxed, which the JAX package documents as a
+  deviation and the port does not copy;
+- powerset models wait for ``powerset_vad``, which is not ported.
+
+Frozen parameters (top-level submodules named in ``frozen_prefixes``) take
+no gradient and are left out of the optimizer, the role of ``optax.masked``
+over ``trainable_mask``.
 """
 
 from __future__ import annotations
@@ -22,7 +30,9 @@ from segma_tpu_torch.utils.encoders import MultiLabelEncoder
 
 __all__ = [
     "ConvolutionSettings", "SegmentationModel", "bce_with_logits", "hydra_loss", "ieee_f32",
+    "softmax_ce_loss", "softmax_ce_loss_per_class",
 ]
+LOSS_TYPES = ("hydra", "multiclass", "powerset")
 
 
 def ieee_f32(dtype: torch.dtype) -> ContextManager:
@@ -62,6 +72,30 @@ def hydra_loss(
     return per_label.sum(), per_label
 
 
+def softmax_ce_loss(
+    logits: torch.Tensor, targets: torch.Tensor, class_weights: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Softmax cross-entropy against (possibly multi-hot) target rows,
+    normalized like ``torch.nn.functional.cross_entropy`` with probabilistic
+    targets and optional per-class weights."""
+    return softmax_ce_loss_per_class(logits, targets, class_weights)[0]
+
+
+def softmax_ce_loss_per_class(
+    logits: torch.Tensor, targets: torch.Tensor, class_weights: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(total, per_class) softmax CE; the per-class terms sum to the total:
+    each class's summed -t*log p over the number of rows (a mean over rows,
+    not over target mass, which would scale with the batch's activity)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    flat_lp = logp.reshape(-1, logp.shape[-1])
+    flat_t = targets.reshape(-1, targets.shape[-1])
+    if class_weights is not None:
+        flat_t = flat_t * class_weights[None, :]
+    per_class = -(flat_t * flat_lp).sum(0) / flat_lp.shape[0]
+    return per_class.sum(), per_class
+
+
 @dataclass
 class SegmentationModel:
     """A segmentation model: a module mapping (B, T) f32 waveforms to
@@ -77,8 +111,11 @@ class SegmentationModel:
     device: torch.device
     frozen_prefixes: tuple[str, ...] = ()
     class_weights: Sequence[float] | None = None
+    loss_type: str = "hydra"  # hydra (per-label BCE) | multiclass (softmax CE)
 
     def __post_init__(self) -> None:
+        if self.loss_type not in LOSS_TYPES:
+            raise ValueError(f"loss_type must be one of {LOSS_TYPES}, got {self.loss_type!r}")
         for name, p in self.module.named_parameters():
             if name.split(".")[0] in self.frozen_prefixes:
                 p.requires_grad_(False)
@@ -123,14 +160,21 @@ class SegmentationModel:
     def loss(
         self, logits: torch.Tensor, targets: torch.Tensor
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """(total, per_label) training loss of the hydra objective (the
-        only one ported: the multiclass and powerset models are not)."""
+        """(total, per_label) training loss for this model's objective;
+        ``targets`` are (B, T, n_labels) multi-hot."""
+        if self.loss_type == "powerset":
+            raise NotImplementedError(
+                "the powerset loss is not ported: it waits for the powerset_vad model"
+            )
         weights = (
             None if self.class_weights is None
             else torch.as_tensor(self.class_weights, dtype=torch.float32, device=logits.device)
         )
-        return hydra_loss(logits, targets, weights)
+        if self.loss_type == "hydra":
+            return hydra_loss(logits, targets, weights)
+        return softmax_ce_loss_per_class(logits, targets, weights)
 
     def inference_transform(self, logits: torch.Tensor) -> torch.Tensor:
-        """Raw module outputs -> per-label logits: the identity for hydra heads."""
+        """Raw module outputs -> per-label logits: the identity for hydra and
+        multiclass heads."""
         return logits

@@ -32,7 +32,7 @@ from segma_tpu_torch.models.hubert.encoder import (
     HubertEncoderConfig,
     HubertTransformer,
 )
-from segma_tpu_torch.models.layers import HydraHeads, LayerWeightedSum
+from segma_tpu_torch.models.layers import HydraHeads, LayerWeightedSum, dropout
 from segma_tpu_torch.models.whisper.builders import init_random_
 from segma_tpu_torch.utils.encoders import MultiLabelEncoder
 
@@ -41,14 +41,6 @@ HUBERT_CONV_SETTINGS = ConvolutionSettings(
     strides=(5, 2, 2, 2, 2, 2, 2),
     paddings=(0, 0, 0, 0, 0, 0, 0),
 )
-
-
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
-    """Inverted dropout with the keep mask drawn from ``generator`` (flax's
-    ``nn.Dropout`` semantics: kept values scaled by 1 / (1 - rate))."""
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class HubertSegModule(nn.Module):

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from segma_tpu_torch.models.layers import linear
 from segma_tpu_torch.ops.attention import attention_core
 
 
@@ -56,12 +57,6 @@ def sinusoidal_positions(length: int, channels: int) -> np.ndarray:
     return np.concatenate(
         [np.sin(scaled_time), np.cos(scaled_time)], axis=1
     ).astype(np.float32)
-
-
-def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
-    """``layer`` applied in ``x``'s dtype (weights cast where used)."""
-    bias = None if layer.bias is None else layer.bias.to(x.dtype)
-    return F.linear(x, layer.weight.to(x.dtype), bias)
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:

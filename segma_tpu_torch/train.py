@@ -154,8 +154,8 @@ class EarlyStopping:
 def make_train_step(
     model: SegmentationModel, optimizer: torch.optim.Optimizer
 ) -> Callable[[dict[str, torch.Tensor], torch.Generator | None], tuple[torch.Tensor, torch.Tensor]]:
-    """One step: forward with ``train=True``, hydra loss, backward, AdamW.
-    The step updates the module's parameters in place and returns the
+    """One step: forward with ``train=True``, the model's loss (hydra or
+    multiclass), backward, AdamW. The step updates the module's parameters in place and returns the
     (loss, per_label) of the batch, on the device. An f32 model's step runs
     without TF32 in cuDNN, its backward included (``ieee_f32``)."""
 

@@ -1,6 +1,7 @@
 """The PyTorch port imports nothing of JAX, flax, optax, the JAX package,
-``safetensors`` or ``transformers`` (the card's machine has neither of the
-last two: the port reads snapshots itself).
+``safetensors``, ``transformers`` or ``lightning`` (the card's machine has
+none of the last three: the port reads snapshots and reference checkpoints
+itself).
 
 ``"segma_tpu_torch".startswith("segma_tpu")`` is true, so the checks match
 ``segma_tpu`` itself or ``segma_tpu.``-prefixed names only, and the port's
@@ -15,7 +16,8 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "optax", "segma_tpu", "safetensors", "transformers")
+FORBIDDEN = ("jax", "flax", "optax", "segma_tpu", "safetensors", "transformers", "lightning",
+             "pytorch_lightning")
 
 
 def _forbidden(name: str) -> bool:
@@ -32,6 +34,7 @@ def test_forbidden_matcher():
     assert _forbidden("segma_tpu") and _forbidden("segma_tpu.ops.melspec")
     assert _forbidden("jax.numpy") and _forbidden("flax") and _forbidden("optax")
     assert _forbidden("safetensors.numpy") and _forbidden("transformers")
+    assert _forbidden("lightning.pytorch") and _forbidden("pytorch_lightning")
     assert not _forbidden("segma_tpu_torch") and not _forbidden("segma_tpu_torch.ops")
     assert not _forbidden("jaxtyping")
     assert not _forbidden("segma_tpu_torch.utils.safetensors")
@@ -61,6 +64,7 @@ REQUIRED = (
     "segma_tpu_torch.checkpoint", "segma_tpu_torch.tune", "segma_tpu_torch.evaluate",
     "segma_tpu_torch.structs.interval", "segma_tpu_torch.utils.safetensors",
     "segma_tpu_torch.models.whisper.convert", "segma_tpu_torch.models.hubert.convert",
+    "segma_tpu_torch.convert_reference", "segma_tpu_torch.cli.import_checkpoint",
 )
 
 
@@ -74,7 +78,8 @@ def test_scan_covers_the_training_slice():
 def test_scan_catches_a_forbidden_import(tmp_path):
     for src in ("import jax.numpy as jnp", "from flax import linen",
                 "from segma_tpu.data import loaders", "from safetensors.numpy import load_file",
-                "import transformers", "import optax"):
+                "import transformers", "import optax", "import lightning",
+                "from pytorch_lightning import LightningModule"):
         tree = ast.parse(src)
         names = [
             n.name for node in ast.walk(tree) if isinstance(node, ast.Import) for n in node.names

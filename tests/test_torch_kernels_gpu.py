@@ -58,6 +58,7 @@ LOGMEL_CASES = {
     "context": ((4, 480_000), None), "tail": ((2, (256 + 7) * 160), None),
     "odd": ((1, 16_001), None), "padded-chunks": ((4, 480_000), 64_000),
     "t201": ((3, 201), None),
+    "fast-context": ((2, 64_000), None),  # fast_context: the 4 s chunk itself, 400 frames
 }
 
 
@@ -116,7 +117,8 @@ FLASH_EDGE_SHAPES = [(2, 128, 2, 64), (2, 129, 2, 64), (2, 255, 2, 64), (64, 199
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "shape", [(2, 1500, 8, 64), (2, 199, 8, 64), (3, 65, 2, 64), (1, 1, 2, 64), *FLASH_EDGE_SHAPES]
+    "shape", [(2, 1500, 8, 64), (2, 199, 8, 64), (2, 200, 8, 64), (3, 65, 2, 64), (1, 1, 2, 64),
+              *FLASH_EDGE_SHAPES]
 )
 def test_flash_kernel_matches_plain(shape):
     _cuda()
@@ -322,8 +324,10 @@ def _f32(rng, shape):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "shape", [(2, 1500, 8, 64), (32, 199, 12, 64), *((2, s, 3, 64) for s in FLASH_F32_EDGE_S)],
-    ids=["whisper-serving", "hubert-train", *(f"s{s}" for s in FLASH_F32_EDGE_S)],
+    "shape", [(2, 1500, 8, 64), (32, 199, 12, 64), (2, 200, 8, 64),
+              *((2, s, 3, 64) for s in FLASH_F32_EDGE_S)],
+    ids=["whisper-serving", "hubert-train", "fast-context",
+         *(f"s{s}" for s in FLASH_F32_EDGE_S)],
 )
 def test_flash_f32_forward_matches_plain(shape):
     """Output against the f32 plain version and float64, the LSE against

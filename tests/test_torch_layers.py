@@ -125,3 +125,27 @@ def test_mlp_head_matches_flax():
             lin.bias.copy_(torch.from_numpy(params[name]["bias"]))
     got = mod(torch.from_numpy(x)).detach().numpy()
     np.testing.assert_allclose(got, np.asarray(jmod.apply({"params": params}, jnp.asarray(x))), atol=ATOL)
+
+
+def test_bilstm_dropout_between_layers_runs_each_layer_alone():
+    """``train=True`` with dropout: layer 0, the generator's dropout mask on
+    its output, then layer 1, each layer on the LSTM's own weights; with
+    ``train=False`` no dropout, the one cuDNN-style call."""
+    cfg = LSTMConfig(hidden_size=8, num_layers=2, bidirectional=True, dropout=0.5)
+    mod = layers.BiLSTM(5, cfg)
+    x = torch.from_numpy(_x((2, 11, 5), seed=12))
+    got = mod(x, train=True, generator=torch.Generator().manual_seed(3))
+    singles = []
+    for layer, width in ((0, 5), (1, 16)):
+        single = torch.nn.LSTM(width, 8, bidirectional=True, batch_first=True)
+        single.load_state_dict({k.replace(f"_l{layer}", "_l0"): v
+                                for k, v in mod.lstm.state_dict().items() if f"_l{layer}" in k})
+        singles.append(single)
+    with torch.no_grad():
+        h = singles[0](x)[0]
+        h = layers.dropout(h, 0.5, torch.Generator().manual_seed(3))
+        want = singles[1](h)[0]
+        np.testing.assert_allclose(got.detach().numpy(), want.numpy(), atol=1e-6)
+        np.testing.assert_array_equal(mod(x).numpy(), mod.lstm(x)[0].numpy())
+    with pytest.raises(ValueError, match="Generator"):
+        mod(x, train=True)

@@ -101,8 +101,8 @@ def test_builder_geometry_and_variants():
     assert model.n_windows == 199 and model.n_labels == 4
     assert model.module.encoder.cfg == WhisperEncoderConfig.tiny()
     assert model.module.encoder.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="whisperidou"):
-        build_whisper_model("whisperidou", enc, cfg, device="cpu")
+    with pytest.raises(KeyError, match="whisperus"):
+        build_whisper_model("whisperus", enc, cfg, device="cpu")
     with pytest.raises(KeyError, match="conv_vad"):
         Models["conv_vad"]
 
