@@ -62,9 +62,10 @@ exits nonzero without printing the final result line:
    WARM_STEP_REPEATS steps on one batch, timed, and one more under
    torch.profiler (the 15 longest kernels and the port's own).
 6. the reference workflow (``phase_workflow``, bf16, full width): exact
-   resume of HuBERT-base from ``last/`` under cuDNN's deterministic
-   algorithms, bit for bit against the uninterrupted run and apart from a
-   resume with fresh moments; a Whisper-base snapshot in HF's layout
+   resume of HuBERT-base from ``last/`` with no cuDNN flag from the caller
+   (a seeded fit scopes cuDNN's deterministic algorithms itself): two
+   seeded runs and the resumed run bit for bit, apart from a resume with
+   fresh moments; a Whisper-base snapshot in HF's layout
    through the predict CLI (``inference.main``, ``--save-logits``), the
    saved logits against ``logits_for_audio`` and the CPU; a HuBERT-base
    snapshot trained one epoch, its checkpoint served and another snapshot
@@ -89,11 +90,22 @@ exits nonzero without printing the final result line:
    zero. Before the phases, the three forward kernels are also checked
    and timed at the fast_context shapes, log-mel on (64, 64000) and both
    flash forwards on (64, 200, 8, 64) (``fast_context_kernel_times``).
-10. the ``kernels`` JSON line (log-mel, the bf16 and the f32 flash forward
+10. the train CLIs (``phase_train_cli``, bf16, full width): HuBERT-base
+   through ``python -m segma_tpu_torch.cli.train`` with the cosine
+   schedule, k=3 accumulation, int16 transport, remat and AUROC, 4 epochs
+   in a child process; ``cli.auto_train`` stopped by SIGTERM inside epoch 2
+   (exit 75) and resumed with ``--auto-resume`` to the uninterrupted run's
+   final state bit for bit; remat and int16 transport each bit-equal to
+   their plain counterparts; the bf16 step under cuDNN's default and
+   deterministic algorithms, and hydra_whisper's bf16 logits with cuBLAS's
+   reduced-precision bf16 reductions allowed and not. (It runs before the
+   f32 phases, 7 and 8.)
+11. the ``kernels`` JSON line (log-mel, the bf16 and the f32 flash forward
    and backward; each with its fast_context times where it has them) and
    the ``kernels:`` launch line, per path (the workflow's resumed fit and
-   predict CLI run, and each reference-model path, among them).
-11. last line: ``{"ok": true, "device": {...}}``.
+   predict CLI run, each reference-model path, and the train CLI among
+   them).
+12. last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1154,7 +1166,7 @@ def phase_train(card: str) -> dict:
     from segma_tpu_torch.data import SegmaFileDataset, SegmentationDataLoader
     from segma_tpu_torch.models import Models
     from segma_tpu_torch.ops import attention, logmel
-    from segma_tpu_torch.train import Trainer
+    from segma_tpu_torch.train import Trainer, deterministic_cudnn
     from segma_tpu_torch.utils.encoders import MultiLabelEncoder
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1258,19 +1270,21 @@ def phase_train(card: str) -> dict:
         gen = torch.Generator("cuda").manual_seed(1)
         warm_batch = trainer._put(batch)
         # the same step repeated on one batch, without the loader: the
-        # spread of its wall time is the host's
+        # spread of its wall time is the host's; under the cuDNN algorithms
+        # the seeded fit used
         step_ms = []
-        for _ in range(WARM_STEP_REPEATS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            trainer.train_step(warm_batch, gen)
-            torch.cuda.synchronize()
-            step_ms.append(1e3 * (time.perf_counter() - t0))
-        print(f"train step repeated on one batch [{card}]: {WARM_STEP_REPEATS} steps, median "
-              f"{median(step_ms):.3f} ms (min {min(step_ms):.3f}, max {max(step_ms):.3f})",
-              flush=True)
-        profile_run(card, "train step", lambda: trainer.train_step(warm_batch, gen),
-                    warm / n_steps)
+        with deterministic_cudnn(True):
+            for _ in range(WARM_STEP_REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.train_step(warm_batch, gen)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+            print(f"train step repeated on one batch [{card}]: {WARM_STEP_REPEATS} steps, "
+                  f"median {median(step_ms):.3f} ms (min {min(step_ms):.3f}, max "
+                  f"{max(step_ms):.3f})", flush=True)
+            profile_run(card, "train step", lambda: trainer.train_step(warm_batch, gen),
+                        warm / n_steps)
     return launches
 
 
@@ -1393,7 +1407,7 @@ def phase_train_f32(card: str) -> dict:
     from segma_tpu_torch.annotation import AudioAnnotation
     from segma_tpu_torch.data import SegmaFileDataset, SegmentationDataLoader
     from segma_tpu_torch.inference import InferencePipeline, _load_mono, run_inference_on_audios
-    from segma_tpu_torch.train import Trainer
+    from segma_tpu_torch.train import Trainer, deterministic_cudnn
 
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp) / "data"
@@ -1513,8 +1527,10 @@ def phase_train_f32(card: str) -> dict:
         sampler.reseed(0)
         batch = trainer._put(sampler.sample_batch(cfg.train.batch_size))
         gen = torch.Generator("cuda").manual_seed(1)
-        trainer.train_step(batch, gen)
-        profile_run(card, "train f32 step", lambda: trainer.train_step(batch, gen), warm / n_steps)
+        with deterministic_cudnn(True):  # as in the seeded fit
+            trainer.train_step(batch, gen)
+            profile_run(card, "train f32 step", lambda: trainer.train_step(batch, gen),
+                        warm / n_steps)
     return launches
 
 
@@ -1781,15 +1797,16 @@ def _max_dist(a: dict, b: dict) -> float:
 def phase_workflow(card: str) -> dict:
     """The reference workflow on the card, in bf16 at full width:
 
-    1. exact resume, with cuDNN's deterministic algorithms: HuBERT-base
+    1. exact resume, with no cuDNN flag set by the caller (a seeded
+       ``Trainer.fit`` scopes cuDNN's deterministic algorithms itself, and
+       gives the caller's flags back): HuBERT-base
        ``surgical_hubert_hydra`` (the training slice's config) trains 2
        epochs, twice; 1 epoch, then a fresh model
        and Trainer ``fit(..., resume_from=<run>/checkpoints/last)`` to epoch
-       2; and once more from a copy of last/ without opt_state.msgpack. If
-       the two uninterrupted runs agree bit for bit, the resumed run's
-       trainable parameters and epoch-1 loss must too; else it may differ
-       from the uninterrupted run by no more than the repeat does. The run
-       with fresh moments must differ by more than the repeat.
+       2; and once more from a copy of last/ without opt_state.msgpack. The
+       two uninterrupted runs and the resumed run must agree bit for bit,
+       trainable parameters and epoch-1 loss. The run with fresh moments
+       must differ.
     2. snapshots and the predict CLI: a random Whisper-base snapshot in HF's
        layout (config.json, model.safetensors from ``write_safetensors``)
        serves the val WAVs through ``inference.main([..., "--save-logits"])``
@@ -1852,24 +1869,25 @@ def phase_workflow(card: str) -> dict:
             torch.cuda.empty_cache()
             return out
 
-        # a bit-exact trajectory on the card needs cuDNN's deterministic
-        # algorithms: under the default ones two identical bf16 runs differ
-        # within the first epoch (the positional conv's backward)
+        # no cuDNN flag from here: a seeded fit scopes cuDNN's deterministic
+        # algorithms itself (Trainer.fit), without which two identical bf16
+        # runs differ within the first epoch (the positional conv's backward)
         cudnn = torch.backends.cudnn
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=False, deterministic=True,
-                         allow_tf32=cudnn.allow_tf32):
-            full, h_full, _, n_steps, n_val = fit("full", TRAIN_EPOCHS)
-            repeat, h_repeat, _, _, _ = fit("repeat", TRAIN_EPOCHS)
-            fit("first", 1)
-            last = tmp / "first" / "checkpoints" / "last"
-            files = sorted(p.name for p in last.iterdir())
-            if files != ["meta.yaml", "opt_state.msgpack", "params.msgpack", "train_state.yaml"]:
-                raise AssertionError(f"last/ holds {files}")
-            resumed, h_res, resume_launches, _, _ = fit("resumed", TRAIN_EPOCHS, last)
-            no_moments = tmp / "last_without_moments"
-            shutil.copytree(last, no_moments)
-            (no_moments / "opt_state.msgpack").unlink()
-            fresh, _, _, _, _ = fit("fresh_moments", TRAIN_EPOCHS, no_moments)
+        caller_flags = (cudnn.deterministic, cudnn.benchmark)
+        full, h_full, _, n_steps, n_val = fit("full", TRAIN_EPOCHS)
+        repeat, h_repeat, _, _, _ = fit("repeat", TRAIN_EPOCHS)
+        fit("first", 1)
+        last = tmp / "first" / "checkpoints" / "last"
+        files = sorted(p.name for p in last.iterdir())
+        if files != ["meta.yaml", "opt_state.msgpack", "params.msgpack", "train_state.yaml"]:
+            raise AssertionError(f"last/ holds {files}")
+        resumed, h_res, resume_launches, _, _ = fit("resumed", TRAIN_EPOCHS, last)
+        no_moments = tmp / "last_without_moments"
+        shutil.copytree(last, no_moments)
+        (no_moments / "opt_state.msgpack").unlink()
+        fresh, _, _, _, _ = fit("fresh_moments", TRAIN_EPOCHS, no_moments)
+        if (cudnn.deterministic, cudnn.benchmark) != caller_flags:
+            raise AssertionError("Trainer.fit left cuDNN's flags changed")
         n_layers = HUBERT_BASE["num_hidden_layers"]
         want = {"logmel": 0, "flash_attn_fwd": n_layers * (n_steps + n_val),
                 "flash_attn_bwd": n_layers * n_steps, "flash_attn_fwd_f32": 0,
@@ -1880,19 +1898,19 @@ def phase_workflow(card: str) -> dict:
         launches["resume"] = resume_launches
         d_repeat, d_resume, d_fresh = (_max_dist(full, x) for x in (repeat, resumed, fresh))
         loss_full, loss_res = h_full[1]["train/loss"], h_res[0]["train/loss"]
-        print(f"workflow resume [{card}] (cuDNN deterministic): max |trainable - "
+        print(f"workflow resume [{card}] (seeded fits, no flag from the caller): max |trainable - "
               f"uninterrupted| after epoch 2: "
               f"repeat {d_repeat:.3e}, resumed {d_resume:.3e}, fresh moments {d_fresh:.3e}; "
               f"epoch-1 train/loss uninterrupted {loss_full!r}, repeat "
               f"{h_repeat[1]['train/loss']!r}, resumed {loss_res!r}", flush=True)
-        if d_repeat == 0.0:
-            if d_resume != 0.0 or loss_res != loss_full:
-                raise AssertionError("the uninterrupted runs agree bit for bit, the resumed "
-                                     "run does not")
-            print("check exact resume: bit for bit, parameters and epoch-1 loss", flush=True)
-        elif not d_resume <= d_repeat:
-            raise AssertionError(f"resumed run differs by {d_resume:.3e}, more than the "
-                                 f"repeat's {d_repeat:.3e}")
+        # a seeded run repeats on the card, and a resumed one follows it
+        if d_repeat != 0.0 or h_repeat[1]["train/loss"] != loss_full:
+            raise AssertionError(f"two identical seeded runs differ by {d_repeat:.3e}")
+        if d_resume != 0.0 or loss_res != loss_full:
+            raise AssertionError(f"the resumed run differs by {d_resume:.3e} from the "
+                                 "uninterrupted one")
+        print("check seeded repeat and exact resume: bit for bit, parameters and epoch-1 loss",
+              flush=True)
         if not d_fresh > d_repeat:
             raise AssertionError(f"resume with fresh moments differs by {d_fresh:.3e}, no more "
                                  f"than the repeat's {d_repeat:.3e}: the moments did nothing")
@@ -2427,6 +2445,435 @@ def phase_reference_models(card: str) -> dict:
     return launches
 
 
+# -- the training entry points: repairs, the train CLIs ---------------------------------
+
+
+def determinism_step_times(card: str) -> dict:
+    """The bf16 HuBERT-base train step (batch 32, 4 s crops, one batch of
+    ``write_dataset``'s data) under cuDNN's default algorithms and under its
+    deterministic ones, in turns (default, deterministic, deterministic,
+    default), WARM_STEP_REPEATS timed steps each after two warm-up steps;
+    then one profiled step of each. Returns the median ms of each."""
+    import warnings
+
+    import torch
+
+    from segma_tpu_torch import checkpoint
+    from segma_tpu_torch.data import SegmaFileDataset, SegmentationDataLoader
+    from segma_tpu_torch.train import make_optimizer, make_train_step
+
+    cudnn = torch.backends.cudnn
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "data"
+        write_dataset(root, TRAIN_CLASSES, (TRAIN_FILES, VAL_FILES, TEST_FILES), TRAIN_FILE_S)
+        cfg = surgical_hubert_hydra_config(root)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # random encoder weights, on purpose
+            model = checkpoint.build_model(cfg, device="cuda")
+        ds = SegmaFileDataset.from_config(cfg)
+        ds.load(use_cache=False)
+        sampler = SegmentationDataLoader(ds, model.label_encoder, cfg,
+                                         model.conv_settings).train_dataloader().sampler
+        sampler.reseed(0)
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in sampler.sample_batch(cfg.train.batch_size).items()}
+        step = make_train_step(model, make_optimizer(model, cfg.train.lr))
+        gen = torch.Generator("cuda").manual_seed(1)
+
+        def flags(deterministic: bool):
+            return cudnn.flags(enabled=cudnn.enabled, benchmark=False,
+                               deterministic=deterministic, allow_tf32=cudnn.allow_tf32)
+
+        times: dict[str, list[float]] = {"default": [], "deterministic": []}
+        for mode in ("default", "deterministic", "deterministic", "default"):
+            with flags(mode == "deterministic"):
+                for _ in range(2):
+                    step(batch, gen)
+                for _ in range(WARM_STEP_REPEATS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step(batch, gen)
+                    torch.cuda.synchronize()
+                    times[mode].append(1e3 * (time.perf_counter() - t0))
+        out = {mode: median(ms) for mode, ms in times.items()}
+        for mode, ms in times.items():
+            print(f"train step, cuDNN {mode} algorithms [{card}]: median {out[mode]:.3f} ms over "
+                  f"{len(ms)} steps (min {min(ms):.3f}, max {max(ms):.3f})", flush=True)
+        for mode in times:
+            with flags(mode == "deterministic"):
+                profile_run(card, f"train step, cuDNN {mode}", lambda: step(batch, gen),
+                            out[mode] / 1e3)
+        del model, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def hydra_whisper_reduction(card: str) -> dict:
+    """hydra_whisper's bf16 import (``phase_reference_models``' snapshot and
+    reference checkpoint: the same seeds) served by the predict CLI twice,
+    with ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    True (PyTorch's default) and then False; each time the saved logits of
+    the first two chunks against the CPU's f32 model, beside the CPU's bf16
+    distance. The caller's flag is restored. Returns the distances."""
+    import dataclasses
+    import warnings
+
+    import torch
+
+    from segma_tpu_torch import checkpoint, inference
+    from segma_tpu_torch.cli import import_checkpoint
+    from segma_tpu_torch.inference import Chunkyfier, _load_mono
+    from segma_tpu_torch.models.geometry import ConvolutionSettings
+
+    name = "hydra_whisper"
+    labels = list(TRAIN_CLASSES)
+    matmul = torch.backends.cuda.matmul
+    caller = matmul.allow_bf16_reduced_precision_reduction
+    out: dict[str, float] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        root = tmp / "data"
+        write_dataset(root, TRAIN_CLASSES, (TRAIN_FILES, VAL_FILES, TEST_FILES), TRAIN_FILE_S)
+        uri = (root / "val.txt").read_text().split()[0]
+        (tmp / "one.txt").write_text(uri + "\n")
+        whisper = write_whisper_snapshot(tmp / "whisper_base", seed=11)
+        cfg = whisper_variant_config(name, str(tmp / "whisper_base"), str(root))
+        sd = reference_state_dict(name, whisper, labels, seed=20 + WHISPER_VARIANTS.index(name))
+        config_path = write_config(tmp / "cfg.yml", cfg)
+        import_checkpoint.main(["--ckpt", str(write_reference_ckpt(tmp / "ref.ckpt", sd)),
+                                "--config", str(config_path), "--out", str(tmp / "imported"),
+                                "--device", "cuda"])
+        ck = Chunkyfier(INNER_BATCH, cfg.audio.chunk_duration_f,
+                        ConvolutionSettings((320,), (320,), (0,)))
+        pcm = _load_mono(root / "wav" / f"{uri}.wav")
+        x = torch.from_numpy(pcm[: 2 * ck.chunk_stride + ck.missing_n_frames]
+                             .astype(np.float32) / 32768.0)
+        chunks = torch.stack([x[i * ck.chunk_stride : i * ck.chunk_stride + ck.chunk_duration_f]
+                              for i in range(2)])
+        with warnings.catch_warnings(), torch.inference_mode():
+            warnings.simplefilter("ignore")
+            cpu = checkpoint.load_model_for_inference(cfg, tmp / "imported", device="cpu")
+            ref = cpu.apply(chunks).reshape(-1, len(labels)).double()
+            f32_cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                                         precision="f32"))
+            f32 = checkpoint.load_model_for_inference(f32_cfg, tmp / "imported", device="cpu")
+            ref_f32 = f32.apply(chunks).reshape(-1, len(labels)).double()
+        out["cpu_bf16"] = float((ref - ref_f32).abs().max())
+        try:
+            for allowed in (True, False):
+                matmul.allow_bf16_reduced_precision_reduction = allowed
+                dest = tmp / f"out_{allowed}"
+                inference.main(["--config", str(config_path), "--wavs", str(root / "wav"),
+                                "--uris", str(tmp / "one.txt"), "--checkpoint",
+                                str(tmp / "imported"), "--output", str(dest),
+                                "--batch-size", str(INNER_BATCH), "--save-logits",
+                                "--device", "cuda"])
+                data = np.load(dest / "logits" / f"{uri}-logits_dict_t.npz")
+                got = torch.from_numpy(np.stack([data[lb] for lb in labels], 1)[: ref.shape[0]])
+                out[f"card_reduced_{allowed}"] = float((got.double() - ref_f32).abs().max())
+        finally:
+            matmul.allow_bf16_reduced_precision_reduction = caller
+    print(f"hydra_whisper bf16 logits from the CPU's f32 model [{card}]: card with cuBLAS's "
+          f"reduced-precision bf16 reductions allowed {out['card_reduced_True']:.3e}, not "
+          f"allowed {out['card_reduced_False']:.3e}; the CPU's bf16 {out['cpu_bf16']:.3e}",
+          flush=True)
+    return out
+
+
+
+TRAIN_CLI_EPOCHS = 4
+TRAIN_CLI_ACCUM = 3  # 4 micro-steps per epoch: the accumulation crosses epoch boundaries
+CHILD_WALL_S = 600  # a child run's wall, after which it is killed (SIGTERM is caught)
+# `python -m <module> <args>` with the launch counts written to a file at exit
+LAUNCH_REPORTING_CHILD = (
+    "import atexit, json, pathlib, runpy, sys\n"
+    "import chip_smoke\n"
+    "report, module = sys.argv[1], sys.argv[2]\n"
+    "atexit.register(lambda: pathlib.Path(report).write_text("
+    "json.dumps(chip_smoke.read_launches())))\n"
+    "sys.argv = [module, *sys.argv[3:]]\n"
+    "runpy.run_module(module, run_name='__main__', alter_sys=True)\n"
+)
+
+
+def train_cli_config(dataset_path: Path):
+    """The training slice's HuBERT-base config (``surgical_hubert_hydra_config``)
+    with every switch of the train CLIs on: the cosine schedule (warmup 2,
+    floor 0.1), k=3 accumulation, int16 transport, remat, AUROC monitored
+    (loss, f1_score and auroc computed), validation every 2 epochs, 4
+    epochs, seed 0, the profiler."""
+    import dataclasses
+
+    from segma_tpu_torch.config import SchedulerConfig
+
+    cfg = surgical_hubert_hydra_config(dataset_path)
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, max_epochs=TRAIN_CLI_EPOCHS, grad_accum_steps=TRAIN_CLI_ACCUM,
+        transport="int16", remat=True, validation_metric="auroc",
+        extra_val_metrics=["loss", "f1_score", "auroc"], val_every_n_epochs=2,
+        profiler="simple",
+        scheduler=SchedulerConfig(type="cosine", warmup_steps=2, min_lr_ratio=0.1)))
+
+
+def _child(args: list[str], cwd: Path, log: Path) -> "subprocess.Popen":
+    import os
+
+    repo = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(repo), *filter(None, [os.environ.get("PYTHONPATH")])])}
+    cwd.mkdir(parents=True, exist_ok=True)
+    with log.open("w") as out:
+        return subprocess.Popen([sys.executable, *args], cwd=cwd, env=env, stdout=out,
+                                stderr=subprocess.STDOUT)
+
+
+def _wait(proc, log: Path, label: str, want: int) -> float:
+    """Wait for a child at most CHILD_WALL_S, then KILL it; its exit code
+    must be ``want``. Returns its wall."""
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=CHILD_WALL_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"{label}: killed after {CHILD_WALL_S} s:\n"
+                             + log.read_text()[-3000:]) from None
+    if rc != want:
+        raise AssertionError(f"{label}: exit {rc}, not {want}:\n" + log.read_text()[-3000:])
+    return time.perf_counter() - t0
+
+
+def _records(metrics: Path) -> list[dict]:
+    return [json.loads(ln) for ln in metrics.read_text().splitlines() if ln.strip()]
+
+
+def _epochs(records: list[dict]) -> list[dict]:
+    return [r for r in records if "train/loss" in r]
+
+
+def _same_tree(a: dict, b: dict, where: str) -> int:
+    """Leaves of two msgpack trees equal bit for bit; returns their count."""
+    if set(a) != set(b):
+        raise AssertionError(f"{where}: keys {sorted(a)} != {sorted(b)}")
+    n = 0
+    for k in a:
+        if isinstance(a[k], dict):
+            n += _same_tree(a[k], b[k], f"{where}/{k}")
+        elif not np.array_equal(np.asarray(a[k]), np.asarray(b[k])):
+            raise AssertionError(f"{where}/{k} differs")
+        else:
+            n += 1
+    return n
+
+
+def phase_train_cli(card: str) -> dict:
+    """The train CLIs on the card, HuBERT-base in bf16 at full width with
+    every switch on (``train_cli_config``), on ``write_dataset``'s data (4
+    micro-steps per epoch):
+
+    1. ``python -m segma_tpu_torch.cli.train`` in a child process (run as
+       ``__main__`` by ``LAUNCH_REPORTING_CHILD``, which writes its launch
+       counts at exit): exit 0, ``models/last/best.ckpt`` under its working
+       directory, the profile of epoch 1, no validation at epochs 0 and 2;
+    2. ``python -m segma_tpu_torch.cli.auto_train --run-id R --output O``,
+       SIGTERM sent by PID once epoch 1's line is in metrics.jsonl: exit 75,
+       ``last/`` at epoch 1 with ``mini_step`` 2, the stop logged inside
+       epoch 2;
+    3. the same command with ``--auto-resume``: exit 0, and the final
+       trainable parameters and optimizer state (``last/``) bit-equal to
+       run 1's, with the same LR and val/auroc at every epoch;
+       no cuDNN flag is set by this script for any of them (each child
+       starts with PyTorch's defaults);
+    4. in this process, one epoch each with remat and int16 transport,
+       without remat, and with f32 transport: the trainable parameters of
+       each pair bit-equal; peak device memory, the warm step and the flash
+       forward's launches per step of remat on and off;
+    5. the repairs' measurements: ``determinism_step_times`` and
+       ``hydra_whisper_reduction``.
+
+    Children are killed after CHILD_WALL_S (a caught SIGTERM does not end
+    them). Returns run 1's launch counts."""
+    import dataclasses
+    import signal
+    import warnings
+
+    import torch
+
+    from segma_tpu_torch import checkpoint
+    from segma_tpu_torch.data import SegmaFileDataset, SegmentationDataLoader
+    from segma_tpu_torch.train import Trainer, deterministic_cudnn
+
+    walls: dict[str, float] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        root = tmp / "data"
+        write_dataset(root, TRAIN_CLASSES, (TRAIN_FILES, VAL_FILES, TEST_FILES), TRAIN_FILE_S)
+        cfg = train_cli_config(root)
+        config_path = write_config(tmp / "train_cli.yml", cfg)
+        n_layers = HUBERT_BASE["num_hidden_layers"]
+
+        # 1. the uninterrupted run
+        report = tmp / "launches.json"
+        log1 = tmp / "run1.log"
+        proc = _child(["-c", LAUNCH_REPORTING_CHILD, str(report), "segma_tpu_torch.cli.train",
+                       "-c", str(config_path), f"model.chkp_path={tmp / 'runs1'}"],
+                      tmp / "cwd1", log1)
+        try:
+            walls["cli.train, 4 epochs"] = _wait(proc, log1, "cli.train", 0)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        (run1,) = (tmp / "runs1").iterdir()
+        launches = json.loads(report.read_text())
+        link = tmp / "cwd1" / "models" / "last" / "best.ckpt"
+        if not link.is_symlink() or not link.resolve().is_relative_to(run1.resolve()):
+            raise AssertionError(f"cli.train: models/last/best.ckpt {link} is not a link into "
+                                 f"{run1}")
+        rec1 = _records(run1 / "metrics.jsonl")
+        ep1 = _epochs(rec1)
+        if [r["epoch"] for r in ep1] != list(range(TRAIN_CLI_EPOCHS)) or [
+                "val/auroc" in r for r in ep1] != [False, True, False, True]:
+            raise AssertionError(f"cli.train epochs: {[(r['epoch'], sorted(r)) for r in ep1]}")
+        if not (run1 / "profile" / "epoch_1.json").exists() or not any(
+                "profile_dir" in r for r in rec1):
+            raise AssertionError("cli.train: no profile of epoch 1")
+        n_steps = 4
+        want = {"logmel": 0, "flash_attn_fwd": n_layers * TRAIN_CLI_EPOCHS * 2 * n_steps
+                + n_layers * 2 * 2, "flash_attn_bwd": n_layers * TRAIN_CLI_EPOCHS * n_steps,
+                "flash_attn_fwd_f32": 0, "flash_attn_bwd_f32": 0}
+        if launches != want:
+            raise AssertionError(f"cli.train launch counts {launches} != {want} (remat: two "
+                                 "forward launches per layer and step)")
+        print(f"check cli.train [{card}]: exit 0, {TRAIN_CLI_EPOCHS} epochs, val/auroc at "
+              f"epochs 1 and 3 {[r['val/auroc'] for r in ep1 if 'val/auroc' in r]}, lr "
+              f"{[r['lr'] for r in ep1]}, best.ckpt linked, epoch 1 profiled; launches "
+              f"{launches}", flush=True)
+
+        # 2. preempted by SIGTERM inside epoch 2
+        out = tmp / "runs2"
+        auto = ["-m", "segma_tpu_torch.cli.auto_train", "-c", str(config_path), "--run-id", "R",
+                "--output", str(out)]
+        metrics = out / "R" / "metrics.jsonl"
+        log2 = tmp / "run2.log"
+        t0 = time.perf_counter()
+        proc = _child(auto, tmp / "cwd2", log2)
+        try:
+            while not (metrics.exists() and any(r.get("epoch") == 1 and "train/loss" in r
+                                                 for r in _records(metrics))):
+                if proc.poll() is not None or time.perf_counter() - t0 > CHILD_WALL_S:
+                    raise AssertionError("cli.auto_train ended or stalled before epoch 1:\n"
+                                         + log2.read_text()[-3000:])
+                time.sleep(0.02)
+            proc.send_signal(signal.SIGTERM)
+            walls["cli.auto_train to SIGTERM and exit"] = _wait(proc, log2, "preempted run", 75)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        last = out / "R" / "checkpoints" / "last"
+        tree = checkpoint.msgpack_restore((last / "opt_state.msgpack").read_bytes())
+        stopped = [r for r in _records(metrics) if "preempted_at_epoch" in r]
+        if (checkpoint.load_meta(last).get("epoch") != 1 or int(tree["mini_step"]) == 0
+                or [(r["preempted_at_epoch"], r["epoch_completed"]) for r in stopped]
+                != [(2, False)]):
+            raise AssertionError(f"preempted run: last/ epoch {checkpoint.load_meta(last)}, "
+                                 f"mini_step {int(tree['mini_step'])}, stop {stopped}")
+        print(f"check cli.auto_train SIGTERM [{card}]: exit 75 inside epoch 2, last/ at epoch 1 "
+              f"with mini_step {int(tree['mini_step'])} of {TRAIN_CLI_ACCUM}", flush=True)
+
+        # 3. --auto-resume
+        log3 = tmp / "run3.log"
+        proc = _child([*auto, "--auto-resume"], tmp / "cwd3", log3)
+        try:
+            walls["cli.auto_train --auto-resume"] = _wait(proc, log3, "resumed run", 0)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if "auto-resume from" not in log3.read_text():
+            raise AssertionError("the resumed run did not resume:\n" + log3.read_text()[-3000:])
+        n_leaves = 0
+        for name in ("params.msgpack", "opt_state.msgpack"):
+            n_leaves += _same_tree(
+                checkpoint.msgpack_restore((run1 / "checkpoints" / "last" / name).read_bytes()),
+                checkpoint.msgpack_restore((last / name).read_bytes()), name)
+        ep23 = _epochs(_records(metrics))
+        for key in ("lr", "val/auroc", "train/loss"):
+            a = [r.get(key) for r in ep1]
+            b = [r.get(key) for r in ep23]
+            if a != b:
+                raise AssertionError(f"{key} per epoch: uninterrupted {a}, preempted and "
+                                     f"resumed {b}")
+        if not (tmp / "cwd3" / "models" / "last" / "best.ckpt").is_symlink():
+            raise AssertionError("the resumed run linked no best.ckpt")
+        print(f"check preempt and --auto-resume [{card}]: exit 0, final trainable parameters "
+              f"and optimizer state bit-equal to the uninterrupted run's ({n_leaves} leaves), "
+              f"the same lr, train/loss and val/auroc at every epoch", flush=True)
+
+        # 4. remat and int16 transport, in this process, one epoch each
+        ds = SegmaFileDataset.from_config(cfg)
+        ds.load(use_cache=False)
+        one = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, profiler=None,
+                                                                 max_epochs=1))
+        runs = {}
+        for label, fields in (("remat, int16", {}), ("no remat, int16", {"remat": False}),
+                              ("remat, f32", {"transport": "f32"})):
+            rcfg = dataclasses.replace(one, train=dataclasses.replace(one.train, **fields))
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # random encoder weights, on purpose
+                model = checkpoint.build_model(rcfg, device="cuda")
+            dm = SegmentationDataLoader(ds, model.label_encoder, rcfg, model.conv_settings)
+            trainer = Trainer(model=model, config=rcfg, run_dir=tmp / label.replace(", ", "_"))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            history = trainer.fit(dm)["history"]
+            torch.cuda.synchronize()
+            got = read_launches()
+            peak = torch.cuda.max_memory_allocated()
+            walls[f"fit 1 epoch, {label}"] = time.perf_counter() - t0
+            state = _trainable_state(model)
+            loader = dm.train_dataloader()
+            loader.set_epoch(0)
+            batch = trainer._put(next(iter(loader)))
+            gen = torch.Generator("cuda").manual_seed(1)
+            step_ms = []
+            with deterministic_cudnn(True):  # as inside the seeded fit
+                for _ in range(4 * TRAIN_CLI_ACCUM):  # four updates' worth of micro-steps
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    trainer.train_step(batch, gen)
+                    torch.cuda.synchronize()
+                    step_ms.append(1e3 * (time.perf_counter() - t0))
+            n_val = len(dm.val_dataloader())
+            per_step = (got["flash_attn_fwd"] - n_layers * n_val) / len(loader)
+            runs[label] = (state, history[0], got, per_step)
+            print(f"train_cli {label} [{card}]: 1 epoch of {len(loader)} micro-steps, peak "
+                  f"device memory {peak} B ({peak / 2**30:.2f} GiB), warm micro-step median "
+                  f"{median(step_ms):.3f} ms (min {min(step_ms):.3f}, max {max(step_ms):.3f}, "
+                  f"{len(step_ms)} steps, 4 of them AdamW updates), flash forward launches "
+                  f"per micro-step {per_step:g}, launches {got}", flush=True)
+            del model, trainer
+            torch.cuda.empty_cache()
+        if [runs[k][3] for k in runs] != [2 * n_layers, n_layers, 2 * n_layers]:
+            raise AssertionError(f"flash forward launches per step: "
+                                 f"{ {k: v[3] for k, v in runs.items()} }")
+        for a, b in (("remat, int16", "no remat, int16"), ("remat, int16", "remat, f32")):
+            d = _max_dist(runs[a][0], runs[b][0])
+            if d != 0.0 or runs[a][1]["val/loss"] != runs[b][1]["val/loss"]:
+                raise AssertionError(f"{a} against {b}: trainable parameters {d:.3e} apart")
+            print(f"check {a} against {b}: trainable parameters and val/loss bit-equal",
+                  flush=True)
+
+        # 5. the repairs' measurements
+        determinism_step_times(card)
+        hydra_whisper_reduction(card)
+    print(f"train_cli walls [{card}]: " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()),
+          flush=True)
+    return launches
+
 
 def profile_run(card: str, label: str, fn, wall_s: float) -> list[str]:
     """One more main-path run under torch.profiler: device time by kernel,
@@ -2492,6 +2939,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     reference = phase_reference_models(card)
     torch.cuda.empty_cache()
+    train_cli = phase_train_cli(card)
+    torch.cuda.empty_cache()
     # the f32 phases run under PyTorch's defaults, which let cuDNN take TF32:
     # the f32 model itself keeps its convolutions and LSTM in IEEE f32
     torch.backends.cudnn.allow_tf32 = True
@@ -2514,11 +2963,13 @@ def main() -> int:
     by_name["flash_attn_fwd_f32"]["launches_train"] = train_f32["flash_attn_fwd_f32"]
     for row in rows:  # the reference models' paths, all of them together
         row["launches_reference_models"] = sum(path[row["name"]] for path in reference.values())
+        row["launches_train_cli"] = train_cli[row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     paths = {"serve": serve, "train": train, "workflow_resume": workflow["resume"],
              "workflow_predict": workflow["predict"], "serve_f32": serve_f32,
              "train_f32": train_f32,
-             **{f"reference {label}": counts for label, counts in reference.items()}}
+             **{f"reference {label}": counts for label, counts in reference.items()},
+             "train_cli": train_cli}
     print(f"kernels: {json.dumps(paths)}", flush=True)
     print(card, flush=True)
     print(json.dumps({

@@ -23,8 +23,8 @@ written here, and this module restores one written there.
 
 ``last/opt_state.msgpack`` holds the AdamW state as optax's tree of the JAX
 package's optimizer, ``masked(inject_hyperparams(adamw))`` over the whole
-parameter tree (``opt_state_tree``), so each package resumes from the
-other's ``last/``. ``train_state.yaml`` holds the plateau scheduler's and
+parameter tree, wrapped in ``MultiSteps`` under gradient accumulation
+(``opt_state_tree``), so each package resumes from the other's ``last/``. ``train_state.yaml`` holds the plateau scheduler's and
 early stopping's counters. A missing or torn file of either resumes with a
 fresh state and a warning, as in JAX.
 """
@@ -198,7 +198,39 @@ def _f32(x: float) -> np.ndarray:
     return np.asarray(x, np.float32)
 
 
-def opt_state_tree(model: SegmentationModel, optimizer: torch.optim.Optimizer) -> dict:
+def opt_state_tree(model: SegmentationModel, optimizer: torch.optim.Optimizer,
+                   accum: Any = None) -> dict:
+    """The optimizer state as optax's tree: ``_adamw_tree``, or, with
+    ``accum`` (``train.GradAccumulation``, ``train.grad_accum_steps`` > 1), the
+    ``optax.MultiSteps`` state around it, as flax's ``to_state_dict`` writes
+    it::
+
+        {mini_step, gradient_step, inner_opt_state: <_adamw_tree>,
+         acc_grads: <the running mean, whole flax tree>, skip_state: {}}
+
+    ``mini_step`` and ``gradient_step`` are int32 scalars. ``acc_grads``
+    spans the whole parameter tree, as optax's does; a frozen leaf has no
+    effect on the masked update, so it is written as zeros in its shape (JAX
+    accumulates its gradient there) and ignored when read."""
+    inner = _adamw_tree(model, optimizer)
+    if accum is None:
+        return inner
+    acc = torch_to_flax(model.module, dict(zip(accum.names, accum.acc)), moments=True)
+    frozen = {n: t for n, t in model.module.state_dict().items()
+              if n.split(".")[0] in model.frozen_prefixes}
+    zeros = _zeros(torch_to_flax(model.module, frozen)) if frozen else {}
+    return {"mini_step": np.asarray(accum.mini_step, np.int32),
+            "gradient_step": np.asarray(accum.gradient_step, np.int32),
+            "inner_opt_state": inner, "acc_grads": {**acc, **zeros}, "skip_state": {}}
+
+
+def _zeros(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _zeros(v) for k, v in tree.items()}
+    return np.zeros_like(tree)
+
+
+def _adamw_tree(model: SegmentationModel, optimizer: torch.optim.Optimizer) -> dict:
     """The AdamW state of ``optimizer`` over ``model`` as optax's state tree
     of ``masked(inject_hyperparams(adamw)(learning_rate=lr), trainable_mask)``
     initialised over the whole flax tree (flax's ``to_state_dict``)::
@@ -249,18 +281,22 @@ def opt_state_tree(model: SegmentationModel, optimizer: torch.optim.Optimizer) -
 
 
 def restore_opt_state(model: SegmentationModel, optimizer: torch.optim.Optimizer,
-                      tree: dict) -> None:
+                      tree: dict, accum: Any = None) -> None:
     """Set ``optimizer``'s AdamW state from optax's tree (``opt_state_tree``'s
     inverse): each trainable parameter's ``step``, ``exp_avg`` and
     ``exp_avg_sq``, matched by name through ``flax_to_torch``, and every
-    group's learning rate, which carries the plateau scale. The other
+    group's learning rate, which carries the plateau scale; with ``accum``,
+    its counters and running mean from the ``MultiSteps`` state. The other
     hyperparameters must be the optimizer's own (at f32). A tree of another
-    structure raises before anything is set."""
-    template = opt_state_tree(model, optimizer)
+    structure (one with or without ``MultiSteps`` where ``accum`` says the
+    other) raises before anything is set."""
+    template = opt_state_tree(model, optimizer, accum)
     tree = _match(template, tree, "opt_state")
+    outer, tree = (tree, tree["inner_opt_state"]) if accum is not None else (None, tree)
     inner = tree["inner_state"]
     adam, hp = inner["inner_state"]["0"], inner["hyperparams"]
-    for key, want in template["inner_state"]["hyperparams"].items():
+    want_hp = (template["inner_opt_state"] if accum is not None else template)
+    for key, want in want_hp["inner_state"]["hyperparams"].items():
         if key != "learning_rate" and hp[key] != want:
             raise ValueError(f"opt_state: {key} {float(hp[key])} is not the optimizer's "
                              f"{float(want)}")
@@ -275,6 +311,13 @@ def restore_opt_state(model: SegmentationModel, optimizer: torch.optim.Optimizer
             new[p] = {"step": torch.tensor(step),
                       "exp_avg": mu[name].to(p.device, p.dtype),
                       "exp_avg_sq": nu[name].to(p.device, p.dtype)}
+    if outer is not None:
+        acc = flax_to_torch({k: outer["acc_grads"][k] for k in trainable},
+                            _bidirectional(model), moments=True)
+        for name, buf in zip(accum.names, accum.acc):
+            buf.copy_(acc[name].to(buf.device, buf.dtype))
+        accum.mini_step = int(outer["mini_step"])
+        accum.gradient_step = int(outer["gradient_step"])
     for p, st in new.items():
         optimizer.state[p] = st
     for group in optimizer.param_groups:
@@ -282,7 +325,7 @@ def restore_opt_state(model: SegmentationModel, optimizer: torch.optim.Optimizer
 
 
 def load_opt_state(path: Path | str, model: SegmentationModel,
-                   optimizer: torch.optim.Optimizer) -> bool:
+                   optimizer: torch.optim.Optimizer, accum: Any = None) -> bool:
     """Restore optimizer state from a ``last/`` checkpoint; True when it was.
 
     The moments are an exactness extra, not a correctness requirement (top-k
@@ -292,7 +335,7 @@ def load_opt_state(path: Path | str, model: SegmentationModel,
     if not p.exists():
         return False
     try:
-        restore_opt_state(model, optimizer, msgpack_restore(p.read_bytes()))
+        restore_opt_state(model, optimizer, msgpack_restore(p.read_bytes()), accum)
         return True
     except Exception as e:  # noqa: BLE001 — degrade, never crash resume
         log(f"WARNING: {p}: optimizer state not restorable ({type(e).__name__}); "

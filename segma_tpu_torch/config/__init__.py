@@ -6,10 +6,12 @@ geometry, the label classes, the models' hyper-parameters and the training
 fields of the host-data, one-process, per-step path. ``load_config`` reads the same YAML files as the JAX package
 (``default.yml`` plus the per-model YAML) with ``a.b.c=value`` overrides.
 The ``wandb`` and ``mesh`` sections are skipped. A training key of the JAX
-schema that the port does not model yet is accepted only at the value that
-means "off" (``UNPORTED_TRAIN``); any other value raises ``ConfigError``.
-``pyyaml`` is imported inside ``load_config`` only, so a program that builds
-its ``Config`` in code does not need it.
+schema that the port does not model yet (the device audio cache and epoch
+dispatch) is accepted only at the value that means "off"
+(``UNPORTED_TRAIN``); any other value raises ``ConfigError``.
+``Config.save`` writes a YAML file that both packages' ``load_config`` read.
+``pyyaml`` is imported inside ``load_config`` and ``Config.save`` only, so a
+program that builds its ``Config`` in code does not need it.
 """
 
 from __future__ import annotations
@@ -123,6 +125,11 @@ class ModelConfig:
 @dataclass
 class SchedulerConfig:
     patience: int = 3  # plateau epochs before the LR drops tenfold
+    # "plateau" (ReduceLROnPlateau on the monitored metric) or "cosine" (per
+    # micro-step linear warmup, then cosine decay to min_lr_ratio * lr)
+    type: str = "plateau"
+    warmup_steps: int = 0
+    min_lr_ratio: float = 0.0
 
 
 @dataclass
@@ -135,14 +142,28 @@ class TrainConfig:
     lr: float = 1e-3
     batch_size: int = 32
     max_epochs: int = 100
-    validation_metric: str = "loss"  # loss | f1_score
+    validation_metric: str = "loss"  # loss | f1_score | auroc
+    # any of loss, f1_score, auroc, roc (a per-label ROC figure when matplotlib exists)
     extra_val_metrics: list[str] = field(default_factory=lambda: ["loss", "f1_score"])
+    profiler: str | None = None  # any value: trace the epoch after the first into the run dir
     seed: int | None = None
     precision: str = "bf16"  # compute dtype: bf16 | f32
     log_every_n_steps: int = 50  # per-step loss records; 0 disables
     early_stop_patience: int = 10
     save_top_k: int = 5  # epoch checkpoints kept by the monitored metric; -1 keeps all
     class_weights: list[float] | None = None
+    # optimizer update once per k micro-batches, on the running mean of their
+    # gradients (optax.MultiSteps); 1 = off
+    grad_accum_steps: int = 1
+    remat: bool = False  # recompute each HuBERT layer in the backward pass
+    debug_nans: bool = False  # raise FloatingPointError at the first non-finite step
+    # host->device batches: "f32" normalised on the host, "int16" the raw
+    # PCM16 crop normalised on the device (non-PCM16 sources ship f32)
+    transport: str = "f32"
+    # stop with interrupted=True when host RSS passes this many GB at an
+    # epoch boundary; null = 90% of MemTotal, 0 disables
+    host_rss_limit_gb: float | None = None
+    val_every_n_epochs: int = 1  # the last epoch always validates
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     dataloader: DataloaderConfig = field(default_factory=DataloaderConfig)
 
@@ -154,19 +175,11 @@ UNPORTED_TRAIN: dict[str, tuple] = {
     "dispatch": ("step",),
     "data_cache": ("host", "auto"),
     "device_cache_budget_gb": (12.0,),
-    "grad_accum_steps": (1,),
-    "transport": ("f32",),
-    "remat": (False,),
-    "profiler": (None,),
-    "debug_nans": (False,),
-    "host_rss_limit_gb": (None,),
-    "val_every_n_epochs": (1,),
 }
-UNPORTED_SCHEDULER: dict[str, tuple] = {
-    "type": ("plateau",),
-    "warmup_steps": (0,),
-    "min_lr_ratio": (0.0,),
-}
+VAL_METRICS = ("loss", "f1_score", "auroc")  # train.validation_metric
+EXTRA_VAL_METRICS = ("loss", "f1_score", "auroc", "roc")
+# the wandb section of a saved config: the port logs to metrics.jsonl only
+WANDB_OFFLINE = {"offline": True, "project": "segma_tpu_torch", "name": "train"}
 
 
 @dataclass
@@ -175,6 +188,15 @@ class Config:
     audio: AudioConfig
     model: ModelConfig
     train: TrainConfig = field(default_factory=TrainConfig)
+
+    def save(self, path: Path | str) -> None:
+        """This config as YAML, with an offline ``wandb`` section, which the
+        JAX package's ``load_config`` requires (the port's skips it)."""
+        import yaml
+
+        with Path(path).open("w") as f:
+            yaml.dump({"wandb": dict(WANDB_OFFLINE), **dataclasses.asdict(self)}, f,
+                      default_flow_style=False, sort_keys=False)
 
 
 _MODEL_CONFIG_TYPES: dict[str, type] = {
@@ -192,10 +214,7 @@ _NESTED: dict[tuple[type, str], type] = {
     (TrainConfig, "scheduler"): SchedulerConfig,
     (TrainConfig, "dataloader"): DataloaderConfig,
 }
-_UNPORTED: dict[type, dict[str, tuple]] = {
-    TrainConfig: UNPORTED_TRAIN,
-    SchedulerConfig: UNPORTED_SCHEDULER,
-}
+_UNPORTED: dict[type, dict[str, tuple]] = {TrainConfig: UNPORTED_TRAIN}
 
 
 def _build(cls: type, data: dict, path: str) -> Any:
@@ -247,17 +266,29 @@ def config_from_dict(config_d: dict) -> Config:
     data_d["classes"] = list(data_d["classes"])
     train = _build(TrainConfig, config_d.get("train") or {}, "config.train")
     train.lr = float(train.lr)
-    if train.validation_metric not in ("loss", "f1_score"):
+    train.scheduler.min_lr_ratio = float(train.scheduler.min_lr_ratio)
+    if train.host_rss_limit_gb is not None:
+        train.host_rss_limit_gb = float(train.host_rss_limit_gb)
+    if train.validation_metric not in VAL_METRICS:
         raise ConfigError(
             f"config.train.validation_metric={train.validation_metric!r}: the port "
-            "monitors 'loss' or 'f1_score'"
+            f"monitors one of {VAL_METRICS}"
         )
-    unported = sorted(set(train.extra_val_metrics) - {"loss", "f1_score"})
+    unported = sorted(set(train.extra_val_metrics) - set(EXTRA_VAL_METRICS))
     if unported:
         raise ConfigError(
             f"config.train.extra_val_metrics: {unported} are not ported yet "
-            "(the port computes 'loss' and 'f1_score')"
+            f"(the port computes {EXTRA_VAL_METRICS}; the powerset partial_* metrics wait "
+            "for powerset_vad)"
         )
+    if train.scheduler.type not in ("plateau", "cosine"):
+        raise ConfigError(
+            f"config.train.scheduler.type={train.scheduler.type!r}: 'plateau' or 'cosine'")
+    if train.transport not in ("f32", "int16"):
+        raise ConfigError(f"config.train.transport={train.transport!r}: 'f32' or 'int16'")
+    if train.grad_accum_steps < 1:
+        raise ConfigError(
+            f"config.train.grad_accum_steps={train.grad_accum_steps}: must be at least 1")
     return Config(
         data=_build(DataConfig, data_d, "config.data"),
         audio=_build(AudioConfig, config_d["audio"], "config.audio"),

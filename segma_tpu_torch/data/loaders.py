@@ -3,7 +3,10 @@
 
 Batches are numpy arrays ``x: (B, chunk_f) float32`` and
 ``y: (B, n_windows, n_labels) float32``; the trainer moves them to the
-device, where the model extracts its features. A background thread per
+device, where the model extracts its features. Under
+``train.transport=int16`` ``x`` is the raw PCM16 crop, ``(B, chunk_f) int16``,
+which the train step normalises on the device (``train.device_waveform``),
+half the bytes per batch; a batch with a source that is not PCM16 ships f32. A background thread per
 sampler keeps batches ready. The same seed and epoch give the same crops and
 targets as the JAX loader, bit for bit (at ``num_workers=1``, which also
 fixes the batch order).
@@ -11,8 +14,8 @@ fixes the batch order).
 Virtual-epoch semantics: ``samples_per_epoch = dataset_multiplier *
 max(ceil(total_audio_s / chunk_s), batch_size)``, with drop-last batching.
 
-Not ported yet: the device audio cache (``train.data_cache=device``), int16
-transport, host-side feature hooks and multi-process sharding.
+Not ported yet: the device audio cache (``train.data_cache=device``),
+host-side feature hooks and multi-process sharding.
 """
 
 from __future__ import annotations
@@ -98,6 +101,10 @@ class AudioSegmentationSampler:
         self.indexes = subset.indexes
         self.config = config
         self.label_encoder = label_encoder
+        self.transport = config.train.transport
+        if self.transport not in ("f32", "int16"):
+            raise DataLoaderError(
+                f"train.transport must be 'f32' or 'int16', got {self.transport!r}")
         self._seed = seed
         self.rng = np.random.default_rng(seed)
         # decoded-audio RAM cache (int16), skipped when the subset exceeds it
@@ -130,7 +137,8 @@ class AudioSegmentationSampler:
             self.rng = np.random.default_rng((self._seed, epoch))
 
     def sample(self) -> tuple[np.ndarray, np.ndarray]:
-        """One (waveform (chunk_f,) f32, targets (n_windows, L)) pair."""
+        """One (waveform (chunk_f,), targets (n_windows, L)) pair: the
+        waveform in f32, or the raw PCM16 crop under int16 transport."""
         uri_i = int(self.rng.choice(len(self.uris), p=self._weights))
         high = int(self.durations["audio_duration_f"][uri_i]) - self.chunk_f
         start_f = int(self.rng.integers(low=0, high=max(1, high)))
@@ -141,6 +149,8 @@ class AudioSegmentationSampler:
         if waveform.shape[0] < self.chunk_f:  # guard short tail reads
             waveform = np.pad(waveform, (0, self.chunk_f - waveform.shape[0]))
         y = windows_to_targets(self.windows + start_f, self.indexes[uri_i])
+        if waveform.dtype == np.int16:
+            return waveform, y
         return waveform.astype(np.float32), y
 
     def _read_crop(self, uri_i: int, audio_path: Path, start_f: int) -> np.ndarray:
@@ -159,6 +169,8 @@ class AudioSegmentationSampler:
                 self._audio_cache.put(uri_i, cached)
             crop = cached[start_f : start_f + self.chunk_f]
             if crop.dtype == np.int16:
+                if self.transport == "int16":
+                    return np.array(crop)  # raw PCM16, normalised on the device
                 return crop.astype(np.float32) / 32768.0
             return np.array(crop, np.float32)
         waveform = get_samples_in_range(audio_path, start_f, self.chunk_f)
@@ -168,6 +180,11 @@ class AudioSegmentationSampler:
 
     def sample_batch(self, batch_size: int) -> dict[str, np.ndarray]:
         xs, ys = zip(*(self.sample() for _ in range(batch_size)))
+        if any(x.dtype != xs[0].dtype for x in xs):
+            # int16 transport over sources of which some are not PCM16: the
+            # whole batch in normalised f32, never raw PCM beside [-1, 1]
+            xs = [x.astype(np.float32) / 32768.0 if x.dtype == np.int16
+                  else np.asarray(x, np.float32) for x in xs]
         return {"x": np.stack(xs), "y": np.stack(ys)}
 
 

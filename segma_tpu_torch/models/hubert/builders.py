@@ -5,7 +5,8 @@ heads on raw waveforms (counterpart of ``segma_tpu/models/hubert/builders.py``).
   ``torch.no_grad()`` and its parameters take no gradient; the transformer
   trains unless ``freeze_encoder`` is set;
 - the weighted reduction runs over the configured layers (every layer by
-  default), then dropout 0.5 in training only, then fused hydra heads in f32.
+  default), then dropout 0.5 in training only, then fused hydra heads in f32;
+- ``train.remat`` recomputes each transformer layer in the backward pass.
 
 Frame geometry: conv stack (10,3,3,3,3,2,2)/(5,2,2,2,2,2,2) -> rf_step 320,
 199 frames per 4 s chunk (strict). When ``model.config.wav_encoder`` exists
@@ -55,6 +56,7 @@ class HubertSegModule(nn.Module):
         freeze_encoder: bool = False,
         dropout: float = 0.5,
         dtype: torch.dtype = torch.bfloat16,
+        remat: bool = False,
     ) -> None:
         super().__init__()
         self.enc_cfg = enc_cfg
@@ -67,7 +69,7 @@ class HubertSegModule(nn.Module):
             else list(range(enc_cfg.n_layers))
         )
         self.feature_extractor = FeatureExtractor(enc_cfg, dtype)
-        self.encoder = HubertTransformer(enc_cfg, dtype)
+        self.encoder = HubertTransformer(enc_cfg, dtype, remat=remat)
         self.layer_mix = LayerWeightedSum(len(self.picks), reduction)
         self.heads = HydraHeads(enc_cfg.hidden_size, n_labels)
 
@@ -124,6 +126,7 @@ def build_hubert_model(
         encoder_layers=tuple(mc.encoder_layers or ()),
         freeze_encoder=mc.freeze_encoder,
         dtype=dtype,
+        remat=config.train.remat,
     )
     init_random_(module, generator or torch.Generator().manual_seed(0))
     if snapshot.exists():

@@ -14,6 +14,14 @@ Parameters are kept in f32 and cast to the compute dtype where they are
 used, as flax does with ``dtype=bf16``. Self-attention is the Whisper port's
 ``MultiHeadAttention`` with a k bias, so it runs the flash kernels on the
 card.
+
+``remat=True`` (``train.remat``) recomputes each transformer layer in the
+backward pass (``torch.utils.checkpoint``, the role of flax's ``nn.remat``):
+a layer's activations are not kept, and its forward, the flash forward
+among it, runs again under autograd. The layers draw no dropout;
+``torch.utils.checkpoint`` restores only the global RNGs, so a layer that
+took the training ``torch.Generator`` would need its state saved and
+restored around the recompute.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from segma_tpu_torch.models.whisper.encoder import MultiHeadAttention, layer_norm, linear
@@ -98,10 +107,12 @@ class HubertTransformerLayer(nn.Module):
 class HubertTransformer(nn.Module):
     """Conv features -> (last hidden state, hidden states)."""
 
-    def __init__(self, cfg: HubertEncoderConfig, dtype: torch.dtype = torch.bfloat16) -> None:
+    def __init__(self, cfg: HubertEncoderConfig, dtype: torch.dtype = torch.bfloat16,
+                 remat: bool = False) -> None:
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.remat = remat
         self.feature_layer_norm = nn.LayerNorm(cfg.conv_dim[-1], eps=1e-5)
         self.feature_projection = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
         self.pos_conv = nn.Conv1d(
@@ -121,8 +132,12 @@ class HubertTransformer(nn.Module):
             pos = pos[:, :-1, :]
         x = layer_norm(x + F.gelu(pos), self.layer_norm)
         hidden_states = []
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
             hidden_states.append(x)
-            x = layer(x)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(layer, x, use_reentrant=False)
+            else:
+                x = layer(x)
         hidden_states.append(x)
         return x, (tuple(hidden_states) if output_hidden_states else ())

@@ -1,8 +1,10 @@
-"""Validation metrics on tensors (counterpart of ``segma_tpu/ops/metrics.py``):
-per-label counts accumulated over batches, F1 from the counts."""
+"""Validation metrics (counterpart of ``segma_tpu/ops/metrics.py``):
+per-label counts accumulated over batches on tensors, F1 from the counts;
+exact AUROC and ROC curves over the host's score matrix in numpy."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -25,3 +27,44 @@ def f1_from_counts(counts: dict[str, torch.Tensor], zero_division: float = 0.0) 
     tp, fp, fn = (torch.as_tensor(counts[k]).double() for k in ("tp", "fp", "fn"))
     denom = 2 * tp + fp + fn
     return torch.where(denom > 0, 2 * tp / denom.clamp(min=1), torch.full_like(tp, zero_division))
+
+
+def binary_auroc_np(scores: np.ndarray, targets: np.ndarray) -> np.ndarray:
+    """Exact per-label AUROC (Mann-Whitney U with tie handling), numpy.
+
+    scores: (N, L) real-valued; targets: (N, L) in {0, 1}. Labels with no
+    positives or no negatives return 0.5.
+    """
+    n, n_labels = scores.shape
+    out = np.full(n_labels, 0.5)
+    for li in range(n_labels):
+        s = scores[:, li].astype(np.float64)
+        t = targets[:, li] > 0.5
+        n_pos = int(t.sum())
+        n_neg = n - n_pos
+        if n_pos == 0 or n_neg == 0:
+            continue
+        order = np.argsort(s)
+        ranks = np.empty(n, np.float64)
+        # average ranks over ties
+        s_sorted = s[order]
+        _, inv, counts = np.unique(s_sorted, return_inverse=True, return_counts=True)
+        group_sums = np.bincount(inv, weights=np.arange(1, n + 1))
+        avg = (group_sums / counts)[inv]
+        ranks[order] = avg
+        u = ranks[t].sum() - n_pos * (n_pos + 1) / 2
+        out[li] = u / (n_pos * n_neg)
+    return out
+
+
+def roc_curve_np(
+    scores: np.ndarray, targets: np.ndarray
+) -> tuple[np.ndarray, np.ndarray]:
+    """(fpr, tpr) arrays for one label's scores (descending thresholds)."""
+    order = np.argsort(-scores)
+    t = (targets[order] > 0.5).astype(np.float64)
+    tps = np.cumsum(t)
+    fps = np.cumsum(1 - t)
+    n_pos = max(t.sum(), 1e-12)
+    n_neg = max((1 - t).sum(), 1e-12)
+    return fps / n_neg, tps / n_pos

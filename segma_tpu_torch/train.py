@@ -1,6 +1,7 @@
-"""Training loop: AdamW over the trainable parameters, plateau LR schedule,
-early stopping, per-epoch validation metrics (counterpart of
-``segma_tpu/train.py`` on its ``dispatch=step``, host-data, one-device path).
+"""Training loop: AdamW over the trainable parameters, the plateau or cosine
+LR schedule, gradient accumulation, early stopping, per-epoch validation
+metrics, preemption (counterpart of ``segma_tpu/train.py`` on its
+``dispatch=step``, host-data, one-device path).
 
 The optimizer is ``torch.optim.AdamW`` with optax's ``adamw`` defaults
 (betas 0.9/0.999, eps 1e-8, weight decay 1e-4, where torch's own default
@@ -9,33 +10,41 @@ decay is 1e-2), handed only the parameters outside the model's
 ``optax.masked``. The plateau scheduler and early stopping are copies of the
 JAX classes (not ``torch.optim.lr_scheduler.ReduceLROnPlateau``, whose
 relative threshold counts improvements differently); a new LR is set through
-the optimizer's ``param_groups``.
+the optimizer's ``param_groups``. ``scheduler.type=cosine`` sets the LR
+before every micro-step from the global micro-step count (``cosine_lr``).
+``train.grad_accum_steps=k`` is ``optax.MultiSteps`` (``GradAccumulation``).
 
 Dropout masks come from a ``torch.Generator`` on the training device,
 seeded from ``(train.seed, epoch)``; they cannot reproduce JAX's dropout
-stream.
+stream. With ``train.seed`` set, ``fit`` runs under cuDNN's deterministic
+algorithms (``deterministic_cudnn``), so a seeded run repeats on the card.
 
 ``fit`` writes a checkpoint after every epoch in the JAX package's format
 (``checkpoint.CheckpointManager``: top-k by the monitored metric, ``last/``,
 ``best.ckpt``), with the frozen parameters' fingerprint in its metadata, and
-the optimizer state (optax's tree) and the scheduler and early-stopping
-counters in ``last/``. ``fit(dm, resume_from=<checkpoint>)`` restores all of
-them and goes on at the next epoch. Each epoch's batches and dropout masks
-come from (seed, epoch), so a run resumed at an epoch boundary follows the
-uninterrupted run's trajectory.
+the optimizer state (optax's tree, with the accumulator) and the scheduler
+and early-stopping counters in ``last/``. ``fit(dm, resume_from=<checkpoint>)``
+restores all of them and goes on at the next epoch. Each epoch's batches and
+dropout masks come from (seed, epoch), so a run resumed at an epoch boundary
+follows the uninterrupted run's trajectory. SIGTERM (``request_preemption``)
+stops the loop after the step in flight; ``fit`` then returns
+``interrupted``, ``last/`` holding the newest completed epoch.
 
-Not ported yet: epoch dispatch and the device audio cache, gradient
-accumulation, the cosine schedule, int16 transport, remat, AUROC metrics,
-preemption and multi-process training.
+Not ported yet: epoch dispatch and the device audio cache, and
+multi-process training.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
+import signal
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Callable
+from typing import Any, Callable, ContextManager
 
 import numpy as np
 import torch
@@ -55,7 +64,13 @@ from segma_tpu_torch.checkpoint import (
 )
 from segma_tpu_torch.config import Config
 from segma_tpu_torch.models.base import SegmentationModel, ieee_f32
-from segma_tpu_torch.ops.metrics import binary_counts, f1_from_counts
+from segma_tpu_torch.ops.metrics import (
+    binary_auroc_np,
+    binary_counts,
+    f1_from_counts,
+    roc_curve_np,
+)
+from segma_tpu_torch.utils import host_mem_total_gb, host_rss_gb
 from segma_tpu_torch.utils.logging import MetricsLogger
 
 ADAMW_BETAS = (0.9, 0.999)
@@ -65,10 +80,25 @@ ADAMW_WEIGHT_DECAY = 1e-4  # optax.adamw's default
 
 def get_metric(metric: str) -> tuple[str, str]:
     """(mode, monitor key) for a validation metric name."""
-    table = {"loss": ("min", "val/loss"), "f1_score": ("max", "val/f1_score")}
+    table = {"loss": ("min", "val/loss"), "f1_score": ("max", "val/f1_score"),
+             "auroc": ("max", "val/auroc")}
     if metric not in table:
-        raise ValueError(f"metric '{metric}' is not supported, please use 'loss' or 'f1_score'.")
+        raise ValueError(
+            f"metric '{metric}' is not supported, please use 'loss', 'auroc' or 'f1_score'.")
     return table[metric]
+
+
+def cosine_lr(
+    step: int, base_lr: float, total_steps: int, warmup_steps: int = 0,
+    min_lr_ratio: float = 0.0,
+) -> float:
+    """Linear warmup then cosine decay to ``min_lr_ratio * base_lr``."""
+    if warmup_steps > 0 and step < warmup_steps:
+        return base_lr * (step + 1) / warmup_steps
+    span = max(1, total_steps - warmup_steps)
+    t = min(1.0, max(0.0, (step - warmup_steps) / span))
+    floor = min_lr_ratio
+    return base_lr * (floor + (1.0 - floor) * 0.5 * (1.0 + math.cos(math.pi * t)))
 
 
 def _f32_rate(lr: float) -> float:
@@ -151,21 +181,104 @@ class EarlyStopping:
         return self.bad_epochs >= self.patience
 
 
+def deterministic_cudnn(seeded: bool) -> ContextManager:
+    """For a seeded run: cuDNN's deterministic algorithms, without autotuning,
+    while the context is open, the caller's flags restored on exit (cuDNN's
+    default algorithms for HuBERT's positional conv backward sum in a varying
+    order). The port's own kernels use no atomics. Unseeded: no change."""
+    if not seeded:
+        return contextlib.nullcontext()
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=False, deterministic=True,
+                       allow_tf32=cudnn.allow_tf32)
+
+
+def device_waveform(x: torch.Tensor) -> torch.Tensor:
+    """A batch's waveforms on the device: an int16 batch (``train.transport=
+    int16``, the raw PCM crop) normalised as ``x * 2**-15``, bit-identical to
+    the loader's host-side ``/ 32768.0``; f32 batches pass through."""
+    if x.dtype == torch.int16:
+        return x.float() * (1.0 / 32768.0)
+    return x
+
+
+class GradAccumulation:
+    """Gradient accumulation as ``optax.MultiSteps(opt, every_k_schedule=k)``
+    with its running mean: micro-step ``mini_step`` folds its gradients into
+    f32 buffers of its own as ``acc + (g - acc) / (mini_step + 1)``; the k-th
+    hands the mean to AdamW, which steps with the learning rate set before
+    that micro-step, and the buffers return to zero. ``mini_step`` carries
+    across epochs; it, ``gradient_step`` (the updates made) and the buffers are
+    saved in ``last/`` (``checkpoint.opt_state_tree``)."""
+
+    def __init__(self, model: SegmentationModel, k: int) -> None:
+        named = [(n, p) for n, p in model.module.named_parameters() if p.requires_grad]
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        self.k = k
+        self.mini_step = 0
+        self.gradient_step = 0
+        self.acc = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+
+    def step(self, optimizer: torch.optim.Optimizer) -> bool:
+        """Fold the parameters' ``.grad`` in; on the k-th micro-step, AdamW
+        steps on the mean. Returns whether it stepped."""
+        n = torch.full((), float(self.mini_step + 1), device=self.acc[0].device)
+        for acc, p in zip(self.acc, self.params):
+            if p.grad is not None:  # None: no gradient reached it, a zero one
+                acc.add_(torch.div(p.grad.float() - acc, n))
+            else:
+                acc.sub_(torch.div(acc, n))
+        emit = self.mini_step == self.k - 1
+        self.mini_step = (self.mini_step + 1) % self.k
+        if emit:
+            for acc, p in zip(self.acc, self.params):
+                p.grad = acc.to(p.dtype)
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
+            for acc in self.acc:
+                acc.zero_()
+            self.gradient_step += 1
+        return emit
+
+
+def _nonfinite(loss: torch.Tensor, model: SegmentationModel) -> list[str]:
+    """The names of the loss and of the trainable gradients that hold a NaN
+    or an infinity (one host sync)."""
+    named = [(n, p.grad) for n, p in model.module.named_parameters()
+             if p.requires_grad and p.grad is not None]
+    finite = torch.stack([torch.isfinite(loss).all()]
+                         + [torch.isfinite(g).all() for _, g in named]).cpu().tolist()
+    return [name for name, ok in zip(["loss"] + [n for n, _ in named], finite) if not ok]
+
+
 def make_train_step(
-    model: SegmentationModel, optimizer: torch.optim.Optimizer
+    model: SegmentationModel, optimizer: torch.optim.Optimizer,
+    accum: GradAccumulation | None = None, debug_nans: bool = False,
 ) -> Callable[[dict[str, torch.Tensor], torch.Generator | None], tuple[torch.Tensor, torch.Tensor]]:
     """One step: forward with ``train=True``, the model's loss (hydra or
-    multiclass), backward, AdamW. The step updates the module's parameters in place and returns the
-    (loss, per_label) of the batch, on the device. An f32 model's step runs
-    without TF32 in cuDNN, its backward included (``ieee_f32``)."""
+    multiclass), backward, then AdamW, or ``accum``'s micro-step. The step
+    updates the module's parameters in place and returns the (loss,
+    per_label) of the batch, on the device. An f32 model's step runs
+    without TF32 in cuDNN, its backward included (``ieee_f32``).
+    ``debug_nans``: raise ``FloatingPointError``, before any update, when the
+    loss or a trainable gradient is not finite."""
 
     def train_step(batch: dict[str, torch.Tensor], generator: torch.Generator | None):
         optimizer.zero_grad(set_to_none=True)
         with ieee_f32(model.compute_dtype):
-            logits = model.module(batch["x"], train=True, generator=generator)
+            logits = model.module(device_waveform(batch["x"]), train=True, generator=generator)
             loss, per_label = model.loss(logits, batch["y"])
             loss.backward()
-        optimizer.step()
+        if debug_nans:
+            bad = _nonfinite(loss, model)
+            if bad:
+                raise FloatingPointError(f"non-finite {', '.join(bad[:8])}"
+                                         + (f" and {len(bad) - 8} more" if len(bad) > 8 else ""))
+        if accum is None:
+            optimizer.step()
+        else:
+            accum.step(optimizer)
         return loss.detach(), per_label.detach()
 
     return train_step
@@ -173,14 +286,15 @@ def make_train_step(
 
 def eval_step(
     model: SegmentationModel, batch: dict[str, torch.Tensor]
-) -> tuple[torch.Tensor, torch.Tensor, dict[str, torch.Tensor]]:
-    """(loss, per_label, F1 counts) of one validation batch, without dropout."""
+) -> tuple[torch.Tensor, torch.Tensor, dict[str, torch.Tensor], torch.Tensor]:
+    """(loss, per_label, F1 counts, (N, L) sigmoid scores) of one validation
+    batch, without dropout."""
     with torch.no_grad():
-        logits = model.module(batch["x"], train=False)
+        logits = model.module(device_waveform(batch["x"]), train=False)
         loss, per_label = model.loss(logits, batch["y"])
         probs = torch.sigmoid(logits).reshape(-1, logits.shape[-1])
         counts = binary_counts(probs, batch["y"].reshape(-1, logits.shape[-1]))
-    return loss, per_label, counts
+    return loss, per_label, counts, probs
 
 
 def _sync(device: torch.device) -> None:
@@ -205,29 +319,62 @@ class Trainer:
         self.device = resolve_device(self.device)
         self.run_dir = Path(self.run_dir)
         self.run_dir.mkdir(parents=True, exist_ok=True)
-        self.global_step = 0
+        self.global_step = 0  # micro-steps taken, the cosine schedule's clock
         self.logger = MetricsLogger(self.run_dir / "metrics.jsonl")
         self.model.to(self.device)
         tc = self.config.train
         self.mode, self.monitor = get_metric(tc.validation_metric)
         self.optimizer = make_optimizer(self.model, tc.lr)
-        self.train_step = make_train_step(self.model, self.optimizer)
+        self.accum = (GradAccumulation(self.model, tc.grad_accum_steps)
+                      if tc.grad_accum_steps > 1 else None)
+        self.train_step = make_train_step(self.model, self.optimizer, self.accum,
+                                          debug_nans=tc.debug_nans)
         self.scheduler = ReduceLROnPlateau(self.mode, tc.scheduler.patience)
         self.early_stopping = EarlyStopping(self.mode, patience=tc.early_stop_patience)
         self.ckpt = CheckpointManager(
             self.run_dir / "checkpoints", monitor=self.monitor, mode=self.mode,
             save_top_k=tc.save_top_k,
         )
+        self._preempt_requested = False
+        self._preempt_signum: int | None = None
+
+    # -- preemption ----------------------------------------------------------------
+
+    def request_preemption(self) -> None:
+        """Ask the training loop to stop after the current step, with a
+        resumable ``last/``. Called by the SIGTERM handler (a cluster sends
+        SIGTERM ahead of the hard kill); safe to call from anywhere."""
+        self._preempt_requested = True
+
+    def _handle_preempt_signal(self, signum: int, _frame: Any) -> None:
+        # only flags: logging from signal context could raise at the
+        # interrupted bytecode; the loop logs when it sees the flag
+        self._preempt_signum = int(signum)
+        self.request_preemption()
+
+    # -- epochs --------------------------------------------------------------------
 
     def _put(self, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         return {k: torch.from_numpy(v).to(self.device, non_blocking=True) for k, v in batch.items()}
 
-    def _train_epoch(self, loader: Any, generator: torch.Generator) -> float:
-        every = self.config.train.log_every_n_steps
+    def _train_epoch(self, loader: Any, generator: torch.Generator) -> tuple[float, bool]:
+        """(mean train loss, whether every step of the epoch ran): the loop
+        stops after the step in flight once preemption is requested."""
+        tc = self.config.train
+        every = tc.log_every_n_steps
         labels = self.model.label_encoder.base_labels
+        cosine = tc.scheduler.type == "cosine"
         losses = []
+        n_seen = 0
         for batch in loader:
-            loss, per_label = self.train_step(self._put(batch), generator)
+            if cosine:
+                set_learning_rate(self.optimizer, cosine_lr(
+                    self.global_step, tc.lr, self._total_steps, tc.scheduler.warmup_steps,
+                    tc.scheduler.min_lr_ratio))
+            try:
+                loss, per_label = self.train_step(self._put(batch), generator)
+            except FloatingPointError as e:
+                raise FloatingPointError(f"train step {self.global_step + 1}: {e}") from e
             losses.append(loss)
             self.global_step += 1
             if every and self.global_step % every == 0:
@@ -235,35 +382,83 @@ class Trainer:
                 for i, label in enumerate(labels):
                     record[f"train/loss_step_{label}"] = float(per_label[i])
                 self.logger.log(record)
-        return float(torch.stack(losses).mean()) if losses else float("nan")
+            n_seen += 1
+            if self._preempt_requested:
+                break
+        # counted, not a for/else: a signal during the last step still
+        # leaves a completed epoch
+        mean = float(torch.stack(losses).mean()) if losses else float("nan")
+        return mean, n_seen == len(loader)
+
+    def _need_scores(self) -> bool:
+        """Whether validation gathers the per-frame scores on the host
+        (auroc, roc)."""
+        tc = self.config.train
+        return (tc.validation_metric == "auroc" or "auroc" in tc.extra_val_metrics
+                or "roc" in tc.extra_val_metrics)
 
     def _val_epoch(self, loader: Any) -> dict[str, float]:
         tc = self.config.train
         labels = self.model.label_encoder.base_labels
-        losses, per_labels = [], []
+        wants = lambda m: tc.validation_metric == m or m in tc.extra_val_metrics  # noqa: E731
+        need_scores = self._need_scores()
+        losses, per_labels, all_probs, all_targets = [], [], [], []
         counts_acc: dict[str, torch.Tensor] | None = None
         for batch in loader:
-            loss, per_label, counts = eval_step(self.model, self._put(batch))
+            loss, per_label, counts, probs = eval_step(self.model, self._put(batch))
             losses.append(loss)
             per_labels.append(per_label)
             counts_acc = (
                 counts if counts_acc is None
                 else {k: counts_acc[k] + counts[k] for k in counts}
             )
+            if need_scores:
+                all_probs.append(probs.cpu().numpy())
+                all_targets.append(batch["y"].reshape(-1, len(labels)))
         metrics: dict[str, float] = {}
         if losses:
             metrics["val/loss"] = float(torch.stack(losses).mean())
             per_label = torch.stack(per_labels).mean(0).cpu()
             for i, label in enumerate(labels):
                 metrics[f"val/loss_{label}"] = float(per_label[i])
-        if counts_acc is not None and (
-            tc.validation_metric == "f1_score" or "f1_score" in tc.extra_val_metrics
-        ):
+        if counts_acc is not None and wants("f1_score"):
             f1 = f1_from_counts({k: v.cpu() for k, v in counts_acc.items()})
             metrics["val/f1_score"] = float(f1.mean())
             for i, label in enumerate(labels):
                 metrics[f"val/f1_{label}"] = float(f1[i])
+        if need_scores and all_probs:
+            probs, targets = np.concatenate(all_probs), np.concatenate(all_targets)
+            if wants("auroc"):
+                auroc = binary_auroc_np(probs, targets)
+                metrics["val/auroc"] = float(auroc.mean())
+                for i, label in enumerate(labels):
+                    metrics[f"val/auroc_{label}"] = float(auroc[i])
+            if "roc" in tc.extra_val_metrics:
+                self._plot_roc(probs, targets, labels)
         return metrics
+
+    def _plot_roc(self, probs: np.ndarray, targets: np.ndarray, labels: tuple[str, ...]) -> None:
+        """Per-label ROC curves -> ``<run_dir>/roc_latest.png``; nothing
+        without matplotlib, as in JAX."""
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except ImportError:
+            return
+        auroc = binary_auroc_np(probs, targets)
+        fig, ax = plt.subplots(figsize=(10, 5))
+        for i, label in enumerate(labels):
+            fpr, tpr = roc_curve_np(probs[:, i], targets[:, i])
+            ax.plot(fpr, tpr, label=f"{label} - AUC={auroc[i]:.4f}")
+        ax.plot([0, 1], [0, 1], "k--", label="Random classifier: AUC=0.5")
+        ax.set_xlabel("False Positive Rate")
+        ax.set_ylabel("True Positive Rate")
+        ax.legend(loc="lower right")
+        fig.tight_layout()
+        fig.savefig(self.run_dir / "roc_latest.png", dpi=120)
+        plt.close(fig)
 
     def _train_state(self) -> dict:
         """The scheduler and early-stopping counters, as JAX writes them."""
@@ -276,28 +471,50 @@ class Trainer:
 
     def _resume(self, resume_from: Path | str) -> int:
         """Restore a checkpoint's trainable parameters and, where it has them
-        (``last/``), the optimizer state and the counters; returns the epoch
-        to start at."""
+        (``last/``), the optimizer state with the accumulator, and the
+        counters; returns the epoch to start at."""
         ckpt = resolve_checkpoint(resume_from)
         load_trainable(self.model, load_params(ckpt, flax_split(self.model)[0]))
-        load_opt_state(ckpt, self.model, self.optimizer)
+        load_opt_state(ckpt, self.model, self.optimizer, self.accum)
         for obj, section in ((self.scheduler, "scheduler"),
                              (self.early_stopping, "early_stopping")):
             for attr, value in (load_train_state(ckpt).get(section) or {}).items():
                 setattr(obj, attr, value)
         return int(load_meta(ckpt).get("epoch", -1)) + 1
 
+    def _refresh_last(self, epoch: int, meta: dict) -> None:
+        self.ckpt.refresh_last(epoch, flax_split(self.model)[0], meta,
+                               opt_state=opt_state_tree(self.model, self.optimizer, self.accum),
+                               train_state=self._train_state())
+
+    def _profiler(self) -> torch.profiler.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        return torch.profiler.profile(activities=activities)
+
     def fit(self, datamodule: Any, resume_from: Path | str | None = None) -> dict[str, Any]:
         """Train up to epoch ``max_epochs`` (or ``train.max_epochs``), with
-        validation, plateau LR, a checkpoint and early stopping after each.
-        Writes ``metrics.jsonl`` and ``checkpoints/`` under ``run_dir``.
+        validation every ``train.val_every_n_epochs`` epochs and at the last,
+        plateau LR, a checkpoint and early stopping after each validation, and
+        ``last/`` refreshed after every epoch. Writes ``metrics.jsonl`` and
+        ``checkpoints/`` under ``run_dir``; with ``train.profiler`` set, a
+        torch.profiler trace of the epoch after the first into
+        ``run_dir/profile``.
 
         ``resume_from`` (a checkpoint dir such as ``<run>/checkpoints/last``,
         a ``best.ckpt`` link or a run dir) restores the trainable parameters,
-        the AdamW moments, step and learning rate, and the counters, and
-        starts at the epoch after the checkpoint's. Returns ``params`` (the
-        module's state_dict), ``history`` (this call's epochs), and the
-        manager's ``best_score`` and ``best_path``."""
+        the AdamW moments, step and learning rate, the accumulator, and the
+        counters, and starts at the epoch after the checkpoint's.
+
+        SIGTERM (installed from the main thread, the caller's handler restored
+        afterwards) stops after the step in flight: an epoch that completed
+        refreshes ``last/``; a stop inside an epoch persists nothing, since
+        ``last/`` holds the previous boundary. The host RSS watchdog
+        (``train.host_rss_limit_gb``) stops at an epoch boundary. Both return
+        ``interrupted`` True. Returns ``params`` (the module's state_dict),
+        ``history`` (this call's epochs), ``interrupted``, and the manager's
+        ``best_score`` and ``best_path``."""
         tc = self.config.train
         seed = tc.seed if tc.seed is not None else 0
         start_epoch = 0 if resume_from is None else self._resume(resume_from)
@@ -318,38 +535,89 @@ class Trainer:
         val_loader = datamodule.val_dataloader()
         max_epochs = self.max_epochs or tc.max_epochs
         self.global_step = start_epoch * len(train_loader)
+        self._total_steps = max_epochs * len(train_loader)
+        profile_epoch = start_epoch + 1 if tc.profiler else None
+        rss_limit = tc.host_rss_limit_gb
+        if rss_limit is None:
+            rss_limit = 0.9 * host_mem_total_gb()  # 0 when /proc is absent
+        installed: list[tuple[int, Any]] = []
+        if threading.current_thread() is threading.main_thread():
+            installed.append((signal.SIGTERM, signal.getsignal(signal.SIGTERM)))
+            signal.signal(signal.SIGTERM, self._handle_preempt_signal)
         history = []
-        for epoch in range(start_epoch, max_epochs):
-            for ldr in (train_loader, val_loader):
-                ldr.set_epoch(epoch)
-            generator = torch.Generator(self.device).manual_seed(seed * 100_003 + epoch)
-            t0 = time.perf_counter()
-            train_loss = self._train_epoch(train_loader, generator)
-            _sync(self.device)
-            train_time = time.perf_counter() - t0
-            metrics = self._val_epoch(val_loader)
-            metrics["train/loss"] = train_loss
-            metrics["lr"] = get_learning_rate(self.optimizer)
-            metrics["epoch"] = epoch
-            metrics["train_time_s"] = train_time
-            metrics["time_s"] = time.perf_counter() - t0
-            metrics["samples_per_s"] = round(len(train_loader) * tc.batch_size / train_time, 2)
-            self.logger.log(metrics)
-            history.append(metrics)
-
-            monitored = metrics.get(self.monitor)
-            if monitored is None:
-                raise ValueError(f"monitored metric {self.monitor!r} missing from val metrics")
-            if self.scheduler.step(monitored):
-                set_learning_rate(self.optimizer, tc.lr * self.scheduler.scale)
-            stop = self.early_stopping.step(monitored)
-            self.ckpt.step(epoch, monitored, flax_split(self.model)[0], meta,
-                           opt_state=opt_state_tree(self.model, self.optimizer),
-                           train_state=self._train_state())
-            if stop:
-                self.logger.log({"early_stop": epoch})
-                break
+        interrupted = False
+        try:
+            with deterministic_cudnn(tc.seed is not None):
+                for epoch in range(start_epoch, max_epochs):
+                    for ldr in (train_loader, val_loader):
+                        ldr.set_epoch(epoch)
+                    generator = torch.Generator(self.device).manual_seed(seed * 100_003 + epoch)
+                    prof = self._profiler() if epoch == profile_epoch else None
+                    if prof is not None:
+                        prof.start()
+                    t0 = time.perf_counter()
+                    train_loss, completed = self._train_epoch(train_loader, generator)
+                    _sync(self.device)
+                    train_time = time.perf_counter() - t0
+                    if prof is not None:
+                        prof.stop()
+                        profile_dir = self.run_dir / "profile"
+                        profile_dir.mkdir(parents=True, exist_ok=True)
+                        prof.export_chrome_trace(str(profile_dir / f"epoch_{epoch}.json"))
+                        self.logger.log({"profile_dir": str(profile_dir)})
+                    if self._preempt_requested:
+                        if self._preempt_signum is not None:
+                            self.logger.log({"preempt_signal": self._preempt_signum})
+                        if completed:  # the boundary, without validation
+                            self._refresh_last(epoch, meta)
+                        last = self.ckpt.last_path
+                        self.logger.log({
+                            "preempted_at_epoch": epoch, "epoch_completed": completed,
+                            "resume_from": (str(last) if (last / "params.msgpack").exists()
+                                            else "fresh"),
+                        })
+                        interrupted = True
+                        break
+                    do_val = ((epoch + 1) % max(1, tc.val_every_n_epochs) == 0
+                              or epoch == max_epochs - 1)
+                    metrics = self._val_epoch(val_loader) if do_val else {}
+                    metrics["train/loss"] = train_loss
+                    metrics["lr"] = get_learning_rate(self.optimizer)
+                    metrics["epoch"] = epoch
+                    metrics["train_time_s"] = train_time
+                    metrics["time_s"] = time.perf_counter() - t0
+                    metrics["samples_per_s"] = round(
+                        len(train_loader) * tc.batch_size / train_time, 2)
+                    self.logger.log(metrics)
+                    history.append(metrics)
+                    if not do_val:
+                        self._refresh_last(epoch, meta)
+                    else:
+                        monitored = metrics.get(self.monitor)
+                        if monitored is None:
+                            raise ValueError(
+                                f"monitored metric {self.monitor!r} missing from val metrics")
+                        if tc.scheduler.type == "plateau" and self.scheduler.step(monitored):
+                            set_learning_rate(self.optimizer, tc.lr * self.scheduler.scale)
+                        stop = self.early_stopping.step(monitored)
+                        self.ckpt.step(
+                            epoch, monitored, flax_split(self.model)[0], meta,
+                            opt_state=opt_state_tree(self.model, self.optimizer, self.accum),
+                            train_state=self._train_state())
+                        if stop:
+                            self.logger.log({"early_stop": epoch})
+                            break
+                    rss = host_rss_gb() if rss_limit else 0.0
+                    if rss_limit and rss > rss_limit:
+                        # last/ was just written: the resume is exact
+                        self.logger.log({"recycle_at_epoch": epoch, "host_rss_gb": round(rss, 2),
+                                         "host_rss_limit_gb": round(rss_limit, 2)})
+                        interrupted = True
+                        break
+        finally:
+            for sig, prev in installed:
+                signal.signal(sig, prev)
         best = self.ckpt.best_path
         return {"params": self.model.module.state_dict(), "history": history,
-                "best_score": self.ckpt.best_score,
+                "interrupted": interrupted, "best_score": self.ckpt.best_score,
                 "best_path": None if best is None else str(best)}

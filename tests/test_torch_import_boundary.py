@@ -65,6 +65,7 @@ REQUIRED = (
     "segma_tpu_torch.structs.interval", "segma_tpu_torch.utils.safetensors",
     "segma_tpu_torch.models.whisper.convert", "segma_tpu_torch.models.hubert.convert",
     "segma_tpu_torch.convert_reference", "segma_tpu_torch.cli.import_checkpoint",
+    "segma_tpu_torch.cli.train", "segma_tpu_torch.cli.auto_train",
 )
 
 

@@ -312,6 +312,62 @@ def test_gradients_reach_qkv_projections_through_the_kernels():
         assert float((g - ref).norm()) <= 5e-2 * float(ref.norm()), name
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_flash_forward_launches_per_step_with_and_without_remat(remat):
+    """One bf16 train step of a tiny HuBERT on the card: the flash forward
+    launches once per layer, and once more per layer under ``train.remat``
+    (the layer's forward recomputed in the backward pass); the backward
+    once per layer either way; under cuDNN's deterministic algorithms, the
+    parameters after the step agree bit for bit."""
+    _cuda()
+    import dataclasses
+
+    from segma_tpu_torch.config import (
+        AudioConfig, Config, DataConfig, ModelConfig, SurgicalHubertHydraConfig, TrainConfig,
+    )
+    from segma_tpu_torch.models import Models
+    from segma_tpu_torch.models.hubert.encoder import HubertEncoderConfig
+    from segma_tpu_torch.train import deterministic_cudnn, make_optimizer, make_train_step
+    from segma_tpu_torch.utils.encoders import MultiLabelEncoder
+
+    cfg = Config(
+        data=DataConfig(classes=["KCHI", "OCH", "MAL", "FEM"]),
+        audio=AudioConfig(chunk_duration_s=4.0, sample_rate=16_000, strict_frames=True),
+        model=ModelConfig(name="surgical_hubert_hydra", config=SurgicalHubertHydraConfig(
+            wav_encoder="hubert_random", encoder_layers=[], reduction="weighted", classifier=256,
+        )),
+        train=TrainConfig(remat=remat),
+    )
+    enc_cfg = HubertEncoderConfig(hidden_size=128, n_layers=2, n_heads=2, ffn_dim=256,
+                                  conv_dim=(64,) * 7, pos_conv_kernel=16, pos_conv_groups=4)
+    rng = np.random.default_rng(5)
+    batch = {"x": torch.from_numpy((rng.standard_normal((2, 64_000)) * 0.1).astype(np.float32))
+             .cuda(), "y": torch.from_numpy((rng.random((2, 199, 4)) > 0.7).astype(np.float32))
+             .cuda()}
+    params = {}
+    for on in sorted({False, remat}):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            model = Models["surgical_hubert_hydra"](
+                MultiLabelEncoder(cfg.data.classes),
+                dataclasses.replace(cfg, train=TrainConfig(remat=on)), device="cuda",
+                generator=torch.Generator().manual_seed(0), enc_cfg=enc_cfg)
+        model.module.dropout = 0.0
+        step = make_train_step(model, make_optimizer(model, 1e-3))
+        fwd, bwd = attention.launches, attention.bwd_launches
+        with deterministic_cudnn(True):
+            step(batch, None)
+        torch.cuda.synchronize()
+        per_layer = 2 if on else 1
+        assert attention.launches - fwd == per_layer * enc_cfg.n_layers
+        assert attention.bwd_launches - bwd == enc_cfg.n_layers
+        params[on] = {n: p.detach().clone() for n, p in model.module.named_parameters()}
+    if remat:
+        for name, p in params[True].items():
+            assert torch.equal(p, params[False][name]), name
+
+
 def _f32(rng, shape):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
 
