@@ -51,7 +51,10 @@ exits nonzero without printing the final result line:
    through both forward kernels, twice (first and second run in the
    process); the RTTM is parsed; one more run under torch.profiler prints
    device time by kernel; the card's logits for the first two chunks are
-   held against the same model on the CPU plain path.
+   held against the same model on the CPU plain path; the WAV's logits are
+   bit-equal with cuDNN's TF32 allowed (PyTorch's default) and not (the
+   bf16 model's f32 BiLSTM scopes itself out of TF32), and the LSTM's
+   device time is printed as it runs now and as it ran before that repair.
 5. training slice: full-width HuBERT-base ``surgical_hubert_hydra`` (random
    weights from a seed, transformer trainable, front end frozen) trains two
    epochs through ``Trainer.fit`` on a synthetic dataset written here (8
@@ -60,7 +63,8 @@ exits nonzero without printing the final result line:
    non-zero q/k/v projection gradients after step 1, an unchanged front end,
    and 12 flash forward and 12 flash backward launches per step. Then
    WARM_STEP_REPEATS steps on one batch, timed, and one more under
-   torch.profiler (the 15 longest kernels and the port's own).
+   torch.profiler (the 15 longest kernels and the port's own); then the
+   capturable AdamW against PyTorch's default one (``optimizer_times``).
 6. the reference workflow (``phase_workflow``, bf16, full width): exact
    resume of HuBERT-base from ``last/`` with no cuDNN flag from the caller
    (a seeded fit scopes cuDNN's deterministic algorithms itself): two
@@ -98,13 +102,23 @@ exits nonzero without printing the final result line:
    final state bit for bit; remat and int16 transport each bit-equal to
    their plain counterparts; the bf16 step under cuDNN's default and
    deterministic algorithms, and hydra_whisper's bf16 logits with cuBLAS's
-   reduced-precision bf16 reductions allowed and not. (It runs before the
-   f32 phases, 7 and 8.)
+   reduced-precision bf16 reductions allowed and not, then stage by stage
+   (``hydra_whisper_stages``: each stage on the card fed the CPU bf16
+   run's input, against the CPU's f32 model). (It runs before the f32
+   phases, 7 and 8.)
+10b. the device audio cache and epoch dispatch (``phase_device_cache``,
+   full width): HuBERT-base bf16 over 2.1 GB of synthetic audio for three
+   40-step epochs with the host path, the device cache under step
+   dispatch, and epoch dispatch (the step replayed from a captured CUDA
+   graph), each bit-equal to the one before, with equal launch counts;
+   k=3 accumulation, f32 and whisperimax, step against epoch dispatch,
+   bit-equal; per-step medians and spread, device-busy shares and peak
+   memory printed.
 11. the ``kernels`` JSON line (log-mel, the bf16 and the f32 flash forward
    and backward; each with its fast_context times where it has them) and
    the ``kernels:`` launch line, per path (the workflow's resumed fit and
-   predict CLI run, each reference-model path, and the train CLI among
-   them).
+   predict CLI run, each reference-model path, the train CLI and the
+   epoch-dispatch paths among them).
 12. last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -1071,7 +1085,53 @@ def phase_slice(card: str) -> dict:
         got = model.apply(chunks.cuda()).cpu()
         ref = model_cpu.apply(chunks)
     check_close("surgical_hydra logits, card vs CPU (2 chunks, bf16)", got, ref, LOGITS_ATOL)
+    lstm_tf32_check(card, model, pcm)
     return launches
+
+
+def lstm_tf32_check(card: str, model, pcm: np.ndarray) -> dict:
+    """The bf16 model's f32 BiLSTM in IEEE f32 whatever the caller's flags:
+    the serving slice's WAV served (``InferencePipeline.logits_for_audio``)
+    with ``torch.backends.cudnn.allow_tf32`` True, PyTorch's default, and
+    False; the logits must be bit-equal. Then the LSTM's device time at the
+    serving shape, (64, 1500, 512), under the default flags, in turns: as
+    the model runs it now (scoped out of TF32) and the unscoped cuDNN call
+    it made before the repair (TF32). Returns the times."""
+    import torch
+
+    from segma_tpu_torch.inference import InferencePipeline
+
+    cudnn = torch.backends.cudnn
+
+    def flags(allow: bool):
+        return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                           deterministic=cudnn.deterministic, allow_tf32=allow)
+
+    pipe = InferencePipeline(model, batch_size=INNER_BATCH)
+    logits = {}
+    for allow in (True, False):
+        with flags(allow), torch.inference_mode():
+            logits[allow] = pipe.logits_for_audio(pcm)
+    if not np.array_equal(logits[True], logits[False]):
+        diff = float(np.abs(logits[True] - logits[False]).max())
+        raise AssertionError(f"bf16 serving logits differ with cuDNN's TF32 allowed: {diff:.3e}")
+    print(f"check bf16 surgical_hydra served with cudnn.allow_tf32 True and False [{card}]: "
+          f"logits {logits[True].shape} bit-equal", flush=True)
+    lstm = model.module.lstm_shared
+    gen = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn((INNER_BATCH, 1500, lstm.lstm.input_size), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    with flags(True), torch.inference_mode():
+        unscoped = lstm.lstm(x.float())[0]
+        scoped = lstm(x)
+        times = time_turns({"after": lambda: lstm(x), "before": lambda: lstm.lstm(x.float())},
+                           iters=5)
+    out = {k: median(v) for k, v in times.items()}
+    print(f"BiLSTM at ({INNER_BATCH}, 1500, {lstm.lstm.input_size}) under PyTorch's default "
+          f"flags [{card}]: {out['after']:.4f} ms repaired (IEEE f32), {out['before']:.4f} ms "
+          f"before the repair (cuDNN TF32; {spread(times['before'])}); their outputs differ by "
+          f"{float((unscoped - scoped).abs().max()):.3e}", flush=True)
+    return out
 
 TRAIN_CLASSES = ["KCHI", "OCH", "MAL", "FEM"]  # data.classes of config/default.yml
 TRAIN_FILES, VAL_FILES, TEST_FILES = 8, 4, 1  # a test split is required by the dataset
@@ -1159,6 +1219,7 @@ def phase_train(card: str) -> dict:
     """Train full-width HuBERT-base ``surgical_hubert_hydra`` (random
     weights from seed 0) for two epochs through ``Trainer.fit`` on a
     synthetic dataset, with its checks; returns the launch counts."""
+    import dataclasses
     import warnings
 
     import torch
@@ -1173,6 +1234,9 @@ def phase_train(card: str) -> dict:
         root = Path(tmp) / "data"
         write_dataset(root, TRAIN_CLASSES, (TRAIN_FILES, VAL_FILES, TEST_FILES), TRAIN_FILE_S)
         cfg = surgical_hubert_hydra_config(root)
+        # the host data path stays covered here; the default (auto) resolves
+        # to the device cache, which phase_device_cache holds against it
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, data_cache="host"))
         enc = MultiLabelEncoder(cfg.data.classes)
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")  # random encoder weights, on purpose
@@ -1285,25 +1349,69 @@ def phase_train(card: str) -> dict:
                   f"{max(step_ms):.3f})", flush=True)
             profile_run(card, "train step", lambda: trainer.train_step(warm_batch, gen),
                         warm / n_steps)
+            optimizer_times(card, model, trainer, warm_batch, gen)
     return launches
+
+
+def optimizer_times(card: str, model, trainer, batch: dict, gen) -> dict:
+    """The card's optimizer (``train.make_optimizer``: a capturable AdamW, its
+    rate a device tensor) against PyTorch's default AdamW with a float rate
+    (the optimizer the port used before epoch dispatch), on the training
+    slice's model: the host's time to queue one ``step()`` and its device
+    time (``time_turns``), then the whole step repeated on one batch, synced,
+    with each, in turns. Returns the medians in ms."""
+    import torch
+
+    from segma_tpu_torch.train import (
+        ADAMW_BETAS, ADAMW_EPS, ADAMW_WEIGHT_DECAY, make_train_step,
+    )
+
+    lr = float(trainer.optimizer.param_groups[0]["lr"])
+    default = torch.optim.AdamW(model.trainable_parameters(), lr=lr, betas=ADAMW_BETAS,
+                                eps=ADAMW_EPS, weight_decay=ADAMW_WEIGHT_DECAY)
+    steps = {"capturable": trainer.train_step, "default": make_train_step(model, default)}
+    opts = {"capturable": trainer.optimizer, "default": default}
+    for step in steps.values():  # the default AdamW's state is made here
+        step(batch, gen)
+    queue_ms: dict[str, list[float]] = {k: [] for k in opts}
+    walls: dict[str, list[float]] = {k: [] for k in opts}
+    for _ in range(WARM_STEP_REPEATS):
+        for name, opt in opts.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.step()
+            queue_ms[name].append(1e3 * (time.perf_counter() - t0))
+        for name, step in steps.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(batch, gen)
+            torch.cuda.synchronize()
+            walls[name].append(1e3 * (time.perf_counter() - t0))
+    device = time_turns({k: opt.step for k, opt in opts.items()}, groups=3, iters=5)
+    out = {}
+    for name in opts:
+        out[name] = {"queue_ms": median(queue_ms[name]), "device_ms": median(device[name]),
+                     "step_ms": median(walls[name])}
+        print(f"AdamW {name} over {sum(p.numel() for p in model.trainable_parameters())} "
+              f"parameters [{card}]: host queues a step() in {out[name]['queue_ms']:.3f} ms "
+              f"(min {min(queue_ms[name]):.3f}, max {max(queue_ms[name]):.3f}), device "
+              f"{spread(device[name])}; the train step repeated on one batch, synced, median "
+              f"{out[name]['step_ms']:.3f} ms (min {min(walls[name]):.3f}, max "
+              f"{max(walls[name]):.3f})", flush=True)
+    return out
 
 
 def reset_launches() -> None:
     """Every kernel wrapper's launch count to 0."""
-    from segma_tpu_torch.ops import attention, logmel
+    from segma_tpu_torch.ops import launch_counts, set_launch_counts
 
-    logmel.launches = 0
-    attention.launches = attention.bwd_launches = 0
-    attention.launches_f32 = attention.bwd_launches_f32 = 0
+    set_launch_counts(dict.fromkeys(launch_counts(), 0))
 
 
 def read_launches() -> dict:
-    from segma_tpu_torch.ops import attention, logmel
+    from segma_tpu_torch.ops import launch_counts
 
-    return {"logmel": logmel.launches, "flash_attn_fwd": attention.launches,
-            "flash_attn_bwd": attention.bwd_launches,
-            "flash_attn_fwd_f32": attention.launches_f32,
-            "flash_attn_bwd_f32": attention.bwd_launches_f32}
+    return launch_counts()
 
 
 def tf32_flags() -> tuple[bool, bool]:
@@ -2454,6 +2562,7 @@ def determinism_step_times(card: str) -> dict:
     deterministic ones, in turns (default, deterministic, deterministic,
     default), WARM_STEP_REPEATS timed steps each after two warm-up steps;
     then one profiled step of each. Returns the median ms of each."""
+    import dataclasses
     import warnings
 
     import torch
@@ -2466,7 +2575,9 @@ def determinism_step_times(card: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp) / "data"
         write_dataset(root, TRAIN_CLASSES, (TRAIN_FILES, VAL_FILES, TEST_FILES), TRAIN_FILE_S)
+        # one host batch, stepped without a loader
         cfg = surgical_hubert_hydra_config(root)
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, data_cache="host"))
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")  # random encoder weights, on purpose
             model = checkpoint.build_model(cfg, device="cuda")
@@ -2573,12 +2684,436 @@ def hydra_whisper_reduction(card: str) -> dict:
                 out[f"card_reduced_{allowed}"] = float((got.double() - ref_f32).abs().max())
         finally:
             matmul.allow_bf16_reduced_precision_reduction = caller
-    print(f"hydra_whisper bf16 logits from the CPU's f32 model [{card}]: card with cuBLAS's "
-          f"reduced-precision bf16 reductions allowed {out['card_reduced_True']:.3e}, not "
-          f"allowed {out['card_reduced_False']:.3e}; the CPU's bf16 {out['cpu_bf16']:.3e}",
-          flush=True)
+        print(f"hydra_whisper bf16 logits from the CPU's f32 model [{card}]: card with cuBLAS's "
+              f"reduced-precision bf16 reductions allowed {out['card_reduced_True']:.3e}, not "
+              f"allowed {out['card_reduced_False']:.3e}; the CPU's bf16 {out['cpu_bf16']:.3e}",
+              flush=True)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            on_card = checkpoint.load_model_for_inference(cfg, tmp / "imported", device="cuda")
+        out["stages"] = hydra_whisper_stages(card, on_card, cpu, f32, chunks)
     return out
 
+
+def hydra_whisper_stages(card: str, on_card, cpu, f32, wav, device: str = "cuda") -> dict:
+    """Where hydra_whisper's bf16 logits on the card leave the CPU's: each
+    stage of the bf16 model (log-mel, the conv stem, each encoder layer's
+    attention and its MLP with the LayerNorms, the final LayerNorm, the
+    truncation to the chunk's rows, the BiLSTM, the heads) run on the card
+    on the CPU bf16 run's input to that stage, so that errors do not
+    compound. Printed per stage: the maximum distance from the CPU f32
+    model's output of the stage, the card's and the CPU bf16 model's, and
+    the card's from the CPU bf16 output; beside each attention, the card's
+    flash kernel against ``attention_plain`` on the card's q, k, v. Returns
+    the distances by stage."""
+    import torch
+    import torch.nn.functional as F
+
+    from segma_tpu_torch.models.whisper.encoder import layer_norm, linear
+    from segma_tpu_torch.ops.attention import attention_core, attention_plain
+    from segma_tpu_torch.ops.melspec import whisper_input_features
+
+    def record(model) -> dict:
+        """The stages' inputs and outputs of one CPU forward, by hooks."""
+        seen: dict = {}
+        mod = model.module
+
+        def hook(name):
+            def save(_m, args, output):
+                seen[name] = (args[0], output[0] if isinstance(output, tuple) else output)
+            return save
+
+        handles = [mod.encoder.register_forward_hook(hook("encoder")),
+                   mod.lstm_shared.register_forward_hook(hook("lstm")),
+                   mod.heads.register_forward_hook(hook("heads"))]
+        for i, layer in enumerate(mod.encoder.layers):
+            handles += [layer.register_forward_hook(hook(f"layer {i}")),
+                        layer.self_attn.register_forward_hook(hook(f"attention {i}"))]
+        try:
+            seen["logits"] = model.apply(wav)
+        finally:
+            for h in handles:
+                h.remove()
+        return seen
+
+    with torch.inference_mode():
+        bf, fp = record(cpu), record(f32)
+        enc = on_card.module.encoder
+        dtype = enc.dtype
+        n_rows = on_card.module.n_windows
+
+        def mha(attn, x, core):
+            b, n, d = x.shape
+            split = lambda t: t.view(b, n, attn.n_heads, d // attn.n_heads)  # noqa: E731
+            q, k, v = (split(linear(x, p)) for p in (attn.q_proj, attn.k_proj, attn.v_proj))
+            out = core(q, k, v, sm_scale=(d // attn.n_heads) ** -0.5, dtype=x.dtype)
+            return linear(out.reshape(b, n, d), attn.out_proj)
+
+        def plain(q, k, v, sm_scale, dtype):
+            return attention_plain(q, k, v, sm_scale, dtype)
+
+        stages: list[tuple[str, object, object, object, object]] = []
+        cuda = lambda t: t.to(device)  # noqa: E731
+        mel = whisper_input_features(cuda(wav))
+        stages.append(("log-mel", mel, bf["encoder"][0], fp["encoder"][0], None))
+        x = enc._conv(cuda(bf["encoder"][0]).to(dtype), enc.conv1)
+        x = enc._conv(x, enc.conv2).transpose(1, 2)
+        x = x + enc.embed_positions[: x.shape[1]].to(dtype)
+        stages.append(("conv stem", x, bf["layer 0"][0], fp["layer 0"][0], None))
+        for i, layer in enumerate(enc.layers):
+            a_in = cuda(bf[f"attention {i}"][0])
+            got = mha(layer.self_attn, a_in, attention_core)
+            ref = mha(layer.self_attn, a_in, plain)
+            stages.append((f"layer {i} attention", got, bf[f"attention {i}"][1],
+                           fp[f"attention {i}"][1], float((got.double() - ref.double()).abs().max())))
+            x2 = cuda(bf[f"layer {i}"][0]) + cuda(bf[f"attention {i}"][1])
+            h = layer_norm(x2, layer.final_layer_norm)
+            out = x2 + linear(F.gelu(linear(h, layer.fc1)), layer.fc2)
+            stages.append((f"layer {i} MLP and LayerNorms", out, bf[f"layer {i}"][1],
+                           fp[f"layer {i}"][1], None))
+        last = layer_norm(cuda(bf[f"layer {len(enc.layers) - 1}"][1]), enc.layer_norm)
+        stages.append(("final LayerNorm", last, bf["encoder"][1], fp["encoder"][1], None))
+        stages.append(("truncation", last[:, :n_rows], bf["encoder"][1][:, :n_rows],
+                       fp["encoder"][1][:, :n_rows], None))
+        stages.append(("BiLSTM", on_card.module.lstm_shared(cuda(bf["lstm"][0])), bf["lstm"][1],
+                       fp["lstm"][1], None))
+        stages.append(("heads", on_card.module.heads(cuda(bf["heads"][0])), bf["heads"][1],
+                       fp["heads"][1], None))
+        stages.append(("logits, end to end", on_card.apply(cuda(wav)), bf["logits"], fp["logits"],
+                       None))
+    dist = lambda a, b: float((a.detach().cpu().double() - b.double()).abs().max())  # noqa: E731
+    out = {}
+    for name, got, ref_bf, ref_fp, kernel in stages:
+        out[name] = {"card": dist(got, ref_fp), "cpu_bf16": dist(ref_bf, ref_fp),
+                     "card_vs_cpu_bf16": dist(got, ref_bf)}
+        if kernel is not None:
+            out[name]["kernel_vs_plain"] = kernel
+        ratio = out[name]["card"] / max(out[name]["cpu_bf16"], 1e-30)
+        print(f"hydra_whisper bf16 stage {name} [{card}]: from the CPU's f32 model card "
+              f"{out[name]['card']:.3e}, CPU bf16 {out[name]['cpu_bf16']:.3e} ({ratio:.2f}x); "
+              f"card from CPU bf16 {out[name]['card_vs_cpu_bf16']:.3e}"
+              + (f"; flash kernel vs attention_plain on the card {kernel:.3e}"
+                 if kernel is not None else ""), flush=True)
+    return out
+
+
+
+DEVICE_CACHE_EPOCHS = 3
+# the timed runs' data: 32 train files of 2048 s, 2.1 GB of 16 kHz PCM16 (an
+# int16 device cache of that size), 2 val files, 1 test file; the virtual
+# epoch cut by data.dataset_multiplier to DEVICE_CACHE_STEPS steps of 32
+DEVICE_CACHE_FILES = (32, 2, 1)
+DEVICE_CACHE_FILE_S = 2048.0
+DEVICE_CACHE_STEPS = 40
+
+
+def _dispatch_fit(card: str, label: str, cfg, ds, run_dir: Path, model=None,
+                  timed_epoch: int | None = None, profile_epoch: int | None = None) -> dict:
+    """One seeded ``Trainer.fit`` of ``cfg`` (the model from
+    ``checkpoint.build_model`` unless given) from zeroed launch counters and
+    peak memory statistics. With ``timed_epoch``, a CUDA event after each
+    step of that epoch: the gaps between them are the steps' times on the
+    device's clock, the idle time the host leaves included. With
+    ``profile_epoch``, that epoch's training under torch.profiler: its
+    device time and its wall, synced, under the profiler. Returns the result,
+    the history, the launch counts, the peak memory, the warm step (the
+    second epoch's train time over its steps; the first's in a one-epoch
+    run), the timed steps, the profiled epoch's device time and wall, the
+    logged records, and copies of the trainable parameters and AdamW
+    state."""
+    import gc
+    import json
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from segma_tpu_torch import checkpoint
+    from segma_tpu_torch.data import SegmentationDataLoader
+    from segma_tpu_torch.train import EpochReplay, Trainer
+
+    if model is None:
+        model = checkpoint.build_model(cfg, device="cuda")
+    dm = SegmentationDataLoader(ds, model.label_encoder, cfg, model.conv_settings)
+    trainer = Trainer(model=model, config=cfg, run_dir=run_dir)
+    method = "_train_epoch_replay" if cfg.train.dispatch == "epoch" else "_train_epoch"
+    real = getattr(trainer, method)
+    prof_out: dict[str, float] = {}
+    calls: list[int] = []
+    ends: list = []  # an event after each step of the timed epoch
+    timing = [False]
+
+    def epoch(*args):
+        calls.append(1)
+        n = len(calls) - 1
+        if n == timed_epoch:
+            timing[0] = True
+            try:
+                return real(*args)
+            finally:
+                timing[0] = False
+        if n != profile_epoch:
+            return real(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = real(*args)
+            torch.cuda.synchronize()
+        prof_out["wall_ms"] = 1e3 * (time.perf_counter() - t0)
+        prof_out["busy_ms"] = sum(e.self_device_time_total for e in prof.key_averages()
+                                  if e.device_type.name == "CUDA") / 1e3
+        return out
+
+    def mark():
+        if timing[0]:
+            ends.append(torch.cuda.Event(enable_timing=True))
+            ends[-1].record()
+
+    setattr(trainer, method, epoch)
+    replay_run = EpochReplay.run
+    if cfg.train.dispatch == "epoch":
+        def run(self, emit):
+            out = replay_run(self, emit)
+            mark()
+            return out
+
+        EpochReplay.run = run
+    else:
+        step = trainer.train_step
+
+        def timed_step(batch, generator):
+            out = step(batch, generator)
+            mark()
+            return out
+
+        trainer.train_step = timed_step
+    # an earlier run's trainer, in a cycle through its wrapped epoch method,
+    # is freed first: each run's peak memory is its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        result = trainer.fit(dm)
+    finally:
+        EpochReplay.run = replay_run
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    history = result["history"]
+    n_steps = trainer.global_step // len(history)
+    records = [json.loads(ln) for ln in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    params = dict(model.module.named_parameters())
+    steps_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+    out = {
+        "history": history, "launches": launches, "peak": torch.cuda.max_memory_allocated(),
+        "records": records, "wall": wall, "n_steps": n_steps,
+        "warm_ms": 1e3 * history[min(1, len(history) - 1)]["train_time_s"] / n_steps,
+        "steps_ms": steps_ms, **prof_out,
+        # copies on the host: the next run's peak memory is its own
+        "params": {n: p.detach().cpu() for n, p in params.items() if p.requires_grad},
+        "adam": {n: {k: v.detach().cpu() for k, v in trainer.optimizer.state[p].items()}
+                 for n, p in params.items() if p.requires_grad},
+        "graphs": sorted(trainer.replay.graphs) if trainer.replay is not None else [],
+    }
+    mb = [r["device_cache_mb"] for r in records if "device_cache_mb" in r]
+    notes = {k: r[k] for r in records for k in ("data_cache_train", "data_cache_val") if k in r}
+    timed = ""
+    if steps_ms:
+        q = np.percentile(steps_ms, [0, 10, 50, 90, 100])
+        timed = (f", epoch {timed_epoch}'s {len(steps_ms)} step-to-step gaps (CUDA events) "
+                 f"median {q[2]:.3f} ms (p10 {q[1]:.3f}, p90 {q[3]:.3f}, min {q[0]:.3f}, "
+                 f"max {q[4]:.3f})")
+    busy = ""
+    if prof_out:
+        busy = (f", epoch {profile_epoch} under torch.profiler: device busy "
+                f"{prof_out['busy_ms']:.1f} ms of its wall {prof_out['wall_ms']:.1f} ms = "
+                f"{100 * prof_out['busy_ms'] / prof_out['wall_ms']:.1f}% ("
+                f"{prof_out['busy_ms'] / n_steps:.3f} ms device and "
+                f"{prof_out['wall_ms'] / n_steps:.3f} ms wall per step)")
+    step = "warm step" if len(history) > 1 else "step of the first epoch (capture included)"
+    last = history[min(1, len(history) - 1)]
+    val_ms = 1e3 * (last["time_s"] - last["train_time_s"])
+    print(f"device cache {label} [{card}]: {len(history)} epochs of {n_steps} steps, fit wall "
+          f"{wall:.3f} s, {step} {out['warm_ms']:.3f} ms (epoch train time over steps)"
+          f"{timed}{busy}, validation {val_ms:.1f} ms, peak device memory "
+          f"{out['peak']} B ({out['peak'] / 2**30:.2f} GiB), device_cache_mb "
+          f"{mb[0] if mb else None}, data_cache notes {notes or None}, replayed graphs "
+          f"{out['graphs']}, launches {launches}", flush=True)
+    return out
+
+
+def _launched(counts: dict, kernels: tuple[str, ...], what: str) -> None:
+    """Raise unless each of ``kernels`` was launched in the run."""
+    missing = [k for k in kernels if not counts[k]]
+    if missing:
+        raise AssertionError(f"{what}: {missing} never launched ({counts})")
+
+
+def _same_run(a: dict, b: dict, what: str) -> int:
+    """Raise unless two fits end bit-equal: every epoch's losses and metrics,
+    every step's logged loss, the trainable parameters and AdamW's state.
+    Returns the number of tensors compared."""
+    import torch
+
+    keys = ("train/loss", "val/loss", "val/f1_score", "lr")
+    for ha, hb in zip(a["history"], b["history"], strict=True):
+        for k in keys:
+            if k in ha and ha[k] != hb.get(k):
+                raise AssertionError(f"{what}: epoch {ha['epoch']} {k} {ha[k]!r} != {hb.get(k)!r}")
+    steps = [[(r["step"], r["train/loss_step"]) for r in x["records"] if "train/loss_step" in r]
+             for x in (a, b)]
+    if steps[0] != steps[1]:
+        raise AssertionError(f"{what}: the per-step losses differ")
+    n = 0
+    for name, p in a["params"].items():
+        if not torch.equal(p, b["params"][name]):
+            diff = float((p.double() - b["params"][name].double()).abs().max())
+            raise AssertionError(f"{what}: parameter {name} differs by {diff:.3e}")
+        for k, v in a["adam"][name].items():
+            if not torch.equal(v, b["adam"][name][k]):
+                raise AssertionError(f"{what}: AdamW {k} of {name} differs")
+            n += 1
+        n += 1
+    print(f"check {what}: bit-equal ({len(a['history'])} epochs, {len(steps[0])} step losses, "
+          f"{n} parameter and AdamW tensors)", flush=True)
+    return n
+
+
+def phase_device_cache(card: str) -> dict:
+    """The device audio cache and epoch dispatch on the card: the training
+    slice's config (full HuBERT-base, bf16, batch 32, seed 0, dropout on)
+    over ``write_dataset``'s data at a deployment's size (DEVICE_CACHE_FILES
+    of DEVICE_CACHE_FILE_S: a 2.1 GB int16 train cache), the virtual epoch
+    cut to DEVICE_CACHE_STEPS steps, for DEVICE_CACHE_EPOCHS epochs, three
+    times:
+
+    1. ``data_cache=host``, ``dispatch=step``;
+    2. ``data_cache=auto`` (the default, which resolves to the device cache
+       and logs its note), ``dispatch=step``;
+    3. ``data_cache=device``, ``dispatch=epoch``: the step captured as a
+       CUDA graph after one eager step, replayed for every other step.
+
+    Run 2 must be bit-equal to run 1, and run 3 to run 2 (losses, step
+    losses, parameters, AdamW's state), run 3's launch counts must be run
+    2's (a replay counts its captured launches), and run 2 must log its
+    resolution note. Printed for each: the warm step, the median and spread
+    of the second epoch's steps (CUDA events), the device's busy share of
+    the third epoch's training (device time and wall both under
+    torch.profiler), the peak device memory, ``device_cache_mb``. Then,
+    over the training slice's small data, step against epoch dispatch,
+    bit-equal each: k=3 accumulation over two epochs (so that both graphs,
+    fold-in and update, replay), f32 (``train.precision=f32``: both f32
+    flash kernels under replay) one epoch, and whisperimax in bf16 over a
+    random Whisper-base snapshot (log-mel, the bf16 forward and the cuDNN
+    LSTM under replay) one epoch. Returns the launch counts of run 3 and of
+    each epoch-dispatch path."""
+    import dataclasses
+    import math
+    import shutil
+    import warnings
+
+    import torch
+
+    from segma_tpu_torch.config import DataloaderConfig
+    from segma_tpu_torch.data import SegmaFileDataset
+
+    def train(cfg, **fields):
+        return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **fields))
+
+    paths: dict[str, dict] = {}
+    with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # random encoder weights, on purpose
+        tmp = Path(tmp)
+        big = tmp / "big"
+        t0 = time.perf_counter()
+        write_dataset(big, TRAIN_CLASSES, DEVICE_CACHE_FILES, DEVICE_CACHE_FILE_S)
+        write_s = time.perf_counter() - t0
+        chunks = math.ceil(DEVICE_CACHE_FILES[0] * DEVICE_CACHE_FILE_S / 4.0)
+        timed = surgical_hubert_hydra_config(big)
+        timed = dataclasses.replace(timed, data=dataclasses.replace(
+            timed.data, dataset_multiplier=DEVICE_CACHE_STEPS * timed.train.batch_size / chunks))
+        timed = train(timed, max_epochs=DEVICE_CACHE_EPOCHS, log_every_n_steps=1)
+        big_ds = SegmaFileDataset.from_config(timed)
+        big_ds.load(use_cache=False)
+        print(f"device cache data [{card}]: {DEVICE_CACHE_FILES} files of "
+              f"{DEVICE_CACHE_FILE_S} s written in {write_s:.1f} s; "
+              f"data.dataset_multiplier {timed.data.dataset_multiplier}", flush=True)
+        runs = {}
+        for label, fields in (("host step", dict(data_cache="host")),
+                              ("auto step", dict(data_cache="auto")),
+                              ("device epoch", dict(data_cache="device", dispatch="epoch"))):
+            runs[label] = _dispatch_fit(card, label, train(timed, **fields), big_ds, tmp / label,
+                                        timed_epoch=1, profile_epoch=2)
+        if runs["auto step"]["n_steps"] != DEVICE_CACHE_STEPS:
+            raise AssertionError(f"{runs['auto step']['n_steps']} steps per epoch, not "
+                                 f"{DEVICE_CACHE_STEPS}")
+        _same_run(runs["host step"], runs["auto step"], "device cache (auto) against host, step")
+        _same_run(runs["auto step"], runs["device epoch"],
+                  "epoch dispatch (CUDA graph replays) against step dispatch, device cache")
+        note = [r["data_cache_train"] for r in runs["auto step"]["records"]
+                if "data_cache_train" in r]
+        if not (note and note[0].startswith("auto -> device")):
+            raise AssertionError(f"data_cache=auto logged {note}")
+        if runs["device epoch"]["launches"] != runs["auto step"]["launches"]:
+            raise AssertionError(f"launches under epoch dispatch {runs['device epoch']['launches']}"
+                                 f" != step dispatch's {runs['auto step']['launches']}")
+        if runs["device epoch"]["graphs"] != [True]:
+            raise AssertionError(f"epoch dispatch replayed {runs['device epoch']['graphs']}")
+        _launched(runs["device epoch"]["launches"], ("flash_attn_fwd", "flash_attn_bwd"),
+                  "epoch dispatch")
+        print(f"check epoch dispatch launch counts equal step dispatch's, replays counted: "
+              f"{runs['device epoch']['launches']}", flush=True)
+        paths["device_cache epoch"] = runs["device epoch"]["launches"]
+        del runs
+        torch.cuda.empty_cache()
+        shutil.rmtree(big)
+        root = tmp / "data"
+        write_dataset(root, TRAIN_CLASSES, (TRAIN_FILES, VAL_FILES, TEST_FILES), TRAIN_FILE_S)
+        base = train(surgical_hubert_hydra_config(root), log_every_n_steps=1)
+        ds = SegmaFileDataset.from_config(base)
+        ds.load(use_cache=False)
+
+        # accumulation across the epoch boundary: both graphs replay in epoch 1
+        accum = {d: _dispatch_fit(card, f"k=3 {d}", train(base, data_cache="device", dispatch=d,
+                                                           grad_accum_steps=3, max_epochs=2),
+                                  ds, tmp / f"accum_{d}") for d in ("step", "epoch")}
+        _same_run(accum["step"], accum["epoch"], "k=3 accumulation, epoch against step dispatch")
+        if accum["epoch"]["launches"] != accum["step"]["launches"]:
+            raise AssertionError("k=3: launch counts differ between the dispatches")
+        if accum["epoch"]["graphs"] != [False, True]:
+            raise AssertionError(f"k=3 epoch dispatch replayed {accum['epoch']['graphs']}")
+        _launched(accum["epoch"]["launches"], ("flash_attn_fwd", "flash_attn_bwd"), "k=3 epoch")
+        paths["device_cache epoch k=3"] = accum["epoch"]["launches"]
+        del accum
+        # f32: both f32 flash kernels under replay
+        f32 = {d: _dispatch_fit(card, f"f32 {d}", train(base, data_cache="device", dispatch=d,
+                                                         precision="f32", max_epochs=1),
+                                ds, tmp / f"f32_{d}") for d in ("step", "epoch")}
+        _same_run(f32["step"], f32["epoch"], "f32, epoch against step dispatch")
+        if f32["epoch"]["launches"] != f32["step"]["launches"]:
+            raise AssertionError("f32: launch counts differ between the dispatches")
+        _launched(f32["epoch"]["launches"], ("flash_attn_fwd_f32", "flash_attn_bwd_f32"),
+                  "f32 epoch")
+        paths["device_cache epoch f32"] = f32["epoch"]["launches"]
+        del f32
+        torch.cuda.empty_cache()
+        # whisperimax over a Whisper-base snapshot: log-mel under replay
+        write_whisper_snapshot(tmp / "whisper_base", seed=11)
+        wcfg = whisper_variant_config("whisperimax", str(tmp / "whisper_base"), str(root),
+                                      lr=1e-3, batch_size=32, max_epochs=1, seed=0,
+                                      log_every_n_steps=1, data_cache="device",
+                                      dataloader=DataloaderConfig(num_workers=1))
+        imax = {d: _dispatch_fit(card, f"whisperimax {d}", train(wcfg, dispatch=d), ds,
+                                 tmp / f"imax_{d}") for d in ("step", "epoch")}
+        _same_run(imax["step"], imax["epoch"], "whisperimax bf16, epoch against step dispatch")
+        _launched(imax["epoch"]["launches"], ("logmel", "flash_attn_fwd"), "whisperimax epoch")
+        if imax["epoch"]["launches"] != imax["step"]["launches"]:
+            raise AssertionError(f"whisperimax launches {imax['epoch']['launches']} != "
+                                 f"{imax['step']['launches']}")
+        paths["device_cache epoch whisperimax"] = imax["epoch"]["launches"]
+    return paths
 
 
 TRAIN_CLI_EPOCHS = 4
@@ -2941,6 +3476,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_cli = phase_train_cli(card)
     torch.cuda.empty_cache()
+    device_cache = phase_device_cache(card)
+    torch.cuda.empty_cache()
     # the f32 phases run under PyTorch's defaults, which let cuDNN take TF32:
     # the f32 model itself keeps its convolutions and LSTM in IEEE f32
     torch.backends.cudnn.allow_tf32 = True
@@ -2964,12 +3501,13 @@ def main() -> int:
     for row in rows:  # the reference models' paths, all of them together
         row["launches_reference_models"] = sum(path[row["name"]] for path in reference.values())
         row["launches_train_cli"] = train_cli[row["name"]]
+        row["launches_device_cache"] = device_cache["device_cache epoch"][row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     paths = {"serve": serve, "train": train, "workflow_resume": workflow["resume"],
              "workflow_predict": workflow["predict"], "serve_f32": serve_f32,
              "train_f32": train_f32,
              **{f"reference {label}": counts for label, counts in reference.items()},
-             "train_cli": train_cli}
+             "train_cli": train_cli, **device_cache}
     print(f"kernels: {json.dumps(paths)}", flush=True)
     print(card, flush=True)
     print(json.dumps({

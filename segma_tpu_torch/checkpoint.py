@@ -194,8 +194,9 @@ def msgpack_restore(blob: bytes) -> dict:
 # -- optimizer and train state ------------------------------------------------------
 
 
-def _f32(x: float) -> np.ndarray:
-    return np.asarray(x, np.float32)
+def _f32(x: float | torch.Tensor) -> np.ndarray:
+    """An f32 scalar; a learning rate held as a device tensor is read."""
+    return np.asarray(float(x), np.float32)
 
 
 def opt_state_tree(model: SegmentationModel, optimizer: torch.optim.Optimizer,
@@ -305,10 +306,13 @@ def restore_opt_state(model: SegmentationModel, optimizer: torch.optim.Optimizer
     nu = flax_to_torch({k: adam["nu"][k] for k in trainable}, _bidirectional(model),
                        moments=True)
     step = float(adam["count"])
+    # a capturable AdamW (the card's) keeps its step on the parameters' device
+    on_device = bool(optimizer.param_groups[0].get("capturable"))
     new = {}
     for name, p in model.module.named_parameters():
         if p.requires_grad:
-            new[p] = {"step": torch.tensor(step),
+            new[p] = {"step": torch.tensor(step, dtype=torch.float32,
+                                           device=p.device if on_device else None),
                       "exp_avg": mu[name].to(p.device, p.dtype),
                       "exp_avg_sq": nu[name].to(p.device, p.dtype)}
     if outer is not None:
@@ -321,7 +325,10 @@ def restore_opt_state(model: SegmentationModel, optimizer: torch.optim.Optimizer
     for p, st in new.items():
         optimizer.state[p] = st
     for group in optimizer.param_groups:
-        group["lr"] = float(hp["learning_rate"])
+        if isinstance(group["lr"], torch.Tensor):  # the card's: set in place
+            group["lr"].fill_(float(hp["learning_rate"]))
+        else:
+            group["lr"] = float(hp["learning_rate"])
 
 
 def load_opt_state(path: Path | str, model: SegmentationModel,

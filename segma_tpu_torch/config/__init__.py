@@ -3,12 +3,9 @@
 What serving and training the five Whisper variants and
 ``surgical_hubert_hydra`` need is modelled: the dataset, the audio
 geometry, the label classes, the models' hyper-parameters and the training
-fields of the host-data, one-process, per-step path. ``load_config`` reads the same YAML files as the JAX package
+fields of the one-process path. ``load_config`` reads the same YAML files as the JAX package
 (``default.yml`` plus the per-model YAML) with ``a.b.c=value`` overrides.
-The ``wandb`` and ``mesh`` sections are skipped. A training key of the JAX
-schema that the port does not model yet (the device audio cache and epoch
-dispatch) is accepted only at the value that means "off"
-(``UNPORTED_TRAIN``); any other value raises ``ConfigError``.
+The ``wandb`` and ``mesh`` sections are skipped.
 ``Config.save`` writes a YAML file that both packages' ``load_config`` read.
 ``pyyaml`` is imported inside ``load_config`` and ``Config.save`` only, so a
 program that builds its ``Config`` in code does not need it.
@@ -164,18 +161,18 @@ class TrainConfig:
     # epoch boundary; null = 90% of MemTotal, 0 disables
     host_rss_limit_gb: float | None = None
     val_every_n_epochs: int = 1  # the last epoch always validates
+    # "step": one step per host call; "epoch": the epoch's stacked offsets,
+    # labels and rates uploaded once and the step replayed over them (a
+    # captured CUDA graph on the card); needs the device audio cache
+    dispatch: str = "step"
+    # where a subset's audio lives: "host", "device" (uploaded once, batches
+    # carry crop offsets) or "auto" (device within the budget below)
+    data_cache: str = "auto"
+    device_cache_budget_gb: float = 12.0  # data_cache=auto: all subsets together
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     dataloader: DataloaderConfig = field(default_factory=DataloaderConfig)
 
 
-# JAX training keys the port does not model yet -> the values it accepts
-# (each means the feature is off; data_cache "auto" resolves to the host path,
-# the only one ported)
-UNPORTED_TRAIN: dict[str, tuple] = {
-    "dispatch": ("step",),
-    "data_cache": ("host", "auto"),
-    "device_cache_budget_gb": (12.0,),
-}
 VAL_METRICS = ("loss", "f1_score", "auroc")  # train.validation_metric
 EXTRA_VAL_METRICS = ("loss", "f1_score", "auroc", "roc")
 # the wandb section of a saved config: the port logs to metrics.jsonl only
@@ -214,23 +211,12 @@ _NESTED: dict[tuple[type, str], type] = {
     (TrainConfig, "scheduler"): SchedulerConfig,
     (TrainConfig, "dataloader"): DataloaderConfig,
 }
-_UNPORTED: dict[type, dict[str, tuple]] = {TrainConfig: UNPORTED_TRAIN}
 
 
 def _build(cls: type, data: dict, path: str) -> Any:
-    """Strict dict -> dataclass for the modelled fields (unknown keys raise;
-    unported keys raise unless they hold their "off" value)."""
+    """Strict dict -> dataclass for the modelled fields (unknown keys raise)."""
     if not isinstance(data, dict):
         raise ConfigError(f"{path}: expected a mapping for {cls.__name__}")
-    data = dict(data)
-    for name, accepted in _UNPORTED.get(cls, {}).items():
-        if name in data:
-            value = data.pop(name)
-            if value not in accepted:
-                raise ConfigError(
-                    f"{path}.{name}={value!r} is not ported yet; the port accepts "
-                    f"{' or '.join(map(repr, accepted))}"
-                )
     fields = {f.name: f for f in dataclasses.fields(cls)}
     unknown = sorted(set(data) - set(fields))
     if unknown:
@@ -267,6 +253,7 @@ def config_from_dict(config_d: dict) -> Config:
     train = _build(TrainConfig, config_d.get("train") or {}, "config.train")
     train.lr = float(train.lr)
     train.scheduler.min_lr_ratio = float(train.scheduler.min_lr_ratio)
+    train.device_cache_budget_gb = float(train.device_cache_budget_gb)
     if train.host_rss_limit_gb is not None:
         train.host_rss_limit_gb = float(train.host_rss_limit_gb)
     if train.validation_metric not in VAL_METRICS:
@@ -286,6 +273,11 @@ def config_from_dict(config_d: dict) -> Config:
             f"config.train.scheduler.type={train.scheduler.type!r}: 'plateau' or 'cosine'")
     if train.transport not in ("f32", "int16"):
         raise ConfigError(f"config.train.transport={train.transport!r}: 'f32' or 'int16'")
+    if train.dispatch not in ("step", "epoch"):
+        raise ConfigError(f"config.train.dispatch={train.dispatch!r}: 'step' or 'epoch'")
+    if train.data_cache not in ("host", "device", "auto"):
+        raise ConfigError(
+            f"config.train.data_cache={train.data_cache!r}: 'host', 'device' or 'auto'")
     if train.grad_accum_steps < 1:
         raise ConfigError(
             f"config.train.grad_accum_steps={train.grad_accum_steps}: must be at least 1")

@@ -1,6 +1,7 @@
 """Training data (counterpart of ``segma_tpu/data``): the on-disk dataset,
-its interval index and the host-path random-crop loader."""
+its interval index, the random-crop loader and the device audio cache."""
 
+from segma_tpu_torch.data.device_cache import DeviceAudioCache
 from segma_tpu_torch.data.file_dataset import (
     DatasetNotLoadedError,
     DatasetSubset,
@@ -10,6 +11,8 @@ from segma_tpu_torch.data.file_dataset import (
 from segma_tpu_torch.data.intervals import IntervalIndex
 from segma_tpu_torch.data.loaders import (
     AudioSegmentationSampler,
+    BatchContractError,
+    DataLoaderError,
     PrefetchingLoader,
     SegmentationDataLoader,
     generate_frames,
@@ -18,8 +21,11 @@ from segma_tpu_torch.data.loaders import (
 
 __all__ = [
     "AudioSegmentationSampler",
+    "BatchContractError",
+    "DataLoaderError",
     "DatasetNotLoadedError",
     "DatasetSubset",
+    "DeviceAudioCache",
     "IntervalIndex",
     "PrefetchingLoader",
     "SegmaFileDataset",

@@ -1,5 +1,5 @@
 """Training data pipeline: random-crop sampler producing host batches
-(counterpart of ``segma_tpu/data/loaders.py``, host path, one process).
+(counterpart of ``segma_tpu/data/loaders.py``, one process).
 
 Batches are numpy arrays ``x: (B, chunk_f) float32`` and
 ``y: (B, n_windows, n_labels) float32``; the trainer moves them to the
@@ -14,8 +14,17 @@ fixes the batch order).
 Virtual-epoch semantics: ``samples_per_epoch = dataset_multiplier *
 max(ceil(total_audio_s / chunk_s), batch_size)``, with drop-last batching.
 
-Not ported yet: the device audio cache (``train.data_cache=device``),
-host-side feature hooks and multi-process sharding.
+``train.data_cache`` decides where a subset's audio lives: ``host`` (the
+sampler reads each crop), ``device`` (``data.device_cache.DeviceAudioCache``:
+the audio is uploaded once, and a batch is ``{"offsets": (B,) int32, "y"}``
+from the same rng draws), or ``auto`` (the device within
+``train.device_cache_budget_gb``, counted over the train and val subsets
+together, and within the host's available RAM, else the host). The
+resolution of each subset is the loader's ``data_cache_decision``.
+
+Not ported yet: host-side feature hooks, and multi-process sharding (the
+shard contract of the device cache, ``pad_to`` and ``force_f32`` from the
+global file list, comes with multi-process training).
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from typing import Iterator
 import numpy as np
 
 from segma_tpu_torch.config import Config
+from segma_tpu_torch.data.device_cache import MAX_SAMPLES, DeviceAudioCache
 from segma_tpu_torch.data.file_dataset import DatasetSubset, SegmaFileDataset
 from segma_tpu_torch.data.intervals import IntervalIndex
 from segma_tpu_torch.models.geometry import ConvolutionSettings
@@ -38,6 +48,12 @@ from segma_tpu_torch.utils.io import get_samples_in_range, read_pcm16_mono
 
 
 class DataLoaderError(Exception): ...
+
+
+class BatchContractError(DataLoaderError):
+    """A batch was given to a step built for the other ``data_cache`` mode:
+    host batches carry waveforms under ``"x"``, device-cache batches carry
+    flat-buffer offsets under ``"offsets"``."""
 
 
 def generate_frames(
@@ -59,6 +75,18 @@ def windows_to_targets(windows: np.ndarray, index: IntervalIndex) -> np.ndarray:
 
 
 DEFAULT_CACHE_GB = 8.0
+
+
+def _mem_available_bytes() -> int | None:
+    """The host's MemAvailable in bytes, or None where /proc/meminfo is absent."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except (OSError, ValueError, IndexError):
+        return None
+    return None
 
 
 class AudioCache:
@@ -95,6 +123,7 @@ class AudioSegmentationSampler:
         label_encoder: MultiLabelEncoder,
         seed: int | None = None,
         shared_audio_cache: AudioCache | None = None,
+        device_bases: np.ndarray | None = None,
     ) -> None:
         self.uris = subset.uris
         self.durations = subset.durations
@@ -105,6 +134,9 @@ class AudioSegmentationSampler:
         if self.transport not in ("f32", "int16"):
             raise DataLoaderError(
                 f"train.transport must be 'f32' or 'int16', got {self.transport!r}")
+        # train.data_cache=device: sample() emits (flat-buffer offset, targets)
+        # from the same rng draws instead of reading the waveform
+        self._device_bases = device_bases
         self._seed = seed
         self.rng = np.random.default_rng(seed)
         # decoded-audio RAM cache (int16), skipped when the subset exceeds it
@@ -138,10 +170,14 @@ class AudioSegmentationSampler:
 
     def sample(self) -> tuple[np.ndarray, np.ndarray]:
         """One (waveform (chunk_f,), targets (n_windows, L)) pair: the
-        waveform in f32, or the raw PCM16 crop under int16 transport."""
+        waveform in f32, or the raw PCM16 crop under int16 transport; with
+        the device cache, the crop's int32 offset in the flat buffer."""
         uri_i = int(self.rng.choice(len(self.uris), p=self._weights))
         high = int(self.durations["audio_duration_f"][uri_i]) - self.chunk_f
         start_f = int(self.rng.integers(low=0, high=max(1, high)))
+        if self._device_bases is not None:
+            y = windows_to_targets(self.windows + start_f, self.indexes[uri_i])
+            return np.int32(self._device_bases[uri_i] + start_f), y
         audio_path = (
             Path(self.config.data.dataset_path) / "wav" / self.uris[uri_i]
         ).with_suffix(".wav")
@@ -180,6 +216,8 @@ class AudioSegmentationSampler:
 
     def sample_batch(self, batch_size: int) -> dict[str, np.ndarray]:
         xs, ys = zip(*(self.sample() for _ in range(batch_size)))
+        if self._device_bases is not None:
+            return {"offsets": np.stack(xs), "y": np.stack(ys)}
         if any(x.dtype != xs[0].dtype for x in xs):
             # int16 transport over sources of which some are not PCM16: the
             # whole batch in normalised f32, never raw PCM beside [-1, 1]
@@ -206,6 +244,10 @@ class PrefetchingLoader:
         self.n_batches = n_batches
         self.prefetch = prefetch
         self.extra_samplers = extra_samplers or []
+        # set by SegmentationDataLoader: the subset's DeviceAudioCache under
+        # train.data_cache=device, and how data_cache=auto resolved
+        self.device_cache: DeviceAudioCache | None = None
+        self.data_cache_decision: str | None = None
 
     def __len__(self) -> int:
         return self.n_batches
@@ -261,6 +303,10 @@ class SegmentationDataLoader:
         self.config = config
         self.conv_settings = conv_settings
         self.seed = seed if seed is not None else config.train.seed
+        # data_cache=auto: the device bytes planned per subset (keyed by its
+        # seed offset, train before val), so the budget bounds their sum and
+        # building a loader again does not count it twice
+        self._planned_device_bytes: dict[int, int] = {}
         if not dataset.is_loaded():
             dataset.load()
 
@@ -277,6 +323,7 @@ class SegmentationDataLoader:
             )
         )
         n_batches = max(1, spe // batch_size)  # drop_last
+        device_cache, decision_note = self._resolve_data_cache(subset, seed_offset)
         shared_cache = AudioCache(budget_bytes=int(DEFAULT_CACHE_GB * 1e9))
 
         def make_sampler(worker: int) -> AudioSegmentationSampler:
@@ -287,11 +334,67 @@ class SegmentationDataLoader:
                 label_encoder=self.label_encoder,
                 seed=None if self.seed is None else self.seed + seed_offset + 1000 * worker,
                 shared_audio_cache=shared_cache,
+                device_bases=None if device_cache is None else device_cache.bases,
             )
 
         n_workers = max(1, self.config.train.dataloader.num_workers)
         extras = [make_sampler(w) for w in range(1, min(n_workers, n_batches))]
-        return PrefetchingLoader(make_sampler(0), batch_size, n_batches, extra_samplers=extras)
+        loader = PrefetchingLoader(make_sampler(0), batch_size, n_batches, extra_samplers=extras)
+        loader.device_cache = device_cache
+        loader.data_cache_decision = decision_note
+        return loader
+
+    def _resolve_data_cache(
+        self, subset: DatasetSubset, seed_offset: int
+    ) -> tuple[DeviceAudioCache | None, str | None]:
+        """(the subset's device cache or None, how ``auto`` resolved), as the
+        JAX loader resolves ``train.data_cache`` in one process."""
+        tc = self.config.train
+        data_cache = tc.data_cache
+        if data_cache not in ("host", "device", "auto"):
+            raise DataLoaderError(
+                f"train.data_cache must be 'host', 'device' or 'auto', got {data_cache!r}")
+        if data_cache == "host":
+            return None, None
+        chunk_f = self.config.audio.chunk_duration_f
+        # header probes only: nothing is decoded before the decision
+        plan = DeviceAudioCache.plan(subset, self.config.data.dataset_path, chunk_f)
+        any_f32, pos = plan[0], plan[4]
+        planned = pos * (4 if any_f32 else 2)
+        note = None
+        if data_cache == "device" and pos >= MAX_SAMPLES:
+            raise DataLoaderError(
+                f"train.data_cache=device: {pos} planned samples exceed the int32 offset "
+                "range (2^31) of the device gather; use data_cache=host (or auto, which "
+                "resolves to host)")
+        if data_cache == "auto":
+            self._planned_device_bytes.pop(seed_offset, None)
+            budget = int(tc.device_cache_budget_gb * 1e9)
+            remaining = budget - sum(self._planned_device_bytes.values())
+            avail = _mem_available_bytes()
+            if pos >= MAX_SAMPLES:
+                decision = "host"
+                reason = (f"{pos} planned samples exceed the int32 offset range (2^31) of "
+                          "the device gather")
+            elif planned > remaining:
+                decision = "host"
+                reason = (f"{planned / 1e9:.2f} GB exceeds the remaining budget "
+                          f"{max(remaining, 0) / 1e9:.2f} GB (train.device_cache_budget_gb="
+                          f"{tc.device_cache_budget_gb} bounds ALL subsets jointly)")
+            elif avail is not None and planned > 0.8 * avail:
+                # building decodes about the buffer's size into host RAM first
+                decision = "host"
+                reason = (f"building needs ~{planned / 1e9:.2f} GB host RAM but only "
+                          f"{avail / 1e9:.2f} GB is available")
+            else:
+                decision = "device"
+                reason = f"{planned / 1e6:.1f} MB fits the {remaining / 1e9:.1f} GB remaining budget"
+                self._planned_device_bytes[seed_offset] = planned
+            note = f"auto -> {decision} ({reason})"
+            if decision == "host":
+                return None, note
+        return DeviceAudioCache.build(subset, self.config.data.dataset_path, chunk_f,
+                                      plan=plan), note
 
     def train_dataloader(self) -> PrefetchingLoader:
         return self._loader(self.dataset.train, seed_offset=0)

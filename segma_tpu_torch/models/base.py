@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import ContextManager, Sequence
+from typing import ContextManager, Iterator, Sequence
 
 import torch
 from torch import nn
@@ -30,22 +30,38 @@ from segma_tpu_torch.utils.encoders import MultiLabelEncoder
 
 __all__ = [
     "ConvolutionSettings", "SegmentationModel", "bce_with_logits", "hydra_loss", "ieee_f32",
+    "no_tf32",
     "softmax_ce_loss", "softmax_ce_loss_per_class",
 ]
 LOSS_TYPES = ("hydra", "multiclass", "powerset")
 
 
+@contextlib.contextmanager
+def no_tf32() -> Iterator[None]:
+    """cuDNN and cuBLAS without TF32 while the context is open, the caller's
+    flags restored on exit. Every f32 computation of the port runs under it,
+    in a bf16 model too (the BiLSTM, the f32 heads): PyTorch's default
+    ``torch.backends.cudnn.allow_tf32 = True`` would put cuDNN's f32
+    convolutions and LSTM in TF32, and a caller may set
+    ``torch.backends.cuda.matmul.allow_tf32``. TF32 does not touch bf16."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    prev = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            yield
+    finally:
+        matmul.allow_tf32 = prev
+
+
 def ieee_f32(dtype: torch.dtype) -> ContextManager:
-    """For a model that computes in f32: cuDNN (the conv stems, HuBERT's
-    positional conv, the LSTM) without TF32 while the context is open, the
-    caller's flags restored on exit. PyTorch's default lets cuDNN take TF32
-    for f32 inputs (``torch.backends.cudnn.allow_tf32``); f32 matmuls
-    already run in IEEE f32 by default. Other dtypes: no change."""
+    """For a model that computes in f32: its whole forward (the conv stems,
+    HuBERT's positional conv, the GEMMs, the LSTM) and its backward under
+    ``no_tf32``. Other dtypes: no change (their f32 parts scope themselves)."""
     if dtype != torch.float32:
         return contextlib.nullcontext()
-    cudnn = torch.backends.cudnn
-    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                       deterministic=cudnn.deterministic, allow_tf32=False)
+    return no_tf32()
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -166,13 +182,19 @@ class SegmentationModel:
             raise NotImplementedError(
                 "the powerset loss is not ported: it waits for the powerset_vad model"
             )
-        weights = (
-            None if self.class_weights is None
-            else torch.as_tensor(self.class_weights, dtype=torch.float32, device=logits.device)
-        )
+        weights = None if self.class_weights is None else self._weights(logits.device)
         if self.loss_type == "hydra":
             return hydra_loss(logits, targets, weights)
         return softmax_ce_loss_per_class(logits, targets, weights)
+
+    def _weights(self, device: torch.device) -> torch.Tensor:
+        """``class_weights`` on ``device``, copied there once: a training step
+        captured in a CUDA graph may copy nothing from the host."""
+        cached = getattr(self, "_weights_on", None)
+        if cached is None or cached.device != device:
+            cached = torch.as_tensor(self.class_weights, dtype=torch.float32, device=device)
+            self._weights_on = cached
+        return cached
 
     def inference_transform(self, logits: torch.Tensor) -> torch.Tensor:
         """Raw module outputs -> per-label logits: the identity for hydra and

@@ -18,9 +18,10 @@ card.
 ``remat=True`` (``train.remat``) recomputes each transformer layer in the
 backward pass (``torch.utils.checkpoint``, the role of flax's ``nn.remat``):
 a layer's activations are not kept, and its forward, the flash forward
-among it, runs again under autograd. The layers draw no dropout;
-``torch.utils.checkpoint`` restores only the global RNGs, so a layer that
-took the training ``torch.Generator`` would need its state saved and
+among it, runs again under autograd. The layers draw no dropout, so no RNG
+state is saved for the recompute (``preserve_rng_state=False``: reading the
+CUDA RNG state is not allowed while a CUDA graph captures the step); a layer
+that took the training ``torch.Generator`` would need its state saved and
 restored around the recompute.
 """
 
@@ -136,7 +137,8 @@ class HubertTransformer(nn.Module):
         for layer in self.layers:
             hidden_states.append(x)
             if remat:
-                x = torch.utils.checkpoint.checkpoint(layer, x, use_reentrant=False)
+                x = torch.utils.checkpoint.checkpoint(layer, x, use_reentrant=False,
+                                                      preserve_rng_state=False)
             else:
                 x = layer(x)
         hidden_states.append(x)

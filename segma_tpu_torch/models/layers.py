@@ -10,6 +10,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from segma_tpu_torch.config import LSTMConfig
+from segma_tpu_torch.models.base import no_tf32
 
 
 class MLPHead(nn.Module):
@@ -17,7 +18,7 @@ class MLPHead(nn.Module):
 
     The layers are ``Dense_0`` ... ``Dense_{n}``, flax's names for the
     unnamed ``nn.Dense`` children of the JAX ``MLPHead``; the hidden ones
-    compute in ``dtype``, the last in f32."""
+    compute in ``dtype``, the last in IEEE f32 (``no_tf32``)."""
 
     def __init__(
         self, in_features: int, hidden: Sequence[int], n_out: int,
@@ -42,7 +43,8 @@ class MLPHead(nn.Module):
         x = x.to(self.dtype)
         for layer in self.hidden:
             x = torch.relu(linear(x, layer))
-        return self.out(x.float())
+        with no_tf32():
+            return self.out(x.float())
 
 
 def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
@@ -61,19 +63,21 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.T
 
 
 class HydraHeads(nn.Module):
-    """Per-label binary heads fused into one f32 Linear(n_labels):
-    (B, T, d) -> (B, T, n_labels) raw logits."""
+    """Per-label binary heads fused into one f32 Linear(n_labels), in IEEE
+    f32 (``no_tf32``): (B, T, d) -> (B, T, n_labels) raw logits."""
 
     def __init__(self, in_features: int, n_labels: int) -> None:
         super().__init__()
         self.heads = nn.Linear(in_features, n_labels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.heads(x.float())
+        with no_tf32():
+            return self.heads(x.float())
 
 
 class BiLSTM(nn.Module):
-    """Multi-layer (optionally bidirectional) LSTM, batch first, in f32.
+    """Multi-layer (optionally bidirectional) LSTM, batch first, in IEEE f32
+    whatever the model's dtype and the caller's TF32 flags (``no_tf32``).
 
     One ``torch.nn.LSTM`` (cuDNN on the card); its gate order i, f, g, o and
     parameter names ``weight_ih_l{n}[_reverse]`` are what the weight bridge
@@ -112,16 +116,17 @@ class BiLSTM(nn.Module):
         runs both directions of a layer in one call, so the whole sequence
         runs and is sliced."""
         x = x.float()
-        if train and self.cfg.dropout > 0 and self.cfg.num_layers > 1:
-            if generator is None:
-                raise ValueError("training with dropout needs a torch.Generator")
-            for layer in range(self.cfg.num_layers):
-                if layer:
-                    x = dropout(x, self.cfg.dropout, generator)
-                x = self._layer(x, layer)
-            out = x
-        else:
-            out, _ = self.lstm(x)
+        with no_tf32():
+            if train and self.cfg.dropout > 0 and self.cfg.num_layers > 1:
+                if generator is None:
+                    raise ValueError("training with dropout needs a torch.Generator")
+                for layer in range(self.cfg.num_layers):
+                    if layer:
+                        x = dropout(x, self.cfg.dropout, generator)
+                    x = self._layer(x, layer)
+                out = x
+            else:
+                out, _ = self.lstm(x)
         return out[:, :keep] if keep is not None else out
 
     def _layer(self, x: torch.Tensor, layer: int) -> torch.Tensor:

@@ -27,7 +27,9 @@ from torch import nn
 from segma_tpu_torch import resolve_device
 from segma_tpu_torch.config import Config, LSTMConfig
 from segma_tpu_torch.convert import load_flax_subtrees
-from segma_tpu_torch.models.base import ConvolutionSettings, SegmentationModel, ieee_f32
+from segma_tpu_torch.models.base import (
+    ConvolutionSettings, SegmentationModel, ieee_f32, no_tf32,
+)
 from segma_tpu_torch.models.layers import BiLSTM, HydraHeads, LayerWeightedSum, MLPHead, linear
 from segma_tpu_torch.models.whisper.encoder import WhisperEncoder, WhisperEncoderConfig
 from segma_tpu_torch.ops.melspec import log_mel_spectrogram, whisper_input_features
@@ -129,7 +131,8 @@ class WhisperSegModule(nn.Module):
                 h = x.to(self.encoder.dtype)
                 for layer in (self.linear_0, self.linear_1):
                     h = nn.functional.leaky_relu(linear(h, layer))  # slope 0.01, as flax
-                logits = self.classifier(h.float())
+                with no_tf32():
+                    logits = self.classifier(h.float())
             else:
                 logits = self.heads(x)
             if self.trunc == "after_head":

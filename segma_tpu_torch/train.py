@@ -1,13 +1,15 @@
 """Training loop: AdamW over the trainable parameters, the plateau or cosine
 LR schedule, gradient accumulation, early stopping, per-epoch validation
-metrics, preemption (counterpart of ``segma_tpu/train.py`` on its
-``dispatch=step``, host-data, one-device path).
+metrics, preemption, the device audio cache and epoch dispatch
+(counterpart of ``segma_tpu/train.py`` on one device).
 
 The optimizer is ``torch.optim.AdamW`` with optax's ``adamw`` defaults
 (betas 0.9/0.999, eps 1e-8, weight decay 1e-4, where torch's own default
 decay is 1e-2), handed only the parameters outside the model's
 ``frozen_prefixes``: frozen parameters get no update and no decay, as under
-``optax.masked``. The plateau scheduler and early stopping are copies of the
+``optax.masked``. On the card it is capturable (its step count and learning
+rate are device tensors) under both dispatches, so that a step replayed from
+a CUDA graph runs the kernels of an eager step. The plateau scheduler and early stopping are copies of the
 JAX classes (not ``torch.optim.lr_scheduler.ReduceLROnPlateau``, whose
 relative threshold counts improvements differently); a new LR is set through
 the optimizer's ``param_groups``. ``scheduler.type=cosine`` sets the LR
@@ -30,8 +32,16 @@ follows the uninterrupted run's trajectory. SIGTERM (``request_preemption``)
 stops the loop after the step in flight; ``fit`` then returns
 ``interrupted``, ``last/`` holding the newest completed epoch.
 
-Not ported yet: epoch dispatch and the device audio cache, and
-multi-process training.
+``train.data_cache=device`` (or ``auto`` within its budget): ``fit`` uploads
+each subset's ``DeviceAudioCache`` once, and the steps gather their crops
+from it by the batch's ``offsets`` (``WaveformSource``); the trajectory is
+the host path's, bit for bit. ``train.dispatch=epoch`` (``EpochReplay``):
+the epoch's offsets, labels and learning rates are stacked on the host and
+uploaded in one copy each; on the card the step is captured once as a CUDA
+graph and replayed for every step, on the CPU the same body runs in a plain
+loop. The losses are read once per epoch.
+
+Not ported yet: multi-process training.
 """
 
 from __future__ import annotations
@@ -63,7 +73,10 @@ from segma_tpu_torch.checkpoint import (
     resolve_checkpoint,
 )
 from segma_tpu_torch.config import Config
+from segma_tpu_torch.data.device_cache import DeviceAudioCache
+from segma_tpu_torch.data.loaders import BatchContractError
 from segma_tpu_torch.models.base import SegmentationModel, ieee_f32
+from segma_tpu_torch.ops import launch_counts, set_launch_counts
 from segma_tpu_torch.ops.metrics import (
     binary_auroc_np,
     binary_counts,
@@ -108,16 +121,23 @@ def _f32_rate(lr: float) -> float:
 
 
 def make_optimizer(model: SegmentationModel, lr: float) -> torch.optim.AdamW:
-    """AdamW (optax defaults) over the trainable parameters only."""
-    return torch.optim.AdamW(
-        model.trainable_parameters(), lr=_f32_rate(lr), betas=ADAMW_BETAS, eps=ADAMW_EPS,
-        weight_decay=ADAMW_WEIGHT_DECAY,
-    )
+    """AdamW (optax defaults) over the trainable parameters only. On the card
+    it is capturable, with its learning rate in a device tensor, so that
+    replays of a captured step see each new rate; the CPU keeps a float rate."""
+    params = model.trainable_parameters()
+    kwargs = dict(betas=ADAMW_BETAS, eps=ADAMW_EPS, weight_decay=ADAMW_WEIGHT_DECAY)
+    if params and params[0].is_cuda:
+        rate = torch.tensor(_f32_rate(lr), dtype=torch.float32, device=params[0].device)
+        return torch.optim.AdamW(params, lr=rate, capturable=True, foreach=True, **kwargs)
+    return torch.optim.AdamW(params, lr=_f32_rate(lr), **kwargs)
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
     for group in optimizer.param_groups:
-        group["lr"] = _f32_rate(lr)
+        if isinstance(group["lr"], torch.Tensor):  # capturable: set in place
+            group["lr"].fill_(_f32_rate(lr))
+        else:
+            group["lr"] = _f32_rate(lr)
 
 
 def get_learning_rate(optimizer: torch.optim.Optimizer) -> float:
@@ -195,11 +215,36 @@ def deterministic_cudnn(seeded: bool) -> ContextManager:
 
 def device_waveform(x: torch.Tensor) -> torch.Tensor:
     """A batch's waveforms on the device: an int16 batch (``train.transport=
-    int16``, the raw PCM crop) normalised as ``x * 2**-15``, bit-identical to
-    the loader's host-side ``/ 32768.0``; f32 batches pass through."""
+    int16``, the raw PCM crop, or crops of an int16 device cache) normalised
+    as ``x * 2**-15``, bit-identical to the loader's host-side ``/ 32768.0``;
+    f32 batches pass through."""
     if x.dtype == torch.int16:
         return x.float() * (1.0 / 32768.0)
     return x
+
+
+class WaveformSource:
+    """How a batch becomes the step's waveforms: ``batch["x"]`` on the host
+    path; with a placed ``cache`` (``train.data_cache=device``), the crops it
+    gathers at ``batch["offsets"]``. A batch of the other mode raises
+    ``BatchContractError``."""
+
+    def __init__(self, cache: DeviceAudioCache | None = None) -> None:
+        self.cache = cache
+
+    def __call__(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+        if self.cache is None:
+            if "x" not in batch:
+                raise BatchContractError(
+                    "the batch carries device-cache offsets (key 'offsets') but this step has "
+                    "no device cache: place the loader's device_cache into the step's source, "
+                    "or set train.data_cache=host")
+            return device_waveform(batch["x"])
+        if "offsets" not in batch:
+            raise BatchContractError(
+                "the step gathers from a device cache but the batch carries host waveforms "
+                "(key 'x'): use the device-cache loader's batches, or a step without a cache")
+        return device_waveform(self.cache.gather(batch["offsets"]))
 
 
 class GradAccumulation:
@@ -209,7 +254,12 @@ class GradAccumulation:
     hands the mean to AdamW, which steps with the learning rate set before
     that micro-step, and the buffers return to zero. ``mini_step`` carries
     across epochs; it, ``gradient_step`` (the updates made) and the buffers are
-    saved in ``last/`` (``checkpoint.opt_state_tree``)."""
+    saved in ``last/`` (``checkpoint.opt_state_tree``).
+
+    The device work (``apply``) reads the count ``mini_step + 1`` from the
+    device scalar ``count``, which ``step`` fills; an epoch replay copies it
+    from the epoch's stacked counts. The host keeps the counters (``advance``),
+    so it knows every micro-step's kind in advance."""
 
     def __init__(self, model: SegmentationModel, k: int) -> None:
         named = [(n, p) for n, p in model.module.named_parameters() if p.requires_grad]
@@ -219,18 +269,29 @@ class GradAccumulation:
         self.mini_step = 0
         self.gradient_step = 0
         self.acc = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        self.count = torch.zeros((), dtype=torch.float32, device=self.acc[0].device)
+
+    @property
+    def emits(self) -> bool:
+        """Whether the next micro-step hands the mean to AdamW."""
+        return self.mini_step == self.k - 1
 
     def step(self, optimizer: torch.optim.Optimizer) -> bool:
         """Fold the parameters' ``.grad`` in; on the k-th micro-step, AdamW
         steps on the mean. Returns whether it stepped."""
-        n = torch.full((), float(self.mini_step + 1), device=self.acc[0].device)
+        emit = self.emits
+        self.count.fill_(float(self.mini_step + 1))
+        self.apply(optimizer, emit)
+        self.advance()
+        return emit
+
+    def apply(self, optimizer: torch.optim.Optimizer, emit: bool) -> None:
+        """The micro-step's device work, with no host sync (capturable)."""
         for acc, p in zip(self.acc, self.params):
             if p.grad is not None:  # None: no gradient reached it, a zero one
-                acc.add_(torch.div(p.grad.float() - acc, n))
+                acc.add_(torch.div(p.grad.float() - acc, self.count))
             else:
-                acc.sub_(torch.div(acc, n))
-        emit = self.mini_step == self.k - 1
-        self.mini_step = (self.mini_step + 1) % self.k
+                acc.sub_(torch.div(acc, self.count))
         if emit:
             for acc, p in zip(self.acc, self.params):
                 p.grad = acc.to(p.dtype)
@@ -238,38 +299,60 @@ class GradAccumulation:
             optimizer.zero_grad(set_to_none=True)
             for acc in self.acc:
                 acc.zero_()
+
+    def advance(self) -> None:
+        """The host's counters after a micro-step."""
+        if self.emits:
             self.gradient_step += 1
-        return emit
+        self.mini_step = (self.mini_step + 1) % self.k
+
+
+def _finite_flags(loss: torch.Tensor, model: SegmentationModel) -> tuple[list[str], torch.Tensor]:
+    """(names, device bools): whether the loss and each trainable gradient
+    hold only finite values."""
+    named = [(n, p.grad) for n, p in model.module.named_parameters()
+             if p.requires_grad and p.grad is not None]
+    flags = torch.stack([torch.isfinite(loss).all()] + [torch.isfinite(g).all() for _, g in named])
+    return ["loss"] + [n for n, _ in named], flags
 
 
 def _nonfinite(loss: torch.Tensor, model: SegmentationModel) -> list[str]:
     """The names of the loss and of the trainable gradients that hold a NaN
     or an infinity (one host sync)."""
-    named = [(n, p.grad) for n, p in model.module.named_parameters()
-             if p.requires_grad and p.grad is not None]
-    finite = torch.stack([torch.isfinite(loss).all()]
-                         + [torch.isfinite(g).all() for _, g in named]).cpu().tolist()
-    return [name for name, ok in zip(["loss"] + [n for n, _ in named], finite) if not ok]
+    names, flags = _finite_flags(loss, model)
+    return [name for name, ok in zip(names, flags.cpu().tolist()) if not ok]
+
+
+def forward_backward(
+    model: SegmentationModel, optimizer: torch.optim.Optimizer, wav: torch.Tensor,
+    y: torch.Tensor, generator: torch.Generator | None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gradients set to None, the forward with ``train=True``, the model's
+    loss (hydra or multiclass), backward; returns the detached (loss,
+    per_label). An f32 model runs without TF32 (``ieee_f32``)."""
+    optimizer.zero_grad(set_to_none=True)
+    with ieee_f32(model.compute_dtype):
+        logits = model.module(wav, train=True, generator=generator)
+        loss, per_label = model.loss(logits, y)
+        loss.backward()
+    return loss.detach(), per_label.detach()
 
 
 def make_train_step(
     model: SegmentationModel, optimizer: torch.optim.Optimizer,
     accum: GradAccumulation | None = None, debug_nans: bool = False,
+    source: WaveformSource | None = None,
 ) -> Callable[[dict[str, torch.Tensor], torch.Generator | None], tuple[torch.Tensor, torch.Tensor]]:
-    """One step: forward with ``train=True``, the model's loss (hydra or
-    multiclass), backward, then AdamW, or ``accum``'s micro-step. The step
-    updates the module's parameters in place and returns the (loss,
-    per_label) of the batch, on the device. An f32 model's step runs
-    without TF32 in cuDNN, its backward included (``ieee_f32``).
+    """One step (``train.dispatch=step``): ``forward_backward``, then AdamW, or
+    ``accum``'s micro-step. The step updates the module's parameters in place
+    and returns the (loss, per_label) of the batch, on the device. The batch's
+    waveforms come from ``source`` (host waveforms without one).
     ``debug_nans``: raise ``FloatingPointError``, before any update, when the
     loss or a trainable gradient is not finite."""
+    source = source or WaveformSource()
 
     def train_step(batch: dict[str, torch.Tensor], generator: torch.Generator | None):
-        optimizer.zero_grad(set_to_none=True)
-        with ieee_f32(model.compute_dtype):
-            logits = model.module(device_waveform(batch["x"]), train=True, generator=generator)
-            loss, per_label = model.loss(logits, batch["y"])
-            loss.backward()
+        loss, per_label = forward_backward(model, optimizer, source(batch), batch["y"], generator)
         if debug_nans:
             bad = _nonfinite(loss, model)
             if bad:
@@ -279,22 +362,114 @@ def make_train_step(
             optimizer.step()
         else:
             accum.step(optimizer)
-        return loss.detach(), per_label.detach()
+        return loss, per_label
 
     return train_step
 
 
 def eval_step(
-    model: SegmentationModel, batch: dict[str, torch.Tensor]
+    model: SegmentationModel, batch: dict[str, torch.Tensor], source: WaveformSource | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, dict[str, torch.Tensor], torch.Tensor]:
     """(loss, per_label, F1 counts, (N, L) sigmoid scores) of one validation
-    batch, without dropout."""
+    batch, without dropout; its waveforms from ``source`` (host waveforms
+    without one)."""
     with torch.no_grad():
-        logits = model.module(device_waveform(batch["x"]), train=False)
+        logits = model.module((source or WaveformSource())(batch), train=False)
         loss, per_label = model.loss(logits, batch["y"])
         probs = torch.sigmoid(logits).reshape(-1, logits.shape[-1])
         counts = binary_counts(probs, batch["y"].reshape(-1, logits.shape[-1]))
     return loss, per_label, counts, probs
+
+
+class EpochReplay:
+    """``train.dispatch=epoch``: the training step over static input buffers
+    (a batch's offsets and labels; the learning rate is AdamW's own device
+    tensor, the accumulation count ``GradAccumulation.count``), run once per
+    step of the epoch.
+
+    On the card each kind of step (a plain or accumulation micro-step that
+    updates, or one that only folds its gradients in) is captured once as a
+    CUDA graph into a private memory pool, after ``WARMUP`` eager runs of
+    that kind on a side stream (real steps of the epoch: they initialise
+    AdamW's state, cuBLAS's workspaces and the kernel library outside the
+    capture); from then on every such step is a replay. The dropout
+    generator is registered with each graph, so a replay draws the masks an
+    eager step would, and reseeding it reaches the replays. On the CPU the
+    same body runs eagerly: the graph's plain version.
+
+    A step's outputs (loss, per_label and, with ``debug_nans``, whether the
+    loss and the trainable gradients are finite) are the body's tensors,
+    which each replay overwrites; the caller copies them out before the next
+    step."""
+
+    WARMUP = 1
+
+    def __init__(
+        self, model: SegmentationModel, optimizer: torch.optim.Optimizer,
+        accum: GradAccumulation | None, cache: DeviceAudioCache, generator: torch.Generator,
+        batch_size: int, y_shape: tuple[int, ...], debug_nans: bool,
+    ) -> None:
+        self.model, self.optimizer, self.accum = model, optimizer, accum
+        self.cache, self.generator, self.debug_nans = cache, generator, debug_nans
+        device = model.device
+        self.offsets = torch.zeros(batch_size, dtype=torch.int32, device=device)
+        self.y = torch.zeros((batch_size, *y_shape), dtype=torch.float32, device=device)
+        self.graphs: dict[bool, tuple[Any, tuple]] = {}
+        self.eager_runs = {False: 0, True: 0}
+        self.cuda = device.type == "cuda"
+        self.side = torch.cuda.Stream(device) if self.cuda else None
+        self.captured_launches: dict[bool, dict[str, int]] = {}
+
+    def body(self, emit: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+        """One step on the static buffers, with no host sync."""
+        wav = device_waveform(self.cache.gather(self.offsets))
+        loss, per_label = forward_backward(self.model, self.optimizer, wav, self.y,
+                                           self.generator)
+        finite = _finite_flags(loss, self.model)[1].all() if self.debug_nans else None
+        if self.accum is None:
+            self.optimizer.step()
+        else:
+            self.accum.apply(self.optimizer, emit)
+        return loss, per_label, finite
+
+    def run(self, emit: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+        """The step of kind ``emit`` on the current buffers."""
+        if not self.cuda:
+            return self.body(emit)
+        if emit in self.graphs:
+            graph, outs = self.graphs[emit]
+            graph.replay()
+            count_replay(self.captured_launches[emit])
+            return outs
+        current = torch.cuda.current_stream(self.model.device)
+        self.side.wait_stream(current)
+        if self.eager_runs[emit] < self.WARMUP:
+            with torch.cuda.stream(self.side):
+                outs = self.body(emit)
+            current.wait_stream(self.side)
+            self.eager_runs[emit] += 1
+            return outs
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        before = launch_counts()
+        with torch.cuda.graph(graph):
+            outs = self.body(emit)
+        # capture records the kernels without running them: a replay counts
+        # them (``count_replay``), the capture does not
+        after = launch_counts()
+        self.captured_launches[emit] = {k: after[k] - before[k] for k in after}
+        set_launch_counts(before)
+        self.graphs[emit] = (graph, outs)
+        graph.replay()
+        count_replay(self.captured_launches[emit])
+        return outs
+
+
+def count_replay(captured: dict[str, int]) -> None:
+    """A graph replay launches the kernels its capture recorded: the wrappers
+    cannot see it, so their counters are advanced by the captured counts."""
+    now = launch_counts()
+    set_launch_counts({k: now[k] + captured.get(k, 0) for k in now})
 
 
 def _sync(device: torch.device) -> None:
@@ -324,11 +499,23 @@ class Trainer:
         self.model.to(self.device)
         tc = self.config.train
         self.mode, self.monitor = get_metric(tc.validation_metric)
+        if tc.dispatch not in ("step", "epoch"):
+            raise ValueError(f"train.dispatch must be 'step' or 'epoch', got {tc.dispatch!r}")
+        if tc.dispatch == "epoch" and tc.data_cache == "host":
+            # "auto" passes here; fit raises if it resolves to the host
+            raise ValueError(
+                "train.dispatch=epoch replays the step over device-resident crops: it "
+                "requires train.data_cache=device (or auto within budget)")
         self.optimizer = make_optimizer(self.model, tc.lr)
         self.accum = (GradAccumulation(self.model, tc.grad_accum_steps)
                       if tc.grad_accum_steps > 1 else None)
+        # fit places the loaders' device caches into these
+        self.train_source, self.val_source = WaveformSource(), WaveformSource()
         self.train_step = make_train_step(self.model, self.optimizer, self.accum,
-                                          debug_nans=tc.debug_nans)
+                                          debug_nans=tc.debug_nans, source=self.train_source)
+        # the dropout masks' generator, reseeded from (seed, epoch) every epoch
+        self.generator = torch.Generator(self.device)
+        self.replay: EpochReplay | None = None
         self.scheduler = ReduceLROnPlateau(self.mode, tc.scheduler.patience)
         self.early_stopping = EarlyStopping(self.mode, patience=tc.early_stop_patience)
         self.ckpt = CheckpointManager(
@@ -390,6 +577,88 @@ class Trainer:
         mean = float(torch.stack(losses).mean()) if losses else float("nan")
         return mean, n_seen == len(loader)
 
+    def _train_epoch_replay(self, loader: Any) -> tuple[float, bool]:
+        """``train.dispatch=epoch``: the loader's batches stacked on the host,
+        with each step's learning rate (cosine per step; under plateau the
+        current rate) and accumulation count; each uploaded in one copy; then
+        ``EpochReplay`` steps over them with no host sync, and the losses are
+        read once. The whole epoch runs: a signal is honoured at its end, and
+        the epoch counts as completed.
+
+        ``debug_nans``: each step's finiteness is recorded on the device, and
+        ``FloatingPointError`` names the first bad step after the epoch; the
+        updates of the steps after it have run by then."""
+        tc = self.config.train
+        if self._preempt_requested:  # a signal between epochs
+            return float("nan"), False
+        offs, ys = [], []
+        for batch in loader:
+            if "offsets" not in batch:
+                raise BatchContractError("train.dispatch=epoch needs device-cache batches "
+                                         "(key 'offsets')")
+            offs.append(batch["offsets"])
+            ys.append(batch["y"])
+        n = len(offs)
+        if n == 0:
+            return float("nan"), False
+        step0 = self.global_step
+        if tc.scheduler.type == "cosine":
+            lrs = [cosine_lr(step0 + i, tc.lr, self._total_steps, tc.scheduler.warmup_steps,
+                             tc.scheduler.min_lr_ratio) for i in range(n)]
+        else:
+            lrs = [get_learning_rate(self.optimizer)] * n
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)  # noqa: E731
+        offsets_e, y_e = put(np.stack(offs)), put(np.stack(ys))
+        lrs_e = put(np.asarray(lrs, np.float32))
+        accum = self.accum
+        counts_e = None if accum is None else put(np.asarray(
+            [(accum.mini_step + i) % accum.k + 1 for i in range(n)], np.float32))
+        replay = self.replay
+        if replay is None or replay.cache is not self.train_source.cache:
+            replay = self.replay = EpochReplay(
+                self.model, self.optimizer, accum, self.train_source.cache, self.generator,
+                offsets_e.shape[1], tuple(y_e.shape[2:]), tc.debug_nans)
+        lr = self.optimizer.param_groups[0]["lr"]
+        losses_e = torch.empty(n, dtype=torch.float32, device=self.device)
+        per_label_e = torch.empty((n, len(self.model.label_encoder.base_labels)),
+                                  dtype=torch.float32, device=self.device)
+        finite_e = torch.ones(n, dtype=torch.bool, device=self.device)
+        for i in range(n):
+            replay.offsets.copy_(offsets_e[i])
+            replay.y.copy_(y_e[i])
+            if isinstance(lr, torch.Tensor):
+                lr.copy_(lrs_e[i])
+            else:  # the CPU's float rate
+                set_learning_rate(self.optimizer, lrs[i])
+            if accum is not None:
+                accum.count.copy_(counts_e[i])
+            loss, per_label, finite = replay.run(accum is None or accum.emits)
+            losses_e[i].copy_(loss)
+            per_label_e[i].copy_(per_label)
+            if finite is not None:
+                finite_e[i].copy_(finite)
+            if accum is not None:
+                accum.advance()
+        self.global_step = step0 + n
+        if tc.debug_nans:
+            bad = (~finite_e).nonzero()
+            if len(bad):
+                first = int(bad[0])
+                raise FloatingPointError(
+                    f"train step {step0 + first + 1}: non-finite loss or trainable gradient "
+                    f"(epoch dispatch: the {n - first - 1} updates after it have run)")
+        every = tc.log_every_n_steps
+        if every:
+            labels = self.model.label_encoder.base_labels
+            losses_h, per_label_h = losses_e.cpu().tolist(), per_label_e.cpu().tolist()
+            for i in range(n):
+                if (step0 + i + 1) % every == 0:
+                    record = {"step": step0 + i + 1, "train/loss_step": losses_h[i]}
+                    for j, label in enumerate(labels):
+                        record[f"train/loss_step_{label}"] = per_label_h[i][j]
+                    self.logger.log(record)
+        return float(losses_e.mean()), True
+
     def _need_scores(self) -> bool:
         """Whether validation gathers the per-frame scores on the host
         (auroc, roc)."""
@@ -397,15 +666,32 @@ class Trainer:
         return (tc.validation_metric == "auroc" or "auroc" in tc.extra_val_metrics
                 or "roc" in tc.extra_val_metrics)
 
+    def _val_batches(self, loader: Any):
+        """(device batch, host labels) of the validation pass: host batches
+        are uploaded one by one; device-cache batches (offsets and labels,
+        under either dispatch) are stacked and uploaded in one copy."""
+        if self.val_source.cache is None:
+            for batch in loader:
+                yield self._put(batch), batch["y"]
+            return
+        batches = list(loader)
+        if not batches:
+            return
+        stacked = self._put({k: np.stack([b[k] for b in batches]) for k in ("offsets", "y")})
+        for i, batch in enumerate(batches):
+            yield {k: v[i] for k, v in stacked.items()}, batch["y"]
+
     def _val_epoch(self, loader: Any) -> dict[str, float]:
+        """The validation metrics, with no host sync between batches: the
+        losses, counts and (for auroc and roc) scores are read at the end."""
         tc = self.config.train
         labels = self.model.label_encoder.base_labels
         wants = lambda m: tc.validation_metric == m or m in tc.extra_val_metrics  # noqa: E731
         need_scores = self._need_scores()
         losses, per_labels, all_probs, all_targets = [], [], [], []
         counts_acc: dict[str, torch.Tensor] | None = None
-        for batch in loader:
-            loss, per_label, counts, probs = eval_step(self.model, self._put(batch))
+        for batch, y in self._val_batches(loader):
+            loss, per_label, counts, probs = eval_step(self.model, batch, self.val_source)
             losses.append(loss)
             per_labels.append(per_label)
             counts_acc = (
@@ -413,8 +699,8 @@ class Trainer:
                 else {k: counts_acc[k] + counts[k] for k in counts}
             )
             if need_scores:
-                all_probs.append(probs.cpu().numpy())
-                all_targets.append(batch["y"].reshape(-1, len(labels)))
+                all_probs.append(probs)
+                all_targets.append(y.reshape(-1, len(labels)))
         metrics: dict[str, float] = {}
         if losses:
             metrics["val/loss"] = float(torch.stack(losses).mean())
@@ -427,7 +713,8 @@ class Trainer:
             for i, label in enumerate(labels):
                 metrics[f"val/f1_{label}"] = float(f1[i])
         if need_scores and all_probs:
-            probs, targets = np.concatenate(all_probs), np.concatenate(all_targets)
+            probs = torch.cat(all_probs).cpu().numpy()
+            targets = np.concatenate(all_targets)
             if wants("auroc"):
                 auroc = binary_auroc_np(probs, targets)
                 metrics["val/auroc"] = float(auroc.mean())
@@ -474,6 +761,7 @@ class Trainer:
         (``last/``), the optimizer state with the accumulator, and the
         counters; returns the epoch to start at."""
         ckpt = resolve_checkpoint(resume_from)
+        self.replay = None  # a graph captured before reads the replaced optimizer state
         load_trainable(self.model, load_params(ckpt, flax_split(self.model)[0]))
         load_opt_state(ckpt, self.model, self.optimizer, self.accum)
         for obj, section in ((self.scheduler, "scheduler"),
@@ -501,6 +789,12 @@ class Trainer:
         ``checkpoints/`` under ``run_dir``; with ``train.profiler`` set, a
         torch.profiler trace of the epoch after the first into
         ``run_dir/profile``.
+
+        The loaders' device caches (``train.data_cache=device``, or ``auto``
+        within budget) are uploaded once; how ``auto`` resolved is logged as
+        ``data_cache_train`` and ``data_cache_val``, the train cache's size as
+        ``device_cache_mb``. ``train.dispatch=epoch`` needs a train cache and
+        raises, naming the resolution, without one.
 
         ``resume_from`` (a checkpoint dir such as ``<run>/checkpoints/last``,
         a ``best.ckpt`` link or a run dir) restores the trainable parameters,
@@ -533,6 +827,24 @@ class Trainer:
             meta["frozen_fingerprint"] = frozen_fingerprint(frozen_tree)
         train_loader = datamodule.train_dataloader()
         val_loader = datamodule.val_dataloader()
+        t_cache = getattr(train_loader, "device_cache", None)
+        v_cache = getattr(val_loader, "device_cache", None)
+        for which, ldr in (("train", train_loader), ("val", val_loader)):
+            note = getattr(ldr, "data_cache_decision", None)
+            if note:
+                self.logger.log({f"data_cache_{which}": note})
+        if tc.dispatch == "epoch" and t_cache is None:
+            resolved = getattr(train_loader, "data_cache_decision", None)
+            raise ValueError(
+                "train.dispatch=epoch requires the train loader to carry a device_cache "
+                "(train.data_cache=device through SegmentationDataLoader); this loader has none"
+                + (f": data_cache resolved {resolved}" if resolved else ""))
+        if t_cache is not None:
+            t_cache.place(self.device)
+            self.logger.log({"device_cache_mb": round(t_cache.nbytes / 1e6, 1)})
+        if v_cache is not None:
+            v_cache.place(self.device)
+        self.train_source.cache, self.val_source.cache = t_cache, v_cache
         max_epochs = self.max_epochs or tc.max_epochs
         self.global_step = start_epoch * len(train_loader)
         self._total_steps = max_epochs * len(train_loader)
@@ -551,12 +863,15 @@ class Trainer:
                 for epoch in range(start_epoch, max_epochs):
                     for ldr in (train_loader, val_loader):
                         ldr.set_epoch(epoch)
-                    generator = torch.Generator(self.device).manual_seed(seed * 100_003 + epoch)
+                    self.generator.manual_seed(seed * 100_003 + epoch)
                     prof = self._profiler() if epoch == profile_epoch else None
                     if prof is not None:
                         prof.start()
                     t0 = time.perf_counter()
-                    train_loss, completed = self._train_epoch(train_loader, generator)
+                    if tc.dispatch == "epoch":
+                        train_loss, completed = self._train_epoch_replay(train_loader)
+                    else:
+                        train_loss, completed = self._train_epoch(train_loader, self.generator)
                     _sync(self.device)
                     train_time = time.perf_counter() - t0
                     if prof is not None:

@@ -169,6 +169,14 @@ def get_all_samples(audio_p: Path | str) -> np.ndarray:
     return get_samples_in_range(audio_p, 0, -1)
 
 
+def probe_pcm16_mono(audio_p: Path | str) -> bool:
+    """Header-only probe: True iff the file is mono 16-bit PCM, the files
+    ``read_pcm16_mono`` reads; the device audio cache picks its buffer dtype
+    from it before decoding anything."""
+    layout = _parse_wav_header(Path(audio_p))
+    return layout.audio_format == _PCM and layout.bits_per_sample == 16 and layout.n_channels == 1
+
+
 def read_pcm16_mono(audio_p: Path | str) -> np.ndarray | None:
     """Zero-decode fast path: return the raw int16 samples of a mono PCM16
     WAV, or None when the file is not mono PCM16.

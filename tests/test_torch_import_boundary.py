@@ -59,6 +59,7 @@ REQUIRED = (
     "segma_tpu_torch.inference", "segma_tpu_torch.ops.attention",
     "segma_tpu_torch.models.hubert.encoder", "segma_tpu_torch.models.hubert.builders",
     "segma_tpu_torch.data.loaders", "segma_tpu_torch.data.file_dataset",
+    "segma_tpu_torch.data.device_cache",
     "segma_tpu_torch.data.intervals", "segma_tpu_torch.data.utils", "segma_tpu_torch.train",
     "segma_tpu_torch.ops.metrics", "segma_tpu_torch.utils.logging",
     "segma_tpu_torch.checkpoint", "segma_tpu_torch.tune", "segma_tpu_torch.evaluate",

@@ -539,3 +539,234 @@ def test_logmel_kernel_bulk_error_is_bounded(name):
     print(f"logmel {name} (64, 64000): outputs more than {LOGMEL_ATOL} from float64: kernel "
           f"{got}, plain {plain}")
     assert got <= LOGMEL_BULK_FACTOR * plain, (got, plain)
+
+
+# -- epoch dispatch: the training step captured as a CUDA graph and replayed ---------
+
+
+class _CacheLoader:
+    """Fixed device-cache batches, as ``SegmentationDataLoader`` gives them
+    under ``train.data_cache=device``."""
+
+    def __init__(self, cache, batches):
+        self.device_cache, self.batches, self.data_cache_decision = cache, batches, None
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def set_epoch(self, epoch):
+        pass
+
+
+class _CacheDatamodule:
+    def __init__(self, cache, train, val):
+        self.train, self.val = _CacheLoader(cache, train), _CacheLoader(cache, val)
+
+    def train_dataloader(self):
+        return self.train
+
+    def val_dataloader(self):
+        return self.val
+
+
+REPLAY_CASES = {
+    # name: (model, precision, remat, grad_accum_steps, steps per epoch)
+    "hubert-bf16-remat": ("surgical_hubert_hydra", "bf16", True, 1, 3),
+    "hubert-f32-remat": ("surgical_hubert_hydra", "f32", True, 1, 3),
+    "hubert-bf16-accum3": ("surgical_hubert_hydra", "bf16", False, 3, 4),
+    "whisper-bf16-logmel": ("surgical_hydra", "bf16", False, 1, 3),
+}
+
+
+def _tiny_model(name, train, device="cuda"):
+    """(config, model): ``name`` at tiny widths (2 layers of 128) with the
+    given ``TrainConfig``, its weights from seed 0."""
+    from segma_tpu_torch.config import (
+        AudioConfig, Config, DataConfig, LSTMConfig, ModelConfig, SurgicalHubertHydraConfig,
+        SurgicalHydraConfig,
+    )
+    from segma_tpu_torch.models import Models
+    from segma_tpu_torch.models.hubert.encoder import HubertEncoderConfig
+    from segma_tpu_torch.models.whisper.encoder import WhisperEncoderConfig
+    from segma_tpu_torch.utils.encoders import MultiLabelEncoder
+
+    if name == "surgical_hubert_hydra":
+        mc = SurgicalHubertHydraConfig(wav_encoder="hubert_random", encoder_layers=[],
+                                       reduction="weighted", classifier=256)
+        kw = dict(enc_cfg=HubertEncoderConfig(hidden_size=128, n_layers=2, n_heads=2,
+                                              ffn_dim=256, conv_dim=(64,) * 7,
+                                              pos_conv_kernel=16, pos_conv_groups=4))
+    else:
+        mc = SurgicalHydraConfig(encoder="whisper_tiny_random", encoder_layers=[],
+                                 reduction="weighted", classifier=256,
+                                 lstm=LSTMConfig(hidden_size=16, num_layers=2,
+                                                 bidirectional=True, dropout=0.5))
+        kw = dict(enc_cfg=WhisperEncoderConfig(d_model=128, n_heads=2, n_layers=2, ffn_dim=256))
+    cfg = Config(data=DataConfig(classes=["KCHI", "OCH", "MAL", "FEM"]),
+                 audio=AudioConfig(chunk_duration_s=4.0, sample_rate=16_000,
+                                   strict_frames=name == "surgical_hubert_hydra"),
+                 model=ModelConfig(name=name, config=mc), train=train)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = Models[name](MultiLabelEncoder(cfg.data.classes), cfg, device=device,
+                             generator=torch.Generator().manual_seed(0), **kw)
+    return cfg, model
+
+
+def _replay_fit(case, dispatch, tmp_path):
+    """Two epochs of a tiny model through ``Trainer.fit`` with dropout on, the
+    cosine schedule and a seed, over an int16 device cache; returns (trainer,
+    result, launch counts of the fit)."""
+    import dataclasses
+
+    from segma_tpu_torch.config import SchedulerConfig, TrainConfig
+    from segma_tpu_torch.data.device_cache import DeviceAudioCache
+    from segma_tpu_torch.ops import launch_counts
+    from segma_tpu_torch.train import Trainer
+
+    name, precision, remat, k, n_steps = REPLAY_CASES[case]
+    cfg, model = _tiny_model(name, TrainConfig(
+        lr=1e-3, batch_size=2, max_epochs=2, seed=0, precision=precision, remat=remat,
+        grad_accum_steps=k, log_every_n_steps=1, dispatch=dispatch, data_cache="device",
+        scheduler=SchedulerConfig(type="cosine", warmup_steps=1, min_lr_ratio=0.1)))
+    rng = np.random.default_rng(3)
+    audio = (rng.standard_normal(200_000) * 3000).astype(np.int16)
+    cache = DeviceAudioCache(audio, np.zeros(1, np.int32), cfg.audio.chunk_duration_f)
+
+    def batch():
+        return {"offsets": rng.integers(0, 200_000 - 64_000, 2).astype(np.int32),
+                "y": (rng.random((2, model.n_windows, 4)) > 0.7).astype(np.float32)}
+
+    dm = _CacheDatamodule(cache, [batch() for _ in range(n_steps)], [batch()])
+    trainer = Trainer(model=model, config=dataclasses.replace(cfg), run_dir=tmp_path / dispatch)
+    before = launch_counts()
+    result = trainer.fit(dm)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    return trainer, result, {k: after[k] - before[k] for k in after}
+
+
+def _step_losses(run_dir):
+    import json
+
+    records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    return [(r["step"], r["train/loss_step"]) for r in records if "train/loss_step" in r]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(REPLAY_CASES))
+def test_epoch_replay_equals_step_dispatch_bitwise(case, tmp_path):
+    """``train.dispatch=epoch`` on the card replays a captured CUDA graph of the
+    step: with the same seed, dropout on, the cosine rate changing every step
+    and two epochs' reseeded generator, the parameters, the capturable AdamW's
+    state, every step's loss and the validation metrics equal step
+    dispatch's bit for bit, and so do the kernels' launch counts (replays
+    counted). HuBERT in bf16 and f32 under remat runs the flash forward with
+    its LSE and both backward kernels under replay; k=3 accumulation replays
+    both graphs (fold in, fold in and update); the Whisper model runs log-mel
+    and the cuDNN LSTM with dropout under replay."""
+    _cuda()
+    step_t, step_r, step_n = _replay_fit(case, "step", tmp_path)
+    epoch_t, epoch_r, epoch_n = _replay_fit(case, "epoch", tmp_path)
+    k = REPLAY_CASES[case][3]
+    # without accumulation every step updates; with it both kinds of step replay
+    assert set(epoch_t.replay.graphs) == ({True} if k == 1 else {False, True})
+    assert step_t.replay is None
+    assert epoch_n == step_n and sum(step_n.values()) > 0
+    assert _step_losses(tmp_path / "epoch") == _step_losses(tmp_path / "step")
+    for a, b in zip(step_r["history"], epoch_r["history"], strict=True):
+        for key in ("train/loss", "val/loss", "val/f1_score", "lr"):
+            assert a[key] == b[key], key
+    for name, p in step_t.model.module.named_parameters():
+        assert torch.equal(p, dict(epoch_t.model.module.named_parameters())[name]), name
+    params = dict(epoch_t.model.module.named_parameters())
+    for name, p in step_t.model.module.named_parameters():
+        if p.requires_grad:
+            a, b = step_t.optimizer.state[p], epoch_t.optimizer.state[params[name]]
+            for key in ("step", "exp_avg", "exp_avg_sq"):
+                assert torch.equal(a[key], b[key]), (name, key)
+
+
+ADAMW_STEPS = 5
+ADAMW_RESTORE_AFTER = 3  # the card's state goes through optax's tree after this step
+# Parameters within ADAMW_REL of the updates' largest sum (the rates so far)
+# plus a few ulps of themselves. The two AdamWs differ on their own: the card
+# forms the bias corrections in f32, as optax does (1 - 0.999**t loses about
+# 1e-7 of 1e-3 * t to rounding), the CPU in double; 8.5e-6 of the sum at
+# most on an H100 at these seeds.
+ADAMW_REL = 2e-5
+ADAMW_ULPS = 4
+ADAMW_MOMENT_ULPS = 4  # moments: per tensor, of its largest entry
+
+
+@pytest.mark.gpu
+def test_card_adamw_holds_to_the_cpu_adamw():
+    """The card's optimizer (``make_optimizer``: a capturable AdamW whose rate
+    is a device tensor that ``set_learning_rate`` fills in place, the one both
+    dispatches step with, and which replay is held to bit for bit) against
+    the CPU's default AdamW (which the CPU tests hold to optax) on the same
+    gradients: five steps with the cosine rate falling 10% to 86% every step,
+    the card's state taken through optax's tree (``opt_state_tree``) into a
+    fresh optimizer with another rate (``restore_opt_state``) after the third.
+    After every step the step counts are equal, both moments agree to a few
+    ulps of each tensor's largest entry, and the parameters, which start at
+    zero so that an update is read to about 1e-6 of itself, to ADAMW_REL of
+    what the updates so far can add up to. A rate stale by one step or off by
+    1e-4 of itself, a step count off by one after the restore, or a missing
+    bias correction (x0.32 at step 1) fails; a rate error below about 3e-5,
+    one ulp among them, is within the two implementations' own rounding."""
+    _cuda()
+    from segma_tpu_torch.checkpoint import opt_state_tree, restore_opt_state
+    from segma_tpu_torch.config import TrainConfig
+    from segma_tpu_torch.train import cosine_lr, make_optimizer, set_learning_rate
+
+    lr, eps = 1e-3, float(np.finfo(np.float32).eps)
+    models = {dev: _tiny_model("surgical_hubert_hydra", TrainConfig(lr=lr), device=dev)[1]
+              for dev in ("cuda", "cpu")}
+    named = {dev: [(n, p) for n, p in m.module.named_parameters() if p.requires_grad]
+             for dev, m in models.items()}
+    with torch.no_grad():
+        for pairs in named.values():
+            for _, p in pairs:
+                p.zero_()
+    opts = {dev: make_optimizer(m, lr) for dev, m in models.items()}
+    group = opts["cuda"].param_groups[0]
+    assert group["capturable"] and group["lr"].is_cuda
+    assert not opts["cpu"].param_groups[0]["capturable"]
+    rates = [cosine_lr(s, lr, ADAMW_STEPS) for s in range(ADAMW_STEPS)]
+    rng = np.random.default_rng(5)
+    worst = {"param": (0.0, None), "exp_avg": (0.0, None), "exp_avg_sq": (0.0, None)}
+    for i, rate in enumerate(rates):
+        for (name, pc), (_, ph) in zip(named["cuda"], named["cpu"], strict=True):
+            g = torch.from_numpy((rng.standard_normal(tuple(ph.shape)) * 1e-2).astype(np.float32))
+            ph.grad, pc.grad = g, g.cuda()
+        for opt in opts.values():
+            set_learning_rate(opt, rate)
+            opt.step()
+        budget = ADAMW_REL * sum(rates[: i + 1])
+        for (name, pc), (_, ph) in zip(named["cuda"], named["cpu"], strict=True):
+            got, want = pc.detach().cpu().double(), ph.detach().double()
+            ratio = float(((got - want).abs() / (budget + ADAMW_ULPS * eps * want.abs())).max())
+            if ratio >= worst["param"][0]:
+                worst["param"] = (ratio, (i + 1, name))
+            sc, sh = opts["cuda"].state[pc], opts["cpu"].state[ph]
+            assert sc["step"].is_cuda and float(sc["step"]) == float(sh["step"]) == i + 1
+            for key in ("exp_avg", "exp_avg_sq"):
+                a, b = sc[key].cpu().double(), sh[key].double()
+                ratio = float((a - b).abs().max()) / (ADAMW_MOMENT_ULPS * eps * float(b.abs().max()))
+                if ratio >= worst[key][0]:
+                    worst[key] = (ratio, (i + 1, name))
+        for key, (ratio, where) in worst.items():
+            assert ratio <= 1.0, (key, ratio, where)
+        if i + 1 == ADAMW_RESTORE_AFTER:
+            tree = opt_state_tree(models["cuda"], opts["cuda"])
+            opts["cuda"] = make_optimizer(models["cuda"], 0.5)
+            restore_opt_state(models["cuda"], opts["cuda"], tree)
+            group = opts["cuda"].param_groups[0]
+            assert group["capturable"] and group["lr"].is_cuda
+            assert float(group["lr"]) == float(np.float32(rate))
+    print(f"card AdamW against the CPU's over {ADAMW_STEPS} steps, the largest share of each "
+          f"tolerance (step, parameter): {worst}")

@@ -149,3 +149,58 @@ def test_bilstm_dropout_between_layers_runs_each_layer_alone():
         np.testing.assert_array_equal(mod(x).numpy(), mod.lstm(x)[0].numpy())
     with pytest.raises(ValueError, match="Generator"):
         mod(x, train=True)
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["one_cudnn_call", "per_layer_dropout"])
+def test_bf16_model_runs_its_f32_parts_without_tf32(monkeypatch, train):
+    """A bf16 ``surgical_hydra`` computes its BiLSTM (one cuDNN call, or one
+    ``torch.lstm`` per layer under dropout) and its hydra heads in f32: each
+    runs with TF32 off in cuDNN and cuBLAS though the caller allowed both,
+    and the caller's flags are back after the forward."""
+    from segma_tpu_torch.config import (
+        AudioConfig, Config, DataConfig, ModelConfig, SurgicalHydraConfig,
+    )
+    from segma_tpu_torch.models import Models
+    from segma_tpu_torch.models.whisper.encoder import WhisperEncoderConfig
+    from segma_tpu_torch.utils.encoders import MultiLabelEncoder
+
+    cfg = Config(
+        data=DataConfig(classes=["KCHI", "OCH", "MAL", "FEM"]),
+        audio=AudioConfig(chunk_duration_s=4.0, sample_rate=16_000, strict_frames=False),
+        model=ModelConfig(name="surgical_hydra", config=SurgicalHydraConfig(
+            encoder="whisper_tiny_random", encoder_layers=[], reduction="weighted",
+            lstm=LSTMConfig(hidden_size=8, num_layers=2, bidirectional=True, dropout=0.5),
+            classifier=256, fast_context=True)),
+    )
+    model = Models["surgical_hydra"](
+        MultiLabelEncoder(cfg.data.classes), cfg,
+        device="cpu", generator=torch.Generator().manual_seed(0),
+        enc_cfg=WhisperEncoderConfig(d_model=32, n_heads=1, n_layers=1, ffn_dim=64))
+    assert model.compute_dtype == torch.bfloat16
+    seen = []
+
+    def flags(*_):
+        seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+
+    module = model.module
+    module.lstm_shared.lstm.register_forward_pre_hook(flags)
+    module.heads.heads.register_forward_pre_hook(flags)
+    real_lstm = torch.lstm
+
+    def lstm(*args):
+        flags()
+        return real_lstm(*args)
+
+    monkeypatch.setattr(torch, "lstm", lstm)
+    caller = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        wav = torch.from_numpy(_x((2, 64_000)) * 0.1)
+        with torch.no_grad():
+            module(wav, train=train, generator=torch.Generator().manual_seed(1))
+        after = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = caller
+    # heads, and the LSTM's one call or its two layers
+    assert len(seen) == (3 if train else 2) and set(seen) == {(False, False)}
+    assert after == (True, True)

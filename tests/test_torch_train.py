@@ -231,8 +231,9 @@ def test_binary_counts_and_f1_match_jax():
 def test_loader_batches_match_jax_bit_for_bit(synthetic_dataset):
     extra = [*HUBERT, f"data.dataset_path={synthetic_dataset}", f"data.classes={FIXTURE_CLASSES}",
              "audio.chunk_duration_s=1.0", "train.batch_size=4", "train.seed=0",
-             "train.dataloader.num_workers=1", "data.dataset_multiplier=0.3"]
-    jcfg = jax_load_config(REPO / "segma_tpu/config/default.yml", [*extra, "train.data_cache=host"])
+             "train.dataloader.num_workers=1", "data.dataset_multiplier=0.3",
+             "train.data_cache=host"]
+    jcfg = jax_load_config(REPO / "segma_tpu/config/default.yml", extra)
     cfg = load_config(REPO / "segma_tpu_torch/config/default.yml", extra)
     from segma_tpu.models.hubert.builders import HUBERT_CONV_SETTINGS as JAX_CS
     from segma_tpu_torch.models.hubert import HUBERT_CONV_SETTINGS
@@ -323,14 +324,14 @@ def test_chip_smoke_configs_equal_default_yml(which):
 
 @pytest.mark.parametrize(
     "override",
-    ["train.dispatch=epoch", "train.data_cache=device", "train.device_cache_budget_gb=4.0",
+    ["train.dispatch=batch", "train.data_cache=hbm",
      "train.extra_val_metrics=[loss,partial_loss]", "train.scheduler.type=step",
      "train.transport=adpcm", "train.validation_metric=partial_f1_score",
      "train.grad_accum_steps=0"],
 )
 def test_unported_training_options_raise(tmp_path, override):
-    """The device cache and epoch dispatch are not ported: each of their keys
-    raises its named ConfigError away from its "off" value, as does a value
-    neither package takes."""
+    """A value the port does not take (the powerset metrics, which wait for
+    powerset_vad) or that neither package takes raises its named
+    ConfigError."""
     with pytest.raises(ConfigError, match=override.split("=")[0].split(".")[-1]):
         _fit_config(tmp_path, override)

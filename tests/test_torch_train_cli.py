@@ -149,6 +149,19 @@ def test_interrupted_run_exits_75_without_a_link(monkeypatch, tmp_path):
 
 
 def test_auto_train_resumes_from_find_resumable(monkeypatch, tmp_path):
+    _auto_resume(monkeypatch, tmp_path)
+
+
+def test_auto_train_resumes_under_epoch_dispatch(monkeypatch, tmp_path):
+    records = _auto_resume(monkeypatch, tmp_path, "train.dispatch=epoch",
+                           "train.data_cache=device")
+    assert any("device_cache_mb" in r for r in records)
+
+
+def _auto_resume(monkeypatch, tmp_path, *extra: str) -> list[dict]:
+    """``cli.auto_train --auto-resume``: a fresh run stopped by the watchdog
+    after epoch 0 (exit 75), then resumed from ``last/`` to the end; returns
+    the run's records."""
     _tiny_hubert(monkeypatch)
     root = _dataset(tmp_path)
     monkeypatch.chdir(tmp_path)
@@ -162,7 +175,7 @@ def test_auto_train_resumes_from_find_resumable(monkeypatch, tmp_path):
         return found
 
     monkeypatch.setattr(ckpt, "find_resumable", recorded)
-    args = ["--run-id", "R", "--output", str(out), *_cli_args(root, tmp_path / "unused")]
+    args = ["--run-id", "R", "--output", str(out), *_cli_args(root, tmp_path / "unused", *extra)]
     # a fresh run under --auto-resume, stopped by the watchdog after epoch 0
     with pytest.raises(SystemExit) as exit_info:
         auto_train.main([*args, "--auto-resume", "train.host_rss_limit_gb=0.000001"])
@@ -175,3 +188,4 @@ def test_auto_train_resumes_from_find_resumable(monkeypatch, tmp_path):
     assert not (tmp_path / "unused").exists()
     assert (tmp_path / "models" / "last" / "best.ckpt").is_symlink()
     assert np.isfinite([r["val/loss"] for r in records if "val/loss" in r]).all()
+    return records

@@ -28,8 +28,9 @@ HuBERT widths of tests/test_torch_checkpoint.py on the CPU:
 - remat: the gradients equal the non-remat ones, ``torch.utils.checkpoint``
   runs once per layer under autograd and never in evaluation, and a fit
   with remat ends bit-equal to one without;
-- every key taken out of ``UNPORTED_TRAIN`` loads; ``Config.save`` is read
-  back by both packages' ``load_config``.
+- every training key of the JAX schema loads at a value away from its
+  default (the device cache's and epoch dispatch's among them); ``Config.save``
+  is read back by both packages' ``load_config``.
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ from segma_tpu.ops.metrics import roc_curve_np as jax_roc
 from segma_tpu.train import cosine_lr as jax_cosine_lr
 from segma_tpu.utils.encoders import MultiLabelEncoder as JaxEncoder
 from segma_tpu_torch import checkpoint as ckpt
-from segma_tpu_torch.config import UNPORTED_TRAIN, load_config
+from segma_tpu_torch.config import load_config
 from segma_tpu_torch.convert import load_flax_params, torch_to_flax
 from segma_tpu_torch.data import SegmaFileDataset, SegmentationDataLoader
 from segma_tpu_torch.models import Models
@@ -214,7 +215,8 @@ def test_fit_monitors_auroc(monkeypatch, tmp_path):
     assert result["best_score"] == h["val/auroc"]
     assert "val_auroc=" in Path(result["best_path"]).name
     probs, targets = [], []
-    loader = SegmentationDataLoader(ds, trainer.model.label_encoder, cfg,
+    loader = SegmentationDataLoader(ds, trainer.model.label_encoder,
+                                    _replace_train(cfg, data_cache="host"),
                                     trainer.model.conv_settings).val_dataloader()
     loader.set_epoch(0)
     for batch in loader:
@@ -366,7 +368,7 @@ def test_int16_transport_batches(tmp_path, sources):
         _rewrite_24bit(root / "wav" / f"{(root / 'train.txt').read_text().split()[0]}.wav")
     extra = ["model.name=surgical_hubert_hydra", "audio.strict_frames=true",
              f"data.dataset_path={root}", "audio.chunk_duration_s=1.0", "train.batch_size=4",
-             "train.seed=0", "train.dataloader.num_workers=1"]
+             "train.seed=0", "train.dataloader.num_workers=1", "train.data_cache=host"]
     loaders = {}
     for transport in ("f32", "int16"):
         cfg = load_config(REPO / "segma_tpu_torch/config/default.yml",
@@ -376,7 +378,7 @@ def test_int16_transport_batches(tmp_path, sources):
         loaders[transport] = SegmentationDataLoader(
             ds, MultiLabelEncoder(cfg.data.classes), cfg, HUBERT_CONV_SETTINGS).train_dataloader()
     jcfg = jax_load_config(REPO / "segma_tpu/config/default.yml",
-                           [*extra, "train.transport=int16", "train.data_cache=host"])
+                           [*extra, "train.transport=int16"])
     jds = JaxDataset.from_config(jcfg)
     jds.load(use_cache=False)
     jloader = JaxLoader(jds, JaxEncoder(jcfg.data.classes), jcfg, JAX_CS).train_dataloader()
@@ -473,6 +475,9 @@ def test_remat_fit_equals_plain(monkeypatch, tmp_path):
     ("train.val_every_n_epochs=2", "val_every_n_epochs", 2),
     ("train.validation_metric=auroc", "validation_metric", "auroc"),
     ("train.extra_val_metrics=[loss,auroc,roc]", "extra_val_metrics", ["loss", "auroc", "roc"]),
+    ("train.dispatch=epoch", "dispatch", "epoch"),
+    ("train.data_cache=device", "data_cache", "device"),
+    ("train.device_cache_budget_gb=4.0", "device_cache_budget_gb", 4.0),
 ])
 def test_ported_training_options_load(tmp_path, override, field, value):
     cfg = load_config(REPO / "segma_tpu_torch/config/default.yml", [override])
@@ -480,7 +485,6 @@ def test_ported_training_options_load(tmp_path, override, field, value):
     for part in field.split("."):
         node = getattr(node, part)
     assert node == value
-    assert set(UNPORTED_TRAIN) == {"dispatch", "data_cache", "device_cache_budget_gb"}
     cfg.save(tmp_path / "config.yml")
     assert load_config(tmp_path / "config.yml") == cfg
     jcfg = jax_load_config(tmp_path / "config.yml")
