@@ -94,7 +94,8 @@ exits nonzero without printing the final result line:
    zero. Before the phases, the three forward kernels are also checked
    and timed at the fast_context shapes, log-mel on (64, 64000) and both
    flash forwards on (64, 200, 8, 64) (``fast_context_kernel_times``).
-10. the train CLIs (``phase_train_cli``, bf16, full width): HuBERT-base
+10. the train CLIs (``phase_train_cli``, bf16, HuBERT-base's widths at
+   TRAIN_CLI_LAYERS layers from a random snapshot): HuBERT
    through ``python -m segma_tpu_torch.cli.train`` with the cosine
    schedule, k=3 accumulation, int16 transport, remat and AUROC, 4 epochs
    in a child process; ``cli.auto_train`` stopped by SIGTERM inside epoch 2
@@ -114,8 +115,18 @@ exits nonzero without printing the final result line:
    k=3 accumulation, f32 and whisperimax, step against epoch dispatch,
    bit-equal; per-step medians and spread, device-busy shares and peak
    memory printed.
+10c. the JAX package's four other model families (``phase_model_families``,
+   bf16, full width: WavLM-base ``surgical_wavlm_hydra`` from a random HF
+   snapshot, ``sincnet_hydra``, ``conv_vad``, ``powerset_vad``): log-mel
+   checked and timed at (32, 64000); each model's step-1 loss against the
+   CPU, two epochs of ``Trainer.fit`` (powerset_vad with its partial_*
+   metrics; WavLM and powerset_vad again under epoch dispatch, bit-equal,
+   equal launches), its ``last/`` rebuilt bit for bit, its ``best.ckpt``
+   served by the predict CLI against the CPU (log-mel launched on the
+   conv_vad paths only), and its warm serving xRT and step time.
 11. the ``kernels`` JSON line (log-mel, the bf16 and the f32 flash forward
-   and backward; each with its fast_context times where it has them) and
+   and backward; each with its fast_context times where it has them, and
+   log-mel's at (32, 64000) as ``vad_train``) and
    the ``kernels:`` launch line, per path (the workflow's resumed fit and
    predict CLI run, each reference-model path, the train CLI and the
    epoch-dispatch paths among them).
@@ -1650,6 +1661,8 @@ HUBERT_BASE = dict(hidden_size=768, num_hidden_layers=12, num_attention_heads=12
                    intermediate_size=3072, conv_dim=[512] * 7, conv_kernel=[10, 3, 3, 3, 3, 2, 2],
                    conv_stride=[5, 2, 2, 2, 2, 2, 2], num_conv_pos_embeddings=128,
                    num_conv_pos_embedding_groups=16)
+# WavLM-base: HuBERT-base's widths, 320 relative-position buckets out to 800
+WAVLM_BASE = dict(HUBERT_BASE, num_buckets=320, max_bucket_distance=800)
 TUNE_GRID = 10  # tune.main's default precision 0.1: round(linspace(0, 1, 10), 1)
 
 
@@ -1726,6 +1739,43 @@ def write_hubert_snapshot(out: Path, seed: int, dims: dict = HUBERT_BASE
     config.json and model.safetensors, the positional conv weight-normed as
     ``parametrizations.weight.original0`` (g, (1, 1, k)) and ``original1``
     (v). Returns the tensors written."""
+    t = hubert_snapshot_tensors(seed, dims)
+    out.mkdir(parents=True)
+    (out / "config.json").write_text(json.dumps({
+        "model_type": "hubert", "feat_extract_norm": "group", "do_stable_layer_norm": False,
+        **dims}))
+    write_safetensors(out / "model.safetensors", t)
+    return t
+
+
+def write_wavlm_snapshot(out: Path, seed: int, dims: dict = WAVLM_BASE
+                         ) -> dict[str, np.ndarray]:
+    """A random WavLM snapshot (WavLM-base unless ``dims`` says otherwise) in
+    HF's ``WavLMModel`` layout: HuBERT's tensors, and in every layer
+    ``attention.gru_rel_pos_linear`` (8, head_dim) and ``gru_rel_pos_const``
+    (1, H, 1, 1), in layer 0 ``attention.rel_attn_embed.weight`` (buckets, H).
+    Returns the tensors written."""
+    t = hubert_snapshot_tensors(seed, dims)
+    weight, vec = _snapshot_tensors(seed + 1)
+    rng = np.random.default_rng(seed + 2)
+    h = dims["num_attention_heads"]
+    for i in range(dims["num_hidden_layers"]):
+        pre = f"encoder.layers.{i}.attention."
+        t[pre + "gru_rel_pos_linear.weight"] = weight(8, dims["hidden_size"] // h)
+        t[pre + "gru_rel_pos_linear.bias"] = vec(8)
+        t[pre + "gru_rel_pos_const"] = vec(h, 1.0).reshape(1, h, 1, 1)
+    t["encoder.layers.0.attention.rel_attn_embed.weight"] = (
+        0.02 * rng.standard_normal((dims["num_buckets"], h))).astype(np.float32)
+    out.mkdir(parents=True)
+    (out / "config.json").write_text(json.dumps({
+        "model_type": "wavlm", "feat_extract_norm": "group", "do_stable_layer_norm": False,
+        **dims}))
+    write_safetensors(out / "model.safetensors", t)
+    return t
+
+
+def hubert_snapshot_tensors(seed: int, dims: dict) -> dict[str, np.ndarray]:
+    """The tensors of ``write_hubert_snapshot``, random from ``seed``."""
     weight, vec = _snapshot_tensors(seed)
     h, ffn = dims["hidden_size"], dims["intermediate_size"]
     t: dict[str, np.ndarray] = {}
@@ -1759,11 +1809,6 @@ def write_hubert_snapshot(out: Path, seed: int, dims: dict = HUBERT_BASE
         t[pre + "feed_forward.output_dense.bias"] = vec(h)
         t[pre + "final_layer_norm.weight"], t[pre + "final_layer_norm.bias"] = vec(h, 1.0), vec(h)
     t["masked_spec_embed"] = vec(h)  # in HF snapshots, unused by the encoder
-    out.mkdir(parents=True)
-    (out / "config.json").write_text(json.dumps({
-        "model_type": "hubert", "feat_extract_norm": "group", "do_stable_layer_norm": False,
-        **dims}))
-    write_safetensors(out / "model.safetensors", t)
     return t
 
 
@@ -2269,6 +2314,43 @@ def check_logits(label: str, card, cpu, cpu_f32) -> None:
           flush=True)
 
 
+def logmel_shape_row(card: str, label: str, shape: tuple[int, int], g) -> dict:
+    """Log-mel on white noise of ``shape``: held to float64 over the whole
+    batch (at most twice the f32 plain version's own error, or 1e-5, as in
+    ``logmel_checks``), its distance from the plain version printed, and
+    timed in turns beside the plain version and the cuFFT yardstick, with
+    its bound. Returns its row."""
+    import torch
+
+    from segma_tpu_torch.ops import logmel
+
+    wav = torch.randn(shape, device="cuda", generator=g) * 0.1
+    ref = log_mel_float64(wav)
+    plain = logmel.log_mel_spectrogram_plain(wav)
+    plain_err = float((plain.double() - ref).abs().max())
+    got = logmel.finish(logmel.log10_mel_cuda(wav))
+    err = float((got.double() - ref).abs().max())
+    limit = max(2 * plain_err, LOGMEL_ATOL)
+    if not err <= limit:
+        raise AssertionError(f"logmel {label}: {err:.3e} from float64 exceeds {limit:.3e}")
+    print(f"check logmel {label} {tuple(wav.shape)} against float64: kernel {err:.3e}, "
+          f"plain {plain_err:.3e} (limit {limit:.3e} = max(2 x plain, {LOGMEL_ATOL})); "
+          f"kernel vs plain {float((got - plain).abs().max()):.3e}", flush=True)
+    window = torch.hann_window(400, device="cuda")
+    fb = logmel._plain_tables(wav.device)[2]
+    times = time_turns({"kernel": lambda: logmel.log10_mel_cuda(wav),
+                        "plain": lambda: logmel.log10_mel_plain(wav),
+                        "stft yardstick": lambda: stft_log10_mel(wav, window, fb)})
+    for name, t in times.items():
+        print(f"time logmel {label} {name} {tuple(wav.shape)} [{card}]: {spread(t)}",
+              flush=True)
+    bounds = logmel_bounds(*wav.shape)
+    return {"shape": list(wav.shape), "max_abs_err": err,
+            "ms": median(times["kernel"]), "plain_ms": median(times["plain"]),
+            "stft_yardstick_ms": median(times["stft yardstick"]), "library_ms": None,
+            "bound_ms": bounds["bound_ms"], "bound_by": bounds["bound_by"]}
+
+
 def fast_context_kernel_times(card: str) -> dict:
     """The three forward kernels at the fast_context shapes: log-mel on (64,
     64000), the bf16 and the f32 flash forward on (64, 200, 8, 64). Each is
@@ -2278,33 +2360,11 @@ def fast_context_kernel_times(card: str) -> dict:
     flash, every SDPA backend that takes the dtype; with its bound."""
     import torch
 
-    from segma_tpu_torch.ops import attention, logmel
+    from segma_tpu_torch.ops import attention
 
     g = torch.Generator(device="cuda").manual_seed(9)
-    out: dict[str, dict] = {}
-    wav = torch.randn((INNER_BATCH, FAST_CONTEXT_SAMPLES), device="cuda", generator=g) * 0.1
-    # white noise over a whole batch: held to float64, as in logmel_checks
-    ref = log_mel_float64(wav)
-    plain_err = float((logmel.log_mel_spectrogram_plain(wav).double() - ref).abs().max())
-    err = float((logmel.finish(logmel.log10_mel_cuda(wav)).double() - ref).abs().max())
-    limit = max(2 * plain_err, LOGMEL_ATOL)
-    if not err <= limit:
-        raise AssertionError(f"logmel fast_context: {err:.3e} from float64 exceeds {limit:.3e}")
-    print(f"check logmel fast_context {tuple(wav.shape)} against float64: kernel {err:.3e}, "
-          f"plain {plain_err:.3e} (limit {limit:.3e} = max(2 x plain, {LOGMEL_ATOL}))", flush=True)
-    window = torch.hann_window(400, device="cuda")
-    fb = logmel._plain_tables(wav.device)[2]
-    times = time_turns({"kernel": lambda: logmel.log10_mel_cuda(wav),
-                        "plain": lambda: logmel.log10_mel_plain(wav),
-                        "stft yardstick": lambda: stft_log10_mel(wav, window, fb)})
-    for name, t in times.items():
-        print(f"time logmel fast_context {name} {tuple(wav.shape)} [{card}]: {spread(t)}",
-              flush=True)
-    bounds = logmel_bounds(*wav.shape)
-    out["logmel"] = {"shape": list(wav.shape), "max_abs_err": err,
-                     "ms": median(times["kernel"]), "plain_ms": median(times["plain"]),
-                     "stft_yardstick_ms": median(times["stft yardstick"]), "library_ms": None,
-                     "bound_ms": bounds["bound_ms"], "bound_by": bounds["bound_by"]}
+    out: dict[str, dict] = {"logmel": logmel_shape_row(
+        card, "fast_context", (INNER_BATCH, FAST_CONTEXT_SAMPLES), g)}
     sm = 64**-0.5
     shape = (INNER_BATCH, 200, 8, 64)
     b, s, h, d = shape
@@ -2551,6 +2611,335 @@ def phase_reference_models(card: str) -> dict:
     print(f"reference models walls [{card}]: " + ", ".join(f"{k} {v:.3f} s"
                                                            for k, v in walls.items()), flush=True)
     return launches
+
+
+# -- the JAX package's four other model families ---------------------------------------
+
+FAMILY_NAMES = ("surgical_wavlm_hydra", "sincnet_hydra", "conv_vad", "powerset_vad")
+FAMILY_LOGMEL = ("conv_vad", "powerset_vad")  # the families that run the log-mel kernel
+FAMILY_EPOCH_DISPATCH = ("surgical_wavlm_hydra", "powerset_vad")  # also fit under replay
+FAMILY_WAV_S = 400.0  # the served WAV: 100 chunks of 4 s, 2 inner batches of 64
+VAD_TRAIN_SHAPE = (32, 64_000)  # conv_vad's and powerset_vad's log-mel in training
+WAVLM_LOSS_CROPS = 8  # the step-1 batch's crops WavLM-base's loss is compared on
+
+
+def family_config(name: str, dataset_path, wav_encoder: str = "wavlm_base",
+                  precision: str = "bf16", **train):
+    """``config/default.yml`` with model.name=``name`` and its per-model YAML,
+    data.dataset_path, train.seed=0, train.max_epochs=2,
+    train.dataloader.num_workers=1 and the compute dtype ``precision``
+    (``model.config.dtype``, or train.precision for surgical_wavlm_hydra,
+    which also takes audio.strict_frames=true and model.config.wav_encoder);
+    any other ``train`` fields. Built in code so that the script needs no
+    pyyaml; tests/test_torch_families.py holds it equal to ``load_config``."""
+    from segma_tpu_torch.config import (
+        AudioConfig, Config, ConvVADConfig, DataConfig, DataloaderConfig, LSTMConfig,
+        ModelConfig, SincNetHydraConfig, SurgicalHubertHydraConfig, TrainConfig,
+    )
+
+    wavlm = name == "surgical_wavlm_hydra"
+    mc = {
+        "surgical_wavlm_hydra": lambda: SurgicalHubertHydraConfig(
+            wav_encoder=wav_encoder, encoder_layers=[], reduction="weighted", classifier=256),
+        "sincnet_hydra": lambda: SincNetHydraConfig(
+            stride=10, filters=80, kernel_size=251, hidden=128, dtype=precision,
+            lstm=LSTMConfig(hidden_size=128, num_layers=2, bidirectional=True, dropout=0.0)),
+        "conv_vad": lambda: ConvVADConfig(hidden=256, depth=4, dtype=precision),
+        "powerset_vad": lambda: ConvVADConfig(hidden=256, depth=4, dtype=precision),
+    }[name]()
+    return Config(
+        data=DataConfig(classes=list(TRAIN_CLASSES), dataset_path=str(dataset_path)),
+        audio=AudioConfig(chunk_duration_s=4.0, sample_rate=16_000, strict_frames=wavlm),
+        model=ModelConfig(name=name, chkp_path="models", config=mc),
+        train=TrainConfig(lr=1e-3, batch_size=32, max_epochs=TRAIN_EPOCHS, seed=0,
+                          precision=precision if wavlm else "bf16",
+                          dataloader=DataloaderConfig(num_workers=1), **train),
+    )
+
+
+def _with_precision(cfg, precision: str):
+    """``cfg`` computing in ``precision``: train.precision, or
+    model.config.dtype for the families without an encoder."""
+    import dataclasses
+
+    if cfg.model.name == "surgical_wavlm_hydra":
+        return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, precision=precision))
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, config=dataclasses.replace(cfg.model.config, dtype=precision)))
+
+
+def step_profile(card: str, name: str, model, x, y) -> None:
+    """A bf16 train step of ``model`` on the host batch (x, y), with dropout,
+    under the seeded fit's cuDNN algorithms: WARM_STEP_REPEATS synced steps
+    timed after two warm-up steps, then one under torch.profiler (the 15
+    longest kernels)."""
+    import torch
+
+    from segma_tpu_torch.train import deterministic_cudnn, forward_backward, make_optimizer
+
+    optimizer = make_optimizer(model, 1e-3)
+    gen = torch.Generator("cuda").manual_seed(1)
+    xb, yb = x.cuda(), y.cuda()
+
+    def step():
+        forward_backward(model, optimizer, xb, yb, gen)
+        optimizer.step()
+
+    with deterministic_cudnn(True):
+        for _ in range(2):
+            step()
+        walls = []
+        for _ in range(WARM_STEP_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        print(f"{name} train step repeated on one batch [{card}]: {WARM_STEP_REPEATS} steps, "
+              f"median {1e3 * median(walls):.3f} ms (min {1e3 * min(walls):.3f}, max "
+              f"{1e3 * max(walls):.3f})", flush=True)
+        profile_run(card, f"{name} train step", step, median(walls))
+
+
+def phase_model_families(card: str) -> dict:
+    """The JAX package's four other model families on the card at their YAML
+    widths, random weights from seed 0, bf16: ``surgical_wavlm_hydra`` at
+    WavLM-base (hidden 768, 12 layers, 12 heads of 64, FFN 3072, 320
+    buckets out to 800, the 7-conv front end) from a random snapshot in HF's
+    ``WavLMModel`` layout (``write_wavlm_snapshot``), ``sincnet_hydra`` (80
+    filters of 251 taps at stride 10, hidden 128, a 128 x 2 bidirectional
+    LSTM), ``conv_vad`` and ``powerset_vad`` (hidden 256, depth 4; 11 subset
+    classes). For each, on the training slice's data (``write_dataset``,
+    batch 32 of 4 s crops):
+
+    1. the step-1 loss (no dropout) on the card against the CPU plain path,
+       at LOSS_ATOL (WavLM-base's on WAVLM_LOSS_CROPS of the batch's 32);
+    2. ``Trainer.fit`` for 2 epochs (the default device cache, step
+       dispatch): finite losses; powerset_vad with
+       ``extra_val_metrics=[loss, partial_loss, auroc]`` and finite
+       ``val/partial_*``. surgical_wavlm_hydra and powerset_vad fit again
+       under ``train.dispatch=epoch``: bit-equal to step dispatch, with
+       equal launch counts;
+    3. the trained model rebuilt from ``last/`` by
+       ``load_model_for_inference`` gives its logits bit for bit; then
+       WavLM-base's train step is timed on the step-1 batch and profiled
+       (``step_profile``);
+    4. the predict CLI (``inference.main``, ``--save-logits``) serves the
+       run's ``best.ckpt`` over a FAMILY_WAV_S WAV and the val split's
+       WAVs, in bf16 and in f32 (the latter with TF32 allowed for cuDNN and
+       cuBLAS, which the f32 model scopes out): the saved logits of the long
+       WAV's first two chunks against the CPU (``check_logits``: bf16 to
+       the f32 model and the CPU's bf16, f32 at LOGITS_F32_ATOL), and the
+       log-mel kernel launched once per inner batch on the conv_vad and
+       powerset_vad paths and on no other; then warm bf16 serving of the
+       long WAV: two ``run_inference_on_audios`` runs of the served model,
+       the second's xRT.
+
+    Before the models, log-mel is checked and timed at VAD_TRAIN_SHAPE
+    (``logmel_shape_row``). Returns the launch counts of each path and the
+    log-mel row."""
+    import dataclasses
+    import warnings
+
+    import torch
+
+    from segma_tpu_torch import checkpoint, inference
+    from segma_tpu_torch.data import SegmaFileDataset, SegmentationDataLoader
+    from segma_tpu_torch.inference import Chunkyfier, run_inference_on_audios
+    from segma_tpu_torch.models.geometry import ConvolutionSettings
+
+    with torch.inference_mode():
+        row = logmel_shape_row(card, "vad training", VAD_TRAIN_SHAPE,
+                               torch.Generator(device="cuda").manual_seed(13))
+    launches: dict[str, dict] = {}
+    summary: dict[str, str] = {}
+    labels = list(TRAIN_CLASSES)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        root = tmp / "data"
+        write_dataset(root, TRAIN_CLASSES, (TRAIN_FILES, VAL_FILES, TEST_FILES), TRAIN_FILE_S)
+        wav_dir = tmp / "serve"
+        wav_dir.mkdir()
+        n_samples = int(FAMILY_WAV_S * 16_000)
+        pcm = write_wav(wav_dir / "family.wav", n_samples, seed=5)
+        # the predict CLI serves it and the val split's WAVs
+        val_uris = (root / "val.txt").read_text().split()
+        cli_dir = tmp / "serve_cli"
+        cli_dir.mkdir()
+        for uri in val_uris:
+            (cli_dir / f"{uri}.wav").symlink_to(root / "wav" / f"{uri}.wav")
+        (cli_dir / "family.wav").symlink_to(wav_dir / "family.wav")
+        (tmp / "serve.txt").write_text("".join(u + "\n" for u in ["family", *val_uris]))
+        t0 = time.perf_counter()
+        write_wavlm_snapshot(tmp / "wavlm_base", seed=13)
+        print(f"families: WavLM-base snapshot written in {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        for name in FAMILY_NAMES:
+            extra = ({"extra_val_metrics": ["loss", "partial_loss", "auroc"]}
+                     if name == "powerset_vad" else {})
+            cfg = family_config(name, root, str(tmp / "wavlm_base"), **extra)
+            ds = SegmaFileDataset.from_config(cfg)
+            ds.load(use_cache=False)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                model = checkpoint.build_model(cfg, device="cuda")
+                model_cpu = checkpoint.build_model(cfg, device="cpu")
+            n_params = sum(p.numel() for p in model.trainable_parameters())
+
+            # 1. the step-1 batch without dropout, card against CPU
+            host = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                                      data_cache="host"))
+            sampler = SegmentationDataLoader(ds, model.label_encoder, host,
+                                             model.conv_settings).train_dataloader().sampler
+            sampler.reseed(0)
+            batch = sampler.sample_batch(cfg.train.batch_size)
+            x, y = (torch.from_numpy(batch[k]) for k in ("x", "y"))
+            # WavLM-base's bf16 forward of 32 crops takes about 16 s on an
+            # 8-core host: its loss is compared on the batch's first 8
+            n = WAVLM_LOSS_CROPS if name == "surgical_wavlm_hydra" else len(x)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                loss_cpu = float(model_cpu.loss(model_cpu.module(x[:n]), y[:n])[0])
+            cpu_s = time.perf_counter() - t0
+            loss_card = float(model.loss(model.module(x[:n].cuda()), y[:n].cuda())[0].detach())
+            print(f"check {name} step-1 loss, card vs CPU ({n} crops of the batch, bf16, no "
+                  f"dropout): card "
+                  f"{loss_card:.6f}, CPU {loss_cpu:.6f}, |diff| {abs(loss_card - loss_cpu):.3e} "
+                  f"(atol {LOSS_ATOL}; CPU forward {cpu_s:.1f} s)", flush=True)
+            if not abs(loss_card - loss_cpu) <= LOSS_ATOL:
+                raise AssertionError(f"{name}: step-1 loss on the card differs from the CPU")
+            del model_cpu
+
+            # 2. two epochs under step dispatch, then epoch dispatch
+            run_dir = tmp / f"{name}_run"
+            run = _dispatch_fit(card, f"{name} step", cfg, ds, run_dir, model=model,
+                                timed_epoch=1)
+            history = run["history"]
+            keys = ["train/loss", "val/loss"] + [k for k in history[-1]
+                                                 if k.startswith("val/partial_")]
+            values = [h[k] for h in history for k in keys]
+            if len(history) != TRAIN_EPOCHS or not np.isfinite(values).all():
+                raise AssertionError(f"{name}: {len(history)} epochs, {keys}: {values}")
+            if name == "powerset_vad" and keys[2:] != ["val/partial_loss", "val/partial_auroc"]:
+                raise AssertionError(f"powerset_vad validation logged {keys}")
+            print(f"check {name} fit [{card}]: {TRAIN_EPOCHS} epochs of {run['n_steps']} steps, "
+                  + "; ".join(f"{k} {[h[k] for h in history]}" for k in keys), flush=True)
+            n_val = len(SegmentationDataLoader(ds, model.label_encoder, cfg,
+                                               model.conv_settings).val_dataloader())
+            want = dict.fromkeys(run["launches"], 0)
+            if name in FAMILY_LOGMEL:  # every step and val batch, and no other path
+                want["logmel"] = TRAIN_EPOCHS * (run["n_steps"] + n_val)
+            if run["launches"] != want:
+                raise AssertionError(f"{name} fit: launch counts {run['launches']} != {want}")
+            launches[f"{name} fit"] = run["launches"]
+            if name in FAMILY_EPOCH_DISPATCH:
+                ecfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                                          dispatch="epoch"))
+                replay = _dispatch_fit(card, f"{name} epoch", ecfg, ds, tmp / f"{name}_epoch")
+                _same_run(run, replay, f"{name}: epoch dispatch against step dispatch")
+                if replay["launches"] != run["launches"]:
+                    raise AssertionError(f"{name}: epoch dispatch launched {replay['launches']}, "
+                                         f"step dispatch {run['launches']}")
+                launches[f"{name} fit epoch"] = replay["launches"]
+                del replay
+
+            # 3. the checkpoint rebuilds the trained model
+            ck = Chunkyfier(INNER_BATCH, cfg.audio.chunk_duration_f,
+                            ConvolutionSettings((320,), (320,), (0,)))
+            wav = torch.from_numpy(pcm[: 2 * ck.chunk_stride + ck.missing_n_frames]
+                                   .astype(np.float32) / 32768.0)
+            chunks = torch.stack([wav[i * ck.chunk_stride: i * ck.chunk_stride
+                                      + ck.chunk_duration_f] for i in range(2)])
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                served = checkpoint.load_model_for_inference(
+                    cfg, run_dir / "checkpoints" / "last", device="cuda")
+            if not torch.equal(served.apply(chunks.cuda()), model.apply(chunks.cuda())):
+                raise AssertionError(f"{name}: last/ serves other logits than the trained model")
+            if name == "surgical_wavlm_hydra":
+                step_profile(card, name, model, x, y)
+            del model
+
+            # 4. the predict CLI over the run's best.ckpt, in bf16 and in f32 (under
+            # TF32 allowed for cuDNN and cuBLAS: the f32 model keeps itself out)
+            best = run_dir / "checkpoints" / "best.ckpt"
+            n_inner = (expected_inner_batches(cfg, n_samples) + len(val_uris)
+                       * expected_inner_batches(cfg, int(TRAIN_FILE_S * 16_000)))
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                cpu_f32 = checkpoint.load_model_for_inference(_with_precision(cfg, "f32"), best,
+                                                              device="cpu")
+                with torch.inference_mode():
+                    f32 = cpu_f32.inference_transform(cpu_f32.apply(chunks)).reshape(
+                        -1, len(labels))
+            cli_s: dict[str, float] = {}
+            for precision in ("bf16", "f32"):
+                pcfg = _with_precision(cfg, precision)
+                out = tmp / f"{name}_{precision}_out"
+                args = ["--config", str(write_config(tmp / f"{name}_{precision}.yml", pcfg)),
+                        "--wavs", str(cli_dir), "--uris", str(tmp / "serve.txt"),
+                        "--checkpoint", str(run_dir), "--output", str(out), "--batch-size",
+                        str(INNER_BATCH), "--save-logits", "--device", "cuda"]
+                tf32 = precision == "f32"
+                flags = tf32_flags()
+                torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.perf_counter()
+                try:
+                    inference.main(args)
+                    torch.cuda.synchronize()
+                finally:
+                    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+                cli_s[precision] = time.perf_counter() - t0
+                got = read_launches()
+                want = dict.fromkeys(got, 0)
+                if name in FAMILY_LOGMEL:
+                    want["logmel"] = n_inner
+                if got != want:
+                    raise AssertionError(f"{name} predict CLI {precision}: launch counts {got} "
+                                         f"!= {want}")
+                launches[f"{name} predict" + (" f32" if tf32 else "")] = got
+                if tf32:
+                    ref = f32
+                else:
+                    with warnings.catch_warnings():
+                        warnings.simplefilter("ignore")
+                        cpu = checkpoint.load_model_for_inference(cfg, best, device="cpu")
+                    with torch.inference_mode():
+                        ref = cpu.inference_transform(cpu.apply(chunks)).reshape(-1, len(labels))
+                    del cpu
+                data = np.load(out / "logits" / "family-logits_dict_t.npz")
+                saved = torch.from_numpy(np.stack([data[lb] for lb in labels], 1)[: ref.shape[0]])
+                check_logits(f"{name} predict CLI {precision}" + (" (TF32 allowed)" if tf32
+                                                                   else ""), saved, ref, f32)
+                if precision == "bf16":
+                    n_rttm = [len((out / "raw_rttm" / f"{u}.rttm").read_text().splitlines())
+                              for u in ["family", *val_uris]]
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                served = checkpoint.load_model_for_inference(cfg, best, device="cuda")
+            walls = []
+            for i in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run_inference_on_audios(cfg, wav_dir, None, tmp / f"{name}_warm{i}",
+                                        model=served, device="cuda", batch_size=INNER_BATCH)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            summary[name] = (
+                f"{n_params} trainable parameters; warm bf16 step {run['warm_ms']:.3f} ms "
+                f"(epoch 1's train time over {run['n_steps']} steps), epoch 1's step-to-step "
+                f"median {median(run['steps_ms']) if run['steps_ms'] else float('nan'):.3f} ms, "
+                f"peak device memory {run['peak'] / 2**30:.2f} GiB; predict CLI bf16 "
+                f"{cli_s['bf16']:.3f} s, f32 {cli_s['f32']:.3f} s (bf16 RTTM lines: the "
+                f"{FAMILY_WAV_S:.0f} s WAV {n_rttm[0]}, the val WAVs {n_rttm[1:]}); warm bf16 "
+                f"serving {walls[1]:.3f} s for {FAMILY_WAV_S:.0f} s of audio = "
+                f"{FAMILY_WAV_S / walls[1]:.2f}x real time (first {walls[0]:.3f} s)")
+            print(f"family {name} [{card}]: {summary[name]}", flush=True)
+            del served, cpu_f32, run
+            torch.cuda.empty_cache()
+    return {"launches": launches, "logmel": row}
 
 
 # -- the training entry points: repairs, the train CLIs ---------------------------------
@@ -3117,6 +3506,10 @@ def phase_device_cache(card: str) -> dict:
 
 
 TRAIN_CLI_EPOCHS = 4
+# HuBERT-base's widths at 4 of its 12 layers (a snapshot the phase writes):
+# the phase checks the CLIs' mechanics, which do not depend on depth, and
+# its children's time is mostly checkpoint I/O, which scales with it
+TRAIN_CLI_LAYERS = 4
 TRAIN_CLI_ACCUM = 3  # 4 micro-steps per epoch: the accumulation crosses epoch boundaries
 CHILD_WALL_S = 600  # a child run's wall, after which it is killed (SIGTERM is caught)
 # `python -m <module> <args>` with the launch counts written to a file at exit
@@ -3131,17 +3524,19 @@ LAUNCH_REPORTING_CHILD = (
 )
 
 
-def train_cli_config(dataset_path: Path):
+def train_cli_config(dataset_path: Path, wav_encoder: str = "hubert_base"):
     """The training slice's HuBERT-base config (``surgical_hubert_hydra_config``)
-    with every switch of the train CLIs on: the cosine schedule (warmup 2,
-    floor 0.1), k=3 accumulation, int16 transport, remat, AUROC monitored
-    (loss, f1_score and auroc computed), validation every 2 epochs, 4
-    epochs, seed 0, the profiler."""
+    over the encoder ``wav_encoder`` with every switch of the train CLIs on:
+    the cosine schedule (warmup 2, floor 0.1), k=3 accumulation, int16
+    transport, remat, AUROC monitored (loss, f1_score and auroc computed),
+    validation every 2 epochs, 4 epochs, seed 0, the profiler."""
     import dataclasses
 
     from segma_tpu_torch.config import SchedulerConfig
 
     cfg = surgical_hubert_hydra_config(dataset_path)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, config=dataclasses.replace(
+        cfg.model.config, wav_encoder=wav_encoder)))
     return dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, max_epochs=TRAIN_CLI_EPOCHS, grad_accum_steps=TRAIN_CLI_ACCUM,
         transport="int16", remat=True, validation_metric="auroc",
@@ -3202,9 +3597,10 @@ def _same_tree(a: dict, b: dict, where: str) -> int:
 
 
 def phase_train_cli(card: str) -> dict:
-    """The train CLIs on the card, HuBERT-base in bf16 at full width with
-    every switch on (``train_cli_config``), on ``write_dataset``'s data (4
-    micro-steps per epoch):
+    """The train CLIs on the card, HuBERT-base's widths in bf16 at
+    TRAIN_CLI_LAYERS layers (from a random snapshot) with every switch on
+    (``train_cli_config``), on ``write_dataset``'s data (4 micro-steps per
+    epoch):
 
     1. ``python -m segma_tpu_torch.cli.train`` in a child process (run as
        ``__main__`` by ``LAUNCH_REPORTING_CHILD``, which writes its launch
@@ -3243,9 +3639,11 @@ def phase_train_cli(card: str) -> dict:
         tmp = Path(tmp)
         root = tmp / "data"
         write_dataset(root, TRAIN_CLASSES, (TRAIN_FILES, VAL_FILES, TEST_FILES), TRAIN_FILE_S)
-        cfg = train_cli_config(root)
+        n_layers = TRAIN_CLI_LAYERS
+        write_hubert_snapshot(tmp / "hubert_cli", seed=14,
+                              dims=dict(HUBERT_BASE, num_hidden_layers=n_layers))
+        cfg = train_cli_config(root, str(tmp / "hubert_cli"))
         config_path = write_config(tmp / "train_cli.yml", cfg)
-        n_layers = HUBERT_BASE["num_hidden_layers"]
 
         # 1. the uninterrupted run
         report = tmp / "launches.json"
@@ -3443,6 +3841,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     card = card_line()
     print(f"device: {card}", flush=True)
     # plain versions compare in true f32: no TF32 in matmuls or cuDNN
@@ -3466,27 +3865,32 @@ def main() -> int:
         if row["name"] in fast:
             row["fast_context"] = fast[row["name"]]
     torch.cuda.empty_cache()
-    serve = phase_slice(card)
-    torch.cuda.empty_cache()
-    train = phase_train(card)
-    torch.cuda.empty_cache()
-    workflow = phase_workflow(card)
-    torch.cuda.empty_cache()
-    reference = phase_reference_models(card)
-    torch.cuda.empty_cache()
-    train_cli = phase_train_cli(card)
-    torch.cuda.empty_cache()
-    device_cache = phase_device_cache(card)
-    torch.cuda.empty_cache()
+    walls = {"build and kernels": time.perf_counter() - t_start}
+
+    def phase(fn):
+        t0 = time.perf_counter()
+        out = fn(card)
+        torch.cuda.empty_cache()
+        walls[fn.__name__] = time.perf_counter() - t0
+        return out
+
+    serve = phase(phase_slice)
+    train = phase(phase_train)
+    workflow = phase(phase_workflow)
+    reference = phase(phase_reference_models)
+    train_cli = phase(phase_train_cli)
+    device_cache = phase(phase_device_cache)
+    families = phase(phase_model_families)
     # the f32 phases run under PyTorch's defaults, which let cuDNN take TF32:
     # the f32 model itself keeps its convolutions and LSTM in IEEE f32
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
     print("f32 phases: PyTorch's default flags, allow_tf32 True for cuDNN, False for matmul",
           flush=True)
-    serve_f32 = phase_serve_f32(card)
-    torch.cuda.empty_cache()
-    train_f32 = phase_train_f32(card)
+    serve_f32 = phase(phase_serve_f32)
+    train_f32 = phase(phase_train_f32)
+    print(f"phase walls [{card}]: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+          + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
     # each row's launches come from the path that runs it: serving for the
     # forward kernels, training for the backward ones (bf16 and f32)
     for row in rows:
@@ -3502,12 +3906,16 @@ def main() -> int:
         row["launches_reference_models"] = sum(path[row["name"]] for path in reference.values())
         row["launches_train_cli"] = train_cli[row["name"]]
         row["launches_device_cache"] = device_cache["device_cache epoch"][row["name"]]
+        row["launches_model_families"] = sum(path[row["name"]]
+                                             for path in families["launches"].values())
+    by_name["logmel"]["vad_train"] = families["logmel"]
     print(json.dumps({"kernels": rows}), flush=True)
     paths = {"serve": serve, "train": train, "workflow_resume": workflow["resume"],
              "workflow_predict": workflow["predict"], "serve_f32": serve_f32,
              "train_f32": train_f32,
              **{f"reference {label}": counts for label, counts in reference.items()},
-             "train_cli": train_cli, **device_cache}
+             "train_cli": train_cli, **device_cache,
+             **{f"families {label}": counts for label, counts in families["launches"].items()}}
     print(f"kernels: {json.dumps(paths)}", flush=True)
     print(card, flush=True)
     print(json.dumps({

@@ -1,8 +1,9 @@
 """segma_tpu_torch: the PyTorch and CUDA port of segma_tpu for NVIDIA Hopper.
 
-Sliding-window speech segmentation with the reference's six models (the
-five Whisper variants, ``surgical_hydra`` by default, and
-``surgical_hubert_hydra``), the log-mel frontend and flash attention as
+Sliding-window speech segmentation with the JAX package's ten models (the
+reference's six: the five Whisper variants, ``surgical_hydra`` by default,
+and ``surgical_hubert_hydra``; and ``surgical_wavlm_hydra``,
+``sincnet_hydra``, ``conv_vad`` and ``powerset_vad``), the log-mel frontend and flash attention as
 hand-written CUDA kernels (``csrc/``), training, checkpoints in the JAX
 package's format, and the import of reference checkpoints. The
 package imports torch and numpy, and msgpack and yaml for checkpoints. Its

@@ -1,7 +1,7 @@
 """Config subset the port reads (counterpart of ``segma_tpu/config/base.py``).
 
-What serving and training the five Whisper variants and
-``surgical_hubert_hydra`` need is modelled: the dataset, the audio
+What serving and training the ten models of the JAX registry need is
+modelled: the dataset, the audio
 geometry, the label classes, the models' hyper-parameters and the training
 fields of the one-process path. ``load_config`` reads the same YAML files as the JAX package
 (``default.yml`` plus the per-model YAML) with ``a.b.c=value`` overrides.
@@ -110,12 +110,38 @@ class SurgicalHubertHydraConfig:
 
 
 @dataclass
+class ConvVADConfig:
+    """``conv_vad`` and ``powerset_vad``: a convolutional model on the
+    log-mel frame grid (rf_step 320)."""
+
+    hidden: int = 256
+    depth: int = 4
+    dtype: str = "bf16"  # compute dtype: bf16 | f32
+    # powerset_vad only: the most simultaneous labels one subset class holds
+    max_set_size: int = 2
+
+
+@dataclass
+class SincNetHydraConfig:
+    """``sincnet_hydra``: a learnable band-pass (SincNet) front end, a BiLSTM
+    and hydra heads; rf_step = 32 * stride (320 at the default 10)."""
+
+    stride: int = 10
+    filters: int = 80
+    kernel_size: int = 251
+    hidden: int = 128
+    lstm: LSTMConfig | None = None
+    dtype: str = "bf16"  # compute dtype: bf16 | f32
+
+
+@dataclass
 class ModelConfig:
     name: str
     chkp_path: str | None = None
     config: (
         WhisperidouConfig | WhisperimaxConfig | SurgicalWhisperConfig | HydraWhisperConfig
-        | SurgicalHydraConfig | SurgicalHubertHydraConfig | None
+        | SurgicalHydraConfig | SurgicalHubertHydraConfig | ConvVADConfig
+        | SincNetHydraConfig | None
     ) = None
 
 
@@ -174,7 +200,9 @@ class TrainConfig:
 
 
 VAL_METRICS = ("loss", "f1_score", "auroc")  # train.validation_metric
-EXTRA_VAL_METRICS = ("loss", "f1_score", "auroc", "roc")
+# partial_loss: powerset models only (partial_f1_score and partial_auroc come
+# with f1_score and auroc)
+EXTRA_VAL_METRICS = ("loss", "f1_score", "auroc", "roc", "partial_loss")
 # the wandb section of a saved config: the port logs to metrics.jsonl only
 WANDB_OFFLINE = {"offline": True, "project": "segma_tpu_torch", "name": "train"}
 
@@ -203,11 +231,16 @@ _MODEL_CONFIG_TYPES: dict[str, type] = {
     "hydra_whisper": HydraWhisperConfig,
     "surgical_hydra": SurgicalHydraConfig,
     "surgical_hubert_hydra": SurgicalHubertHydraConfig,
+    "surgical_wavlm_hydra": SurgicalHubertHydraConfig,
+    "sincnet_hydra": SincNetHydraConfig,
+    "conv_vad": ConvVADConfig,
+    "powerset_vad": ConvVADConfig,
 }
 _NESTED: dict[tuple[type, str], type] = {
     (WhisperimaxConfig, "lstm"): LSTMConfig,
     (HydraWhisperConfig, "lstm"): LSTMConfig,
     (SurgicalHydraConfig, "lstm"): LSTMConfig,
+    (SincNetHydraConfig, "lstm"): LSTMConfig,
     (TrainConfig, "scheduler"): SchedulerConfig,
     (TrainConfig, "dataloader"): DataloaderConfig,
 }
@@ -224,7 +257,8 @@ def _build(cls: type, data: dict, path: str) -> Any:
     kwargs = {}
     for name, value in data.items():
         sub = _NESTED.get((cls, name))
-        kwargs[name] = _build(sub, value, f"{path}.{name}") if sub else value
+        kwargs[name] = (_build(sub, value, f"{path}.{name}") if sub and value is not None
+                        else value)
     missing = [
         n for n, f in fields.items()
         if n not in kwargs
@@ -242,7 +276,7 @@ def config_from_dict(config_d: dict) -> Config:
     name = model_d["name"]
     if name not in _MODEL_CONFIG_TYPES:
         raise ConfigError(
-            f"model {name!r} is not ported; ported models: {sorted(_MODEL_CONFIG_TYPES)}"
+            f"unknown model {name!r}; registered models: {sorted(_MODEL_CONFIG_TYPES)}"
         )
     if model_d.get("config") is not None:
         model_d["config"] = _build(
@@ -265,8 +299,7 @@ def config_from_dict(config_d: dict) -> Config:
     if unported:
         raise ConfigError(
             f"config.train.extra_val_metrics: {unported} are not ported yet "
-            f"(the port computes {EXTRA_VAL_METRICS}; the powerset partial_* metrics wait "
-            "for powerset_vad)"
+            f"(the port computes {EXTRA_VAL_METRICS})"
         )
     if train.scheduler.type not in ("plateau", "cosine"):
         raise ConfigError(
@@ -330,9 +363,8 @@ def load_config(config_path: Path | str, cli_extra_args: list[str] | None = None
 
 
 __all__ = [
-    "AudioConfig", "Config", "ConfigError", "DataConfig", "DataloaderConfig",
-    "HydraWhisperConfig", "LSTMConfig", "ModelConfig", "SchedulerConfig",
-    "SurgicalHubertHydraConfig", "SurgicalHydraConfig", "SurgicalWhisperConfig",
-    "TrainConfig", "WhisperidouConfig", "WhisperimaxConfig", "config_from_dict",
-    "load_config",
+    "AudioConfig", "Config", "ConfigError", "ConvVADConfig", "DataConfig", "DataloaderConfig",
+    "HydraWhisperConfig", "LSTMConfig", "ModelConfig", "SchedulerConfig", "SincNetHydraConfig",
+    "SurgicalHubertHydraConfig", "SurgicalHydraConfig", "SurgicalWhisperConfig", "TrainConfig",
+    "WhisperidouConfig", "WhisperimaxConfig", "config_from_dict", "load_config",
 ]

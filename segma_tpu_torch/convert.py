@@ -1,6 +1,7 @@
-"""Weight bridge between a JAX ``WhisperSegModule`` or ``HubertSegModule``
-parameter tree and the port's ``state_dict``, both ways (``flax_to_torch``,
-``torch_to_flax``).
+"""Weight bridge between a JAX model's parameter tree (any of the ten
+models' modules) and the port's ``state_dict``, both ways (``flax_to_torch``,
+``torch_to_flax``). The port's modules carry flax's names, automatic ones
+too (conv_vad's ``Conv_{i}``, ``LayerNorm_{i}``, ``HydraHeads_0``).
 
 The input is the flax params tree as nested dicts of numpy arrays (what
 ``jax.tree.map(np.asarray, params)`` gives); no JAX is needed here.
@@ -8,8 +9,10 @@ The input is the flax params tree as nested dicts of numpy arrays (what
 - conv kernels (k, in, out) -> (out, in, k), grouped ones (k, in/groups,
   out) -> (out, in/groups, k) alike; dense kernels (in, out) -> (out, in);
   LayerNorm and GroupNorm ``scale`` -> ``weight``; ``layers_{i}`` ->
-  ``layers.{i}``; ``embed_positions`` and ``layer_weights`` as they are; the
-  HuBERT ``feature_extractor.conv_{i}`` keep their names;
+  ``layers.{i}``; the other leaves as they are (``embed_positions``,
+  ``layer_weights``, SincNet's ``low_hz`` and ``band_hz``, WavLM's bare
+  ``rel_attn_embed`` and ``gru_rel_pos_const``); the HuBERT and WavLM
+  ``feature_extractor.conv_{i}`` keep their names;
 - the BiLSTM cells ``OptimizedLSTMCell_{k}`` come in the order layer0-fwd,
   layer0-bwd, layer1-fwd, ...; each cell's per-gate kernels (``i{g}`` input,
   ``h{g}`` hidden with the bias) stack in gate order i, f, g, o into
@@ -81,8 +84,8 @@ def lstm_state(
 def flax_to_torch(
     params: dict[str, Any], bidirectional: bool = True, moments: bool = False
 ) -> dict[str, torch.Tensor]:
-    """JAX ``WhisperSegModule`` params -> ``WhisperSegModule.state_dict()``
-    (or a tree of moments -> the moments of each parameter)."""
+    """A JAX model's params -> the port module's ``state_dict()`` (or a tree
+    of moments -> the moments of each parameter)."""
     state: dict[str, torch.Tensor] = {}
     for path, a in _flatten({k: v for k, v in params.items() if k != _LSTM_MODULE}):
         *mods, leaf = path
@@ -146,8 +149,8 @@ def torch_to_flax(
     module: torch.nn.Module, tensors: dict[str, torch.Tensor] | None = None,
     moments: bool = False,
 ) -> dict[str, Any]:
-    """A ``WhisperSegModule`` or ``HubertSegModule`` -> the JAX params tree
-    (nested dicts of f32 numpy arrays, flax's names and layouts).
+    """A port module -> the JAX params tree (nested dicts of f32 numpy
+    arrays, flax's names and layouts).
 
     ``tensors`` (by ``state_dict`` name) stands in for the module's state,
     each in its parameter's layout: an optimizer's moments of some of the
@@ -176,8 +179,8 @@ def torch_to_flax(
 
 
 def load_flax_params(module: torch.nn.Module, params: dict[str, Any]) -> None:
-    """Load a JAX params tree into a ``WhisperSegModule`` or a
-    ``HubertSegModule`` (strict: every key must match)."""
+    """Load a JAX params tree into a port module (strict: every key must
+    match)."""
     lstm = getattr(module, _LSTM_MODULE, None)
     state = flax_to_torch(params, lstm.cfg.bidirectional if lstm is not None else True)
     device = next(module.parameters()).device

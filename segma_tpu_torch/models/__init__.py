@@ -2,10 +2,13 @@
 
 Builders take ``(label_encoder, config, device="cuda", generator=None)``
 and return a ``SegmentationModel`` with random weights drawn from
-``generator``. Ported: the five Whisper variants (``whisperidou``,
+``generator``. The ten names of the JAX registry, each served and trained:
+the reference's six (the five Whisper variants ``whisperidou``,
 ``whisperimax``, ``surgical_whisper``, ``hydra_whisper``,
-``surgical_hydra``) and ``surgical_hubert_hydra``, the six models of the
-reference, each served and trained.
+``surgical_hydra``, and ``surgical_hubert_hydra``) and the JAX package's
+additions, ``surgical_wavlm_hydra`` (WavLM), ``sincnet_hydra`` (a
+learnable band-pass front end), ``conv_vad`` and ``powerset_vad``
+(subset-softmax heads).
 """
 
 from __future__ import annotations
@@ -17,24 +20,15 @@ from segma_tpu_torch.models.base import ConvolutionSettings, SegmentationModel
 ModelBuilder = Callable[..., SegmentationModel]
 
 
-def _lazy_whisper(name: str) -> ModelBuilder:
+def _lazy(module: str, builder: str, *name: str) -> ModelBuilder:
+    """``module.builder([name,] label_encoder, config, ...)``, the module
+    imported at the first build."""
+
     def build(label_encoder, config, device="cuda", generator=None, **kwargs):
-        from segma_tpu_torch.models.whisper import build_whisper_model
+        import importlib
 
-        return build_whisper_model(
-            name, label_encoder, config, device=device, generator=generator, **kwargs
-        )
-
-    return build
-
-
-def _lazy_hubert(name: str) -> ModelBuilder:
-    def build(label_encoder, config, device="cuda", generator=None, **kwargs):
-        from segma_tpu_torch.models.hubert import build_hubert_model
-
-        return build_hubert_model(
-            name, label_encoder, config, device=device, generator=generator, **kwargs
-        )
+        return getattr(importlib.import_module(module), builder)(
+            *name, label_encoder, config, device=device, generator=generator, **kwargs)
 
     return build
 
@@ -44,15 +38,21 @@ class _Registry(dict):
 
     def __missing__(self, name: str):
         raise KeyError(
-            f"unknown or unported model {name!r}; ported models: "
+            f"unknown model {name!r}; registered models: "
             + ", ".join(sorted(self))
         )
 
 
 Models: dict[str, ModelBuilder] = _Registry({
-    **{name: _lazy_whisper(name) for name in (
+    **{name: _lazy("segma_tpu_torch.models.whisper", "build_whisper_model", name) for name in (
         "whisperidou", "whisperimax", "surgical_whisper", "hydra_whisper", "surgical_hydra")},
-    "surgical_hubert_hydra": _lazy_hubert("surgical_hubert_hydra"),
+    "surgical_hubert_hydra": _lazy("segma_tpu_torch.models.hubert", "build_hubert_model",
+                                   "surgical_hubert_hydra"),
+    "surgical_wavlm_hydra": _lazy("segma_tpu_torch.models.wavlm", "build_wavlm_model",
+                                  "surgical_wavlm_hydra"),
+    "conv_vad": _lazy("segma_tpu_torch.models.vad", "build_conv_vad"),
+    "powerset_vad": _lazy("segma_tpu_torch.models.vad", "build_powerset_vad"),
+    "sincnet_hydra": _lazy("segma_tpu_torch.models.sincnet", "build_sincnet_hydra"),
 })
 
 __all__ = ["ConvolutionSettings", "Models", "SegmentationModel"]

@@ -8,7 +8,11 @@
   JAX package, on raw logits: the reference applies ``cross_entropy`` to
   outputs it has already softmaxed, which the JAX package documents as a
   deviation and the port does not copy;
-- powerset models wait for ``powerset_vad``, which is not ported.
+- powerset models: the module's outputs are subset-class logits; the
+  multi-hot targets map to class ids through the encoder's bitmask table,
+  and the loss is softmax cross-entropy against their one-hot, the mean
+  over rows; ``inference_transform`` marginalises the subset
+  probabilities back to per-label logits for decode.
 
 Frozen parameters (top-level submodules named in ``frozen_prefixes``) take
 no gradient and are left out of the optimizer, the role of ``optax.masked``
@@ -19,19 +23,20 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import ContextManager, Iterator, Sequence
+from typing import Any, Callable, ContextManager, Iterator, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
 from segma_tpu_torch.config import Config
 from segma_tpu_torch.models.geometry import ConvolutionSettings
-from segma_tpu_torch.utils.encoders import MultiLabelEncoder
+from segma_tpu_torch.utils.encoders import MultiLabelEncoder, PowersetEncoder
 
 __all__ = [
     "ConvolutionSettings", "SegmentationModel", "bce_with_logits", "hydra_loss", "ieee_f32",
     "no_tf32",
-    "softmax_ce_loss", "softmax_ce_loss_per_class",
+    "softmax_ce_loss", "softmax_ce_loss_per_class", "weighted_index_ce",
 ]
 LOSS_TYPES = ("hydra", "multiclass", "powerset")
 
@@ -112,6 +117,19 @@ def softmax_ce_loss_per_class(
     return per_class.sum(), per_class
 
 
+def weighted_index_ce(
+    logits: torch.Tensor, class_ids: torch.Tensor, class_weights: torch.Tensor
+) -> torch.Tensor:
+    """Softmax CE of (N, C) logits against class ids, each row weighted by its
+    class's weight and the sum over ``max(sum of the rows' weights, 1)``, as
+    ``cross_entropy(weight=w, reduction='mean')`` normalises; 0 when no
+    row's class carries weight. Backs the powerset ``partial_loss``."""
+    logp = torch.log_softmax(logits, dim=-1)
+    row_nll = -logp.gather(1, class_ids[:, None])[:, 0]
+    row_w = class_weights[class_ids]
+    return (row_w * row_nll).sum() / torch.clamp(row_w.sum(), min=1.0)
+
+
 @dataclass
 class SegmentationModel:
     """A segmentation model: a module mapping (B, T) f32 waveforms to
@@ -127,11 +145,17 @@ class SegmentationModel:
     device: torch.device
     frozen_prefixes: tuple[str, ...] = ()
     class_weights: Sequence[float] | None = None
-    loss_type: str = "hydra"  # hydra (per-label BCE) | multiclass (softmax CE)
+    # hydra (per-label BCE) | multiclass (softmax CE) | powerset (subset CE)
+    loss_type: str = "hydra"
+    # powerset models: the encoder of the subset classes the module outputs
+    powerset: PowersetEncoder | None = None
 
     def __post_init__(self) -> None:
         if self.loss_type not in LOSS_TYPES:
             raise ValueError(f"loss_type must be one of {LOSS_TYPES}, got {self.loss_type!r}")
+        if (self.loss_type == "powerset") != (self.powerset is not None):
+            raise ValueError("loss_type 'powerset' goes with a PowersetEncoder, and only it")
+        self._on_device: dict[tuple[str, torch.device], torch.Tensor] = {}
         for name, p in self.module.named_parameters():
             if name.split(".")[0] in self.frozen_prefixes:
                 p.requires_grad_(False)
@@ -142,8 +166,8 @@ class SegmentationModel:
 
     @property
     def compute_dtype(self) -> torch.dtype:
-        """The encoder's compute dtype (``train.precision``)."""
-        return self.module.encoder.dtype
+        """The module's compute dtype."""
+        return self.module.dtype
 
     @property
     def n_windows(self) -> int:
@@ -177,26 +201,58 @@ class SegmentationModel:
         self, logits: torch.Tensor, targets: torch.Tensor
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """(total, per_label) training loss for this model's objective;
-        ``targets`` are (B, T, n_labels) multi-hot."""
+        ``targets`` are (B, T, n_labels) multi-hot.
+
+        Powerset: the total is the subset CE; ``per_label`` is a diagnostic,
+        the BCE of the marginalised logits (``inference_transform``) against
+        the targets, which the subset CE has no decomposition into."""
         if self.loss_type == "powerset":
-            raise NotImplementedError(
-                "the powerset loss is not ported: it waits for the powerset_vad model"
-            )
+            onehot = (self.subset_ids(targets)[..., None] == self._table(
+                "classes", logits.device, lambda: np.arange(len(self.powerset)))).float()
+            total = softmax_ce_loss(logits, onehot)
+            elt = bce_with_logits(self.inference_transform(logits), targets)
+            return total, elt.reshape(-1, elt.shape[-1]).mean(0)
         weights = None if self.class_weights is None else self._weights(logits.device)
         if self.loss_type == "hydra":
             return hydra_loss(logits, targets, weights)
         return softmax_ce_loss_per_class(logits, targets, weights)
 
+    def _table(self, name: str, device: torch.device, make: Callable[[], Any]) -> torch.Tensor:
+        """The constant ``make()`` on ``device``, copied there once: a
+        training step captured in a CUDA graph may copy nothing from the
+        host."""
+        key = (name, torch.device(device))
+        if key not in self._on_device:
+            self._on_device[key] = torch.as_tensor(make(), device=device)
+        return self._on_device[key]
+
     def _weights(self, device: torch.device) -> torch.Tensor:
-        """``class_weights`` on ``device``, copied there once: a training step
-        captured in a CUDA graph may copy nothing from the host."""
-        cached = getattr(self, "_weights_on", None)
-        if cached is None or cached.device != device:
-            cached = torch.as_tensor(self.class_weights, dtype=torch.float32, device=device)
-            self._weights_on = cached
-        return cached
+        return self._table("class_weights", device,
+                           lambda: np.asarray(self.class_weights, np.float32))
+
+    def subset_ids(self, targets: torch.Tensor) -> torch.Tensor:
+        """Powerset: (..., n_labels) multi-hot -> (...) int64 subset class
+        ids: the bitmask of the active labels through the encoder's table."""
+        n = targets.shape[-1]
+        bits = self._table("bits", targets.device, lambda: 2 ** np.arange(n, dtype=np.int64))
+        lut = self._table("lut", targets.device,
+                          lambda: self.powerset.multihot_lut().astype(np.int64))
+        return lut[((targets > 0.5).long() * bits).sum(-1)]
+
+    def single_class_weights(self, device: torch.device) -> torch.Tensor:
+        """Powerset: (n_classes,) f32, 1 on the classes of fewer than two
+        labels (``partial_loss``'s weights), 0 elsewhere."""
+        return self._table("single", device, lambda: np.asarray(
+            [1.0 if len(s) < 2 else 0.0 for s in self.powerset.labels], np.float32))
 
     def inference_transform(self, logits: torch.Tensor) -> torch.Tensor:
         """Raw module outputs -> per-label logits: the identity for hydra and
-        multiclass heads."""
-        return logits
+        multiclass heads. Powerset: the subset softmax times the membership
+        matrix (a label's probability is the sum over the subsets holding
+        it), clipped to [1e-7, 1 - 1e-7] and taken back to logits."""
+        if self.powerset is None:
+            return logits
+        member = self._table("membership", logits.device, self.powerset.membership_matrix)
+        with no_tf32():
+            marg = torch.clamp(torch.softmax(logits, dim=-1) @ member, 1e-7, 1 - 1e-7)
+        return torch.log(marg) - torch.log1p(-marg)

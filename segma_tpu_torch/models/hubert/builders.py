@@ -45,7 +45,10 @@ HUBERT_CONV_SETTINGS = ConvolutionSettings(
 
 
 class HubertSegModule(nn.Module):
-    """(B, T) waveform -> (B, frames, n_labels) logits."""
+    """(B, T) waveform -> (B, frames, n_labels) logits. A subclass swaps the
+    transformer (``transformer_cls``): WavLM's."""
+
+    transformer_cls = HubertTransformer
 
     def __init__(
         self,
@@ -69,7 +72,8 @@ class HubertSegModule(nn.Module):
             else list(range(enc_cfg.n_layers))
         )
         self.feature_extractor = FeatureExtractor(enc_cfg, dtype)
-        self.encoder = HubertTransformer(enc_cfg, dtype, remat=remat)
+        self.dtype = dtype
+        self.encoder = self.transformer_cls(enc_cfg, dtype, remat=remat)
         self.layer_mix = LayerWeightedSum(len(self.picks), reduction)
         self.heads = HydraHeads(enc_cfg.hidden_size, n_labels)
 

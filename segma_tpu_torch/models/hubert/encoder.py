@@ -59,7 +59,7 @@ def _conv(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
     return F.conv1d(
         x, conv.weight.to(x.dtype), bias, stride=conv.stride, padding=conv.padding,
-        groups=conv.groups,
+        dilation=conv.dilation, groups=conv.groups,
     )
 
 
@@ -123,15 +123,20 @@ class HubertTransformer(nn.Module):
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
         self.layers = nn.ModuleList(HubertTransformerLayer(cfg) for _ in range(cfg.n_layers))
 
-    def forward(
-        self, feats: torch.Tensor, output_hidden_states: bool = False
-    ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
+    def embed(self, feats: torch.Tensor) -> torch.Tensor:
+        """Conv features -> the first layer's input: projection, positional
+        conv, LayerNorm."""
         x = layer_norm(feats.to(self.dtype), self.feature_layer_norm)
         x = linear(x, self.feature_projection)
         pos = _conv(x.transpose(1, 2), self.pos_conv).transpose(1, 2)
         if self.cfg.pos_conv_kernel % 2 == 0:  # SamePad: drop the extra frame
             pos = pos[:, :-1, :]
-        x = layer_norm(x + F.gelu(pos), self.layer_norm)
+        return layer_norm(x + F.gelu(pos), self.layer_norm)
+
+    def forward(
+        self, feats: torch.Tensor, output_hidden_states: bool = False
+    ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
+        x = self.embed(feats)
         hidden_states = []
         remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:

@@ -1,0 +1,181 @@
+"""WavLM encoder in PyTorch (counterpart of ``segma_tpu/models/wavlm/encoder.py``).
+
+HuBERT's skeleton (``models/hubert/encoder.py``: the conv feature extractor,
+the projection, the positional conv, post-norm layers with exact GELU and
+eps 1e-5) with WavLM's gated relative position bias in every attention, as
+HF's ``WavLMModel`` (``do_stable_layer_norm=False``,
+``feat_extract_norm='group'``):
+
+- T5-style bucketed relative positions (``relative_position_buckets``:
+  320 buckets, max distance 800) embedded to a per-head bias by layer 0's
+  ``rel_attn_embed``, a bare (buckets, heads) parameter; every later layer
+  reuses layer 0's bias;
+- each layer gates the bias per head and query from its own input: an
+  8-wide projection of each head's slice, summed in pairs of 4, a sigmoid
+  in f32, ``a * (b * const - 1) + 2`` with a learned per-head ``const``;
+- q scaled by head_dim**-0.5 in the compute dtype, the scores and the bias
+  in f32, the softmax in f32 and then cast: plain torch ops, as in JAX,
+  where this attention is XLA and reaches no Pallas kernel.
+
+The bucket table is built in numpy and held on the device as a one-hot
+(T * T, buckets) f32 matrix, one buffer per (length, device), so that a
+step captured in a CUDA graph copies nothing from the host. The bias is
+that matrix times ``rel_attn_embed`` (exact: one product of 1 per row), and
+its gradient a product too, summed in one fixed order; a gather's backward
+would scatter-add into the table.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from functools import lru_cache
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
+from torch import nn
+
+from segma_tpu_torch.models.base import no_tf32
+from segma_tpu_torch.models.hubert.encoder import HubertEncoderConfig, HubertTransformer
+from segma_tpu_torch.models.whisper.encoder import layer_norm, linear
+
+
+@dataclass(frozen=True)
+class WavLMEncoderConfig(HubertEncoderConfig):
+    num_buckets: int = 320
+    max_distance: int = 800
+
+    @classmethod
+    def base(cls) -> "WavLMEncoderConfig":
+        return cls()
+
+
+@lru_cache(maxsize=8)
+def relative_position_buckets(
+    length: int, num_buckets: int = 320, max_distance: int = 800
+) -> np.ndarray:
+    """(length, length) int32 T5-style bucket ids (a copy of JAX's)."""
+    half = num_buckets // 2
+    ctx = np.arange(length)[:, None]
+    mem = np.arange(length)[None, :]
+    rel = mem - ctx
+    buckets = (rel > 0).astype(np.int64) * half
+    rel = np.abs(rel)
+    max_exact = half // 2
+    is_small = rel < max_exact
+    with np.errstate(divide="ignore"):
+        large = max_exact + (
+            np.log(np.maximum(rel, 1) / max_exact)
+            / math.log(max_distance / max_exact)
+            * (half - max_exact)
+        ).astype(np.int64)
+    large = np.minimum(large, half - 1)
+    buckets += np.where(is_small, rel, large)
+    return buckets.astype(np.int32)
+
+
+class WavLMAttention(nn.Module):
+    """MHA with the gated relative position bias added to the scores."""
+
+    def __init__(self, cfg: WavLMEncoderConfig, has_relative_position_bias: bool) -> None:
+        super().__init__()
+        d, self.n_heads = cfg.hidden_size, cfg.n_heads
+        self.num_buckets, self.max_distance = cfg.num_buckets, cfg.max_distance
+        self.q_proj = nn.Linear(d, d)
+        self.k_proj = nn.Linear(d, d)
+        self.v_proj = nn.Linear(d, d)
+        self.out_proj = nn.Linear(d, d)
+        self.gru_rel_pos_linear = nn.Linear(d // self.n_heads, 8)
+        self.gru_rel_pos_const = nn.Parameter(torch.ones(1, self.n_heads, 1, 1))
+        if has_relative_position_bias:  # flax's param: no ``.weight``
+            self.rel_attn_embed = nn.Parameter(torch.zeros(cfg.num_buckets, self.n_heads))
+        self._buckets: dict[tuple[int, torch.device], torch.Tensor] = {}
+
+    def bucket_onehot(self, length: int, device: torch.device) -> torch.Tensor:
+        """(length * length, buckets) f32 one-hot of the bucket ids on
+        ``device``, uploaded once."""
+        key = (length, torch.device(device))
+        if key not in self._buckets:
+            ids = relative_position_buckets(length, self.num_buckets, self.max_distance)
+            onehot = np.eye(self.num_buckets, dtype=np.float32)[ids.reshape(-1)]
+            self._buckets[key] = torch.from_numpy(onehot).to(device)
+        return self._buckets[key]
+
+    def forward(
+        self, x: torch.Tensor, position_bias: torch.Tensor | None
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(B, T, D) in the compute dtype, the (H, T, T) f32 bias of layer 0
+        (None in layer 0 itself) -> (output, bias)."""
+        b, t, d = x.shape
+        h = self.n_heads
+        hd = d // h
+        if position_bias is None:
+            if not hasattr(self, "rel_attn_embed"):
+                raise ValueError("the first layer must own the relative position embedding")
+            with no_tf32():
+                bias = self.bucket_onehot(t, x.device) @ self.rel_attn_embed
+            position_bias = bias.view(t, t, h).permute(2, 0, 1)
+        proj = linear(x.view(b, t, h, hd).transpose(1, 2), self.gru_rel_pos_linear)
+        gates = torch.sigmoid(proj.view(b, h, t, 2, 4).sum(-1).float())  # (B, H, T, 2)
+        gate_a, gate_b = gates[..., 0:1], gates[..., 1:2]
+        gate_out = gate_a * (gate_b * self.gru_rel_pos_const - 1.0) + 2.0  # (B, H, T, 1)
+        q = (linear(x, self.q_proj).view(b, t, h, hd) * hd**-0.5).transpose(1, 2)
+        k = linear(x, self.k_proj).view(b, t, h, hd).transpose(1, 2)
+        v = linear(x, self.v_proj).view(b, t, h, hd).transpose(1, 2)
+        with no_tf32():  # f32 scores of the compute-dtype q and k
+            scores = q.float() @ k.float().transpose(-1, -2)
+        attn = torch.softmax(scores + gate_out * position_bias[None], dim=-1).to(x.dtype)
+        out = (attn @ v).transpose(1, 2).reshape(b, t, d)
+        return linear(out, self.out_proj), position_bias
+
+
+class WavLMTransformerLayer(nn.Module):
+    """Post-norm block (HuBERT's) with WavLM's attention."""
+
+    def __init__(self, cfg: WavLMEncoderConfig, has_relative_position_bias: bool) -> None:
+        super().__init__()
+        self.attention = WavLMAttention(cfg, has_relative_position_bias)
+        self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+        self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.ffn_dim)
+        self.output_dense = nn.Linear(cfg.ffn_dim, cfg.hidden_size)
+        self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+
+    def forward(
+        self, x: torch.Tensor, position_bias: torch.Tensor | None
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        attn_out, position_bias = self.attention(x, position_bias)
+        x = layer_norm(x + attn_out, self.layer_norm)
+        h = linear(F.gelu(linear(x, self.intermediate_dense)), self.output_dense)
+        return layer_norm(x + h, self.final_layer_norm), position_bias
+
+
+class WavLMTransformer(HubertTransformer):
+    """Conv features -> (last hidden state, hidden states: the input of each
+    layer and the final output). ``remat`` recomputes each layer in the
+    backward pass, as HuBERT's does."""
+
+    def __init__(self, cfg: WavLMEncoderConfig, dtype: torch.dtype = torch.bfloat16,
+                 remat: bool = False) -> None:
+        super().__init__(cfg, dtype, remat)
+        self.layers = nn.ModuleList(
+            WavLMTransformerLayer(cfg, has_relative_position_bias=i == 0)
+            for i in range(cfg.n_layers))
+
+    def forward(
+        self, feats: torch.Tensor, output_hidden_states: bool = False
+    ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
+        x = self.embed(feats)
+        hidden_states = []
+        position_bias = None
+        remat = self.remat and torch.is_grad_enabled()
+        for layer in self.layers:
+            hidden_states.append(x)
+            if remat:
+                x, position_bias = torch.utils.checkpoint.checkpoint(
+                    layer, x, position_bias, use_reentrant=False, preserve_rng_state=False)
+            else:
+                x, position_bias = layer(x, position_bias)
+        hidden_states.append(x)
+        return x, (tuple(hidden_states) if output_hidden_states else ())

@@ -79,6 +79,7 @@ class WhisperSegModule(nn.Module):
         self.variant = variant
         self.fast_context = fast_context
         self.tap, self.mixer, self.head, self.trunc = VARIANTS[variant]
+        self.dtype = dtype
         self.encoder = WhisperEncoder(enc_cfg, dtype)
         if self.tap == "weighted":
             # 1-indexed layer picks; () = every layer

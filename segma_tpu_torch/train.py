@@ -75,7 +75,9 @@ from segma_tpu_torch.checkpoint import (
 from segma_tpu_torch.config import Config
 from segma_tpu_torch.data.device_cache import DeviceAudioCache
 from segma_tpu_torch.data.loaders import BatchContractError
-from segma_tpu_torch.models.base import SegmentationModel, ieee_f32
+from segma_tpu_torch.models.base import (
+    SegmentationModel, ieee_f32, no_tf32, weighted_index_ce,
+)
 from segma_tpu_torch.ops import launch_counts, set_launch_counts
 from segma_tpu_torch.ops.metrics import (
     binary_auroc_np,
@@ -328,12 +330,16 @@ def forward_backward(
     y: torch.Tensor, generator: torch.Generator | None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Gradients set to None, the forward with ``train=True``, the model's
-    loss (hydra or multiclass), backward; returns the detached (loss,
-    per_label). An f32 model runs without TF32 (``ieee_f32``)."""
+    loss (hydra, multiclass or powerset), backward; returns the detached
+    (loss, per_label). An f32 model's forward runs without TF32 (``ieee_f32``
+    of its ``compute_dtype``; a bf16 model's f32 parts scope their own), and
+    so does every backward: the gradients of a bf16 model's f32 parts (its
+    heads, BiLSTM, WavLM's f32 scores and bias) are f32 computations too."""
     optimizer.zero_grad(set_to_none=True)
     with ieee_f32(model.compute_dtype):
         logits = model.module(wav, train=True, generator=generator)
         loss, per_label = model.loss(logits, y)
+    with no_tf32():
         loss.backward()
     return loss.detach(), per_label.detach()
 
@@ -369,16 +375,38 @@ def make_train_step(
 
 def eval_step(
     model: SegmentationModel, batch: dict[str, torch.Tensor], source: WaveformSource | None = None,
-) -> tuple[torch.Tensor, torch.Tensor, dict[str, torch.Tensor], torch.Tensor]:
-    """(loss, per_label, F1 counts, (N, L) sigmoid scores) of one validation
-    batch, without dropout; its waveforms from ``source`` (host waveforms
-    without one)."""
+) -> tuple[torch.Tensor, torch.Tensor, dict[str, torch.Tensor], torch.Tensor, tuple | None]:
+    """(loss, per_label, F1 counts, (N, L) per-label scores, subset stats) of
+    one validation batch, without dropout; its waveforms from ``source``
+    (host waveforms without one). The scores are the sigmoid of
+    ``inference_transform(logits)`` (a powerset model's marginals).
+
+    Powerset models' subset stats, for the ``partial_*`` metrics: the CE
+    weighted onto the classes of fewer than two labels
+    (``weighted_index_ce``), the argmax one-hot's per-class TP/FP/FN counts,
+    the (N, C) subset softmax and the (N,) target class ids; None for the
+    other models."""
     with torch.no_grad():
         logits = model.module((source or WaveformSource())(batch), train=False)
-        loss, per_label = model.loss(logits, batch["y"])
-        probs = torch.sigmoid(logits).reshape(-1, logits.shape[-1])
-        counts = binary_counts(probs, batch["y"].reshape(-1, logits.shape[-1]))
-    return loss, per_label, counts, probs
+        y = batch["y"]
+        loss, per_label = model.loss(logits, y)
+        frame_logits = model.inference_transform(logits)
+        probs = torch.sigmoid(frame_logits).reshape(-1, frame_logits.shape[-1])
+        counts = binary_counts(probs, y.reshape(-1, y.shape[-1]))
+        subset = None
+        if model.powerset is not None:
+            n_classes = logits.shape[-1]
+            flat = logits.reshape(-1, n_classes)
+            class_ids = model.subset_ids(y).reshape(-1)
+            partial_loss = weighted_index_ce(flat, class_ids, model.single_class_weights(
+                flat.device))
+            classes = torch.arange(n_classes, device=flat.device)
+            pred = flat.argmax(-1)[:, None] == classes
+            target = class_ids[:, None] == classes
+            subset_counts = {"tp": (pred & target).sum(0), "fp": (pred & ~target).sum(0),
+                             "fn": (~pred & target).sum(0)}
+            subset = (partial_loss, subset_counts, torch.softmax(flat, dim=-1), class_ids)
+    return loss, per_label, counts, probs, subset
 
 
 class EpochReplay:
@@ -683,15 +711,21 @@ class Trainer:
 
     def _val_epoch(self, loader: Any) -> dict[str, float]:
         """The validation metrics, with no host sync between batches: the
-        losses, counts and (for auroc and roc) scores are read at the end."""
+        losses, counts and (for auroc and roc) scores are read at the end.
+        A powerset model adds ``val/partial_loss`` (with ``partial_loss`` in
+        ``extra_val_metrics``), ``val/partial_f1_score`` and
+        ``val/partial_auroc`` (with f1_score and auroc), each averaged over
+        its classes of fewer than two labels."""
         tc = self.config.train
         labels = self.model.label_encoder.base_labels
         wants = lambda m: tc.validation_metric == m or m in tc.extra_val_metrics  # noqa: E731
         need_scores = self._need_scores()
         losses, per_labels, all_probs, all_targets = [], [], [], []
+        partial_losses, subset_probs, subset_ids = [], [], []
         counts_acc: dict[str, torch.Tensor] | None = None
+        subset_acc: dict[str, torch.Tensor] | None = None
         for batch, y in self._val_batches(loader):
-            loss, per_label, counts, probs = eval_step(self.model, batch, self.val_source)
+            loss, per_label, counts, probs, subset = eval_step(self.model, batch, self.val_source)
             losses.append(loss)
             per_labels.append(per_label)
             counts_acc = (
@@ -701,6 +735,14 @@ class Trainer:
             if need_scores:
                 all_probs.append(probs)
                 all_targets.append(y.reshape(-1, len(labels)))
+            if subset is not None:
+                p_loss, s_counts, s_probs, s_ids = subset
+                partial_losses.append(p_loss)
+                subset_acc = (s_counts if subset_acc is None
+                              else {k: subset_acc[k] + s_counts[k] for k in s_counts})
+                if wants("auroc"):
+                    subset_probs.append(s_probs)
+                    subset_ids.append(s_ids)
         metrics: dict[str, float] = {}
         if losses:
             metrics["val/loss"] = float(torch.stack(losses).mean())
@@ -722,6 +764,18 @@ class Trainer:
                     metrics[f"val/auroc_{label}"] = float(auroc[i])
             if "roc" in tc.extra_val_metrics:
                 self._plot_roc(probs, targets, labels)
+        if partial_losses:
+            n_single = self.model.powerset.n_single_classes
+            if "partial_loss" in tc.extra_val_metrics:
+                metrics["val/partial_loss"] = float(torch.stack(partial_losses).mean())
+            if wants("f1_score"):
+                subset_f1 = f1_from_counts({k: v.cpu() for k, v in subset_acc.items()})
+                metrics["val/partial_f1_score"] = float(subset_f1[:n_single].mean())
+            if subset_probs:
+                s_probs = torch.cat(subset_probs).cpu().numpy()
+                s_ids = torch.cat(subset_ids).cpu().numpy()
+                s_auroc = binary_auroc_np(s_probs, np.eye(s_probs.shape[-1])[s_ids])
+                metrics["val/partial_auroc"] = float(s_auroc[:n_single].mean())
         return metrics
 
     def _plot_roc(self, probs: np.ndarray, targets: np.ndarray, labels: tuple[str, ...]) -> None:

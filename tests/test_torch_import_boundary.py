@@ -67,6 +67,9 @@ REQUIRED = (
     "segma_tpu_torch.models.whisper.convert", "segma_tpu_torch.models.hubert.convert",
     "segma_tpu_torch.convert_reference", "segma_tpu_torch.cli.import_checkpoint",
     "segma_tpu_torch.cli.train", "segma_tpu_torch.cli.auto_train",
+    "segma_tpu_torch.models.wavlm.encoder", "segma_tpu_torch.models.wavlm.builders",
+    "segma_tpu_torch.models.wavlm.convert", "segma_tpu_torch.models.sincnet",
+    "segma_tpu_torch.models.vad", "segma_tpu_torch.utils.encoders",
 )
 
 

@@ -541,6 +541,63 @@ def test_logmel_kernel_bulk_error_is_bounded(name):
     assert got <= LOGMEL_BULK_FACTOR * plain, (got, plain)
 
 
+@pytest.mark.gpu
+def test_logmel_kernel_at_the_vad_training_shape():
+    """conv_vad and powerset_vad train on (32, 64000): white noise over the
+    whole batch, held to float64 as the serving batch is (at most twice the
+    f32 plain version's own error, or 1e-5), one launch."""
+    _cuda()
+    wav = _logmel_input((32, 64_000), 3)
+    ref = log_mel_float64(wav)
+    before = logmel.launches
+    got = logmel.finish(logmel.log10_mel(wav))
+    torch.cuda.synchronize()
+    assert logmel.launches == before + 1
+    plain_err = float((logmel.log_mel_spectrogram_plain(wav).double() - ref).abs().max())
+    err = float((got.double() - ref).abs().max())
+    print(f"logmel (32, 64000) from float64: kernel {err:.3e}, plain {plain_err:.3e}")
+    assert err <= max(2 * plain_err, LOGMEL_ATOL), (err, plain_err)
+
+
+FAMILY_OVERRIDES = {
+    "conv_vad": ["model.config.hidden=32", "model.config.depth=2"],
+    "powerset_vad": ["model.config.hidden=32", "model.config.depth=2"],
+    "sincnet_hydra": ["model.config.filters=16", "model.config.kernel_size=101",
+                      "model.config.hidden=32", "model.config.lstm.hidden_size=16"],
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(FAMILY_OVERRIDES))
+def test_tiny_conv_families_on_the_card_match_the_cpu(name):
+    """conv_vad, powerset_vad and sincnet_hydra at tiny widths in f32, same
+    weights on the card and the CPU: logits within 1e-4 * max(1, max|logit|)
+    (the f32 pin), log-mel launched once per forward on the conv_vad path
+    and never on sincnet's."""
+    from pathlib import Path
+
+    from segma_tpu_torch.config import load_config
+    from segma_tpu_torch.models import Models
+    from segma_tpu_torch.utils.encoders import MultiLabelEncoder
+
+    _cuda()
+    repo = Path(__file__).resolve().parent.parent
+    cfg = load_config(repo / "segma_tpu_torch/config/default.yml",
+                      [f"model.name={name}", "model.config.dtype=f32", "audio.chunk_duration_s=1.0",
+                       *FAMILY_OVERRIDES[name]])
+    enc = MultiLabelEncoder(cfg.data.classes)
+    card = Models[name](enc, cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    cpu = Models[name](enc, cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    wav = torch.from_numpy((np.random.default_rng(2).standard_normal((4, 16_000)) * 0.1)
+                           .astype(np.float32))
+    before = logmel.launches
+    got = card.apply(wav.cuda()).cpu()
+    assert logmel.launches == before + (0 if name == "sincnet_hydra" else 1)
+    ref = cpu.apply(wav)
+    assert got.shape == ref.shape
+    assert float((got - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
+
+
 # -- epoch dispatch: the training step captured as a CUDA graph and replayed ---------
 
 

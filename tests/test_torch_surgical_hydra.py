@@ -103,8 +103,8 @@ def test_builder_geometry_and_variants():
     assert model.module.encoder.dtype == torch.bfloat16
     with pytest.raises(KeyError, match="whisperus"):
         build_whisper_model("whisperus", enc, cfg, device="cpu")
-    with pytest.raises(KeyError, match="conv_vad"):
-        Models["conv_vad"]
+    with pytest.raises(KeyError, match="whisperus"):
+        Models["whisperus"]
 
 
 def test_builder_weights_follow_the_generator():

@@ -325,13 +325,13 @@ def test_chip_smoke_configs_equal_default_yml(which):
 @pytest.mark.parametrize(
     "override",
     ["train.dispatch=batch", "train.data_cache=hbm",
-     "train.extra_val_metrics=[loss,partial_loss]", "train.scheduler.type=step",
+     "train.extra_val_metrics=[loss,label_loss]", "train.scheduler.type=step",
      "train.transport=adpcm", "train.validation_metric=partial_f1_score",
      "train.grad_accum_steps=0"],
 )
 def test_unported_training_options_raise(tmp_path, override):
-    """A value the port does not take (the powerset metrics, which wait for
-    powerset_vad) or that neither package takes raises its named
-    ConfigError."""
+    """A value the port does not take (``label_loss``, which the JAX config
+    lists and neither package computes) or that neither package takes raises
+    its named ConfigError."""
     with pytest.raises(ConfigError, match=override.split("=")[0].split(".")[-1]):
         _fit_config(tmp_path, override)

@@ -211,10 +211,13 @@ def test_model_loss_matches_jax(name, weighted):
 
 
 def test_powerset_loss_is_named_as_unported():
+    """The powerset loss is ported (``powerset_vad``): a model asks for it
+    with a PowersetEncoder, and without one it is refused by name."""
     _, _, model = build_pair("whisperidou")
-    model.loss_type = "powerset"
-    with pytest.raises(NotImplementedError, match="powerset"):
-        model.loss(torch.zeros(1, 2, 4), torch.zeros(1, 2, 4))
+    with pytest.raises(ValueError, match="powerset"):
+        base.SegmentationModel(name="x", module=model.module, conv_settings=model.conv_settings,
+                               label_encoder=model.label_encoder, config=model.config,
+                               device=model.device, loss_type="powerset")
     with pytest.raises(ValueError, match="loss_type"):
         base.SegmentationModel(name="x", module=model.module, conv_settings=model.conv_settings,
                                label_encoder=model.label_encoder, config=model.config,
