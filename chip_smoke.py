@@ -124,12 +124,26 @@ exits nonzero without printing the final result line:
    equal launches), its ``last/`` rebuilt bit for bit, its ``best.ckpt``
    served by the predict CLI against the CPU (log-mel launched on the
    conv_vad paths only), and its warm serving xRT and step time.
+10d. live serving (``phase_serve``, bf16, full-width Whisper-base
+   ``surgical_hydra``, PyTorch's default TF32 flags): the ADPCM decode on
+   the card bit-equal to the numpy decode on 600 s; ``run_inference_on_audios``
+   over 32 WAVs of 20 s with pack_files 1, 8 and 8 under ADPCM (warm xRT,
+   device-busy share, bytes to the device; int16 RTTMs identical between
+   pack sizes; ADPCM's frame agreement); the predict CLI with ``--transport
+   adpcm --pack-files 8``; the HTTP server in this process driven by
+   ``SegmaClient`` (one-shot requests at batch windows 0 and 5 ms, four
+   HTTP and one WebSocket streaming sessions under the ChunkForwardBatcher,
+   each held to offline where no frame lies within LOGITS_ATOL of the
+   threshold, a SIGTERM drain with a request in flight, the TF32 flags
+   unchanged); ``python -m segma_tpu_torch.cli.serve`` in a child, drained
+   by SIGTERM to exit 0. (It runs after the flags switch, before phase 7.)
 11. the ``kernels`` JSON line (log-mel, the bf16 and the f32 flash forward
    and backward; each with its fast_context times where it has them, and
    log-mel's at (32, 64000) as ``vad_train``) and
    the ``kernels:`` launch line, per path (the workflow's resumed fit and
-   predict CLI run, each reference-model path, the train CLI and the
-   epoch-dispatch paths among them).
+   predict CLI run, each reference-model path, the train CLI, the
+   epoch-dispatch paths and the live-serving paths among them); log-mel and
+   the bf16 flash forward also carry ``launches_live_serving``.
 12. last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -323,14 +337,20 @@ def check_close(name: str, got, ref, atol: float, rtol: float = 0.0) -> float:
 
 
 def phase_build() -> float:
+    import threading
+
     from segma_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
+    host = threading.Thread(target=_build.build_host)  # g++, beside the nvcc processes
+    host.start()
     report = _build.build()
     _build.library()
+    host.join()
+    _build.host_library()
     secs = time.perf_counter() - t0
-    print(f"build: {secs:.1f} s ({len(_build.sources())} sources, one nvcc each in parallel)",
-          flush=True)
+    print(f"build: {secs:.1f} s ({len(_build.sources())} sources, one nvcc each in parallel, "
+          f"and the WAV reader by the host C++ compiler)", flush=True)
     for line in report:
         print(f"ptxas: {line}", flush=True)
     return secs
@@ -3808,6 +3828,448 @@ def phase_train_cli(card: str) -> dict:
     return launches
 
 
+SERVE_FILES = 32  # synthetic int16 WAVs served by the predict path
+SERVE_FILE_S = 20.0
+SERVE_PACK = 8  # files per dispatch: 8 files of 8 chunks fill one inner batch of 64
+SERVE_REQUESTS = 16  # one-shot requests, from SERVE_CLIENTS client threads
+SERVE_CLIENTS = 4
+SERVE_STREAMS = 4  # concurrent HTTP streaming sessions, and one WebSocket session
+SERVE_PUSH_S = 0.5
+SERVE_WINDOW_MS = 5.0
+ADPCM_SIGNAL_S = 600.0
+SERVE_LAUNCH_KEYS = ("logmel", "flash_attn_fwd")  # the serving path's kernels (bf16)
+
+
+def _p50_p90(xs: list[float]) -> str:
+    return f"p50 {np.percentile(xs, 50) * 1e3:.1f} ms, p90 {np.percentile(xs, 90) * 1e3:.1f} ms"
+
+
+def _serve_launches(counts: dict, what: str) -> dict:
+    """The serving path's counts; each of its kernels must have launched."""
+    counts = {k: counts[k] for k in SERVE_LAUNCH_KEYS}
+    if not all(counts.values()):
+        raise AssertionError(f"{what}: a serving kernel never launched: {counts}")
+    return counts
+
+
+def device_busy(card: str, label: str, fn, wall_s: float) -> float:
+    """One more run of ``fn`` under torch.profiler: the device's busy time
+    as a share of ``wall_s``, the same run's wall without the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type.name == "CUDA")
+    share = busy_us / (wall_s * 1e6)
+    print(f"serve {label} [{card}]: device busy {busy_us / 1e3:.1f} ms = {100 * share:.1f}% of "
+          f"the unprofiled wall {wall_s * 1e3:.1f} ms", flush=True)
+    return share
+
+
+def _frames_of(intervals, labels: list[str], n: int) -> np.ndarray:
+    """(n, labels) bool of client intervals (seconds) on the 20 ms grid."""
+    out = np.zeros((n, len(labels)), bool)
+    for iv in intervals:
+        out[round(iv.start_s * 50) : round(iv.end_s * 50), labels.index(iv.label)] = True
+    return out
+
+
+def _rttm_mask(path: Path, labels: list[str], n: int) -> np.ndarray:
+    """(n, labels) bool of an RTTM's segments on the 20 ms grid."""
+    out = np.zeros((n, len(labels)), bool)
+    for line in path.read_text().splitlines():
+        f = line.split()
+        start, dur = float(f[3]), float(f[4])
+        out[round(start * 50) : round((start + dur) * 50), labels.index(f[7])] = True
+    return out
+
+
+def _near_threshold_check(what: str, streamed: np.ndarray, logits: np.ndarray) -> int:
+    """Streamed frames against the offline mask (sigmoid(logits) > 0.5): a
+    frame may differ only where the offline logit lies within LOGITS_ATOL,
+    the bf16 card tolerance, of the threshold's logit 0. Returns the count
+    of frames that differ."""
+    import torch
+
+    offline = (torch.sigmoid(torch.from_numpy(logits)) > 0.5).numpy()
+    if streamed.shape != offline.shape:
+        raise AssertionError(f"{what}: {streamed.shape} frames, offline {offline.shape}")
+    diff = streamed != offline
+    far = diff & (np.abs(logits) > LOGITS_ATOL)
+    if far.any():
+        raise AssertionError(f"{what}: {int(far.sum())} frames differ from offline away from "
+                             f"the threshold (of {int(diff.sum())} differing; the farthest at "
+                             f"|logit| {float(np.abs(logits[diff]).max()):.3e})")
+    return int(diff.sum())
+
+
+def phase_serve(card: str, device: str = "cuda") -> dict:
+    """The host data path and live serving of full-width Whisper-base
+    ``surgical_hydra`` (bf16, random weights of train.seed 0), under
+    PyTorch's default TF32 flags:
+
+    - the ADPCM decode on the card bit-equal to ``adpcm_decode_np`` on a
+      600 s signal, timed;
+    - ``run_inference_on_audios`` over SERVE_FILES 20 s WAVs with
+      pack_files 1, SERVE_PACK, and SERVE_PACK under ADPCM: warm xRT,
+      device-busy share and bytes copied to the device of each; the int16
+      RTTMs identical between pack sizes; ADPCM's frame agreement with
+      int16; packed logits against single-file logits;
+    - the predict CLI with ``--transport adpcm --pack-files 8``;
+    - the server in this process on 127.0.0.1 (``SegmaClient``): /healthz,
+      a WAV and an L16 /segment equal to run_inference_on_audios's
+      intervals; SERVE_REQUESTS requests from SERVE_CLIENTS threads at
+      batch windows 0 and SERVE_WINDOW_MS (fewer dispatches than requests
+      at the latter); SERVE_STREAMS HTTP streaming sessions and one
+      WebSocket session at once under the ChunkForwardBatcher, each held
+      to offline by the near-threshold rule, in fewer batched forwards than
+      chunks; a SIGTERM with a request in flight drains the server; the TF32
+      flags as before the phase;
+    - ``python -m segma_tpu_torch.cli.serve`` in a child: /healthz, one
+      request, a SIGTERM drain to exit 0.
+
+    Returns each path's launch counts of the serving kernels. ``device``
+    "cpu" runs the same steps on the plain path, untimed, to try the phase
+    out without a card."""
+    import os
+    import signal
+    import threading
+    import urllib.request
+
+    import torch
+
+    from segma_tpu_torch import checkpoint, inference
+    from segma_tpu_torch.client import SegmaClient
+    from segma_tpu_torch.ops import adpcm
+    from segma_tpu_torch.serve import SegmentationService, _serve_until_signalled, make_server
+
+    flags = tf32_flags()
+    paths: dict[str, dict] = {}
+    on_gpu = device == "cuda"
+
+    def sync() -> None:
+        if on_gpu:
+            torch.cuda.synchronize()
+
+    # ADPCM decode on the card, 600 s
+    n = int(ADPCM_SIGNAL_S * 16_000)
+    with tempfile.TemporaryDirectory() as tmp:
+        pcm = write_wav(Path(tmp) / "long.wav", n, seed=7)
+    t0 = time.perf_counter()
+    data = adpcm.adpcm_encode(pcm)
+    encode_s = time.perf_counter() - t0
+    on_card = torch.from_numpy(data).to(device)
+    got = adpcm.adpcm_decode(on_card, n)
+    if not np.array_equal(got.cpu().numpy(), adpcm.adpcm_decode_np(data, n)):
+        raise AssertionError("the ADPCM decode on the card differs from adpcm_decode_np")
+    ms = time_ms(lambda: adpcm.adpcm_decode(on_card, n), iters=10) if on_gpu else 0.0
+    print(f"serve adpcm [{card}]: decode of {ADPCM_SIGNAL_S:.0f} s ({data.nbytes} B, "
+          f"{data.nbytes / n:.4f} B/sample) on the card bit-equal to adpcm_decode_np, "
+          f"{ms:.3f} ms on the card; host encode {encode_s:.2f} s", flush=True)
+    del on_card, got
+
+    cfg = surgical_hydra_config()
+    model = checkpoint.build_model(cfg, device=device)
+    labels = list(cfg.data.classes)
+    audio_s = SERVE_FILES * SERVE_FILE_S
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        wav_dir = tmp / "wav"
+        wav_dir.mkdir()
+        pcms = [write_wav(wav_dir / f"{i:03d}.wav", int(SERVE_FILE_S * 16_000), seed=100 + i)
+                for i in range(SERVE_FILES)]
+        wavs = sorted(wav_dir.glob("*.wav"))
+
+        # the predict path, three ways
+        rttms: dict[str, dict[str, str]] = {}
+        for label, pack, transport in (("pack1", 1, "int16"), (f"pack{SERVE_PACK}", SERVE_PACK,
+                                        "int16"), (f"pack{SERVE_PACK}_adpcm", SERVE_PACK,
+                                        "adpcm")):
+            def run(out: Path, pack=pack, transport=transport):
+                return inference.run_inference_on_audios(
+                    cfg, wav_dir, None, out, model=model, device=device,
+                    batch_size=INNER_BATCH, transport=transport, pack_files=pack)
+
+            walls = []
+            for k in range(2):  # the second run is warm
+                sync()
+                reset_launches()
+                inference.bytes_to_device = 0
+                t0 = time.perf_counter()
+                done = run(tmp / f"{label}_{k}")
+                sync()
+                walls.append(time.perf_counter() - t0)
+                if len(done) != SERVE_FILES:
+                    raise AssertionError(f"{label}: {len(done)} of {SERVE_FILES} files served")
+            paths[label] = _serve_launches(read_launches(), label)
+            shipped = inference.bytes_to_device
+            busy = (device_busy(card, label, lambda: run(tmp / f"{label}_prof"), walls[1])
+                    if on_gpu else 0.0)
+            rttms[label] = {p.stem: (tmp / f"{label}_1" / "raw_rttm" / f"{p.stem}.rttm").read_text()
+                            for p in wavs}
+            print(f"serve {label} [{card}]: {SERVE_FILES} files of {SERVE_FILE_S:.0f} s, walls "
+                  f"{walls[0]:.3f} s and {walls[1]:.3f} s, warm {audio_s / walls[1]:.1f}x real "
+                  f"time, device busy {100 * busy:.1f}%, {shipped} B to the device "
+                  f"({shipped / SERVE_FILES:.0f} B per file), launches {paths[label]}", flush=True)
+        pipe = inference.InferencePipeline(model, batch_size=INNER_BATCH, device=device)
+        offline_logits: dict[int, np.ndarray] = {}
+
+        def logits_of(i: int) -> np.ndarray:
+            """File i's logits through the single-file path (inner batch 8)."""
+            if i not in offline_logits:
+                offline_logits[i] = pipe.logits_for_audio(pcms[i])
+            return offline_logits[i]
+
+        # packed against single-file logits: bit-equal where the inner
+        # batches have the same rows (batch 8: one file's 8 chunks each);
+        # at batch 64 cuBLAS and cuDNN take other algorithms for 64 rows
+        narrow = inference.InferencePipeline(model, batch_size=8, device=device)
+        with torch.inference_mode():
+            same = narrow.logits_for_audios_async(pcms[:SERVE_PACK], pack_files=SERVE_PACK)
+            wide = pipe.logits_for_audios_async(pcms[:SERVE_PACK], pack_files=SERVE_PACK)
+        for i, (lg, tf) in enumerate(same):
+            if not np.array_equal(lg[:tf].float().cpu().numpy(), logits_of(i)):
+                raise AssertionError(f"file {i}: packed logits at inner batch 8 differ from "
+                                     "the single-file logits")
+        print(f"serve [{card}]: packed logits bit-equal to single-file logits at inner batch 8 "
+              "(the same rows)", flush=True)
+        dist = check_close(
+            f"packed logits at inner batch {INNER_BATCH} ({SERVE_PACK} files of 8 chunks) "
+            "against single-file logits (inner batch 8), bf16",
+            torch.cat([lg[:tf].float().cpu() for lg, tf in wide]),
+            torch.from_numpy(np.concatenate([logits_of(i) for i in range(SERVE_PACK)])),
+            LOGITS_ATOL)
+        n_frames = len(logits_of(0))
+        diff_frames = {
+            lb: [_near_threshold_check(f"{lb} RTTM {i}", _rttm_mask(
+                tmp / f"{lb}_1" / "raw_rttm" / f"{p.stem}.rttm", labels, n_frames), logits_of(i))
+                 for i, p in enumerate(wavs)]
+            for lb in ("pack1", f"pack{SERVE_PACK}")}
+        agree = []
+        for i, p in enumerate(wavs):
+            a, b = (_rttm_mask(tmp / f"{lb}_1" / "raw_rttm" / f"{p.stem}.rttm", labels, n_frames)
+                    for lb in ("pack1", f"pack{SERVE_PACK}_adpcm"))
+            agree.append(float((a == b).mean()))
+        same_rttms = sum(rttms["pack1"][k] == rttms[f"pack{SERVE_PACK}"][k] for k in rttms["pack1"])
+        print(f"serve [{card}]: int16 RTTMs at pack 1 and {SERVE_PACK}: {same_rttms} of "
+              f"{SERVE_FILES} identical; frames differing from the single-file logits' decode "
+              f"{ {lb: sum(d) for lb, d in diff_frames.items()} }, each within LOGITS_ATOL of "
+              f"the threshold (packed logits up to {dist:.3e} away); ADPCM's frame agreement "
+              f"with int16 mean {np.mean(agree):.4f}, min {min(agree):.4f}", flush=True)
+
+        # the predict CLI
+        config_path = write_config(tmp / "serve_config.yml", cfg)
+        trainable, frozen = checkpoint.flax_split(model)
+        checkpoint.save_params(tmp / "ck", trainable,
+                               {"frozen_fingerprint": checkpoint.frozen_fingerprint(frozen)})
+        sync()
+        reset_launches()
+        t0 = time.perf_counter()
+        inference.main(["--config", str(config_path), "--wavs", str(wav_dir), "--checkpoint",
+                        str(tmp / "ck"), "--output", str(tmp / "cli"), "--batch-size",
+                        str(INNER_BATCH), "--device", device, "--transport", "adpcm",
+                        "--pack-files", str(SERVE_PACK)])
+        sync()
+        paths["predict_cli_adpcm"] = _serve_launches(read_launches(), "predict CLI")
+        if {p.stem: (tmp / "cli" / "raw_rttm" / f"{p.stem}.rttm").read_text() for p in wavs} != (
+                rttms[f"pack{SERVE_PACK}_adpcm"]):
+            raise AssertionError("the predict CLI's ADPCM RTTMs differ from the API run's")
+        print(f"serve predict CLI --transport adpcm --pack-files {SERVE_PACK} [{card}]: "
+              f"{time.perf_counter() - t0:.2f} s with the model build, RTTMs equal the API "
+              f"run's, launches {paths['predict_cli_adpcm']}", flush=True)
+
+        # the server in this process
+        thr = inference.default_thresholds(labels)
+        pipe.decode_intervals(pipe.logits_for_audio(pcms[0]), thr)  # the pipeline warm
+        body = wavs[0].read_bytes()
+        offline0 = sorted(pipe.decode_intervals(pipe.logits_for_audio(pcms[0]), thr))
+
+        def as_samples(intervals) -> list:
+            return sorted((round(iv.start_s * 16_000), round(iv.end_s * 16_000), iv.label)
+                          for iv in intervals)
+
+        def check_offline(what: str, i: int, intervals) -> int:
+            """Intervals of file i against its single-file logits, by the
+            near-threshold rule; returns the count of frames that differ."""
+            lg = logits_of(i)
+            return _near_threshold_check(f"{what} {i}", _frames_of(intervals, labels, len(lg)), lg)
+
+        def one_shots(url: str) -> tuple[list[float], list]:
+            lat, outs = [], []
+            lock = threading.Lock()
+
+            def worker(k: int) -> None:
+                client = SegmaClient(url)
+                for i in range(k, SERVE_REQUESTS, SERVE_CLIENTS):
+                    t = time.perf_counter()
+                    res = client.segment(wavs[i])
+                    with lock:
+                        lat.append(time.perf_counter() - t)
+                        outs.append((i, res))
+
+            ts = [threading.Thread(target=worker, args=(k,)) for k in range(SERVE_CLIENTS)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(300)
+            if len(lat) != SERVE_REQUESTS:
+                raise AssertionError(f"{len(lat)} of {SERVE_REQUESTS} requests answered")
+            return lat, outs
+
+        svc0 = SegmentationService(pipe, thr)
+        srv0 = make_server(svc0, port=0)
+        threading.Thread(target=srv0.serve_forever, daemon=True).start()
+        url0 = f"http://127.0.0.1:{srv0.server_address[1]}"
+        client = SegmaClient(url0)
+        sync()
+        reset_launches()
+        inference.bytes_to_device = 0
+        health = client.health()
+        got_wav = as_samples(client.segment(wavs[0]))
+        wav_bytes = inference.bytes_to_device
+        got_l16 = as_samples(client.segment(pcms[0]))
+        l16_bytes = inference.bytes_to_device - wav_bytes
+        if not (got_wav == got_l16 == offline0 and offline0):
+            raise AssertionError("the WAV or L16 /segment differs from the pipeline's intervals")
+        lat0, outs0 = one_shots(url0)
+        srv0.shutdown()
+        diffs0 = [check_offline("request, window 0,", i, res) for i, res in outs0]
+        paths["http_window0"] = _serve_launches(read_launches(), "server, window 0")
+        print(f"serve http [{card}]: /healthz {health}; WAV and L16 /segment equal the pipeline's "
+              f"{len(offline0)} intervals; bytes to the device per 20 s request: {wav_bytes} "
+              f"(WAV, int16 transport), {l16_bytes} (L16); window 0: {SERVE_REQUESTS} requests "
+              f"from {SERVE_CLIENTS} threads in {SERVE_REQUESTS} dispatches, latency "
+              f"{_p50_p90(lat0)}, frames differing from offline near the threshold "
+              f"{sum(diffs0)}, launches {paths['http_window0']}", flush=True)
+
+        long_wav = tmp / "drain.wav"
+        write_wav(long_wav, 120 * 16_000, seed=9)  # long enough to be in flight at SIGTERM
+        svc5 = SegmentationService(pipe, thr, batch_window_ms=SERVE_WINDOW_MS, max_batch=8)
+        srv5 = make_server(svc5, port=0)
+        url5 = f"http://127.0.0.1:{srv5.server_address[1]}"
+        report: dict = {}
+        errors: list = []
+
+        def drive() -> None:
+            try:
+                lat, outs = one_shots(url5)
+                report["one_shot"] = (lat, outs, svc5._batcher.dispatches)
+                push_lat: list[float] = []
+                lock = threading.Lock()
+                streamed: dict[int, list] = {}
+
+                def session(i: int, ws: bool) -> None:
+                    c = SegmaClient(url5)
+                    step = int(SERVE_PUSH_S * 16_000)
+                    with (c.stream_ws() if ws else c.stream()) as s:
+                        for k in range(0, len(pcms[i]), step):
+                            t = time.perf_counter()
+                            s.push(pcms[i][k : k + step])
+                            with lock:
+                                push_lat.append(time.perf_counter() - t)
+                    streamed[i] = s.intervals
+
+                ts = [threading.Thread(target=session, args=(i, i == SERVE_STREAMS))
+                      for i in range(SERVE_STREAMS + 1)]
+                for t in ts:
+                    t.start()
+                for t in ts:
+                    t.join(300)
+                report["streams"] = (streamed, push_lat)
+                # a request in flight when SIGTERM lands is answered
+                box = {}
+                inflight = threading.Thread(target=lambda: box.update(
+                    res=SegmaClient(url5).segment(long_wav)))
+                inflight.start()
+                deadline = time.monotonic() + 30
+                while srv5.inflight() == 0 and time.monotonic() < deadline:
+                    time.sleep(0.001)
+                os.kill(os.getpid(), signal.SIGTERM)
+                inflight.join(60)
+                report["drained"] = box.get("res")
+            except Exception as e:  # noqa: BLE001 — raised in the main thread
+                errors.append(e)
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        sync()
+        reset_launches()
+        clients = threading.Thread(target=drive)
+        clients.start()
+        t0 = time.perf_counter()
+        _serve_until_signalled(srv5)  # returns once SIGTERM has drained it
+        drained_s = time.perf_counter() - t0
+        clients.join(60)
+        if errors:
+            raise errors[0]
+        paths[f"http_window{SERVE_WINDOW_MS:g}"] = _serve_launches(read_launches(), "server")
+        lat5, outs5, dispatches = report["one_shot"]
+        if dispatches >= SERVE_REQUESTS:
+            raise AssertionError(f"{dispatches} dispatches for {SERVE_REQUESTS} requests at "
+                                 f"a {SERVE_WINDOW_MS} ms window")
+        diffs5 = [check_offline(f"request, window {SERVE_WINDOW_MS:g},", i, res)
+                  for i, res in outs5]
+        streamed, push_lat = report["streams"]
+        n_chunks = svc5._stream_forward.dispatches
+        pushed = 0
+        diffs = []
+        for i, intervals in streamed.items():
+            diffs.append(check_offline("stream", i, intervals))
+            pushed += pipe.chunkyfier.get_n_fitting_chunks(len(pcms[i])) + 1  # and the tail
+        if n_chunks >= pushed:
+            raise AssertionError(f"{n_chunks} batched forwards for {pushed} chunks")
+        if report["drained"] is None or tf32_flags() != flags:
+            raise AssertionError(f"SIGTERM drain answered {report['drained']!r}; TF32 flags "
+                                 f"{tf32_flags()} after, {flags} before")
+        print(f"serve http [{card}]: window {SERVE_WINDOW_MS:g} ms: {SERVE_REQUESTS} requests in "
+              f"{dispatches} dispatches, latency {_p50_p90(lat5)}, frames differing from offline "
+              f"near the threshold {sum(diffs5)}; "
+              f"{SERVE_STREAMS} HTTP + 1 WebSocket streams of {SERVE_FILE_S:.0f} s in "
+              f"{SERVE_PUSH_S} s pushes: {pushed} chunks in {n_chunks} batched forwards, push "
+              f"latency {_p50_p90(push_lat)}, frames differing from offline near the "
+              f"threshold {diffs}; SIGTERM drained the server with a request in flight "
+              f"({drained_s:.1f} s served); TF32 flags (cuDNN, matmul) {flags} before and after; "
+              f"launches {paths[f'http_window{SERVE_WINDOW_MS:g}']}", flush=True)
+
+        # the serve CLI in a child process
+        report_path = tmp / "cli_launches.json"
+        log = tmp / "serve_cli.log"
+        t0 = time.perf_counter()
+        proc = _child(["-c", LAUNCH_REPORTING_CHILD, str(report_path),
+                       "segma_tpu_torch.cli.serve", "--config", str(config_path),
+                       "--checkpoint", str(tmp / "ck"), "--port", "0", "--device", device],
+                      tmp / "cli_cwd", log)
+        try:
+            url = None
+            deadline = time.monotonic() + CHILD_WALL_S
+            while url is None and proc.poll() is None and time.monotonic() < deadline:
+                for line in log.read_text().splitlines():
+                    if " on http://" in line and "serving" in line:
+                        url = line.split(" on ")[-1].strip()
+                time.sleep(0.2)
+            if url is None:
+                raise AssertionError("the serve CLI never served:\n" + log.read_text()[-3000:])
+            up_s = time.perf_counter() - t0
+            with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+            if as_samples(SegmaClient(url).segment(wavs[0])) != offline0:
+                raise AssertionError("the serve CLI's /segment differs from the pipeline's")
+            proc.send_signal(signal.SIGTERM)
+            _wait(proc, log, "serve CLI", 0)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        paths["serve_cli"] = _serve_launches(json.loads(report_path.read_text()), "serve CLI")
+        print(f"serve CLI [{card}]: python -m segma_tpu_torch.cli.serve up in {up_s:.1f} s "
+              f"(start, model build, warm-up), device {health['device']}, /segment equal to the "
+              f"pipeline's, SIGTERM exit 0, launches {paths['serve_cli']}", flush=True)
+    return paths
+
+
 def profile_run(card: str, label: str, fn, wall_s: float) -> list[str]:
     """One more main-path run under torch.profiler: device time by kernel,
     and the device's busy share of ``wall_s``, the same run's wall time
@@ -3887,6 +4349,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print("f32 phases: PyTorch's default flags, allow_tf32 True for cuDNN, False for matmul",
           flush=True)
+    live = phase(phase_serve)
     serve_f32 = phase(phase_serve_f32)
     train_f32 = phase(phase_train_f32)
     print(f"phase walls [{card}]: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
@@ -3908,6 +4371,8 @@ def main() -> int:
         row["launches_device_cache"] = device_cache["device_cache epoch"][row["name"]]
         row["launches_model_families"] = sum(path[row["name"]]
                                              for path in families["launches"].values())
+    for name in SERVE_LAUNCH_KEYS:  # the live-serving paths, all of them together
+        by_name[name]["launches_live_serving"] = sum(path[name] for path in live.values())
     by_name["logmel"]["vad_train"] = families["logmel"]
     print(json.dumps({"kernels": rows}), flush=True)
     paths = {"serve": serve, "train": train, "workflow_resume": workflow["resume"],
@@ -3915,7 +4380,8 @@ def main() -> int:
              "train_f32": train_f32,
              **{f"reference {label}": counts for label, counts in reference.items()},
              "train_cli": train_cli, **device_cache,
-             **{f"families {label}": counts for label, counts in families["launches"].items()}}
+             **{f"families {label}": counts for label, counts in families["launches"].items()},
+             **{f"live serve {label}": counts for label, counts in live.items()}}
     print(f"kernels: {json.dumps(paths)}", flush=True)
     print(card, flush=True)
     print(json.dumps({

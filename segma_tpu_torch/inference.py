@@ -11,7 +11,15 @@ normalized there), and the device does:
 The host reads WAV bytes, copies O(runs) int32s back and writes RTTM lines
 (and, with ``dump_logits``, each file's frame logits for the tuner). File
 lengths are bucketed in chunks to powers of two; long files go in segments of
-at most ``max_bucket_chunks`` chunks.
+at most ``max_bucket_chunks`` chunks. Files of one bucket and transport dtype
+can share a dispatch (``logits_for_audios_async``, ``--pack-files``).
+
+Transports, the samples copied to the device: int16 (default; exact, half
+the bytes of f32), int8 mu-law, f32, and 4-bit block ADPCM (``ops/adpcm``,
+0.547 bytes per sample, decoded on the device). Host buffers go to the card
+from pinned memory without blocking, and each file's packed decode is queued
+right behind its forward with its own CUDA event, so finishing file i waits
+for file i alone while the next group's forward runs.
 
 ``python -m segma_tpu_torch.inference --config ... --wavs ... --output ...``
 is the predict CLI (``main``), with the JAX package's flags and ``--device``.
@@ -35,11 +43,17 @@ from segma_tpu_torch import resolve_device
 from segma_tpu_torch.annotation import AudioAnnotation
 from segma_tpu_torch.config import Config
 from segma_tpu_torch.models.base import ConvolutionSettings, SegmentationModel
+from segma_tpu_torch.ops.adpcm import (
+    AdpcmAudio, adpcm_decode, adpcm_encode, adpcm_encode_audio, n_blocks,
+)
 from segma_tpu_torch.utils.conversions import frames_to_seconds
 from segma_tpu_torch.utils.encoders import MultiLabelEncoder
 from segma_tpu_torch.utils.io import get_all_samples, get_audio_info, read_pcm16_mono
 
 TAIL_MIN_SAMPLES = 400
+TRANSPORTS = ("int16", "mulaw", "adpcm", "f32")
+
+bytes_to_device = 0  # host buffers' bytes copied to the device since the last reset
 
 
 class Chunkyfier:
@@ -118,19 +132,48 @@ def _expand(audio: torch.Tensor) -> torch.Tensor:
     raise TypeError(f"unsupported sample dtype {audio.dtype}")
 
 
+def host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``. To a card the copy leaves pinned memory
+    without blocking: a pageable copy would wait for every forward queued
+    before it."""
+    host = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+@dataclass
+class _QueuedDecode:
+    """One file's packed run decode, queued on the device: ``packed`` is
+    the host copy (pinned on a card), complete once ``event`` has fired."""
+
+    logits: torch.Tensor  # the device grid, for the mask fallback and the dump
+    packed: torch.Tensor
+    event: torch.cuda.Event | None
+    cap: int
+    valid: int
+
+
 @dataclass
 class InferencePipeline:
-    """Batched inference for one model on one device."""
+    """Batched inference for one model on one device.
+
+    ``transport``: "auto" ships buffers as they are (their dtype selects the
+    expansion on the device: f32, int16, int8 mu-law, or uint8 ADPCM bytes);
+    "adpcm" encodes every other buffer to ADPCM right before the copy."""
 
     model: SegmentationModel
     batch_size: int = 64
     # long files go in segments of at most this many chunks
     max_bucket_chunks: int = 512
     device: str | torch.device | None = "cuda"
+    transport: str = "auto"
     frame_settings: ConvolutionSettings = field(init=False)
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
+        if self.transport not in ("auto", "adpcm"):
+            raise ValueError(f"transport must be 'auto' or 'adpcm', got {self.transport!r}")
         if self.model.device != self.device:
             self.model.to(self.device)
         cfg = self.model.config
@@ -146,14 +189,20 @@ class InferencePipeline:
                 f"expects {self.chunkyfier.n_windows}; check "
                 "audio.strict_frames for this model family"
             )
+        # threshold vectors on the device, by value: a copy from the host
+        # would wait for the forwards queued before it
+        self._thresholds: dict[tuple[float, ...], torch.Tensor] = {}
 
     # -- device core -------------------------------------------------------------
     def _infer(self, audio: torch.Tensor, n_chunks: int) -> torch.Tensor:
-        """audio: (F, n_chunks*stride + chunk_f) -> (F, n_chunks*n_w, L)."""
+        """audio: (F, n_chunks*stride + chunk_f) samples, or ADPCM bytes of
+        that many -> (F, n_chunks*n_w, L). The F files are independent."""
         ck = self.chunkyfier
         stride, chunk_f = ck.chunk_stride, ck.chunk_duration_f
         overlap = chunk_f - stride
         f = audio.shape[0]
+        if audio.dtype == torch.uint8:
+            audio = adpcm_decode(audio, n_chunks * stride + chunk_f)
         audio = _expand(audio)
         # chunk i = audio[i*stride : (i+1)*stride] ++ the next `overlap` samples
         body = audio[:, : n_chunks * stride].reshape(f, n_chunks, stride)
@@ -173,28 +222,57 @@ class InferencePipeline:
         logits = torch.cat(out)
         return logits.reshape(f, n_chunks * logits.shape[1], -1)
 
-    def logits_for_audio_async(self, audio: np.ndarray) -> tuple[torch.Tensor | None, int]:
-        """Full-file inference. ``audio``: mono (n,) float32 in [-1, 1], int16
-        PCM or int8 mu-law. Returns (device logits (grid_frames, L) or None,
-        total_frames): the first ``total_frames`` rows are the frames backed
-        by real audio."""
-        if isinstance(audio, np.ndarray) and audio.dtype == np.uint8:
-            raise NotImplementedError("the ADPCM transport is not ported yet")
-        ck = self.chunkyfier
-        n = int(audio.shape[0])
+    def _ship(self, padded: np.ndarray) -> torch.Tensor:
+        """Host buffer -> device tensor through the transport: uint8 buffers
+        are ADPCM bytes already; under ``transport='adpcm'`` anything else is
+        encoded here. On a card the copy leaves pinned memory without
+        blocking."""
+        if self.transport == "adpcm" and padded.dtype != np.uint8:
+            # adpcm_encode reads int16 as PCM and floats as [-1, 1]; anything
+            # else (an int8 mu-law buffer) would be clipped to +-1 LSB
+            if padded.dtype not in (np.int16, np.float32, np.float64):
+                raise TypeError(
+                    "transport='adpcm' accepts float32/float64 waveforms in "
+                    "[-1, 1], int16 PCM, or pre-encoded AdpcmAudio/uint8 "
+                    f"blocks — got dtype {padded.dtype} (mu-law int8 must go "
+                    "through transport='mulaw')"
+                )
+            padded = adpcm_encode(padded)
+        global bytes_to_device
+        bytes_to_device += padded.nbytes
+        return host_to_device(padded, self.device)
+
+    def _n_frames(self, audio: np.ndarray | AdpcmAudio) -> tuple[int, int]:
+        """(samples, total frames) of one file."""
+        n = audio.n_samples if isinstance(audio, AdpcmAudio) else int(audio.shape[0])
         audio_cfg = self.model.config.audio
-        total_frames = ck.total_frames(
+        return n, self.chunkyfier.total_frames(
             n, strict_tail=audio_cfg.strict_frames, reference_tail=audio_cfg.reference_tail
         )
+
+    def logits_for_audio_async(
+        self, audio: np.ndarray | AdpcmAudio
+    ) -> tuple[torch.Tensor | None, int]:
+        """Full-file inference. ``audio``: mono (n,) float32 in [-1, 1], int16
+        PCM, int8 mu-law, or an ``AdpcmAudio`` (padded with zero blocks here,
+        so nothing is encoded at dispatch). Returns (device logits
+        (grid_frames, L) or None, total_frames): the first ``total_frames``
+        rows are the frames backed by real audio."""
+        ck = self.chunkyfier
+        n, total_frames = self._n_frames(audio)
         if total_frames == 0:
             return None, 0
         n_chunks_needed = -(-total_frames // ck.n_windows)
 
         if n_chunks_needed <= self.max_bucket_chunks:
             n_chunks = _bucket(n_chunks_needed)
-            padded = np.zeros((1, n_chunks * ck.chunk_stride + ck.chunk_duration_f), audio.dtype)
-            padded[0, :n] = audio
-            return self._infer(torch.from_numpy(padded).to(self.device), n_chunks)[0], total_frames
+            padded_len = n_chunks * ck.chunk_stride + ck.chunk_duration_f
+            if isinstance(audio, AdpcmAudio):
+                padded = audio.block_slice(0, n_blocks(padded_len))[None]
+            else:
+                padded = np.zeros((1, padded_len), audio.dtype)
+                padded[0, :n] = audio
+            return self._infer(self._ship(padded), n_chunks)[0], total_frames
 
         # long file: segments of at most max_bucket_chunks chunks (chunks are
         # independent windows, so splitting at chunk boundaries is exact)
@@ -205,11 +283,15 @@ class InferencePipeline:
             n_chunks = _bucket(seg_chunks)
             padded_len = n_chunks * ck.chunk_stride + ck.chunk_duration_f
             off = start_chunk * ck.chunk_stride
-            seg = np.zeros((1, padded_len), audio.dtype)
-            take = min(padded_len, max(0, n - off))
-            if take > 0:
-                seg[0, :take] = audio[off : off + take]
-            out = self._infer(torch.from_numpy(seg).to(self.device), n_chunks)[0]
+            if isinstance(audio, AdpcmAudio):
+                # exact: every model's chunk stride is a multiple of BLOCK
+                seg = audio.block_slice(off, n_blocks(padded_len))[None]
+            else:
+                seg = np.zeros((1, padded_len), audio.dtype)
+                take = min(padded_len, max(0, n - off))
+                if take > 0:
+                    seg[0, :take] = audio[off : off + take]
+            out = self._infer(self._ship(seg), n_chunks)[0]
             seg_logits.append(out[: seg_chunks * ck.n_windows])
             start_chunk += seg_chunks
         logits = torch.cat(seg_logits)
@@ -220,7 +302,49 @@ class InferencePipeline:
             logits = torch.nn.functional.pad(logits, (0, 0, 0, target - rows))
         return logits, total_frames
 
-    def logits_for_audio(self, audio: np.ndarray) -> np.ndarray:
+    def logits_for_audios_async(
+        self, audios: list[np.ndarray | AdpcmAudio], pack_files: int = 8
+    ) -> list[tuple[torch.Tensor | None, int]]:
+        """Packed dispatch: one ``_infer`` call per group of up to
+        ``pack_files`` files that share a chunk bucket and a transport dtype
+        (an f32 waveform must never share an int16 buffer). Many short files
+        fill inner batches that each would leave mostly padding. Returns per
+        file (device logits grid (T, L) or None, total_frames), in input
+        order, as ``logits_for_audio_async``."""
+        ck = self.chunkyfier
+        results: list[tuple[torch.Tensor | None, int]] = [(None, 0)] * len(audios)
+        by_bucket: dict[tuple[int, str], list[tuple[int, int]]] = {}
+        for i, audio in enumerate(audios):
+            _n, total_frames = self._n_frames(audio)
+            if total_frames == 0:
+                continue
+            needed = -(-total_frames // ck.n_windows)
+            if needed > self.max_bucket_chunks:
+                # a very long file goes in segments on its own
+                results[i] = self.logits_for_audio_async(audio)
+                continue
+            tag = "adpcm" if isinstance(audio, AdpcmAudio) else np.dtype(audio.dtype).str
+            by_bucket.setdefault((_bucket(needed), tag), []).append((i, total_frames))
+
+        step = max(1, pack_files)
+        for (n_chunks, tag), items in by_bucket.items():
+            padded_len = n_chunks * ck.chunk_stride + ck.chunk_duration_f
+            for g in range(0, len(items), step):
+                group = items[g : g + step]
+                if tag == "adpcm":
+                    packed = np.stack(
+                        [audios[i].block_slice(0, n_blocks(padded_len)) for i, _tf in group]
+                    )
+                else:
+                    packed = np.zeros((len(group), padded_len), np.dtype(tag))
+                    for row, (i, _tf) in enumerate(group):
+                        packed[row, : audios[i].shape[0]] = audios[i]
+                logits = self._infer(self._ship(packed), n_chunks)
+                for row, (i, tf) in enumerate(group):
+                    results[i] = (logits[row], tf)
+        return results
+
+    def logits_for_audio(self, audio: np.ndarray | AdpcmAudio) -> np.ndarray:
         """Full-file frame logits (total_frames, n_labels) float32."""
         logits, total_frames = self.logits_for_audio_async(audio)
         if logits is None:
@@ -229,9 +353,13 @@ class InferencePipeline:
 
     # -- thresholding + decode -----------------------------------------------------
     def _threshold_vector(self, thresholds: dict[str, dict[str, float]]) -> torch.Tensor:
-        return torch.from_numpy(
-            threshold_vector(self.model.label_encoder.base_labels, thresholds)
-        ).to(self.device)
+        values = threshold_vector(self.model.label_encoder.base_labels, thresholds)
+        key = tuple(values.tolist())
+        thr = self._thresholds.get(key)
+        if thr is None:
+            # two threads may both copy it: they store equal tensors
+            thr = self._thresholds.setdefault(key, torch.from_numpy(values).to(self.device))
+        return thr
 
     def decode_boundaries(
         self, logits: np.ndarray | torch.Tensor, thresholds: dict[str, dict[str, float]]
@@ -245,6 +373,49 @@ class InferencePipeline:
         _, starts, ends = _decode(logits, self._threshold_vector(thresholds))
         return starts.cpu().numpy(), ends.cpu().numpy()
 
+    def queue_decode(
+        self,
+        logits: np.ndarray | torch.Tensor,
+        thresholds: dict[str, dict[str, float]],
+        valid_frames: int | None = None,
+    ) -> _QueuedDecode | None:
+        """Queue the packed run decode of one grid on the device and its copy
+        to the host, without waiting; ``finish_decode`` turns it into
+        intervals. None for an empty grid."""
+        t = int(logits.shape[0])
+        valid = t if valid_frames is None else int(valid_frames)
+        if t == 0 or valid == 0:
+            return None
+        logits = torch.as_tensor(logits).to(self.device)
+        cap = decode_capacity(t)
+        packed = _decode_packed(logits, self._threshold_vector(thresholds), valid, cap)
+        if self.device.type != "cuda":
+            return _QueuedDecode(logits, packed, None, cap, valid)
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return _QueuedDecode(logits, host, event, cap, valid)
+
+    def finish_decode(
+        self, queued: _QueuedDecode | None, thresholds: dict[str, dict[str, float]]
+    ) -> list[tuple[int, int, str]]:
+        """Wait for one queued decode alone and unpack its runs to sample
+        intervals; a label with more runs than the capacity falls back to
+        the exact mask path."""
+        if queued is None:
+            return []
+        if queued.event is not None:
+            queued.event.synchronize()
+        enc = self.model.label_encoder
+        intervals = unpack_run_intervals(
+            queued.packed.numpy(), queued.cap, enc.base_labels, self.frame_settings
+        )
+        if intervals is None:  # capacity overflow: exact mask fallback
+            starts, ends = self.decode_boundaries(queued.logits[: queued.valid], thresholds)
+            return intervals_from_boundaries(starts, ends, self.frame_settings, enc)
+        return intervals
+
     def decode_intervals(
         self,
         logits: np.ndarray | torch.Tensor,
@@ -256,21 +427,7 @@ class InferencePipeline:
         Pass the full bucketed grid plus ``valid_frames``; rows past it are
         forced inactive. Falls back to the exact mask path when a label has
         more runs than the packed capacity."""
-        enc = self.model.label_encoder
-        t = int(logits.shape[0])
-        valid = t if valid_frames is None else int(valid_frames)
-        if t == 0 or valid == 0:
-            return []
-        logits = torch.as_tensor(logits).to(self.device)
-        cap = decode_capacity(t)
-        packed = _decode_packed(logits, self._threshold_vector(thresholds), valid, cap)
-        intervals = unpack_run_intervals(
-            packed.cpu().numpy(), cap, enc.base_labels, self.frame_settings
-        )
-        if intervals is None:  # capacity overflow: exact mask fallback
-            starts, ends = self.decode_boundaries(logits[:valid], thresholds)
-            return intervals_from_boundaries(starts, ends, self.frame_settings, enc)
-        return intervals
+        return self.finish_decode(self.queue_decode(logits, thresholds, valid_frames), thresholds)
 
 
 def _decode(
@@ -286,15 +443,18 @@ def _decode(
 
 def _first_indices(flags: torch.Tensor, cap: int) -> torch.Tensor:
     """(T, L) bool -> (L, cap) int32: per column the first ``cap`` row
-    indices where ``flags`` holds, -1 padded (``jnp.nonzero(size=cap)``)."""
-    n_labels = flags.shape[1]
-    labels, rows = flags.t().nonzero(as_tuple=True)  # label-major, rows ascending
-    counts = torch.bincount(labels, minlength=n_labels)
-    rank = torch.arange(labels.numel(), device=flags.device) - (counts.cumsum(0) - counts)[labels]
-    keep = rank < cap
-    out = torch.full((n_labels, cap), -1, dtype=torch.int32, device=flags.device)
-    out[labels[keep], rank[keep]] = rows[keep].to(torch.int32)
-    return out
+    indices where ``flags`` holds, -1 padded (``jnp.nonzero(size=cap)``).
+
+    Each flagged row goes to the slot of its rank in its column (a cumsum),
+    rows past the capacity and unflagged rows to one spare slot that is cut
+    off: no step waits for the host, as ``nonzero`` would."""
+    t, n_labels = flags.shape
+    rank = torch.cumsum(flags, dim=0, dtype=torch.int32) - 1
+    slot = torch.where(flags & (rank < cap), rank, cap).long()
+    rows = torch.arange(t, dtype=torch.int32, device=flags.device)[None, :].expand(n_labels, t)
+    out = torch.full((n_labels, cap + 1), -1, dtype=torch.int32, device=flags.device)
+    out.scatter_(1, slot.t(), rows)
+    return out[:, :cap]
 
 
 def _decode_packed(
@@ -483,12 +643,13 @@ def save_logits(
 
 def _load_mono(
     audio_path: Path, transport: str = "int16", expect_sr: int | None = None
-) -> np.ndarray:
+) -> np.ndarray | AdpcmAudio:
     """Decode one file for the device hop: 'int16' (exact, half the bytes of
-    f32), 'mulaw' (int8, lossy) or 'f32'. ``expect_sr`` rejects files whose
-    rate differs from the model's."""
-    if transport not in ("int16", "mulaw", "f32"):
-        raise NotImplementedError(f"transport {transport!r} is not ported")
+    f32), 'mulaw' (int8, lossy), 'adpcm' (an ``AdpcmAudio``, lossy, encoded
+    here, on the prefetch thread, so dispatch pads bytes only) or 'f32'.
+    ``expect_sr`` rejects files whose rate differs from the model's."""
+    if transport not in TRANSPORTS:
+        raise ValueError(f"transport must be one of {TRANSPORTS}, got {transport!r}")
     if expect_sr is not None:
         sr = get_audio_info(audio_path).sample_rate
         if sr != expect_sr:
@@ -500,6 +661,8 @@ def _load_mono(
     if raw is not None:
         if transport == "mulaw":
             return mulaw_compress(raw)
+        if transport == "adpcm":
+            return adpcm_encode_audio(raw)
         if transport == "f32":
             return raw.astype(np.float32) / 32768.0
         return raw
@@ -507,13 +670,17 @@ def _load_mono(
     if audio.shape[0] > 1:
         audio = audio.mean(axis=0, keepdims=True)
     mono = audio[0]
-    return mulaw_compress(mono) if transport == "mulaw" else mono
+    if transport == "mulaw":
+        return mulaw_compress(mono)
+    if transport == "adpcm":
+        return adpcm_encode_audio(mono)
+    return mono
 
 
 def _finish_file(
     pipeline: InferencePipeline,
     audio_path: Path,
-    logits_dev: torch.Tensor | None,
+    queued: _QueuedDecode | None,
     total_frames: int,
     thresholds: dict,
     output_p: Path,
@@ -522,13 +689,16 @@ def _finish_file(
     merge_gap_s: float,
     dump_logits: bool = False,
 ) -> list[tuple[int, int, str]]:
-    if logits_dev is None:
-        logits_dev = np.zeros((0, pipeline.model.n_labels), np.float32)
+    """One file's queued decode -> intervals -> RTTM (and its logits for the
+    tuner with ``dump_logits``)."""
     if dump_logits:
         # the one full (T, L) download: only the tuner's dump needs it
-        logits = torch.as_tensor(logits_dev[:total_frames]).float().cpu().numpy()
+        if queued is None:
+            logits = np.zeros((0, pipeline.model.n_labels), np.float32)
+        else:
+            logits = queued.logits[:total_frames].float().cpu().numpy()
         save_logits(logits, pipeline.model.label_encoder, output_p, audio_path.stem)
-    intervals = pipeline.decode_intervals(logits_dev, thresholds, valid_frames=total_frames)
+    intervals = pipeline.finish_decode(queued, thresholds)
     sr = pipeline.model.config.audio.sample_rate
     intervals = postprocess_intervals(
         intervals,
@@ -546,7 +716,7 @@ def infer_file(
     thresholds: dict | None = None,
     dump_logits: bool = False,
     rttm_dirname: str = "raw_rttm",
-    audio: np.ndarray | None = None,
+    audio: np.ndarray | AdpcmAudio | None = None,
     min_duration_s: float = 0.0,
     merge_gap_s: float = 0.0,
 ) -> list[tuple[int, int, str]]:
@@ -558,8 +728,10 @@ def infer_file(
     if audio is None:
         audio = _load_mono(audio_path, expect_sr=pipeline.model.config.audio.sample_rate)
     logits_dev, total_frames = pipeline.logits_for_audio_async(audio)
+    queued = None if logits_dev is None else pipeline.queue_decode(
+        logits_dev, thresholds, valid_frames=total_frames)
     return _finish_file(
-        pipeline, audio_path, logits_dev, total_frames, thresholds, output_p,
+        pipeline, audio_path, queued, total_frames, thresholds, output_p,
         rttm_dirname, min_duration_s, merge_gap_s, dump_logits,
     )
 
@@ -599,20 +771,32 @@ def run_inference_on_audios(
     merge_gap_s: float = 0.0,
     transport: str = "int16",
     device: str | torch.device | None = "cuda",
+    pack_files: int = 1,
 ) -> list[Path]:
-    """Batch entry point: per-file inference over ``wavs`` with RTTMs under
+    """Batch entry point: inference over ``wavs`` with RTTMs under
     ``output / rttm_dirname``. Returns the files that got an RTTM, in order.
 
     The model is ``model`` (which carries its own config), or else the one
     ``checkpoint.load_model_for_inference`` builds from ``config`` (a
     ``Config`` or a YAML path) and ``checkpoint`` (a checkpoint dir, a
     ``best.ckpt`` link or a run dir; None: the random weights of
-    ``train.seed``). Passing both ``model`` and ``checkpoint`` raises. Files
-    are read and served one after the other; a file that cannot be decoded
-    is reported and skipped. ``dump_logits`` also writes each file's logits
-    (``save_logits``) for the tuner.
+    ``train.seed``). Passing both ``model`` and ``checkpoint`` raises.
+    ``dump_logits`` also writes each file's logits (``save_logits``) for the
+    tuner. ``transport`` is one of ``TRANSPORTS``.
+
+    A thread decodes the files ahead into a queue of two while one group of
+    ``pack_files`` files (one dispatch, ``logits_for_audios_async``) is on
+    the device and the group before it is being written out; a file that
+    cannot be decoded is reported and skipped, and the order stays the
+    files' order.
     """
+    import queue
+    import threading
+    from collections import deque
+
     dev = resolve_device(device)
+    if transport not in TRANSPORTS:
+        raise ValueError(f"transport must be one of {TRANSPORTS}, got {transport!r}")
     output = Path(output)
     thresholds = load_thresholds(thresholds)
     files_to_infer_on, n_files = get_list_of_files_to_process(Path(wavs), recursive, uris)
@@ -624,27 +808,79 @@ def run_inference_on_audios(
 
         cfg = config if isinstance(config, Config) else load_config(config)
         model = load_model_for_inference(cfg, checkpoint, device=dev)
-    pipeline = InferencePipeline(model, batch_size=batch_size, device=dev)
+    pipeline = InferencePipeline(
+        model, batch_size=batch_size, device=dev,
+        transport="adpcm" if transport == "adpcm" else "auto",
+    )
     thr = thresholds or default_thresholds(model.label_encoder.base_labels)
-    failed: list[Path] = []
-    for i, audio_path in enumerate(files_to_infer_on, start=1):
-        t0 = time.perf_counter()
+    sr = model.config.audio.sample_rate
+
+    q: queue.Queue = queue.Queue(maxsize=2)
+    stop = object()
+
+    def producer() -> None:
         try:
-            audio = _load_mono(audio_path, transport, expect_sr=model.config.audio.sample_rate)
-        except (ValueError, OSError) as e:
-            failed.append(audio_path)
-            print(f"[log] - SKIPPED '{audio_path}': {type(e).__name__}: {e}", flush=True)
-            continue
-        infer_file(
-            audio_path, pipeline, output, thresholds=thr, dump_logits=dump_logits,
-            rttm_dirname=rttm_dirname, audio=audio, min_duration_s=min_duration_s,
-            merge_gap_s=merge_gap_s,
-        )
+            for audio_path in files_to_infer_on:
+                try:
+                    q.put((audio_path, _load_mono(audio_path, transport, expect_sr=sr), None))
+                except Exception as e:  # noqa: BLE001 — one bad file must not end the batch
+                    q.put((audio_path, None, e))
+        finally:
+            q.put(stop)
+
+    threading.Thread(target=producer, daemon=True).start()
+
+    failed: list[Path] = []
+    pending: deque = deque()
+    group: list[tuple[Path, np.ndarray | AdpcmAudio]] = []
+    n_done = 0
+
+    def finalize(item) -> None:
+        nonlocal n_done
+        audio_path, t0, queued, total_frames = item
+        _finish_file(pipeline, audio_path, queued, total_frames, thr, output, rttm_dirname,
+                     min_duration_s, merge_gap_s, dump_logits)
+        n_done += 1
         print(
-            f"[log] - ({i:>{len(str(n_files))}}/{n_files}) inference for "
+            f"[log] - ({n_done:>{len(str(n_files))}}/{n_files}) inference for "
             f"'{audio_path.stem}' in {time.perf_counter() - t0:.2f}s",
             flush=True,
         )
+
+    def dispatch_group() -> None:
+        """Queue the buffered files' forwards and decodes, then finish the
+        group before them, which waits for that group's decodes alone."""
+        if not group:
+            return
+        t0 = time.perf_counter()
+        if len(group) == 1:
+            outs = [pipeline.logits_for_audio_async(group[0][1])]
+        else:
+            outs = pipeline.logits_for_audios_async([a for _, a in group], pack_files=pack_files)
+        new = [
+            (path, t0, None if lg is None else pipeline.queue_decode(lg, thr, valid_frames=tf), tf)
+            for (path, _), (lg, tf) in zip(group, outs)
+        ]
+        group.clear()
+        while pending:
+            finalize(pending.popleft())
+        pending.extend(new)
+
+    while True:
+        item = q.get()
+        if item is stop:
+            break
+        audio_path, audio, err = item
+        if err is not None:
+            failed.append(audio_path)
+            print(f"[log] - SKIPPED '{audio_path}': {type(err).__name__}: {err}", flush=True)
+            continue
+        group.append((audio_path, audio))
+        if len(group) >= max(1, pack_files):
+            dispatch_group()
+    dispatch_group()
+    while pending:
+        finalize(pending.popleft())
     if failed:
         print(
             f"[log] - WARNING: {len(failed)}/{n_files} files failed to "
@@ -669,7 +905,8 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--checkpoint", default="models/last/best.ckpt")
     parser.add_argument(
         "--artifact", default=None,
-        help="predict from a frozen export directory (not ported yet)",
+        help="predict from a frozen export directory (not ported yet: ROADMAP.md Queue 1, "
+        "the export slice)",
     )
     parser.add_argument("--output", required=True)
     parser.add_argument("--thresholds", default=None)
@@ -687,8 +924,8 @@ def main(argv: list[str] | None = None) -> None:
     )
     parser.add_argument(
         "--transport", default="int16", choices=["int16", "mulaw", "adpcm", "f32"],
-        help="host->device sample encoding (mulaw: 4x fewer bytes than f32, lossy; "
-        "adpcm is not ported yet)",
+        help="host->device sample encoding (mulaw: 4x fewer bytes than f32; "
+        "adpcm: ~7x fewer; both lossy)",
     )
     parser.add_argument(
         "--mesh", default="auto", choices=["auto", "off"],
@@ -696,7 +933,8 @@ def main(argv: list[str] | None = None) -> None:
     )
     parser.add_argument(
         "--pack-files", type=int, default=1,
-        help="files per device dispatch (only 1 is ported)",
+        help="pack N files per device dispatch (fills the inner batches that "
+        "many short files leave mostly padding)",
     )
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cuda (the kernels) or cpu (the plain path)")
@@ -704,20 +942,10 @@ def main(argv: list[str] | None = None) -> None:
     if args.artifact is not None:
         raise NotImplementedError(
             "--artifact (predict from an export) is not ported yet: ROADMAP.md Queue 1, "
-            "'Streaming, serve, export and the CLIs'"
+            "'Export, bundles and the remaining CLIs'"
         )
     if args.config is None:
         parser.error("--config is required")
-    if args.transport == "adpcm":
-        raise NotImplementedError(
-            "--transport adpcm is not ported yet: ROADMAP.md Queue 1, 'Host data path' "
-            "(ADPCM transport)"
-        )
-    if args.pack_files != 1:
-        raise NotImplementedError(
-            f"--pack-files {args.pack_files} is not ported yet: ROADMAP.md Queue 1, "
-            "'Host data path' (multi-file packing)"
-        )
     run_inference_on_audios(
         config=load_config(args.config, extra_args),
         uris=args.uris,
@@ -733,6 +961,7 @@ def main(argv: list[str] | None = None) -> None:
         merge_gap_s=args.merge_gap,
         transport=args.transport,
         device=args.device,
+        pack_files=args.pack_files,
     )
 
 

@@ -22,6 +22,7 @@ over ``trainable_mask``.
 from __future__ import annotations
 
 import contextlib
+import threading
 from dataclasses import dataclass
 from typing import Any, Callable, ContextManager, Iterator, Sequence
 
@@ -41,23 +42,41 @@ __all__ = [
 LOSS_TYPES = ("hydra", "multiclass", "powerset")
 
 
+_tf32_lock = threading.Lock()
+_tf32_depth = 0  # open no_tf32 scopes, over every thread
+_tf32_saved: tuple[bool, bool] = (False, False)
+
+
 @contextlib.contextmanager
 def no_tf32() -> Iterator[None]:
-    """cuDNN and cuBLAS without TF32 while the context is open, the caller's
-    flags restored on exit. Every f32 computation of the port runs under it,
-    in a bf16 model too (the BiLSTM, the f32 heads): PyTorch's default
-    ``torch.backends.cudnn.allow_tf32 = True`` would put cuDNN's f32
-    convolutions and LSTM in TF32, and a caller may set
-    ``torch.backends.cuda.matmul.allow_tf32``. TF32 does not touch bf16."""
+    """cuDNN and cuBLAS without TF32 while any scope is open, the caller's
+    flags restored once the last one closes. Every f32 computation of the
+    port runs under it, in a bf16 model too (the BiLSTM, the f32 heads):
+    PyTorch's default ``torch.backends.cudnn.allow_tf32 = True`` would put
+    cuDNN's f32 convolutions and LSTM in TF32, and a caller may set
+    ``torch.backends.cuda.matmul.allow_tf32``. TF32 does not touch bf16.
+
+    The flags are process-global and a server runs forwards on several
+    threads at once, so the scopes are counted under a lock: the first to
+    open saves the flags and turns TF32 off, a nested or overlapping scope
+    changes nothing, and the last to close restores them. A scope that
+    restored on its own exit would turn TF32 back on under another
+    thread's open scope."""
+    global _tf32_depth, _tf32_saved
     matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
-    prev = matmul.allow_tf32
-    matmul.allow_tf32 = False
+    with _tf32_lock:
+        if _tf32_depth == 0:
+            _tf32_saved = (matmul.allow_tf32, cudnn.allow_tf32)
+            matmul.allow_tf32 = False
+            cudnn.allow_tf32 = False
+        _tf32_depth += 1
     try:
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                         deterministic=cudnn.deterministic, allow_tf32=False):
-            yield
+        yield
     finally:
-        matmul.allow_tf32 = prev
+        with _tf32_lock:
+            _tf32_depth -= 1
+            if _tf32_depth == 0:
+                matmul.allow_tf32, cudnn.allow_tf32 = _tf32_saved
 
 
 def ieee_f32(dtype: torch.dtype) -> ContextManager:

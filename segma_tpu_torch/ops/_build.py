@@ -7,6 +7,11 @@ one more ``nvcc`` links the objects into ``libsegma_kernels.so``. The
 ``*.cuh`` headers there are included by the sources. The sources export
 plain C functions, so no PyTorch header is compiled and the build takes
 seconds. A library newer than every source and header is reused.
+
+The host library ``libsegmawav.so`` (the WAV reader, ``csrc/wavio.cpp``) is
+built the same way by the host C++ compiler, beside it: it needs no CUDA, so
+it builds wherever the port runs, the CPU included. Both builds run under
+one lock, so threads that reach a first use together build once.
 """
 
 from __future__ import annotations
@@ -28,7 +33,12 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # per-kernel registers, spills and shared memory
 )
 
+HOST_SOURCE = SRC_DIR / "wavio.cpp"
+HOST_LIB_PATH = BUILD_DIR / "libsegmawav.so"
+CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-Wextra", "-shared", "-pthread")
+
 _lib: ctypes.CDLL | None = None
+_host_lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
 
 
@@ -117,6 +127,49 @@ def library() -> ctypes.CDLL:
             lib.segma_flash_attn_bwd_f32.restype = i
             _lib = lib
     return _lib
+
+
+def _cxx() -> str:
+    for name in ("g++", "c++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (g++ or c++): the WAV reader cannot be built")
+
+
+def build_host() -> None:
+    """Compile the WAV reader into ``HOST_LIB_PATH`` (a temporary file first,
+    then renamed, so a process never loads a half-written library)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = HOST_LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(tmp), str(HOST_SOURCE)],
+                          capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"the WAV reader failed to build:\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, HOST_LIB_PATH)
+
+
+def host_library() -> ctypes.CDLL:
+    """The loaded WAV reader, built first if missing or older than its source."""
+    global _host_lib
+    with _lock:
+        if _host_lib is None:
+            if (not HOST_LIB_PATH.exists()
+                    or HOST_SOURCE.stat().st_mtime > HOST_LIB_PATH.stat().st_mtime):
+                build_host()
+            lib = ctypes.CDLL(str(HOST_LIB_PATH))
+            p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+            lib.wavio_probe.argtypes = [ctypes.c_char_p, p]
+            lib.wavio_probe.restype = i
+            lib.wavio_read_range.argtypes = [ctypes.c_char_p, i64, i64, p]
+            lib.wavio_read_range.restype = i64
+            lib.wavio_read_pcm16.argtypes = [ctypes.c_char_p, i64, i64, p]
+            lib.wavio_read_pcm16.restype = i64
+            lib.wavio_read_batch_pcm16.argtypes = [p, i64, i64, p, p, i]
+            lib.wavio_read_batch_pcm16.restype = i
+            _host_lib = lib
+    return _host_lib
 
 
 def check(err: int, name: str) -> None:

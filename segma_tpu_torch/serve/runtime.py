@@ -1,0 +1,165 @@
+"""Process lifecycle: the signal-aware serve loop, the RSS watchdog and the
+entry point (counterpart of ``segma_tpu/serve/runtime.py``).
+
+``serve_forever`` loads a live model on the card, warms it up (the kernel
+and WAV reader builds, one forward and decode) before it accepts traffic,
+binds the server and runs until SIGTERM/SIGINT, with a graceful drain and an
+optional RSS self-recycle (exit 75). Serving an exported artifact or a
+bundle waits for the export slice; a device mesh, for the multi-GPU slice.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from http.server import ThreadingHTTPServer
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+
+from segma_tpu_torch import resolve_device
+from segma_tpu_torch.inference import InferencePipeline
+from segma_tpu_torch.serve.http import make_server
+from segma_tpu_torch.serve.router import BUNDLE_SLICE
+from segma_tpu_torch.serve.service import MAX_STREAM_SESSIONS, SegmentationService
+from segma_tpu_torch.streaming import EXPORT_SLICE, StreamingSegmenter
+from segma_tpu_torch.utils import host_rss_gb
+from segma_tpu_torch.utils.logging import log
+
+MESH_SLICE = "a device mesh is not ported yet: ROADMAP.md Queue 1, 'Multi-GPU'"
+
+
+def _start_rss_watchdog(
+    server: ThreadingHTTPServer, limit_gb: float, poll_s: float = 10.0
+) -> dict:
+    """Graceful self-recycle for a long-lived server: when RSS crosses
+    ``limit_gb``, stop accepting, drain in-flight requests and let the
+    process exit (75) for the orchestrator to restart it, instead of the OOM
+    killer resetting clients mid-reply. Returns a state dict whose ``fired``
+    key records whether the watchdog tripped."""
+    state = {"fired": False}
+
+    def watch() -> None:
+        while True:
+            time.sleep(poll_s)
+            rss = host_rss_gb()
+            if rss > limit_gb:
+                log(f"host RSS {rss:.2f} GB > --max-rss-gb {limit_gb:g}: "
+                    "draining and exiting for an orchestrator restart")
+                state["fired"] = True
+                server.shutdown()
+                return
+
+    threading.Thread(target=watch, daemon=True).start()
+    return state
+
+
+def _serve_until_signalled(server: ThreadingHTTPServer, max_rss_gb: float = 0.0) -> None:
+    """serve_forever with graceful termination.
+
+    SIGTERM stops accepting, then ``_Server.drain()`` waits for in-flight
+    requests to finish replying (handler threads are daemon: the stdlib's
+    close joins nothing) and force-closes long-lived WebSocket sessions.
+    ``shutdown()`` runs on a helper thread: it blocks until the serve loop
+    exits, and the signal fires on the loop's thread. ``max_rss_gb`` > 0
+    arms the RSS watchdog (exit 75 when it fires)."""
+    import signal
+
+    def _term(signum, frame):
+        log("SIGTERM: draining in-flight requests and shutting down")
+        threading.Thread(target=server.shutdown, daemon=True).start()
+
+    try:
+        prev = signal.signal(signal.SIGTERM, _term)
+    except ValueError:  # not the main thread (library or test embedding)
+        prev = None
+    watchdog = _start_rss_watchdog(server, max_rss_gb) if max_rss_gb > 0 else None
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        server.shutdown()
+    finally:
+        if prev is not None:
+            signal.signal(signal.SIGTERM, prev)
+        # the accept loop stopping does not finish in-flight replies: wait
+        # for them, then force-close long-lived WebSocket sessions
+        if hasattr(server, "drain"):
+            server.drain()
+    if watchdog is not None and watchdog["fired"]:
+        raise SystemExit(75)  # EX_TEMPFAIL: restart me
+
+
+def warm_up(service: SegmentationService) -> None:
+    """Build what the first request would otherwise build inside a request
+    thread: the CUDA kernels and the WAV reader; then one forward and decode
+    of a zero chunk through the one-shot path and the streaming forward."""
+    from segma_tpu_torch.ops import _build
+
+    pipeline = service.pipeline
+    _build.host_library()
+    if pipeline.device.type == "cuda":
+        _build.library()
+    warm = np.zeros(pipeline.model.config.audio.chunk_duration_f, np.int16)
+    with torch.inference_mode():
+        lg, tf = pipeline.logits_for_audio_async(warm)
+        if lg is not None:
+            pipeline.decode_intervals(lg, service.thresholds, valid_frames=tf)
+        seg = StreamingSegmenter(pipeline.model, service.thresholds)
+        seg.push(warm)
+        seg.flush()
+    if pipeline.device.type == "cuda":
+        torch.cuda.synchronize(pipeline.device)
+
+
+def serve_forever(
+    config: Any = None,
+    checkpoint: Path | str | None = None,
+    host: str = "127.0.0.1",
+    port: int = 8000,
+    thresholds: dict | None = None,
+    batch_size: int = 64,
+    batch_window_ms: float = 0.0,
+    max_batch: int = 8,
+    transport: str = "int16",
+    artifact: Path | str | None = None,
+    bundle: Path | str | None = None,
+    default_model: str | None = None,
+    max_body_mb: float = 512.0,
+    mesh: Any = "auto",
+    max_sessions: int = MAX_STREAM_SESSIONS,
+    max_rss_gb: float = 0.0,
+    device: str | torch.device | None = "cuda",
+) -> None:
+    """Load the model and serve until interrupted (the CLI's entry point).
+
+    ``config`` (a ``Config`` or a YAML path) and ``checkpoint`` (None: the
+    random weights of ``train.seed``) give a live model on ``device``.
+    ``artifact`` and ``bundle`` raise, naming the export slice; ``mesh``
+    "auto" and "off" both serve on one card, and a mesh object raises."""
+    if bundle is not None:
+        raise NotImplementedError(f"--bundle: {BUNDLE_SLICE}")
+    if artifact is not None:
+        raise NotImplementedError(f"--artifact: {EXPORT_SLICE}")
+    if mesh not in ("auto", "off", None):
+        raise NotImplementedError(MESH_SLICE)
+    from segma_tpu_torch.checkpoint import load_model_for_inference
+    from segma_tpu_torch.config import Config, load_config
+
+    dev = resolve_device(device)
+    cfg = config if isinstance(config, Config) else load_config(config)
+    model = load_model_for_inference(cfg, checkpoint, device=dev)
+    pipeline = InferencePipeline(
+        model, batch_size=batch_size, device=dev,
+        transport="adpcm" if transport == "adpcm" else "auto",
+    )
+    service = SegmentationService(
+        pipeline, thresholds, transport=transport, batch_window_ms=batch_window_ms,
+        max_batch=max_batch, max_sessions=max_sessions,
+    )
+    log("warming up (kernel builds, one forward)...")
+    warm_up(service)
+    server = make_server(service, host, port, int(max_body_mb * (1 << 20)))
+    log(f"serving {service.model_name} on http://{host}:{server.server_address[1]}")
+    _serve_until_signalled(server, max_rss_gb)

@@ -1,5 +1,10 @@
-"""WAV reading with numpy (counterpart of ``segma_tpu/utils/io.py``):
-header probing, ranged sample reads and the zero-decode int16 fast path.
+"""WAV reading (counterpart of ``segma_tpu/utils/io.py``): header probing,
+ranged sample reads and the zero-decode int16 fast path.
+
+``get_audio_info``, ``get_samples_in_range``, ``probe_pcm16_mono`` and
+``read_pcm16_mono`` read through the native reader (``utils/native``, built
+from ``csrc/wavio.cpp`` at first use). Their ``*_np`` counterparts here are
+the plain numpy versions that the tests hold the native reader to.
 
 Supported encodings: PCM 16/24/32-bit and IEEE float32/64.
 """
@@ -106,6 +111,14 @@ def _parse_wav_header(audio_p: Path) -> _WavLayout:
 
 def get_audio_info(audio_p: Path | str) -> AudioInfo:
     """Header-only probe: sample rate, sample count, channel count."""
+    from segma_tpu_torch.utils import native
+
+    sr, channels, _bits, _fmt, n_frames = native.probe(audio_p)
+    return AudioInfo(sample_rate=sr, n_samples=n_frames, n_channels=channels)
+
+
+def get_audio_info_np(audio_p: Path | str) -> AudioInfo:
+    """``get_audio_info`` in numpy."""
     layout = _parse_wav_header(Path(audio_p))
     return AudioInfo(
         sample_rate=layout.sample_rate,
@@ -148,6 +161,16 @@ def get_samples_in_range(
     Matches the reference contract (``io.py:30-47``) without decoding the
     rest of the file.
     """
+    from segma_tpu_torch.utils import native
+
+    channels = native.probe(audio_p)[1]
+    return np.ascontiguousarray(native.read_range(audio_p, start_f, duration_f, channels).T)
+
+
+def get_samples_in_range_np(
+    audio_p: Path | str, start_f: int, duration_f: int
+) -> np.ndarray:
+    """``get_samples_in_range`` in numpy."""
     audio_p = Path(audio_p)
     layout = _parse_wav_header(audio_p)
     total = layout.n_samples
@@ -173,6 +196,14 @@ def probe_pcm16_mono(audio_p: Path | str) -> bool:
     """Header-only probe: True iff the file is mono 16-bit PCM, the files
     ``read_pcm16_mono`` reads; the device audio cache picks its buffer dtype
     from it before decoding anything."""
+    from segma_tpu_torch.utils import native
+
+    _sr, channels, bits, fmt, _n = native.probe(audio_p)
+    return fmt == _PCM and bits == 16 and channels == 1
+
+
+def probe_pcm16_mono_np(audio_p: Path | str) -> bool:
+    """``probe_pcm16_mono`` in numpy."""
     layout = _parse_wav_header(Path(audio_p))
     return layout.audio_format == _PCM and layout.bits_per_sample == 16 and layout.n_channels == 1
 
@@ -183,6 +214,13 @@ def read_pcm16_mono(audio_p: Path | str) -> np.ndarray | None:
 
     The pipeline ships int16 to the device and normalizes there, which
     halves the bytes copied from the host."""
+    from segma_tpu_torch.utils import native
+
+    return native.read_pcm16(audio_p)
+
+
+def read_pcm16_mono_np(audio_p: Path | str) -> np.ndarray | None:
+    """``read_pcm16_mono`` in numpy."""
     audio_p = Path(audio_p)
     layout = _parse_wav_header(audio_p)
     if layout.audio_format != _PCM or layout.bits_per_sample != 16:

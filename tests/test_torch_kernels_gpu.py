@@ -827,3 +827,60 @@ def test_card_adamw_holds_to_the_cpu_adamw():
             assert float(group["lr"]) == float(np.float32(rate))
     print(f"card AdamW against the CPU's over {ADAMW_STEPS} steps, the largest share of each "
           f"tolerance (step, parameter): {worst}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [64, 16_001, 600 * 16_000])
+def test_adpcm_decode_on_the_card_is_bit_exact(n):
+    """The torch decode on the card against the numpy decode, bit for bit:
+    int32 cumsums and a scale by 2**-15, as on the CPU."""
+    _cuda()
+    from segma_tpu_torch.ops.adpcm import adpcm_decode, adpcm_decode_np, adpcm_encode
+
+    rng = np.random.default_rng(n % 97)
+    t = np.arange(n) / 16_000
+    rows = np.stack([np.sin(2 * np.pi * 440 * t) * 0.5, rng.standard_normal(n) * 0.3])
+    data = adpcm_encode(np.clip(rows, -1, 1).astype(np.float32))
+    got = adpcm_decode(torch.from_numpy(data).cuda(), n).cpu().numpy()
+    np.testing.assert_array_equal(got, adpcm_decode_np(data, n))
+
+
+@pytest.mark.gpu
+def test_packed_logits_equal_single_logits_on_the_card():
+    """Files packed into one dispatch give each file's single-dispatch
+    logits: the same rows through inner batches of the same shape (three
+    files of one 4-chunk bucket, batch 4: one inner batch per file either
+    way). A tiny bf16 surgical_hydra through the kernels."""
+    _cuda()
+    from segma_tpu_torch.config import (
+        AudioConfig, Config, DataConfig, LSTMConfig, ModelConfig, SurgicalHydraConfig,
+    )
+    from segma_tpu_torch.inference import InferencePipeline
+    from segma_tpu_torch.models import Models
+    from segma_tpu_torch.models.whisper.encoder import WhisperEncoderConfig
+    from segma_tpu_torch.utils.encoders import MultiLabelEncoder
+
+    cfg = Config(
+        data=DataConfig(classes=["KCHI", "OCH", "MAL", "FEM"]),
+        audio=AudioConfig(chunk_duration_s=4.0, sample_rate=16_000, strict_frames=False),
+        model=ModelConfig(name="surgical_hydra", config=SurgicalHydraConfig(
+            encoder="whisper_tiny_random", encoder_layers=[], reduction="weighted",
+            lstm=LSTMConfig(hidden_size=16, num_layers=2, bidirectional=True, dropout=0.5),
+            classifier=256,
+        )),
+    )
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = Models["surgical_hydra"](
+            MultiLabelEncoder(cfg.data.classes), cfg, device="cuda",
+            generator=torch.Generator().manual_seed(0),
+            enc_cfg=WhisperEncoderConfig(d_model=128, n_heads=2, n_layers=2, ffn_dim=256),
+        )
+    pipe = InferencePipeline(model, batch_size=4, device="cuda")
+    rng = np.random.default_rng(8)
+    pcms = [(rng.standard_normal(n) * 3_000).astype(np.int16)
+            for n in (4 * 63_680, 3 * 63_680 + 9_000, 3 * 63_680 + 40_000)]
+    packed = pipe.logits_for_audios_async(pcms, pack_files=3)
+    for pcm, (lg, tf) in zip(pcms, packed):
+        single = pipe.logits_for_audio(pcm)
+        np.testing.assert_array_equal(lg[:tf].float().cpu().numpy(), single)

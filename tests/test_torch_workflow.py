@@ -12,7 +12,10 @@ the trainable weights, in-process on the CPU.
 - ``eval_model_output`` gives JAX's scores within 1e-12 and the same
   ``fscore.csv`` byte for byte, with and without UEM; ``frame_f1`` equals
   JAX's; ``evaluate.main`` writes the same file as JAX's;
-- the flags whose parts are not ported raise, naming themselves.
+- ``--artifact``, not ported, raises naming itself; ``--transport adpcm``
+  and ``--pack-files``, which raised until the host data path was ported,
+  now run: with ``--pack-files 2`` the RTTMs equal the unpacked run's byte
+  for byte, and ADPCM (lossy) writes an RTTM for every file.
 """
 
 from __future__ import annotations
@@ -196,12 +199,24 @@ def test_evaluate_main_matches_jax(predicted, tmp_path):
     ("--artifact", "export_dir"), ("--transport", "adpcm"), ("--pack-files", "2"),
 ])
 def test_unported_cli_flags_raise(predicted, flag, value):
+    out = predicted["root"] / f"unported{flag}"
     args = ["--config", str(CONFIG), "--wavs", str(predicted["data"] / "wav"), "--output",
-            str(predicted["root"] / "unported"), "--device", "cpu", flag, value,
-            *predicted["overrides"]]
-    with pytest.raises(NotImplementedError, match=flag):
-        tinf.main(args)
-    assert not (predicted["root"] / "unported").exists()
+            str(out), "--device", "cpu", flag, value, *predicted["overrides"]]
+    if flag == "--artifact":
+        with pytest.raises(NotImplementedError, match=flag):
+            tinf.main(args)
+        assert not out.exists()
+        return
+    # ported since: the same run as the fixture's, through the flag
+    root = predicted["root"]
+    tinf.main([*args, "--uris", str(root / "uris.txt"), "--checkpoint", str(root / "ck"),
+               "--thresholds", str(root / "thr.yml"), "--batch-size", "4"])
+    for uri in URIS:
+        got = (out / "raw_rttm" / f"{uri}.rttm").read_text()
+        if flag == "--pack-files":
+            assert got == (predicted["torch"] / "raw_rttm" / f"{uri}.rttm").read_text(), uri
+        else:  # ADPCM is lossy: an RTTM of well-formed lines
+            assert all(AudioAnnotation.from_rttm(ln).duration_s > 0 for ln in got.splitlines())
 
 
 def test_predict_cli_needs_a_config(predicted):
