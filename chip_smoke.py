@@ -137,13 +137,25 @@ exits nonzero without printing the final result line:
    threshold, a SIGTERM drain with a request in flight, the TF32 flags
    unchanged); ``python -m segma_tpu_torch.cli.serve`` in a child, drained
    by SIGTERM to exit 0. (It runs after the flags switch, before phase 7.)
+10e. frozen artifacts (``phase_export``, under the same flags): the bf16
+   ``surgical_hydra`` exported for the cuda platform (walls, bytes), loaded
+   by a child that imports segma_tpu_torch.ops and .export only, its logits
+   on the serving slice's WAV bit-equal to the live pipeline's at the same
+   inner batch, its programs calling the log-mel and flash-forward ops, the
+   launches of its bucket plan, cold load and warm xRT beside the live xRT;
+   ``predict --artifact`` against ``--config``; a stream session over the
+   artifact against the live one; the f32 artifact gated the same way; both
+   and conv_vad in a bundle served by ``cli.serve --bundle`` in a child
+   (``?model=`` routing, POST /admin/reload after a re-export, the old
+   session drained); ``cli.doctor`` exit 0.
 11. the ``kernels`` JSON line (log-mel, the bf16 and the f32 flash forward
    and backward; each with its fast_context times where it has them, and
    log-mel's at (32, 64000) as ``vad_train``) and
    the ``kernels:`` launch line, per path (the workflow's resumed fit and
    predict CLI run, each reference-model path, the train CLI, the
    epoch-dispatch paths and the live-serving paths among them); log-mel and
-   the bf16 flash forward also carry ``launches_live_serving``.
+   the bf16 flash forward also carry ``launches_live_serving``, and they and
+   the f32 flash forward ``launches_export``.
 12. last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -503,6 +515,7 @@ def logmel_checks(card: str) -> dict:
         spec = logmel.log10_mel_cuda(wav)
         times = time_turns({
             "kernel": lambda: logmel.log10_mel_cuda(wav),
+            "op": lambda: logmel.log10_mel(wav),  # the registered op the model calls
             "plain": lambda: logmel.log10_mel_plain(wav),
             "stft yardstick": lambda: stft_log10_mel(wav, window, fb),
             "finish": lambda: logmel.finish(spec),
@@ -513,7 +526,8 @@ def logmel_checks(card: str) -> dict:
     bounds = logmel_bounds(*full.shape)
     ms = timed["all-signal"]["kernel"]
     print(
-        f"time logmel (64, 480000) all-signal [{card}]: kernel {ms:.4f} ms, padded chunks "
+        f"time logmel (64, 480000) all-signal [{card}]: kernel {ms:.4f} ms (through the "
+        f"registered op {timed['all-signal']['op']:.4f} ms), padded chunks "
         f"{timed['padded chunks']['kernel']:.4f} ms, plain {timed['all-signal']['plain']:.4f} "
         f"ms, stft yardstick {timed['all-signal']['stft yardstick']:.4f} ms (|diff| from plain "
         f"{yard_err:.2e}), finish {timed['all-signal']['finish']:.4f} ms; bound "
@@ -528,7 +542,7 @@ def logmel_checks(card: str) -> dict:
         "replaces": "segma_tpu/ops/pallas_melspec.py:91",
         "max_abs_err": max(errs),
         "max_abs_err_vs_float64": max(w["max_abs_err"] for w in wide.values()),
-        "ms": ms, "plain_ms": timed["all-signal"]["plain"],
+        "ms": ms, "op_ms": timed["all-signal"]["op"], "plain_ms": timed["all-signal"]["plain"],
         "library_ms": None, **bounds, "padded_chunks_ms": timed["padded chunks"]["kernel"],
         "stft_yardstick_ms": timed["all-signal"]["stft yardstick"],
         "finish_ms": timed["all-signal"]["finish"], "wide_range": wide,
@@ -596,8 +610,10 @@ def flash_checks(card: str) -> dict:
     b, s, h, d = q.shape
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     times = time_turns({"kernel": lambda: attention.flash_attn_fwd(q, k, v, sm),
+                        "op": lambda: attention.flash_fwd_op(q, k, v, sm),
                         **sdpa_calls(qt, kt, vt, sm)})
     ms = median(times.pop("kernel"))
+    op_ms = median(times.pop("op"))
     library = {name: median(t) for name, t in times.items()}
     library_ms = min(library.values()) if library else None
     for name, t in times.items():
@@ -612,7 +628,8 @@ def flash_checks(card: str) -> dict:
     bms = max(bf16_ms, exp_ms)
     bound_op = "bf16 tensor core" if bf16_ms >= exp_ms else "exp2 special-function unit"
     print(
-        f"time flash_attn_fwd (64, 1500, 8, 64) [{card}]: kernel {ms:.4f} ms, "
+        f"time flash_attn_fwd (64, 1500, 8, 64) [{card}]: kernel {ms:.4f} ms (through the "
+        f"registered op {op_ms:.4f} ms), "
         f"plain {plain_ms:.3f} ms, fastest sdpa {library_ms} ms; bounds: bf16 products "
         f"{bf16_ms:.4f} ms ({by}, bf16 tensor-core peak), exp2 {exp_ms:.4f} ms "
         f"({b * h * s * s:.4g} exp2 at {EXP2_PER_SM_CLOCK}/SM/clock x {n_sm} SMs x "
@@ -622,7 +639,7 @@ def flash_checks(card: str) -> dict:
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "segma_tpu_torch/csrc/flash_attn.cu",
         "replaces": "segma_tpu/ops/attention.py:148",
-        "max_abs_err": max(errs), "lse_max_abs_err": max(lse_errs), "ms": ms,
+        "max_abs_err": max(errs), "lse_max_abs_err": max(lse_errs), "ms": ms, "op_ms": op_ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": "operations",
         "bound_op": bound_op, "bf16_bound_ms": bf16_ms, "exp2_bound_ms": exp_ms,
         "library_ms": library_ms, "library_backends_ms": library,
@@ -876,6 +893,7 @@ def flash_f32_checks(card: str) -> tuple[dict, dict]:
         q, k, v = (torch.randn(shape, device="cuda", generator=g) for _ in range(3))
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         times = time_turns({"kernel": lambda: attention.flash_attn_fwd(q, k, v, sm),
+                            "op": lambda: attention.flash_fwd_op(q, k, v, sm),
                             "kernel with lse": lambda: attention.flash_attn_fwd(q, k, v, sm,
                                                                                 with_lse=True),
                             **sdpa_calls(qt, kt, vt, sm)}, iters=iters)
@@ -884,7 +902,8 @@ def flash_f32_checks(card: str) -> tuple[dict, dict]:
         b, s, h, d = shape
         library = {n: median(t) for n, t in times.items() if n.startswith("sdpa")}
         timed[label] = {
-            "ms": median(times["kernel"]), "lse_ms": median(times["kernel with lse"]),
+            "ms": median(times["kernel"]), "op_ms": median(times["op"]),
+            "lse_ms": median(times["kernel with lse"]),
             "plain_ms": time_ms(lambda: attention.attention_plain(q, k, v, sm, torch.float32),
                                 iters=plain_iters),
             "library_backends_ms": library,
@@ -937,8 +956,8 @@ def flash_f32_checks(card: str) -> tuple[dict, dict]:
                 f"{100 * bd['bound_3xtf32_ms'] / ms:.1f}% of it)")
 
     for label, t in timed.items():
-        print(f"time flash_attn_fwd f32 {label} [{card}]: kernel {t['ms']:.4f} ms (with lse "
-              f"{t['lse_ms']:.4f}), plain {t['plain_ms']:.4f} ms, fastest sdpa {t['library_ms']} "
+        print(f"time flash_attn_fwd f32 {label} [{card}]: kernel {t['ms']:.4f} ms (through the "
+              f"registered op {t['op_ms']:.4f}, with lse {t['lse_ms']:.4f}), plain {t['plain_ms']:.4f} ms, fastest sdpa {t['library_ms']} "
               f"ms; {bounds_text(t['bound'], t['ms'])}", flush=True)
     print(f"time flash_attn_bwd f32 {TRAIN_ATTN_SHAPE} [{card}]: kernels {bwd_timed['ms']:.4f} "
           f"ms, plain {bwd_timed['plain_ms']:.4f} ms, fastest sdpa backward "
@@ -950,7 +969,8 @@ def flash_f32_checks(card: str) -> tuple[dict, dict]:
         "source": "segma_tpu_torch/csrc/flash_attn_f32.cu",
         "replaces": "segma_tpu/ops/attention.py:148",
         "max_abs_err": max(errs), "max_abs_err_vs_float64": max(errs64),
-        "lse_max_abs_err": max(lse_errs), "ms": serve["ms"], "lse_ms": serve["lse_ms"],
+        "lse_max_abs_err": max(lse_errs), "ms": serve["ms"], "op_ms": serve["op_ms"],
+        "lse_ms": serve["lse_ms"],
         "plain_ms": serve["plain_ms"], **row_bounds(serve["bound"]),
         "library_ms": serve["library_ms"], "library_backends_ms": serve["library_backends_ms"],
         "train_shape": list(TRAIN_ATTN_SHAPE), "train_shape_ms": train["ms"],
@@ -1030,7 +1050,7 @@ def phase_slice(card: str) -> dict:
     from segma_tpu_torch.annotation import AudioAnnotation
     from segma_tpu_torch.inference import Chunkyfier, _bucket, run_inference_on_audios
     from segma_tpu_torch.models import Models
-    from segma_tpu_torch.models.geometry import ConvolutionSettings
+    from segma_tpu_torch.geometry import ConvolutionSettings
     from segma_tpu_torch.ops import attention, logmel
     from segma_tpu_torch.utils.encoders import MultiLabelEncoder
 
@@ -1465,7 +1485,7 @@ def phase_serve_f32(card: str) -> dict:
     from segma_tpu_torch.annotation import AudioAnnotation
     from segma_tpu_torch.inference import Chunkyfier, _bucket, run_inference_on_audios
     from segma_tpu_torch.models import Models
-    from segma_tpu_torch.models.geometry import ConvolutionSettings
+    from segma_tpu_torch.geometry import ConvolutionSettings
     from segma_tpu_torch.utils.encoders import MultiLabelEncoder
 
     cfg = surgical_hydra_config("f32")
@@ -2008,7 +2028,7 @@ def phase_workflow(card: str) -> dict:
         Chunkyfier, InferencePipeline, _bucket, _load_mono, load_thresholds,
         run_inference_on_audios,
     )
-    from segma_tpu_torch.models.geometry import ConvolutionSettings
+    from segma_tpu_torch.geometry import ConvolutionSettings
     from segma_tpu_torch.train import Trainer
 
     walls: dict[str, float] = {}
@@ -2298,7 +2318,7 @@ def expected_inner_batches(cfg, n_samples: int) -> int:
     """Inner batches ``InferencePipeline`` runs for one file of ``n_samples``
     (one log-mel launch each, and one flash launch per encoder layer)."""
     from segma_tpu_torch.inference import Chunkyfier, _bucket
-    from segma_tpu_torch.models.geometry import ConvolutionSettings
+    from segma_tpu_torch.geometry import ConvolutionSettings
 
     ck = Chunkyfier(INNER_BATCH, cfg.audio.chunk_duration_f,
                     ConvolutionSettings((320,), (320,), (0,)))
@@ -2462,7 +2482,7 @@ def phase_reference_models(card: str) -> dict:
     from segma_tpu_torch.config import DataloaderConfig
     from segma_tpu_torch.data import SegmaFileDataset, SegmentationDataLoader
     from segma_tpu_torch.inference import Chunkyfier, _load_mono
-    from segma_tpu_torch.models.geometry import ConvolutionSettings
+    from segma_tpu_torch.geometry import ConvolutionSettings
     from segma_tpu_torch.train import Trainer
 
     walls: dict[str, float] = {}
@@ -2766,7 +2786,7 @@ def phase_model_families(card: str) -> dict:
     from segma_tpu_torch import checkpoint, inference
     from segma_tpu_torch.data import SegmaFileDataset, SegmentationDataLoader
     from segma_tpu_torch.inference import Chunkyfier, run_inference_on_audios
-    from segma_tpu_torch.models.geometry import ConvolutionSettings
+    from segma_tpu_torch.geometry import ConvolutionSettings
 
     with torch.inference_mode():
         row = logmel_shape_row(card, "vad training", VAD_TRAIN_SHAPE,
@@ -3043,7 +3063,7 @@ def hydra_whisper_reduction(card: str) -> dict:
     from segma_tpu_torch import checkpoint, inference
     from segma_tpu_torch.cli import import_checkpoint
     from segma_tpu_torch.inference import Chunkyfier, _load_mono
-    from segma_tpu_torch.models.geometry import ConvolutionSettings
+    from segma_tpu_torch.geometry import ConvolutionSettings
 
     name = "hydra_whisper"
     labels = list(TRAIN_CLASSES)
@@ -3888,18 +3908,19 @@ def _rttm_mask(path: Path, labels: list[str], n: int) -> np.ndarray:
     return out
 
 
-def _near_threshold_check(what: str, streamed: np.ndarray, logits: np.ndarray) -> int:
+def _near_threshold_check(what: str, streamed: np.ndarray, logits: np.ndarray,
+                          atol: float = LOGITS_ATOL) -> int:
     """Streamed frames against the offline mask (sigmoid(logits) > 0.5): a
-    frame may differ only where the offline logit lies within LOGITS_ATOL,
-    the bf16 card tolerance, of the threshold's logit 0. Returns the count
-    of frames that differ."""
+    frame may differ only where the offline logit lies within ``atol`` (the
+    bf16 card tolerance LOGITS_ATOL by default) of the threshold's logit 0.
+    Returns the count of frames that differ."""
     import torch
 
     offline = (torch.sigmoid(torch.from_numpy(logits)) > 0.5).numpy()
     if streamed.shape != offline.shape:
         raise AssertionError(f"{what}: {streamed.shape} frames, offline {offline.shape}")
     diff = streamed != offline
-    far = diff & (np.abs(logits) > LOGITS_ATOL)
+    far = diff & (np.abs(logits) > atol)
     if far.any():
         raise AssertionError(f"{what}: {int(far.sum())} frames differ from offline away from "
                              f"the threshold (of {int(diff.sum())} differing; the farthest at "
@@ -4270,6 +4291,326 @@ def phase_serve(card: str, device: str = "cuda") -> dict:
     return paths
 
 
+EXPORT_BUCKETS = (8, 32)  # the bf16 artifact's buckets; its inner batch is the larger
+EXPORT_F32_BUCKET = 8  # the f32 artifact's one bucket, also its inner batch
+EXPORT_STREAM_BATCHES = (2,)
+EXPORT_STREAM_S = 60.0  # audio streamed over the artifact and the live model
+EXPORT_BUNDLE_CLIP_S = 20.0  # the clip each bundle model segments over HTTP
+EXPORT_OPS = ("segma_tpu_torch.log10_mel.default", "segma_tpu_torch.flash_attn_fwd.default")
+# the artifact's loader, a fresh process: it imports segma_tpu_torch.ops and
+# segma_tpu_torch.export (and the stdlib, numpy, torch) and must not import
+# the model package; it writes the WAV's logits, its times, the launch
+# counts of one run and the op nodes of the infer programs
+EXPORT_CHILD = (
+    "import json, sys, time, wave\n"
+    "import numpy as np, torch\n"
+    "import segma_tpu_torch.ops as ops\n"
+    "from segma_tpu_torch.export import ExportedPipeline\n"
+    "art, wav_path, out_npy, out_json = sys.argv[1:5]\n"
+    "with wave.open(wav_path) as w:\n"
+    "    pcm = np.frombuffer(w.readframes(w.getnframes()), '<i2').astype(np.int16)\n"
+    "load_s = []\n"
+    "for _ in range(2):  # the first pays the process's one-time imports and CUDA set-up\n"
+    "    t0 = time.perf_counter()\n"
+    "    exp = ExportedPipeline.load(art)\n"
+    "    torch.cuda.synchronize()\n"
+    "    load_s.append(time.perf_counter() - t0)\n"
+    "targets = sorted({str(n.target) for p in exp.infer_fns.values()\n"
+    "                  for n in p.exported.graph.nodes if str(n.target).startswith('segma')})\n"
+    "ops.set_launch_counts(dict.fromkeys(ops.launch_counts(), 0))\n"
+    "walls = []\n"
+    "for k in range(3):\n"
+    "    t0 = time.perf_counter()\n"
+    "    logits = exp.logits_for_audio(exp.prepare(pcm))\n"
+    "    walls.append(time.perf_counter() - t0)\n"
+    "    if k == 0:\n"
+    "        launches = ops.launch_counts()\n"
+    "models = sorted(m for m in sys.modules if m.startswith('segma_tpu_torch.models'))\n"
+    "np.save(out_npy, logits)\n"
+    "with open(out_json, 'w') as f:\n"
+    "    json.dump({'load_s': load_s, 'walls': walls, 'launches': launches,\n"
+    "               'targets': targets, 'models': models}, f)\n"
+)
+
+
+def _artifact_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def _program_targets(pipe) -> set[str]:
+    """The registered ops the artifact's infer programs call."""
+    return {str(n.target) for prog in pipe.infer_fns.values()
+            for n in prog.exported.graph.nodes if str(n.target).startswith("segma_tpu_torch.")}
+
+
+def _same_or_near(what: str, got: np.ndarray, ref: np.ndarray, atol: float) -> str:
+    """Bit-equal logits, or else the near-threshold rule on their masks
+    with max |delta| printed; returns which held."""
+    if got.shape != ref.shape:
+        raise AssertionError(f"{what}: shape {got.shape}, live {ref.shape}")
+    if np.array_equal(got, ref):
+        return "bit-equal"
+    import torch
+
+    delta = float(np.abs(got - ref).max())
+    n = _near_threshold_check(what, (torch.sigmoid(torch.from_numpy(got)) > 0.5).numpy(), ref,
+                              atol)
+    return f"not bit-equal: max |delta| {delta:.3e}, {n} frames flip, all within {atol:g}"
+
+
+def phase_export(card: str) -> dict:
+    """Frozen artifacts on the card: ``export_inference`` of full-width
+    Whisper-base ``surgical_hydra`` in bf16 (train.seed 0 weights) for the
+    cuda platform, buckets EXPORT_BUCKETS, stream batches
+    EXPORT_STREAM_BATCHES (export wall of each program, the artifact's
+    bytes); a fresh child process that imports segma_tpu_torch.ops and
+    segma_tpu_torch.export only loads it (cold load), serves the serving
+    slice's 597.5 s WAV three times and holds no module of the model
+    package: its logits bit-equal to the live pipeline's at the same inner
+    batch (else the near-threshold rule with max |delta|), the log-mel and
+    flash-forward op nodes in its programs, log-mel launched once and the
+    flash forward once per layer for each dispatch of the bucket plan, and
+    its warm xRT beside the live one. ``predict --artifact`` against
+    ``predict --config`` (RTTMs, near-threshold rule); a stream session over
+    the artifact against the live streaming path. The f32 model's artifact
+    (bucket EXPORT_F32_BUCKET, no stream batches) gated the same way, in
+    this process. Then the two with ``conv_vad`` at its YAML width in one
+    bundle, served by ``python -m segma_tpu_torch.cli.serve --bundle`` in a
+    child: GET /v1/models, ``?model=`` for each model against its artifact
+    in this process, and POST /admin/reload after conv_vad is re-exported
+    (its open session drains, new requests see the new artifact). Last,
+    ``python -m segma_tpu_torch.cli.doctor`` exits 0. Returns each path's
+    launch counts."""
+    import signal
+
+    import torch
+
+    from segma_tpu_torch import checkpoint, inference
+    from segma_tpu_torch.bundle import write_bundle_manifest
+    from segma_tpu_torch.client import Interval, SegmaClient
+    from segma_tpu_torch.export import ExportedPipeline, _bucket_plan, export_inference
+    from segma_tpu_torch.streaming import StreamingSegmenter
+
+    paths: dict[str, dict] = {}
+    cfg = surgical_hydra_config()
+    labels = list(cfg.data.classes)
+    batch = max(EXPORT_BUCKETS)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        wav_dir = tmp / "wav"
+        wav_dir.mkdir()
+        stride, chunk_f, n_w = 63_680, 64_000, 199  # surgical_hydra's 4 s chunks
+        n_samples = N_CHUNKS * stride + (chunk_f - stride) + 8_000
+        pcm = write_wav(wav_dir / "smoke.wav", n_samples)
+        audio_s = n_samples / 16_000
+        bundle = tmp / "bundle"
+
+        # the bf16 artifact
+        model = checkpoint.build_model(cfg, device="cuda")
+        n_layers = model.module.enc_cfg.n_layers
+        walls: dict[str, float] = {}
+        t0 = time.perf_counter()
+        art = export_inference(model, bundle / "whisper_bf16", buckets=EXPORT_BUCKETS,
+                               batch_size=batch, platforms=("cuda",),
+                               stream_batches=EXPORT_STREAM_BATCHES, model_version="bf16",
+                               walls=walls)
+        export_s = time.perf_counter() - t0
+        print(f"export bf16 [{card}]: {export_s:.1f} s for {len(walls)} programs ("
+              + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+              + f"), artifact {_artifact_bytes(art)} B", flush=True)
+
+        live = inference.InferencePipeline(model, batch_size=batch)
+        live.logits_for_audio(pcm)  # warm
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        live_logits = live.logits_for_audio(pcm)
+        live_wall = time.perf_counter() - t0
+        paths["export live bf16"] = read_launches()
+
+        log = tmp / "child.log"
+        proc = _child(["-c", EXPORT_CHILD, str(art), str(wav_dir / "smoke.wav"),
+                       str(tmp / "child.npy"), str(tmp / "child.json")], tmp / "child_cwd", log)
+        child_s = _wait(proc, log, "artifact loader child", 0)
+        report = json.loads((tmp / "child.json").read_text())
+        if report["models"]:
+            raise AssertionError(f"the loader child imported {report['models']}")
+        if not set(EXPORT_OPS) <= set(report["targets"]):
+            raise AssertionError(f"the bf16 programs call {report['targets']}, not {EXPORT_OPS}")
+        needed = -(-inference.Chunkyfier(1, chunk_f, model.conv_settings).total_frames(
+            n_samples) // n_w)
+        plan = _bucket_plan(needed, list(EXPORT_BUCKETS))
+        n_inner = sum(-(-b // batch) for b in plan)
+        counts = report["launches"]
+        paths["export child bf16"] = counts
+        if counts["logmel"] != n_inner or counts["flash_attn_fwd"] != n_layers * n_inner:
+            raise AssertionError(f"artifact launches {counts}, not log-mel {n_inner} and flash "
+                                 f"{n_layers * n_inner} (plan {plan})")
+        verdict = _same_or_near("bf16 artifact logits", np.load(tmp / "child.npy"),
+                                live_logits, LOGITS_ATOL)
+        warm_s = min(report["walls"][1:])
+        print(f"export bf16 child [{card}]: imports segma_tpu_torch.ops and .export, no model "
+              f"module; cold load {report['load_s'][0]:.2f} s, a second load in the process "
+              f"{report['load_s'][1]:.2f} s, runs {report['walls']} s, warm "
+              f"{audio_s / warm_s:.1f}x real time against the live pipeline's "
+              f"{audio_s / live_wall:.1f}x (inner batch {batch}, this run); child wall "
+              f"{child_s:.1f} s; plan {plan}; logits {verdict}; ops {report['targets']}; "
+              f"launches {counts}", flush=True)
+
+        # predict --artifact against predict --config
+        config_path = write_config(tmp / "cfg.json", cfg)
+        trainable, frozen = checkpoint.flax_split(model)
+        checkpoint.save_params(tmp / "ck", trainable,
+                               {"frozen_fingerprint": checkpoint.frozen_fingerprint(frozen)})
+        reset_launches()
+        inference.main(["--artifact", str(art), "--wavs", str(wav_dir), "--output",
+                        str(tmp / "pa")])
+        paths["export predict --artifact"] = read_launches()
+        inference.main(["--config", str(config_path), "--checkpoint", str(tmp / "ck"), "--wavs",
+                        str(wav_dir), "--output", str(tmp / "pc"), "--batch-size", str(batch)])
+        n_frames = len(live_logits)
+        flips = [_near_threshold_check(f"predict {side}", _rttm_mask(
+            tmp / side / "raw_rttm" / "smoke.rttm", labels, n_frames), live_logits)
+            for side in ("pa", "pc")]
+        same = ((tmp / "pa" / "raw_rttm" / "smoke.rttm").read_text()
+                == (tmp / "pc" / "raw_rttm" / "smoke.rttm").read_text())
+        print(f"export predict [{card}]: --artifact and --config RTTMs "
+              f"{'identical' if same else 'differ'}; frames off the live decode {flips}, each "
+              f"within LOGITS_ATOL of the threshold; launches "
+              f"{paths['export predict --artifact']}", flush=True)
+
+        # a stream session over the artifact against the live streaming path
+        exp = ExportedPipeline.load(art)
+        n_stream = int(EXPORT_STREAM_S * 16_000)
+        step = int(SERVE_PUSH_S * 16_000)
+        streamed = {}
+        for side, seg in (("artifact", exp.streaming_segmenter()),
+                          ("live", StreamingSegmenter(model))):
+            for k in range(0, n_stream, step):
+                seg.push(pcm[k : min(k + step, n_stream)])
+            seg.flush()
+            streamed[side] = seg.intervals
+        if streamed["artifact"] == streamed["live"]:
+            stream_verdict = f"equal ({len(streamed['live'])} intervals)"
+        else:
+            prefix = live.logits_for_audio(pcm[:n_stream])
+            n = [_near_threshold_check(f"stream {side}", _frames_of(
+                [Interval(s / 16_000, e / 16_000, lb) for s, e, lb in ivs], labels,
+                len(prefix)), prefix) for side, ivs in streamed.items()]
+            stream_verdict = f"differ, frames off offline {n}, each near the threshold"
+        print(f"export stream [{card}]: {EXPORT_STREAM_S:.0f} s in {SERVE_PUSH_S} s pushes, "
+              f"artifact against live intervals: {stream_verdict}", flush=True)
+        del exp, live, model
+        torch.cuda.empty_cache()
+
+        # the f32 artifact
+        cfg32 = surgical_hydra_config("f32")
+        model32 = checkpoint.build_model(cfg32, device="cuda")
+        walls32: dict[str, float] = {}
+        art32 = export_inference(model32, bundle / "whisper_f32", buckets=(EXPORT_F32_BUCKET,),
+                                 batch_size=EXPORT_F32_BUCKET, platforms=("cuda",),
+                                 stream_batches=(), model_version="f32", walls=walls32)
+        live32 = inference.InferencePipeline(model32, batch_size=EXPORT_F32_BUCKET)
+        ref32 = live32.logits_for_audio(pcm)
+        t0 = time.perf_counter()
+        exp32 = ExportedPipeline.load(art32)
+        load32_s = time.perf_counter() - t0
+        if not set(EXPORT_OPS) <= _program_targets(exp32):
+            raise AssertionError(f"the f32 programs call {_program_targets(exp32)}")
+        exp32.logits_for_audio(pcm)  # warm
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        got32 = exp32.logits_for_audio(pcm)
+        warm32_s = time.perf_counter() - t0
+        counts32 = paths["export f32"] = read_launches()
+        plan32 = _bucket_plan(needed, [EXPORT_F32_BUCKET])
+        if (counts32["logmel"] != len(plan32)
+                or counts32["flash_attn_fwd_f32"] != n_layers * len(plan32)):
+            raise AssertionError(f"f32 artifact launches {counts32}, plan of {len(plan32)}")
+        verdict32 = _same_or_near("f32 artifact logits", got32, ref32, LOGITS_F32_ATOL)
+        print(f"export f32 [{card}]: {sum(walls32.values()):.1f} s for {len(walls32)} programs, "
+              f"artifact {_artifact_bytes(art32)} B, load {load32_s:.2f} s, warm "
+              f"{audio_s / warm32_s:.1f}x real time, logits {verdict32}, launches {counts32}",
+              flush=True)
+        del exp32, live32, model32
+        torch.cuda.empty_cache()
+
+        # the bundle: both artifacts and conv_vad at its YAML width
+        vcfg = family_config("conv_vad", tmp / "data")
+        vmodel = checkpoint.build_model(vcfg, device="cuda")
+
+        def export_vad(version: str) -> Path:
+            return export_inference(vmodel, bundle / "conv_vad", buckets=(8,), batch_size=8,
+                                    platforms=("cuda",), stream_batches=(2,),
+                                    model_version=version)
+
+        export_vad("v1")
+        write_bundle_manifest(bundle, default="whisper_bf16")
+        clip = pcm[: int(EXPORT_BUNDLE_CLIP_S * 16_000)]
+        wants = {name: sorted(ExportedPipeline.load(bundle / name).segment(clip))
+                 for name in ("whisper_bf16", "whisper_f32", "conv_vad")}
+        report_path = tmp / "bundle_launches.json"
+        log = tmp / "bundle_serve.log"
+        proc = _child(["-c", LAUNCH_REPORTING_CHILD, str(report_path),
+                       "segma_tpu_torch.cli.serve", "--bundle", str(bundle), "--port", "0"],
+                      tmp / "bundle_cwd", log)
+        try:
+            url = None
+            t0 = time.perf_counter()
+            deadline = time.monotonic() + CHILD_WALL_S
+            while url is None and proc.poll() is None and time.monotonic() < deadline:
+                for line in log.read_text().splitlines():
+                    if " on http://" in line and "serving bundle" in line:
+                        url = line.split(" on ")[-1].strip()
+                time.sleep(0.2)
+            if url is None:
+                raise AssertionError("the bundle server never served:\n" + log.read_text()[-3000:])
+            up_s = time.perf_counter() - t0
+            client = SegmaClient(url)
+            catalog = client.models()
+            if catalog["default"] != "whisper_bf16" or set(catalog["models"]) != set(wants):
+                raise AssertionError(f"GET /v1/models: {catalog}")
+            for name, want in wants.items():
+                got = sorted((round(iv.start_s * 16_000), round(iv.end_s * 16_000), iv.label)
+                             for iv in client.segment(clip, model=name))
+                if got != want:
+                    raise AssertionError(f"?model={name}: the server's intervals differ from "
+                                         "its artifact's in this process")
+            session = client.stream(model="conv_vad")
+            session.push(clip[: 5 * 16_000])
+            time.sleep(1.1)  # created_at has a resolution of 1 s
+            export_vad("v2")
+            reload = client.reload()
+            if reload["replaced"] != ["conv_vad"] or reload["kept"] != ["whisper_bf16",
+                                                                         "whisper_f32"]:
+                raise AssertionError(f"POST /admin/reload: {reload}")
+            session.push(clip[5 * 16_000 :])
+            drained = session.flush()
+            version = client.models()["models"]["conv_vad"]["model_version"]
+            if version != "v2" or not client.segment(clip, model="conv_vad"):
+                raise AssertionError(f"after the reload conv_vad is {version}")
+            proc.send_signal(signal.SIGTERM)
+            _wait(proc, log, "bundle server", 0)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        paths["export bundle serve"] = json.loads(report_path.read_text())
+        print(f"export bundle [{card}]: {sorted(wants)} served by cli.serve --bundle, up in "
+              f"{up_s:.1f} s (load and warm); ?model= intervals equal each artifact's; reload "
+              f"{reload}; the old conv_vad session drained ({len(drained)} intervals at its "
+              f"flush), new requests see v2; SIGTERM exit 0; launches "
+              f"{paths['export bundle serve']}", flush=True)
+
+        # doctor on the card
+        log = tmp / "doctor.log"
+        _wait(_child(["-m", "segma_tpu_torch.cli.doctor"], tmp / "doctor_cwd", log), log,
+              "doctor", 0)
+        print(f"export doctor [{card}]: exit 0\n" + log.read_text().rstrip(), flush=True)
+    return paths
+
+
 def profile_run(card: str, label: str, fn, wall_s: float) -> list[str]:
     """One more main-path run under torch.profiler: device time by kernel,
     and the device's busy share of ``wall_s``, the same run's wall time
@@ -4350,6 +4691,7 @@ def main() -> int:
     print("f32 phases: PyTorch's default flags, allow_tf32 True for cuDNN, False for matmul",
           flush=True)
     live = phase(phase_serve)
+    export = phase(phase_export)
     serve_f32 = phase(phase_serve_f32)
     train_f32 = phase(phase_train_f32)
     print(f"phase walls [{card}]: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
@@ -4374,6 +4716,10 @@ def main() -> int:
     for name in SERVE_LAUNCH_KEYS:  # the live-serving paths, all of them together
         by_name[name]["launches_live_serving"] = sum(path[name] for path in live.values())
     by_name["logmel"]["vad_train"] = families["logmel"]
+    # the artifacts' runs: the bf16 one in its loader child, the f32 one here
+    for name, path in (("logmel", "export child bf16"), ("flash_attn_fwd", "export child bf16"),
+                       ("flash_attn_fwd_f32", "export f32")):
+        by_name[name]["launches_export"] = export[path][name]
     print(json.dumps({"kernels": rows}), flush=True)
     paths = {"serve": serve, "train": train, "workflow_resume": workflow["resume"],
              "workflow_predict": workflow["predict"], "serve_f32": serve_f32,
@@ -4381,7 +4727,8 @@ def main() -> int:
              **{f"reference {label}": counts for label, counts in reference.items()},
              "train_cli": train_cli, **device_cache,
              **{f"families {label}": counts for label, counts in families["launches"].items()},
-             **{f"live serve {label}": counts for label, counts in live.items()}}
+             **{f"live serve {label}": counts for label, counts in live.items()},
+             **export}
     print(f"kernels: {json.dumps(paths)}", flush=True)
     print(card, flush=True)
     print(json.dumps({

@@ -2,11 +2,12 @@
 ``segma_tpu/cli/serve.py``).
 
     python -m segma_tpu_torch.cli.serve --config cfg.yml [--checkpoint DIR]
+    python -m segma_tpu_torch.cli.serve --artifact DIR
+    python -m segma_tpu_torch.cli.serve --bundle DIR [--default-model NAME]
 
 The JAX package's flags, plus ``--device`` (default ``cuda``; ``cpu`` runs
-the plain path). Unknown arguments are config overrides
-(``key.path=value``). ``--artifact`` and ``--bundle`` raise: serving an
-export waits for the export slice.
+the plain path, and an artifact's CPU programs). Unknown arguments are
+config overrides (``key.path=value``).
 """
 
 from __future__ import annotations
@@ -20,13 +21,13 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--checkpoint", default="models/last/best.ckpt")
     parser.add_argument(
         "--artifact", default=None,
-        help="serve a frozen export directory (not ported yet: ROADMAP.md Queue 1, "
-        "the export slice)",
+        help="serve an exported artifact directory (cli.export) instead of "
+        "config+checkpoint: no model registry needed",
     )
     parser.add_argument(
         "--bundle", default=None,
-        help="serve every artifact of a bundle directory (not ported yet: ROADMAP.md "
-        "Queue 1, the export slice)",
+        help="serve every artifact under a bundle directory behind one port "
+        "(cli.bundle); requests select with ?model=<name>",
     )
     parser.add_argument("--default-model", default=None,
                         help="override the bundle's default model election")

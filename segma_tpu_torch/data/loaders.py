@@ -41,7 +41,7 @@ from segma_tpu_torch.config import Config
 from segma_tpu_torch.data.device_cache import MAX_SAMPLES, DeviceAudioCache
 from segma_tpu_torch.data.file_dataset import DatasetSubset, SegmaFileDataset
 from segma_tpu_torch.data.intervals import IntervalIndex
-from segma_tpu_torch.models.geometry import ConvolutionSettings
+from segma_tpu_torch.geometry import ConvolutionSettings
 from segma_tpu_torch.utils.conversions import frames_to_seconds, seconds_to_frames
 from segma_tpu_torch.utils.encoders import MultiLabelEncoder
 from segma_tpu_torch.utils.io import get_samples_in_range, read_pcm16_mono

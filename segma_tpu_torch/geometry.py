@@ -1,5 +1,7 @@
 """Receptive-field geometry of strided conv stacks (a copy of
-``segma_tpu/models/geometry.py``; numpy only).
+``segma_tpu/models/geometry.py``; numpy only). It lives outside ``models``
+so that an exported artifact's loader (``export.ExportedPipeline``) reads
+frame geometry without importing the model package.
 
 This single class links model output frames <-> raw sample indices and shapes
 every number downstream: label windowing during training, chunk geometry

@@ -35,6 +35,7 @@ import time
 from dataclasses import dataclass, field
 from math import floor
 from pathlib import Path
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
@@ -42,13 +43,17 @@ import torch
 from segma_tpu_torch import resolve_device
 from segma_tpu_torch.annotation import AudioAnnotation
 from segma_tpu_torch.config import Config
-from segma_tpu_torch.models.base import ConvolutionSettings, SegmentationModel
+from segma_tpu_torch.geometry import ConvolutionSettings
+from segma_tpu_torch.ops import cached_constant
 from segma_tpu_torch.ops.adpcm import (
     AdpcmAudio, adpcm_decode, adpcm_encode, adpcm_encode_audio, n_blocks,
 )
 from segma_tpu_torch.utils.conversions import frames_to_seconds
 from segma_tpu_torch.utils.encoders import MultiLabelEncoder
 from segma_tpu_torch.utils.io import get_all_samples, get_audio_info, read_pcm16_mono
+
+if TYPE_CHECKING:
+    from segma_tpu_torch.models.base import SegmentationModel
 
 TAIL_MIN_SAMPLES = 400
 TRANSPORTS = ("int16", "mulaw", "adpcm", "f32")
@@ -354,12 +359,8 @@ class InferencePipeline:
     # -- thresholding + decode -----------------------------------------------------
     def _threshold_vector(self, thresholds: dict[str, dict[str, float]]) -> torch.Tensor:
         values = threshold_vector(self.model.label_encoder.base_labels, thresholds)
-        key = tuple(values.tolist())
-        thr = self._thresholds.get(key)
-        if thr is None:
-            # two threads may both copy it: they store equal tensors
-            thr = self._thresholds.setdefault(key, torch.from_numpy(values).to(self.device))
-        return thr
+        return cached_constant(self._thresholds, tuple(values.tolist()),
+                               lambda: torch.from_numpy(values).to(self.device))
 
     def decode_boundaries(
         self, logits: np.ndarray | torch.Tensor, thresholds: dict[str, dict[str, float]]
@@ -892,8 +893,9 @@ def run_inference_on_audios(
 
 def main(argv: list[str] | None = None) -> None:
     """The predict CLI: the JAX package's flags, plus ``--device`` (default
-    ``cuda``; ``cpu`` runs the plain path). Unknown arguments are config
-    overrides (``key.path=value``). Flags whose parts are not ported raise."""
+    ``cuda``; ``cpu`` runs the plain path). Exactly one of ``--config`` and
+    ``--artifact`` (an exported directory, ``export.run_inference_on_artifact``).
+    Unknown arguments are config overrides (``key.path=value``)."""
     import argparse
 
     from segma_tpu_torch.config import load_config
@@ -905,8 +907,8 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--checkpoint", default="models/last/best.ckpt")
     parser.add_argument(
         "--artifact", default=None,
-        help="predict from a frozen export directory (not ported yet: ROADMAP.md Queue 1, "
-        "the export slice)",
+        help="predict from an exported artifact directory (cli.export) instead of "
+        "config+checkpoint",
     )
     parser.add_argument("--output", required=True)
     parser.add_argument("--thresholds", default=None)
@@ -939,13 +941,34 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cuda (the kernels) or cpu (the plain path)")
     args, extra_args = parser.parse_known_args(argv)
+    if (args.config is None) == (args.artifact is None):
+        parser.error("exactly one of --config or --artifact is required")
     if args.artifact is not None:
-        raise NotImplementedError(
-            "--artifact (predict from an export) is not ported yet: ROADMAP.md Queue 1, "
-            "'Export, bundles and the remaining CLIs'"
+        from segma_tpu_torch.export import run_inference_on_artifact
+
+        # an artifact fixes its transport and batch geometry: refuse flags
+        # that it would ignore, and config overrides (there is no config)
+        unsupported = [
+            flag for flag, on in (
+                ("--checkpoint", args.checkpoint != parser.get_default("checkpoint")),
+                ("--transport", args.transport != "int16"),
+                ("--batch_size", args.batch_size != 64),
+                ("--mesh", args.mesh != "auto"),
+                ("--pack-files", args.pack_files != 1),
+            ) if on
+        ]
+        if unsupported:
+            parser.error(f"{', '.join(unsupported)} not supported with --artifact "
+                         "(the exported programs fix transport and batch geometry)")
+        if extra_args:
+            parser.error(f"unrecognized arguments with --artifact: {extra_args}")
+        run_inference_on_artifact(
+            artifact=args.artifact, wavs=args.wavs, output=Path(args.output), uris=args.uris,
+            thresholds=args.thresholds, recursive=args.recursive,
+            rttm_dirname=args.rttm_dirname, min_duration_s=args.min_duration,
+            merge_gap_s=args.merge_gap, dump_logits=args.save_logits, device=args.device,
         )
-    if args.config is None:
-        parser.error("--config is required")
+        return
     run_inference_on_audios(
         config=load_config(args.config, extra_args),
         uris=args.uris,

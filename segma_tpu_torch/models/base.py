@@ -22,16 +22,17 @@ over ``trainable_mask``.
 from __future__ import annotations
 
 import contextlib
-import threading
 from dataclasses import dataclass
-from typing import Any, Callable, ContextManager, Iterator, Sequence
+from typing import Any, Callable, ContextManager, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
+from segma_tpu_torch import no_tf32
 from segma_tpu_torch.config import Config
-from segma_tpu_torch.models.geometry import ConvolutionSettings
+from segma_tpu_torch.geometry import ConvolutionSettings
+from segma_tpu_torch.ops import cached_constant
 from segma_tpu_torch.utils.encoders import MultiLabelEncoder, PowersetEncoder
 
 __all__ = [
@@ -40,43 +41,6 @@ __all__ = [
     "softmax_ce_loss", "softmax_ce_loss_per_class", "weighted_index_ce",
 ]
 LOSS_TYPES = ("hydra", "multiclass", "powerset")
-
-
-_tf32_lock = threading.Lock()
-_tf32_depth = 0  # open no_tf32 scopes, over every thread
-_tf32_saved: tuple[bool, bool] = (False, False)
-
-
-@contextlib.contextmanager
-def no_tf32() -> Iterator[None]:
-    """cuDNN and cuBLAS without TF32 while any scope is open, the caller's
-    flags restored once the last one closes. Every f32 computation of the
-    port runs under it, in a bf16 model too (the BiLSTM, the f32 heads):
-    PyTorch's default ``torch.backends.cudnn.allow_tf32 = True`` would put
-    cuDNN's f32 convolutions and LSTM in TF32, and a caller may set
-    ``torch.backends.cuda.matmul.allow_tf32``. TF32 does not touch bf16.
-
-    The flags are process-global and a server runs forwards on several
-    threads at once, so the scopes are counted under a lock: the first to
-    open saves the flags and turns TF32 off, a nested or overlapping scope
-    changes nothing, and the last to close restores them. A scope that
-    restored on its own exit would turn TF32 back on under another
-    thread's open scope."""
-    global _tf32_depth, _tf32_saved
-    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
-    with _tf32_lock:
-        if _tf32_depth == 0:
-            _tf32_saved = (matmul.allow_tf32, cudnn.allow_tf32)
-            matmul.allow_tf32 = False
-            cudnn.allow_tf32 = False
-        _tf32_depth += 1
-    try:
-        yield
-    finally:
-        with _tf32_lock:
-            _tf32_depth -= 1
-            if _tf32_depth == 0:
-                matmul.allow_tf32, cudnn.allow_tf32 = _tf32_saved
 
 
 def ieee_f32(dtype: torch.dtype) -> ContextManager:
@@ -240,10 +204,8 @@ class SegmentationModel:
         """The constant ``make()`` on ``device``, copied there once: a
         training step captured in a CUDA graph may copy nothing from the
         host."""
-        key = (name, torch.device(device))
-        if key not in self._on_device:
-            self._on_device[key] = torch.as_tensor(make(), device=device)
-        return self._on_device[key]
+        return cached_constant(self._on_device, (name, torch.device(device)),
+                               lambda: torch.as_tensor(make(), device=device))
 
     def _weights(self, device: torch.device) -> torch.Tensor:
         return self._table("class_weights", device,

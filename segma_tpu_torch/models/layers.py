@@ -11,6 +11,7 @@ from torch import nn
 
 from segma_tpu_torch.config import LSTMConfig
 from segma_tpu_torch.models.base import no_tf32
+from segma_tpu_torch.ops import rnn
 
 
 class MLPHead(nn.Module):
@@ -89,7 +90,10 @@ class BiLSTM(nn.Module):
 
     Dropout (``cfg.dropout``) applies between layers with ``train=True``, its
     masks drawn from the caller's generator; the layers then run one
-    ``torch.lstm`` call each.
+    ``torch.lstm`` call each. Under a ``torch.export`` trace the LSTM is the
+    registered op ``ops.rnn.lstm``, which makes the module's own
+    ``torch.lstm`` call when the program runs and gives the trace its shape
+    at once (``aten.lstm`` is traced one cell step at a time).
     """
 
     def __init__(self, input_size: int, cfg: LSTMConfig) -> None:
@@ -125,6 +129,9 @@ class BiLSTM(nn.Module):
                         x = dropout(x, self.cfg.dropout, generator)
                     x = self._layer(x, layer)
                 out = x
+            elif torch.compiler.is_compiling():  # the module's own call, as one op
+                out = rnn.lstm(x, [getattr(self.lstm, n) for n in self.lstm._flat_weights_names],
+                               self.cfg.num_layers, self.cfg.bidirectional, self.lstm.training)
             else:
                 out, _ = self.lstm(x)
         return out[:, :keep] if keep is not None else out

@@ -40,6 +40,7 @@ from torch import nn
 from segma_tpu_torch.models.base import no_tf32
 from segma_tpu_torch.models.hubert.encoder import HubertEncoderConfig, HubertTransformer
 from segma_tpu_torch.models.whisper.encoder import layer_norm, linear
+from segma_tpu_torch.ops import cached_constant
 
 
 @dataclass(frozen=True)
@@ -96,12 +97,12 @@ class WavLMAttention(nn.Module):
     def bucket_onehot(self, length: int, device: torch.device) -> torch.Tensor:
         """(length * length, buckets) f32 one-hot of the bucket ids on
         ``device``, uploaded once."""
-        key = (length, torch.device(device))
-        if key not in self._buckets:
+        def make() -> torch.Tensor:
             ids = relative_position_buckets(length, self.num_buckets, self.max_distance)
             onehot = np.eye(self.num_buckets, dtype=np.float32)[ids.reshape(-1)]
-            self._buckets[key] = torch.from_numpy(onehot).to(device)
-        return self._buckets[key]
+            return torch.from_numpy(onehot).to(device)
+
+        return cached_constant(self._buckets, (length, torch.device(device)), make)
 
     def forward(
         self, x: torch.Tensor, position_bias: torch.Tensor | None

@@ -38,6 +38,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from segma_tpu_torch.ops import cached_constant
+
 BLOCK = 64  # samples per independent block
 HEADER_BYTES = 3  # x0 (int16 LE) + scale index (uint8)
 PAYLOAD_BYTES = BLOCK // 2  # two 4-bit residuals per byte
@@ -113,11 +115,7 @@ _scale_tables: dict[torch.device, torch.Tensor] = {}
 
 
 def _scale_table(device: torch.device) -> torch.Tensor:
-    # filled once per device; two threads filling it at once store equal tensors
-    table = _scale_tables.get(device)
-    if table is None:
-        table = _scale_tables.setdefault(device, torch.from_numpy(SCALE_TABLE).to(device))
-    return table
+    return cached_constant(_scale_tables, device, lambda: torch.from_numpy(SCALE_TABLE).to(device))
 
 
 def adpcm_decode(data: torch.Tensor, n_samples: int) -> torch.Tensor:

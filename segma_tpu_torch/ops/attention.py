@@ -13,6 +13,14 @@ launches the backward kernels; it runs for every sequence length in bf16 or
 f32 at head_dim 64 and raises on what the kernels do not take. For a CPU
 tensor it runs the plain version, which matches ``_einsum_core`` and is
 differentiated by autograd.
+
+The forward is the registered op ``segma_tpu_torch::flash_attn_fwd`` (and
+``::flash_attn_fwd_lse``, with the log-sum-exp): its CUDA implementation
+launches the kernel, its CPU one is the plain version, and its fake one
+gives the shapes, so ``torch.export`` records the op as one node of a
+program and the program launches the kernel when it runs. A call that
+autograd does not record (serving, and every exported program) goes through
+the op; ``FlashAttention.forward`` calls it too.
 """
 
 from __future__ import annotations
@@ -166,6 +174,43 @@ def flash_attn_bwd(
     return dq, dk, dv
 
 
+@torch.library.custom_op("segma_tpu_torch::flash_attn_fwd", mutates_args=(), device_types="cpu")
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float) -> torch.Tensor:
+    """softmax(q kᵀ sm_scale) v in q's dtype: the plain version on the CPU."""
+    return attention_plain(q, k, v, sm_scale, q.dtype)
+
+
+@flash_fwd_op.register_kernel("cuda")
+def _flash_fwd_cuda(q, k, v, sm_scale):
+    return flash_attn_fwd(q, k, v, sm_scale)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, sm_scale):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op(
+    "segma_tpu_torch::flash_attn_fwd_lse", mutates_args=(), device_types="cpu"
+)
+def flash_fwd_lse_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(output, (B, H, S) f32 log-sum-exp): the plain versions on the CPU."""
+    return attention_plain(q, k, v, sm_scale, q.dtype), attention_lse_plain(q, k, sm_scale)
+
+
+@flash_fwd_lse_op.register_kernel("cuda")
+def _flash_fwd_lse_cuda(q, k, v, sm_scale):
+    return flash_attn_fwd(q, k, v, sm_scale, with_lse=True)
+
+
+@flash_fwd_lse_op.register_fake
+def _flash_fwd_lse_fake(q, k, v, sm_scale):
+    b, s, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, s), dtype=torch.float32)
+
+
 class FlashAttention(torch.autograd.Function):
     """softmax(q kᵀ sm_scale) v with the kernels forward and backward.
 
@@ -175,11 +220,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale: float):
-        if q.is_cuda:
-            out, lse = flash_attn_fwd(q, k, v, sm_scale, with_lse=True)
-        else:
-            out = attention_plain(q, k, v, sm_scale, q.dtype)
-            lse = attention_lse_plain(q, k, sm_scale)
+        out, lse = flash_fwd_lse_op(q, k, v, sm_scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.sm_scale = sm_scale
         return out
@@ -204,8 +245,10 @@ def attention_core(
 
     On the card, ``dtype`` is bfloat16 or float32 (the inputs' dtype); a
     call that autograd records goes through ``FlashAttention``, one that it
-    does not (serving) launches the forward kernel alone, without the
-    log-sum-exp."""
+    does not (serving, an exported program) through the forward op alone,
+    without the log-sum-exp. On the CPU a recorded call runs the plain
+    version under autograd, and an unrecorded one the op's plain version."""
+    recorded = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
     if q.is_cuda:
         if dtype not in KERNEL_DTYPES:
             raise ValueError(
@@ -213,7 +256,9 @@ def attention_core(
             )
         if q.dtype != dtype:
             raise ValueError(f"attention on the card: inputs are {q.dtype}, dtype is {dtype}")
-        if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        if recorded:
             return FlashAttention.apply(q, k, v, sm_scale)
-        return flash_attn_fwd(q, k, v, sm_scale)
-    return attention_plain(q, k, v, sm_scale, dtype)
+        return flash_fwd_op(q, k, v, sm_scale)
+    if recorded or q.dtype != dtype:
+        return attention_plain(q, k, v, sm_scale, dtype)
+    return flash_fwd_op(q, k, v, sm_scale)

@@ -7,8 +7,10 @@ center reflect padding, Hann-windowed 400-point DFT at hop 160, power, slaney
 mel projection, ``log10(max(., 1e-10))``, with Whisper's last frame dropped.
 The per-example max-8 clamp and ``(x + 4) / 4`` are applied by ``finish``.
 
-``log10_mel`` launches the CUDA kernel for a CUDA tensor and takes the plain
-version only for a CPU tensor. The kernel reads the waveform unpadded (it
+``log10_mel`` is the registered op ``segma_tpu_torch::log10_mel``: its CUDA
+implementation launches the kernel, its CPU one is the plain version, and its
+fake one gives the shape, so ``torch.export`` records it as one node of a
+program, which launches the kernel when it runs on the card. The kernel reads the waveform unpadded (it
 reflects the edges as it loads) and runs the DFT as 3xTF32 products: the
 tables it reads are built here (``_kernel_tables``), with the TF32 split
 (``split_tf32``) and the sparse filterbank (``mel_bin_tables``) that the
@@ -17,13 +19,11 @@ CPU tests check.
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from segma_tpu_torch.ops import _build
+from segma_tpu_torch.ops import _build, cached_constant
 from segma_tpu_torch.ops.melspec import HOP_LENGTH, N_FFT, N_MELS, dft_basis, mel_filterbank
 
 N_BINS = 200  # bins 0..199: bin 200 (like bin 0) has no weight in the filterbank
@@ -42,11 +42,13 @@ def _reflect_pad(wav: torch.Tensor) -> torch.Tensor:
     return F.pad(wav[:, None, :], (half, half), mode="reflect")[:, 0, :]
 
 
-@lru_cache(maxsize=8)
+_tables: dict[tuple[str, torch.device], tuple[torch.Tensor, ...]] = {}
+
+
 def _plain_tables(device: torch.device) -> tuple[torch.Tensor, ...]:
-    cos_b, sin_b = dft_basis()
-    fb = mel_filterbank()
-    return tuple(torch.from_numpy(a).to(device) for a in (cos_b, sin_b, fb))
+    """The DFT basis (cos, sin) and the filterbank on ``device``."""
+    return cached_constant(_tables, ("plain", device), lambda: tuple(
+        torch.from_numpy(a).to(device) for a in (*dft_basis(), mel_filterbank())))
 
 
 def tf32_round(a: np.ndarray) -> np.ndarray:
@@ -124,14 +126,12 @@ def kernel_colsums() -> np.ndarray:
         n_chunks, 2 * N_CHUNK_BINS).astype(np.float32)
 
 
-@lru_cache(maxsize=8)
 def _kernel_tables(device: torch.device) -> tuple[torch.Tensor, ...]:
     """``kernel_basis``, the sparse filterbank's ``meta`` and ``weights``
     (``mel_bin_tables``) and ``kernel_colsums``, on ``device``."""
-    return tuple(
+    return cached_constant(_tables, ("kernel", device), lambda: tuple(
         torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        for a in (kernel_basis(), *mel_bin_tables(), kernel_colsums())
-    )
+        for a in (kernel_basis(), *mel_bin_tables(), kernel_colsums())))
 
 
 def log10_mel_plain(wav: torch.Tensor) -> torch.Tensor:
@@ -184,11 +184,21 @@ def log10_mel_cuda(wav: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("segma_tpu_torch::log10_mel", mutates_args=(), device_types="cpu")
 def log10_mel(wav: torch.Tensor) -> torch.Tensor:
-    """Kernel for a CUDA tensor, plain version for a CPU tensor."""
-    if wav.is_cuda:
-        return log10_mel_cuda(wav.float())
+    """Un-clamped log10-mel of (B, T) waveforms: the kernel for a CUDA
+    tensor, the plain version for a CPU tensor."""
     return log10_mel_plain(wav)
+
+
+@log10_mel.register_kernel("cuda")
+def _log10_mel_cuda(wav):
+    return log10_mel_cuda(wav.float())
+
+
+@log10_mel.register_fake
+def _log10_mel_fake(wav):
+    return wav.new_empty((wav.shape[0], _n_frames(wav.shape[1]), N_MELS), dtype=torch.float32)
 
 
 def finish(log_spec: torch.Tensor) -> torch.Tensor:

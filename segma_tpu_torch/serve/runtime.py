@@ -1,11 +1,11 @@
 """Process lifecycle: the signal-aware serve loop, the RSS watchdog and the
 entry point (counterpart of ``segma_tpu/serve/runtime.py``).
 
-``serve_forever`` loads a live model on the card, warms it up (the kernel
-and WAV reader builds, one forward and decode) before it accepts traffic,
-binds the server and runs until SIGTERM/SIGINT, with a graceful drain and an
-optional RSS self-recycle (exit 75). Serving an exported artifact or a
-bundle waits for the export slice; a device mesh, for the multi-GPU slice.
+``serve_forever`` loads a live model, an exported artifact or a bundle of
+artifacts on the card, warms it up (the kernel and WAV reader builds, one
+forward and decode) before it accepts traffic, binds the server and runs
+until SIGTERM/SIGINT, with a graceful drain and an optional RSS self-recycle
+(exit 75). A device mesh waits for the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -22,9 +22,9 @@ import torch
 from segma_tpu_torch import resolve_device
 from segma_tpu_torch.inference import InferencePipeline
 from segma_tpu_torch.serve.http import make_server
-from segma_tpu_torch.serve.router import BUNDLE_SLICE
+from segma_tpu_torch.serve.router import ModelRouter, _warm_stream_programs, bundle_reloader
 from segma_tpu_torch.serve.service import MAX_STREAM_SESSIONS, SegmentationService
-from segma_tpu_torch.streaming import EXPORT_SLICE, StreamingSegmenter
+from segma_tpu_torch.streaming import StreamingSegmenter
 from segma_tpu_torch.utils import host_rss_gb
 from segma_tpu_torch.utils.logging import log
 
@@ -91,16 +91,22 @@ def _serve_until_signalled(server: ThreadingHTTPServer, max_rss_gb: float = 0.0)
         raise SystemExit(75)  # EX_TEMPFAIL: restart me
 
 
-def warm_up(service: SegmentationService) -> None:
+def warm_up(service: SegmentationService, batching: bool = False) -> None:
     """Build what the first request would otherwise build inside a request
     thread: the CUDA kernels and the WAV reader; then one forward and decode
-    of a zero chunk through the one-shot path and the streaming forward."""
+    of a zero chunk through the one-shot path and the streaming forward (an
+    artifact's stream programs, its batched ones too under ``batching``)."""
     from segma_tpu_torch.ops import _build
 
     pipeline = service.pipeline
     _build.host_library()
     if pipeline.device.type == "cuda":
         _build.library()
+    if service.exported:
+        warm = np.zeros(int(pipeline.manifest["chunk_duration_f"]), np.int16)
+        pipeline.segment(warm, service.thresholds)
+        _warm_stream_programs(pipeline, batching)
+        return
     warm = np.zeros(pipeline.model.config.audio.chunk_duration_f, np.int16)
     with torch.inference_mode():
         lg, tf = pipeline.logits_for_audio_async(warm)
@@ -134,32 +140,56 @@ def serve_forever(
 ) -> None:
     """Load the model and serve until interrupted (the CLI's entry point).
 
-    ``config`` (a ``Config`` or a YAML path) and ``checkpoint`` (None: the
-    random weights of ``train.seed``) give a live model on ``device``.
-    ``artifact`` and ``bundle`` raise, naming the export slice; ``mesh``
+    One of: ``config`` (a ``Config`` or a YAML path) and ``checkpoint``
+    (None: the random weights of ``train.seed``) for a live model;
+    ``artifact``, an exported artifact directory; or ``bundle``, a directory
+    of artifacts served behind one port (``?model=<name>``; POST
+    /admin/reload re-scans it). Everything runs on ``device``. ``mesh``
     "auto" and "off" both serve on one card, and a mesh object raises."""
-    if bundle is not None:
-        raise NotImplementedError(f"--bundle: {BUNDLE_SLICE}")
-    if artifact is not None:
-        raise NotImplementedError(f"--artifact: {EXPORT_SLICE}")
     if mesh not in ("auto", "off", None):
         raise NotImplementedError(MESH_SLICE)
-    from segma_tpu_torch.checkpoint import load_model_for_inference
-    from segma_tpu_torch.config import Config, load_config
-
     dev = resolve_device(device)
-    cfg = config if isinstance(config, Config) else load_config(config)
-    model = load_model_for_inference(cfg, checkpoint, device=dev)
-    pipeline = InferencePipeline(
-        model, batch_size=batch_size, device=dev,
-        transport="adpcm" if transport == "adpcm" else "auto",
-    )
+    max_body_bytes = int(max_body_mb * (1 << 20))
+    if bundle is not None:
+        from segma_tpu_torch.ops import _build
+
+        _build.host_library()
+        if dev.type == "cuda":
+            _build.library()
+        rescan = bundle_reloader(
+            bundle, default_model=default_model, thresholds=thresholds, transport=transport,
+            batch_window_ms=batch_window_ms, max_batch=max_batch, max_sessions=max_sessions,
+            device=dev,
+        )
+        log("loading the bundle's artifacts (load and warm)...")
+        services, default, _ = rescan({})
+        router = ModelRouter(services, default, reloader=rescan)
+        server = make_server(router, host, port, max_body_bytes)
+        log(f"serving bundle [{', '.join(sorted(services))}] (default {default}) on "
+            f"http://{host}:{server.server_address[1]}")
+        _serve_until_signalled(server, max_rss_gb)
+        return
+
+    if artifact is not None:
+        from segma_tpu_torch.export import ExportedPipeline
+
+        pipeline = ExportedPipeline.load(artifact, device=dev)
+    else:
+        from segma_tpu_torch.checkpoint import load_model_for_inference
+        from segma_tpu_torch.config import Config, load_config
+
+        cfg = config if isinstance(config, Config) else load_config(config)
+        model = load_model_for_inference(cfg, checkpoint, device=dev)
+        pipeline = InferencePipeline(
+            model, batch_size=batch_size, device=dev,
+            transport="adpcm" if transport == "adpcm" else "auto",
+        )
     service = SegmentationService(
         pipeline, thresholds, transport=transport, batch_window_ms=batch_window_ms,
         max_batch=max_batch, max_sessions=max_sessions,
     )
     log("warming up (kernel builds, one forward)...")
-    warm_up(service)
-    server = make_server(service, host, port, int(max_body_mb * (1 << 20)))
+    warm_up(service, batch_window_ms > 0)
+    server = make_server(service, host, port, max_body_bytes)
     log(f"serving {service.model_name} on http://{host}:{server.server_address[1]}")
     _serve_until_signalled(server, max_rss_gb)

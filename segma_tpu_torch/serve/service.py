@@ -1,10 +1,11 @@
 """The per-model serving core: decode, dispatch, streaming sessions
-(counterpart of ``segma_tpu/serve/service.py`` for a live model).
+(counterpart of ``segma_tpu/serve/service.py``).
 
-:class:`SegmentationService` owns one live
-:class:`~segma_tpu_torch.inference.InferencePipeline`, its thresholds, and
-the device lock shared by the HTTP threads. Serving a frozen artifact waits
-for the export slice.
+:class:`SegmentationService` owns one pipeline, a live
+:class:`~segma_tpu_torch.inference.InferencePipeline` or an exported
+:class:`~segma_tpu_torch.export.ExportedPipeline`, its thresholds, and the
+device lock shared by the HTTP threads (and, under bundle serving, by every
+model's service).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from segma_tpu_torch.annotation import AudioAnnotation
 from segma_tpu_torch.inference import _load_mono, default_thresholds
 from segma_tpu_torch.serve.stats import _Stats
 from segma_tpu_torch.streaming import (
-    EXPORT_SLICE, ChunkForwardBatcher, StreamingSegmenter, make_streaming_forward,
+    ChunkForwardBatcher, StreamingSegmenter, make_streaming_forward,
 )
 from segma_tpu_torch.utils.conversions import frames_to_seconds
 
@@ -96,7 +97,10 @@ class _MicroBatcher:
 
 class SegmentationService:
     """Model + thresholds + device serialization, shared by HTTP threads.
-    ``pipeline`` is a live :class:`InferencePipeline`."""
+    ``pipeline`` is a live :class:`InferencePipeline` or an
+    :class:`~segma_tpu_torch.export.ExportedPipeline`; the serving surface is
+    the same, but an artifact serves one request per dispatch (its programs
+    are fixed at batch 1) and streams only when it has stream programs."""
 
     STREAM_TTL_S = 600.0
 
@@ -110,15 +114,24 @@ class SegmentationService:
         device_lock: threading.Lock | None = None,
         max_sessions: int = MAX_STREAM_SESSIONS,
     ) -> None:
-        if not hasattr(pipeline, "model"):
-            raise NotImplementedError(f"serving an exported pipeline: {EXPORT_SLICE}")
         self.pipeline = pipeline
         self.max_sessions = max_sessions
-        enc = pipeline.model.label_encoder
-        self.labels = list(enc.base_labels)
-        self.sample_rate = pipeline.model.config.audio.sample_rate
-        self.model_name = pipeline.model.name
-        self.thresholds = thresholds or default_thresholds(enc.base_labels)
+        self.exported = not hasattr(pipeline, "model")
+        if self.exported:
+            m = pipeline.manifest
+            self.labels = list(pipeline.labels)
+            self.sample_rate = int(m["sample_rate"])
+            self.model_name = f"{m['model_name']} (exported artifact)"
+            self.thresholds = thresholds or m["thresholds"]
+            # uploads decode to int16; prepare() encodes them for the
+            # transport the artifact was exported with
+            transport = "int16"
+        else:
+            enc = pipeline.model.label_encoder
+            self.labels = list(enc.base_labels)
+            self.sample_rate = pipeline.model.config.audio.sample_rate
+            self.model_name = pipeline.model.name
+            self.thresholds = thresholds or default_thresholds(enc.base_labels)
         self.transport = transport
         self._device_lock = device_lock or threading.Lock()
         self.stats = _Stats()
@@ -161,6 +174,11 @@ class SegmentationService:
         """Decoded audios -> per-audio sorted interval lists, in one packed
         device dispatch when several arrive together."""
         pipe = self.pipeline
+        if self.exported:
+            # the programs are fixed at one file: no packing across requests,
+            # but the lock still serializes the device
+            with self._device_lock:
+                return [sorted(pipe.segment(a, self.thresholds)) for a in audios]
         with self._device_lock, torch.inference_mode():
             if len(audios) == 1:
                 outs = [pipe.logits_for_audio_async(audios[0])]
@@ -205,6 +223,20 @@ class SegmentationService:
                     f"{self.max_sessions}); flush existing sessions or "
                     "raise --max-sessions"
                 )
+            if self.exported:
+                # streams off the artifact's stream programs (ValueError, 400,
+                # when it has none); under micro-batching, sessions share its
+                # batched programs, whose buckets were fixed at export
+                fwd = None
+                if self._batcher is not None and self.pipeline.stream_batch_fns:
+                    if self._stream_forward is None:
+                        self._stream_forward = ChunkForwardBatcher.from_exported(
+                            self.pipeline, window_ms=self._batcher.window_s * 1000.0)
+                    fwd = self._stream_forward
+                seg = self.pipeline.streaming_segmenter(self.thresholds, forward_fn=fwd)
+                sid = uuid.uuid4().hex[:16]
+                self._streams[sid] = (seg, threading.Lock(), time.monotonic())
+                return sid
             if self._stream_forward is None:
                 model = self.pipeline.model
                 if self._batcher is not None:

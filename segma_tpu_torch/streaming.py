@@ -9,8 +9,9 @@ Same chunk geometry, tail rule and decode as ``inference``: the intervals
 equal the offline pipeline's on the same audio wherever the logits do.
 
 ``ChunkForwardBatcher`` groups the chunks of concurrent sessions that arrive
-within a window into one padded batched forward. Streaming off an exported
-artifact (``from_exported``) waits for the export slice.
+within a window into one padded batched forward. Both classes also run off
+an exported artifact (``from_exported``): its stream programs take the
+model's place, with the same geometry and decode.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Callable
+from types import SimpleNamespace
+from typing import TYPE_CHECKING, Any, Callable
 
 import numpy as np
 import torch
@@ -26,12 +28,10 @@ import torch
 from segma_tpu_torch.inference import (
     TAIL_MIN_SAMPLES, Chunkyfier, default_thresholds, host_to_device, threshold_vector,
 )
-from segma_tpu_torch.models.base import ConvolutionSettings, SegmentationModel
+from segma_tpu_torch.geometry import ConvolutionSettings
 
-EXPORT_SLICE = (
-    "streaming off an exported artifact is not ported yet: ROADMAP.md Queue 1, "
-    "'Export, bundles and the remaining CLIs'"
-)
+if TYPE_CHECKING:
+    from segma_tpu_torch.models.base import SegmentationModel
 
 
 class StreamFlushedError(RuntimeError):
@@ -79,7 +79,7 @@ class ChunkForwardBatcher:
     def __init__(
         self, model: SegmentationModel, window_ms: float = 3.0, max_batch: int = 8
     ) -> None:
-        def batch_forward(chunks: np.ndarray) -> torch.Tensor:
+        def batch_forward(chunks: np.ndarray, n_real: int) -> torch.Tensor:
             # pad rows ride along: one shape per bucket
             x = _on_device(chunks, model.device)
             return model.inference_transform(model.apply(x))
@@ -92,8 +92,38 @@ class ChunkForwardBatcher:
         self._setup(batch_forward, window_ms, buckets)
 
     @classmethod
-    def from_exported(cls, exported, window_ms: float = 3.0) -> "ChunkForwardBatcher":
-        raise NotImplementedError(EXPORT_SLICE)
+    def from_exported(cls, exported: Any, window_ms: float = 3.0) -> "ChunkForwardBatcher":
+        """Batcher over an artifact's stream programs: a group of one runs
+        ``stream_int16.pt2`` (or ``stream.pt2`` for f32), larger groups pad
+        to the next exported ``stream_batch<b>.pt2`` bucket (the programs'
+        shapes are fixed at export)."""
+        if not exported.stream_batch_fns:
+            raise ValueError(
+                "artifact has no batched streaming programs (stream_batch<b>.pt2) "
+                "— re-export to enable cross-session batching"
+            )
+        single_f32, single_i16 = exported.stream_fn, exported.stream_i16_fn
+        fns = dict(exported.stream_batch_fns)
+        batch_dtype = exported.stream_batch_dtype
+
+        def batch_forward(chunks: np.ndarray, n_real: int) -> torch.Tensor:
+            if chunks.dtype != batch_dtype:
+                if batch_dtype == np.float32:
+                    chunks = _chunk_to_f32(chunks)
+                else:
+                    # an int16 bucket cannot take a group promoted to f32 (a
+                    # session that mixed dtypes): its real rows one by one
+                    return torch.stack([single_f32.call(c)
+                                        for c in _chunk_to_f32(chunks[:n_real])])
+            if chunks.shape[0] == 1:
+                if chunks.dtype == np.int16 and single_i16 is not None:
+                    return single_i16.call(chunks[0])[None]
+                return single_f32.call(_chunk_to_f32(chunks[0]))[None]
+            return fns[int(chunks.shape[0])].call(chunks)
+
+        self = cls.__new__(cls)
+        self._setup(batch_forward, window_ms, [1, *fns])
+        return self
 
     def _setup(
         self, batch_forward: Callable, window_ms: float, buckets: list[int]
@@ -147,7 +177,7 @@ class ChunkForwardBatcher:
                     if bucket > len(group):  # pad to the bucket's row count
                         pad = np.zeros((bucket - len(group), chunks.shape[1]), chunks.dtype)
                         chunks = np.concatenate([chunks, pad])
-                    logits = self._batch_forward(chunks)
+                    logits = self._batch_forward(chunks, len(group))
                     for i, (_, done, box) in enumerate(group):
                         box["logits"] = logits[i]
                         done.set()
@@ -157,12 +187,53 @@ class ChunkForwardBatcher:
                         done.set()
 
 
+class _ExportedShim:
+    """What StreamingSegmenter reads of a model, from an artifact's manifest
+    (geometry, labels, device); the forward is the artifact's program."""
+
+    def __init__(self, manifest: dict, device: torch.device) -> None:
+        step = int(manifest["rf_step"])
+        self.conv_settings = ConvolutionSettings((step,), (step,), (0,))
+        self.config = SimpleNamespace(audio=SimpleNamespace(
+            chunk_duration_f=int(manifest["chunk_duration_f"]),
+            strict_frames=bool(manifest["strict_frames"]),
+            reference_tail=bool(manifest["reference_tail"]),
+            sample_rate=int(manifest["sample_rate"]),
+        ))
+        self.label_encoder = SimpleNamespace(base_labels=tuple(manifest["labels"]))
+        self.device = device
+
+
 class StreamingSegmenter:
     """Push samples in, get finalized ``(start_f, end_f, label)`` out."""
 
     @classmethod
-    def from_exported(cls, exported, thresholds=None, forward_fn=None) -> "StreamingSegmenter":
-        raise NotImplementedError(EXPORT_SLICE)
+    def from_exported(
+        cls,
+        exported: Any,
+        thresholds: dict[str, dict[str, float]] | None = None,
+        forward_fn: Callable | None = None,
+    ) -> "StreamingSegmenter":
+        """Online segmentation off an ``export.ExportedPipeline`` with stream
+        programs: the live segmenter's intervals on the same pushes wherever
+        the logits are the same. ``forward_fn`` (``ChunkForwardBatcher.
+        from_exported``) shares one dispatcher across segmenters."""
+        if exported.stream_fn is None:
+            raise ValueError("artifact has no streaming program")
+        if forward_fn is None:
+            i16 = exported.stream_i16_fn
+
+            def forward_fn(chunk: np.ndarray) -> torch.Tensor:
+                chunk = np.asarray(chunk)
+                if chunk.dtype == np.int16 and i16 is not None:
+                    return i16.call(chunk)  # raw PCM16, normalized in the program
+                return exported.stream_fn.call(_chunk_to_f32(chunk))
+
+        return cls(
+            _ExportedShim(exported.manifest, exported.device),
+            thresholds or exported.manifest["thresholds"],
+            forward_fn=forward_fn,
+        )
 
     def __init__(
         self,

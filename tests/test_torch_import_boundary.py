@@ -76,6 +76,11 @@ REQUIRED = (
     "segma_tpu_torch.serve.service", "segma_tpu_torch.serve.router",
     "segma_tpu_torch.serve.http", "segma_tpu_torch.serve.runtime", "segma_tpu_torch.client",
     "segma_tpu_torch.cli.serve",
+    # frozen artifacts, bundles and the remaining CLIs
+    "segma_tpu_torch.export", "segma_tpu_torch.bundle", "segma_tpu_torch.geometry",
+    "segma_tpu_torch.ops.rnn", "segma_tpu_torch.cli", "segma_tpu_torch.cli.export",
+    "segma_tpu_torch.cli.bundle", "segma_tpu_torch.cli.doctor",
+    "segma_tpu_torch.utils.experiment",
 )
 
 
@@ -123,3 +128,23 @@ assert not missing, missing
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_loaded = int(proc.stdout.split("LOADED")[1].split()[0])
     assert n_loaded >= 25  # every module of the package was imported
+
+
+def test_loading_an_artifact_imports_no_model_code():
+    """A process that loads artifacts imports ``segma_tpu_torch.ops`` and
+    ``segma_tpu_torch.export`` (with streaming and bundles) and nothing of
+    the model package, JAX or the JAX package."""
+    code = f"""
+import sys
+import segma_tpu_torch.ops, segma_tpu_torch.export, segma_tpu_torch.streaming
+import segma_tpu_torch.bundle
+forbidden = {FORBIDDEN!r}
+bad = sorted(n for n in sys.modules if any(n == f or n.startswith(f + ".") for f in forbidden))
+bad += sorted(n for n in sys.modules if n.startswith("segma_tpu_torch.models"))
+assert not bad, bad
+print("CLEAN")
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0 and "CLEAN" in proc.stdout, proc.stdout + proc.stderr

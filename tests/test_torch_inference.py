@@ -23,7 +23,7 @@ from segma_tpu_torch import inference as tinf
 from segma_tpu_torch.config import load_config
 from segma_tpu_torch.convert import load_flax_params
 from segma_tpu_torch.models import Models
-from segma_tpu_torch.models.geometry import ConvolutionSettings
+from segma_tpu_torch.geometry import ConvolutionSettings
 from segma_tpu_torch.models.whisper.encoder import WhisperEncoderConfig
 from segma_tpu_torch.utils.encoders import MultiLabelEncoder
 

@@ -884,3 +884,82 @@ def test_packed_logits_equal_single_logits_on_the_card():
     for pcm, (lg, tf) in zip(pcms, packed):
         single = pipe.logits_for_audio(pcm)
         np.testing.assert_array_equal(lg[:tf].float().cpu().numpy(), single)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_registered_ops_equal_the_direct_launch(dtype):
+    """Each registered op's CUDA implementation is the kernel: bit-equal to
+    the direct ctypes launch, one launch counted per call."""
+    _cuda()
+    from segma_tpu_torch.ops import launch_counts
+
+    rng = np.random.default_rng(21)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 199, 8, 64)).astype(np.float32))
+               .cuda().to(dtype) for _ in range(3))
+    key = "flash_attn_fwd_f32" if dtype == torch.float32 else "flash_attn_fwd"
+    before = launch_counts()
+    out = attention.flash_fwd_op(q, k, v, 0.125)
+    out_lse, lse = attention.flash_fwd_lse_op(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert launch_counts()[key] == before[key] + 2
+    direct, (direct_lse_out, direct_lse) = (
+        attention.flash_attn_fwd(q, k, v, 0.125),
+        attention.flash_attn_fwd(q, k, v, 0.125, with_lse=True))
+    assert torch.equal(out, direct) and torch.equal(out_lse, direct_lse_out)
+    assert torch.equal(lse, direct_lse)
+    wav = _logmel_input((2, 64_000), seed=22)
+    before = launch_counts()["logmel"]
+    got = logmel.log10_mel(wav)
+    torch.cuda.synchronize()
+    assert launch_counts()["logmel"] == before + 1
+    assert torch.equal(got, logmel.log10_mel_cuda(wav))
+
+
+@pytest.mark.gpu
+def test_tiny_exported_program_on_the_card_launches_the_kernels(tmp_path):
+    """A tiny bf16 ``surgical_hydra`` exported for the cuda platform: its
+    infer program holds the log-mel, flash-forward and LSTM ops, its run
+    launches log-mel once and the flash forward once per layer, and its
+    logits equal the live pipeline's at the same inner batch."""
+    _cuda()
+    from segma_tpu_torch.config import (
+        AudioConfig, Config, DataConfig, LSTMConfig, ModelConfig, SurgicalHydraConfig,
+    )
+    from segma_tpu_torch.export import ExportedPipeline, export_inference
+    from segma_tpu_torch.inference import InferencePipeline
+    from segma_tpu_torch.models import Models
+    from segma_tpu_torch.models.whisper.encoder import WhisperEncoderConfig
+    from segma_tpu_torch.ops import launch_counts
+    from segma_tpu_torch.utils.encoders import MultiLabelEncoder
+
+    classes = ["KCHI", "OCH", "MAL", "FEM"]
+    cfg = Config(
+        data=DataConfig(classes=classes),
+        audio=AudioConfig(chunk_duration_s=4.0, sample_rate=16_000, strict_frames=False),
+        model=ModelConfig(name="surgical_hydra", config=SurgicalHydraConfig(
+            encoder="whisper_tiny_random", encoder_layers=[], reduction="weighted",
+            lstm=LSTMConfig(hidden_size=16, num_layers=2, bidirectional=True, dropout=0.5),
+            classifier=256,
+        )),
+    )
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = Models["surgical_hydra"](
+            MultiLabelEncoder(classes), cfg, device="cuda",
+            generator=torch.Generator().manual_seed(0),
+            enc_cfg=WhisperEncoderConfig(d_model=128, n_heads=2, n_layers=2, ffn_dim=256))
+    out = export_inference(model, tmp_path / "art", buckets=(2,), batch_size=2,
+                           platforms=("cuda",), stream_batches=())
+    exp = ExportedPipeline.load(out)
+    targets = {str(n.target) for n in exp.infer_fns[2].exported.graph.nodes}
+    assert {"segma_tpu_torch.log10_mel.default", "segma_tpu_torch.flash_attn_fwd.default",
+            "segma_tpu_torch.lstm.default"} <= targets
+    wav = (np.random.default_rng(23).standard_normal(100_000) * 3000).astype(np.int16)
+    before = launch_counts()
+    got = exp.logits_for_audio(wav)
+    after = launch_counts()
+    assert after["logmel"] == before["logmel"] + 1
+    assert after["flash_attn_fwd"] == before["flash_attn_fwd"] + 2
+    ref = InferencePipeline(model, batch_size=2).logits_for_audio(wav)
+    np.testing.assert_array_equal(got, ref)

@@ -20,7 +20,7 @@ are compared byte for byte:
   they do one after the other;
 - the session cap, the SIGTERM drain and the RSS watchdog's exit 75;
 - the serve CLI on the CPU answers /healthz and drains on SIGTERM (exit 0);
-  the export paths raise, naming the export slice.
+  a missing artifact or bundle raises before the server binds.
 """
 
 from __future__ import annotations
@@ -383,21 +383,23 @@ def test_iter_wav_chunks_and_adpcm_uploads(env):
     assert isinstance(adpcm.segment(env["wav"].read_bytes()), list)
 
 
-def test_export_paths_raise(env):
-    with pytest.raises(NotImplementedError, match="export"):
-        serve.SegmentationService(object())
-    with pytest.raises(NotImplementedError, match="export"):
-        serve.serve_forever(artifact="artifact_dir", device="cpu")
-    with pytest.raises(NotImplementedError, match="Export"):
-        serve.serve_forever(bundle="bundle_dir", device="cpu")
-    with pytest.raises(NotImplementedError, match="Export"):
-        serve.bundle_reloader("bundle_dir")
+def test_export_paths_raise(env, tmp_path):
+    """The export paths are ported (tests/test_torch_export.py and
+    test_torch_bundle.py serve them): here, a missing artifact or bundle
+    raises before anything binds, and a mesh still names the multi-GPU slice."""
+    missing = str(tmp_path / "missing")
+    with pytest.raises(FileNotFoundError):
+        serve.serve_forever(artifact=missing, device="cpu")
+    with pytest.raises(FileNotFoundError):
+        serve.serve_forever(bundle=missing, device="cpu")
+    with pytest.raises(FileNotFoundError):
+        serve.bundle_reloader(missing, device="cpu")({})
     with pytest.raises(NotImplementedError, match="Multi-GPU"):
         serve.serve_forever(config=env["model"].config, mesh=object(), device="cpu")
     from segma_tpu_torch.cli import serve as cli_serve
 
-    with pytest.raises(NotImplementedError, match="--artifact"):
-        cli_serve.main(["--artifact", "artifact_dir", "--device", "cpu"])
+    with pytest.raises(FileNotFoundError):
+        cli_serve.main(["--artifact", missing, "--device", "cpu"])
     with pytest.raises(SystemExit):
         cli_serve.main(["--device", "cpu"])  # no source
 

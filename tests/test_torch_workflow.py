@@ -12,7 +12,7 @@ the trainable weights, in-process on the CPU.
 - ``eval_model_output`` gives JAX's scores within 1e-12 and the same
   ``fscore.csv`` byte for byte, with and without UEM; ``frame_f1`` equals
   JAX's; ``evaluate.main`` writes the same file as JAX's;
-- ``--artifact``, not ported, raises naming itself; ``--transport adpcm``
+- ``--artifact`` beside ``--config`` is refused (one source); ``--transport adpcm``
   and ``--pack-files``, which raised until the host data path was ported,
   now run: with ``--pack-files 2`` the RTTMs equal the unpacked run's byte
   for byte, and ADPCM (lossy) writes an RTTM for every file.
@@ -202,8 +202,8 @@ def test_unported_cli_flags_raise(predicted, flag, value):
     out = predicted["root"] / f"unported{flag}"
     args = ["--config", str(CONFIG), "--wavs", str(predicted["data"] / "wav"), "--output",
             str(out), "--device", "cpu", flag, value, *predicted["overrides"]]
-    if flag == "--artifact":
-        with pytest.raises(NotImplementedError, match=flag):
+    if flag == "--artifact":  # ported: with --config it is refused, one source only
+        with pytest.raises(SystemExit):
             tinf.main(args)
         assert not out.exists()
         return
