@@ -148,6 +148,23 @@ exits nonzero without printing the final result line:
    and conv_vad in a bundle served by ``cli.serve --bundle`` in a child
    (``?model=`` routing, POST /admin/reload after a re-export, the old
    session drained); ``cli.doctor`` exit 0.
+10f. data parallelism (``phase_parallel``, bf16 unless said): full-width
+   Whisper-base ``surgical_hydra`` served over the serving slice's WAV with
+   ``mesh`` off, auto (one card: no mesh) and two replicas on cuda:0 (a
+   thread and a CUDA stream each), logits, RTTMs and launches bit-equal to
+   off's, with the walls of the three (the split and gather's cost on one
+   card, not a scaling figure), and one request to ``serve_forever`` over
+   the two replicas; HuBERT-base's seeded two-epoch fit in an NCCL world of
+   one bit-equal to the meshless fit under step and epoch dispatch (the
+   all-reduce captured in the graph); a 2-rank gloo world on cuda:0 in
+   child processes at 4 HuBERT-base layers: one f32 step against one
+   process's global-batch step, and the train CLI preempted by a SIGTERM
+   to one rank (both exit 75) and resumed. (It runs after phase 10c.) With
+   several cards visible, ``phase_parallel_cards`` also serves over one
+   replica per card, steps an NCCL world of one rank per card against the
+   global-batch step, and runs ``cli.auto_train`` as one rank per card
+   (epoch dispatch, SIGTERM and ``--auto-resume`` bit-equal to step
+   dispatch); on one card it is skipped.
 11. the ``kernels`` JSON line (log-mel, the bf16 and the f32 flash forward
    and backward; each with its fast_context times where it has them, and
    log-mel's at (32, 64000) as ``vad_train``) and
@@ -155,7 +172,8 @@ exits nonzero without printing the final result line:
    predict CLI run, each reference-model path, the train CLI, the
    epoch-dispatch paths and the live-serving paths among them); log-mel and
    the bf16 flash forward also carry ``launches_live_serving``, and they and
-   the f32 flash forward ``launches_export``.
+   the f32 flash forward ``launches_export``; every row carries
+   ``launches_parallel_serve`` and ``launches_parallel_train``.
 12. last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -3585,11 +3603,12 @@ def train_cli_config(dataset_path: Path, wav_encoder: str = "hubert_base"):
         scheduler=SchedulerConfig(type="cosine", warmup_steps=2, min_lr_ratio=0.1)))
 
 
-def _child(args: list[str], cwd: Path, log: Path) -> "subprocess.Popen":
+def _child(args: list[str], cwd: Path, log: Path,
+           extra_env: dict | None = None) -> "subprocess.Popen":
     import os
 
     repo = Path(__file__).resolve().parent
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+    env = {**os.environ, **(extra_env or {}), "PYTHONPATH": os.pathsep.join(
         [str(repo), *filter(None, [os.environ.get("PYTHONPATH")])])}
     cwd.mkdir(parents=True, exist_ok=True)
     with log.open("w") as out:
@@ -4611,6 +4630,594 @@ def phase_export(card: str) -> dict:
     return paths
 
 
+PARALLEL_REPLICAS = ("cuda:0", "cuda:0")  # two replicas on the one card
+PARALLEL_LAYERS = 4  # the gloo world's HuBERT-base widths at 4 layers, as phase_train_cli's
+PARALLEL_GLOBAL_BATCH = 8  # the world step's global batch: 4 crops a rank of two
+PARALLEL_LR = 1e-3
+PARALLEL_CLI_EPOCHS = 3
+PARALLEL_REQUEST_S = 20.0  # the request sent to the server over the two-replica mesh
+STEEP_GRAD = 100 * 1e-8  # updates held at 1e-5 where |grad| is 100 times AdamW's eps
+TRAIN_LAUNCH_KEYS = ("flash_attn_fwd", "flash_attn_bwd")  # the bf16 training path's kernels
+# one step of a rank of a world (backend argv[4]): each rank takes its block
+# of the global batch in <out>/batch.npz; each writes its loss, gradients and
+# weights
+PARALLEL_STEP_CHILD = (
+    "import sys, numpy as np, torch\n"
+    "from segma_tpu_torch import checkpoint\n"
+    "from segma_tpu_torch.config import load_config\n"
+    "from segma_tpu_torch.parallel import distributed\n"
+    "from segma_tpu_torch.train import make_optimizer, make_train_step\n"
+    "cfg_path, out, lr, backend = sys.argv[1], sys.argv[2], float(sys.argv[3]), sys.argv[4]\n"
+    "assert distributed.maybe_init_distributed('cuda', backend=backend)\n"
+    "world = distributed.current_world()\n"
+    "model = checkpoint.build_model(load_config(cfg_path), device='cuda')\n"
+    "model.module.dropout = 0.0\n"
+    "b = np.load(out + '/batch.npz')\n"
+    "n = len(b['x']) // world.size\n"
+    "rows = slice(world.rank * n, (world.rank + 1) * n)\n"
+    "step = make_train_step(model, make_optimizer(model, lr), world=world)\n"
+    "loss, per_label = step({k: torch.from_numpy(b[k][rows]).cuda() for k in ('x', 'y')}, None)\n"
+    "named = [(k, p) for k, p in model.module.named_parameters() if p.requires_grad]\n"
+    "np.savez(f'{out}/rank{world.rank}.npz', loss=loss.cpu().numpy()[None],\n"
+    "         per_label=per_label.cpu().numpy(),\n"
+    "         **{'grad:' + k: p.grad.cpu().numpy() for k, p in named},\n"
+    "         **{'param:' + k: p.detach().cpu().numpy() for k, p in named})\n"
+)
+
+
+def _rank_env(rank: int, world: int, port: int, card: int = 0) -> dict:
+    """torchrun's variables for rank ``rank`` of a world on this host, on
+    card ``card``."""
+    return {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": str(card),
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _ranks(args: list[str], cwd: Path, logs: Path, label: str, n: int = 2,
+           own_cards: bool = False) -> list:
+    """``python args`` as ``n`` ranks of a world on a free port: all on card
+    0, or with ``own_cards`` rank r on card r."""
+    port = _free_port()
+    return [_child(args, cwd / f"rank{r}", logs / f"{label}{r}.log",
+                   _rank_env(r, n, port, r if own_cards else 0)) for r in range(n)]
+
+
+def _wait_ranks(procs: list, logs: Path, label: str, want: int) -> float:
+    t0 = time.perf_counter()
+    try:
+        for r, proc in enumerate(procs):
+            _wait(proc, logs / f"{label}{r}.log", f"{label} rank {r}", want)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return time.perf_counter() - t0
+
+
+def _serving_wav(tmp: Path):
+    """The serving slice's config, model (seed 0, on cuda:0), WAV directory,
+    seconds of audio, and the chunks its bucket holds."""
+    import warnings
+
+    import torch
+
+    from segma_tpu_torch.geometry import ConvolutionSettings
+    from segma_tpu_torch.inference import Chunkyfier, _bucket
+    from segma_tpu_torch.models import Models
+    from segma_tpu_torch.utils.encoders import MultiLabelEncoder
+
+    cfg = surgical_hydra_config()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # random encoder weights, on purpose
+        model = Models["surgical_hydra"](MultiLabelEncoder(cfg.data.classes), cfg,
+                                         device="cuda", generator=torch.Generator().manual_seed(0))
+    ck = Chunkyfier(INNER_BATCH, cfg.audio.chunk_duration_f,
+                    ConvolutionSettings((320,), (320,), (0,)))
+    n_samples = N_CHUNKS * ck.chunk_stride + ck.missing_n_frames + 8_000
+    wav_dir = tmp / "wav"
+    wav_dir.mkdir()
+    write_wav(wav_dir / "smoke.wav", n_samples)
+    n_chunks = _bucket(-(-ck.total_frames(n_samples) // ck.n_windows))
+    return cfg, model, wav_dir, n_samples / 16_000, n_chunks
+
+
+def _whole_batches(n_chunks: int, replicas: int) -> bool:
+    """Whether ``replicas`` blocks of ``n_chunks`` windows are each a whole
+    number of inner batches (the meshless pipeline's, so bit-equal)."""
+    return replicas == 1 or n_chunks % (replicas * INNER_BATCH) == 0
+
+
+def _serve_paths(card: str, cfg, model, wav_dir: Path, out: Path, audio_s: float,
+                 meshes: dict, note: str) -> dict:
+    """The serving slice's WAV through ``run_inference_on_audios`` once per
+    entry of ``meshes`` (label: (``mesh`` argument, whether the replicas'
+    blocks are whole inner batches)), the first entry the reference, each
+    run twice (the second timed, from zeroed launch counters), logits
+    dumped: each run's launches equal the reference's, its logits and RTTM
+    bit-equal to them where the blocks are whole inner batches, else its
+    logits within LOGITS_ATOL. Returns the launch counts by label."""
+    import torch
+
+    from segma_tpu_torch.inference import run_inference_on_audios
+
+    def drive(mesh, tag: str) -> tuple[float, dict, dict]:
+        for run in range(2):
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            done = run_inference_on_audios(cfg, wav_dir, None, out / f"{tag}{run}", model=model,
+                                           device="cuda", batch_size=INNER_BATCH,
+                                           dump_logits=True, mesh=mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if len(done) != 1:
+                raise AssertionError(f"parallel serve {tag}: no file served")
+        logits = dict(np.load(out / f"{tag}1" / "logits" / "smoke-logits_dict_t.npz"))
+        return wall, read_launches(), logits
+
+    paths, walls, ref, first = {}, {}, None, None
+    for label, (mesh, exact) in meshes.items():
+        tag = label.replace(" ", "_").replace("(", "").replace(")", "")
+        walls[label], paths[label], logits = drive(mesh, tag)
+        _launched(paths[label], SERVE_LAUNCH_KEYS, f"parallel serve {label}")
+        if ref is None:
+            ref, first = logits, tag
+            continue
+        if paths[label] != paths[next(iter(meshes))]:
+            raise AssertionError(f"parallel serve {label}: launches {paths[label]} against "
+                                 f"the reference's {paths[next(iter(meshes))]}")
+        rttm = (out / f"{tag}1" / "raw_rttm" / "smoke.rttm").read_text()
+        same_rttm = rttm == (out / f"{first}1" / "raw_rttm" / "smoke.rttm").read_text()
+        for name, value in ref.items():
+            if not exact:
+                check_close(f"parallel serve {label}, {name} logits", logits[name], value,
+                            LOGITS_ATOL)
+            elif not np.array_equal(logits[name], value):
+                raise AssertionError(f"parallel serve {label}: {name} logits differ from the "
+                                     f"reference by {np.abs(logits[name] - value).max()}")
+        if exact and not same_rttm:
+            raise AssertionError(f"parallel serve {label}: the RTTM differs")
+        print(f"check parallel serve {label} [{card}]: logits of {len(value)} frames x "
+              f"{len(ref)} labels {'bit-equal to' if exact else 'within LOGITS_ATOL of'} "
+              f"{next(iter(meshes))}, RTTM {'identical' if same_rttm else 'differs'}, "
+              f"launches {paths[label]}", flush=True)
+    print(f"parallel serve walls [{card}] over {audio_s:.1f} s of audio ({note}): " + ", ".join(
+        f"{label} {walls[label]:.4f} s = {audio_s / walls[label]:.1f}x real time"
+        for label in walls), flush=True)
+    return paths
+
+
+def _serve_request(card: str, cfg, model, tmp: Path, mesh, label: str) -> dict:
+    """One request to ``serve_forever`` (in a thread of this process) over
+    ``mesh``, answered as a meshless service on the same model answers it.
+    Returns the request's launch counts."""
+    import threading
+
+    from segma_tpu_torch import checkpoint, serve
+    from segma_tpu_torch.client import SegmaClient
+    from segma_tpu_torch.inference import InferencePipeline
+    from segma_tpu_torch.serve import runtime
+
+    wav = tmp / "request.wav"
+    write_wav(wav, int(PARALLEL_REQUEST_S * 16_000), seed=5)
+    servers: list = []
+    real_make, real_load = runtime.make_server, checkpoint.load_model_for_inference
+
+    def capture(*a, **kw):
+        servers.append(real_make(*a, **kw))
+        return servers[-1]
+
+    runtime.make_server = capture
+    checkpoint.load_model_for_inference = lambda *a, **kw: model
+    thread = threading.Thread(target=serve.serve_forever, kwargs=dict(
+        config=cfg, port=0, batch_size=INNER_BATCH, device="cuda", mesh=mesh), daemon=True)
+    try:
+        thread.start()
+        t0 = time.perf_counter()
+        while not servers:
+            if not thread.is_alive() or time.perf_counter() - t0 > 300:
+                raise AssertionError("serve_forever over the mesh did not bind")
+            time.sleep(0.05)
+        ref_server = serve.make_server(serve.SegmentationService(
+            InferencePipeline(model, batch_size=INNER_BATCH, device="cuda")), port=0)
+        threading.Thread(target=ref_server.serve_forever, daemon=True).start()
+        try:
+            want = SegmaClient(f"http://127.0.0.1:{ref_server.server_address[1]}").segment(
+                str(wav))
+        finally:
+            ref_server.shutdown()
+        reset_launches()
+        t0 = time.perf_counter()
+        got = SegmaClient(f"http://127.0.0.1:{servers[0].server_address[1]}").segment(str(wav))
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        runtime.make_server, checkpoint.load_model_for_inference = real_make, real_load
+        for server in servers:
+            server.shutdown()
+        thread.join(60)
+    if thread.is_alive():
+        raise AssertionError("serve_forever did not stop")
+    if got != want or not got:
+        raise AssertionError(f"the server over {label} answered {len(got)} intervals, the "
+                             f"meshless one {len(want)}, not the same")
+    _launched(launches, SERVE_LAUNCH_KEYS, "parallel serve request")
+    print(f"check parallel serve request [{card}]: serve_forever over {label} answered a "
+          f"{PARALLEL_REQUEST_S:.0f} s request as the meshless service does ({len(got)} "
+          f"intervals) in {wall:.3f} s, launches {launches}", flush=True)
+    return launches
+
+
+def _nccl_world_of_one(card: str, tmp: Path) -> dict:
+    """A seeded two-epoch fit of the training slice (HuBERT-base, bf16, the
+    device cache) with and without an NCCL world of one in this process,
+    under step and epoch dispatch: bit-equal in every epoch's losses and
+    metrics, the trainable parameters and AdamW's state, with equal
+    launches; under epoch dispatch the world's all-reduce is inside the
+    captured graph. Returns the world's launch counts by dispatch."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from segma_tpu_torch.data import SegmaFileDataset
+    from segma_tpu_torch.parallel import distributed
+
+    root = tmp / "data"
+    write_dataset(root, TRAIN_CLASSES, (TRAIN_FILES, VAL_FILES, TEST_FILES), TRAIN_FILE_S)
+    base = surgical_hubert_hydra_config(root)
+    ds = SegmaFileDataset.from_config(base)
+    ds.load(use_cache=False)
+    env = _rank_env(0, 1, _free_port())
+    paths = {}
+    for dispatch in ("step", "epoch"):
+        cfg = dataclasses.replace(base, train=dataclasses.replace(
+            base.train, dispatch=dispatch, data_cache="device"))
+        alone = _dispatch_fit(card, f"{dispatch} dispatch, one process", cfg, ds,
+                              tmp / f"alone_{dispatch}")
+        os.environ.update(env)
+        try:
+            if not distributed.maybe_init_distributed("cuda"):
+                raise AssertionError("the NCCL world of one did not start")
+            backend = torch.distributed.get_backend()
+            world = _dispatch_fit(card, f"{dispatch} dispatch, NCCL world of 1", cfg, ds,
+                                  tmp / f"world_{dispatch}")
+        finally:
+            distributed.destroy()
+            for k in env:
+                os.environ.pop(k, None)
+        _same_run(alone, world, f"parallel train {dispatch} dispatch, NCCL ({backend}) world "
+                  "of 1 against one process")
+        if world["launches"] != alone["launches"]:
+            raise AssertionError(f"parallel train {dispatch}: launches {world['launches']} "
+                                 f"against {alone['launches']}")
+        _launched(world["launches"], TRAIN_LAUNCH_KEYS, f"parallel train {dispatch}")
+        if dispatch == "epoch" and world["graphs"] != [True]:
+            raise AssertionError(f"parallel train epoch: replayed graphs {world['graphs']}")
+        paths[f"world1 {dispatch}"] = world["launches"]
+    return paths
+
+
+def _assert_update(name: str, got: np.ndarray, want: np.ndarray, grad: np.ndarray) -> float:
+    """AdamW's first update held at 1e-5 where the gradient is steep, within
+    the learning rate elsewhere (there it is set by the gradient's last
+    digits); returns the largest difference on the steep entries."""
+    steep = np.abs(grad) >= STEEP_GRAD
+    diff = np.abs(got.astype(np.float64) - want)
+    if diff[steep].max(initial=0.0) > 1e-5 or diff.max(initial=0.0) > PARALLEL_LR * (1 + 1e-3):
+        raise AssertionError(f"{name}: update differs by {diff[steep].max(initial=0.0):.3e} "
+                             f"(steep), {diff.max():.3e} (all)")
+    return float(diff[steep].max(initial=0.0))
+
+
+def _world_step(card: str, cfg, cfg_path: Path, tmp: Path, n: int = 2,
+                backend: str = "gloo", own_cards: bool = False) -> None:
+    """One f32 step of an ``n``-rank world in child processes (HuBERT-base
+    widths at PARALLEL_LAYERS layers, dropout 0), each rank on its block of
+    a global batch, against this process's step over the whole batch: loss
+    and per-label loss at 1e-5, gradients at 1e-4, updates by
+    ``_assert_update``; every rank's weights bit-equal. In f32, as the CPU
+    tests hold the step: a bf16 forward over 4 rows and over 8 rounds
+    differently. Default: 2 gloo ranks on cuda:0."""
+    import torch
+
+    from segma_tpu_torch import checkpoint
+    from segma_tpu_torch.train import make_optimizer, make_train_step
+
+    label = f"{backend}_step"
+    out = tmp / label
+    out.mkdir()
+    batch = n * max(1, PARALLEL_GLOBAL_BATCH // n)
+    rng = np.random.default_rng(23)
+    t = np.arange(64_000) / 16_000
+    x = (0.1 * rng.standard_normal((batch, 64_000))
+         + 0.3 * np.sin(2 * np.pi * 440.0 * t)).astype(np.float32)
+    y = (rng.random((batch, 199, len(TRAIN_CLASSES))) > 0.6).astype(np.float32)
+    np.savez(out / "batch.npz", x=x, y=y)
+    procs = _ranks(["-c", PARALLEL_STEP_CHILD, str(cfg_path), str(out), str(PARALLEL_LR),
+                    backend], tmp / f"cwd_{label}", tmp, label, n, own_cards)
+    wall = _wait_ranks(procs, tmp, label, 0)
+    ranks = [dict(np.load(out / f"rank{r}.npz")) for r in range(n)]
+    for other in ranks[1:]:
+        for k in ranks[0]:
+            if k.startswith("param:") and not np.array_equal(ranks[0][k], other[k]):
+                raise AssertionError(f"{label}: the ranks' {k} differ")
+    model = checkpoint.build_model(cfg, device="cuda")
+    model.module.dropout = 0.0
+    loss, per_label = make_train_step(model, make_optimizer(model, PARALLEL_LR))(
+        {"x": torch.from_numpy(x).cuda(), "y": torch.from_numpy(y).cuda()}, None)
+    got = ranks[0]
+    d_loss = abs(float(got["loss"][0]) - float(loss))
+    d_per = float(np.abs(got["per_label"] - per_label.cpu().numpy()).max())
+    if d_loss > 1e-5 or d_per > 1e-5:
+        raise AssertionError(f"{label}: loss differs by {d_loss:.3e}, per label {d_per:.3e}")
+    d_grad = d_update = 0.0
+    n_tensors = 0
+    for name, p in model.module.named_parameters():
+        if not p.requires_grad:
+            continue
+        g = p.grad.float().cpu().numpy()
+        diff = float(np.abs(got["grad:" + name] - g).max())
+        if diff > 1e-4:
+            raise AssertionError(f"{label}: gradient of {name} differs by {diff:.3e}")
+        d_grad = max(d_grad, diff)
+        d_update = max(d_update, _assert_update(name, got["param:" + name],
+                                                p.detach().double().cpu().numpy(), g))
+        n_tensors += 1
+    where = f"cuda:0 to cuda:{n - 1}" if own_cards else "cuda:0"
+    print(f"check parallel train {label} [{card}]: {n} {backend} ranks on {where} (f32, "
+          f"{PARALLEL_LAYERS} HuBERT-base layers, {batch // n} crops a rank) "
+          f"against one process over {batch}: loss {d_loss:.3e}, per label "
+          f"{d_per:.3e}, gradients {d_grad:.3e} (max of {n_tensors} tensors), steep updates "
+          f"{d_update:.3e}; the ranks' weights bit-equal; children's wall {wall:.1f} s",
+          flush=True)
+
+
+def _gloo_preemption(card: str, cfg_path: Path, tmp: Path) -> None:
+    """``cli.auto_train --dist-backend gloo`` as 2 ranks on cuda:0: SIGTERM
+    to rank 1 once epoch 0 is logged; both ranks exit 75, rank 0's ``last/``
+    is on disk and ``metrics.jsonl`` has each epoch once; then
+    ``--auto-resume`` as 2 ranks ends every epoch, exit 0."""
+    import signal
+
+    from segma_tpu_torch import checkpoint
+
+    out = tmp / "runs"
+    auto = ["-m", "segma_tpu_torch.cli.auto_train", "-c", str(cfg_path), "--run-id", "R",
+            "--output", str(out), "--dist-backend", "gloo"]
+    metrics = out / "R" / "metrics.jsonl"
+    procs = _ranks(auto, tmp / "cwd_pre", tmp, "preempt")
+    t0 = time.perf_counter()
+    try:
+        while not (metrics.exists() and any("train/loss" in r for r in _records(metrics))):
+            if any(p.poll() is not None for p in procs) or time.perf_counter() - t0 > CHILD_WALL_S:
+                raise AssertionError("the 2-rank run ended or stalled before epoch 0 ended:\n"
+                                     + (tmp / "preempt0.log").read_text()[-3000:])
+            time.sleep(0.02)
+        procs[1].send_signal(signal.SIGTERM)
+    except BaseException:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+        raise
+    wall = _wait_ranks(procs, tmp, "preempt", 75)
+    last = out / "R" / "checkpoints" / "last"
+    epoch = checkpoint.load_meta(last).get("epoch")
+    stopped = [(r["preempted_at_epoch"], r["epoch_completed"]) for r in _records(metrics)
+               if "preempted_at_epoch" in r]
+    epochs = [r["epoch"] for r in _epochs(_records(metrics))]
+    if epoch is None or len(stopped) != 1 or epochs != sorted(set(epochs)):
+        raise AssertionError(f"preempted world: last/ epoch {epoch}, stops {stopped}, epochs "
+                             f"{epochs}")
+    procs = _ranks([*auto, "--auto-resume"], tmp / "cwd_res", tmp, "resume")
+    wall_resume = _wait_ranks(procs, tmp, "resume", 0)
+    epochs = [r["epoch"] for r in _epochs(_records(metrics))]
+    if epochs[-1] != PARALLEL_CLI_EPOCHS - 1 or checkpoint.load_meta(last).get(
+            "epoch") != PARALLEL_CLI_EPOCHS - 1:
+        raise AssertionError(f"resumed world: epochs {epochs}")
+    print(f"check parallel train SIGTERM [{card}]: rank 1 signalled, both ranks exit 75 "
+          f"(stop {stopped[0]}), last/ at epoch {epoch} by rank 0; --auto-resume as 2 ranks "
+          f"exit 0 through epoch {epochs[-1]} (logged epochs {epochs}); walls {wall:.1f} s and "
+          f"{wall_resume:.1f} s", flush=True)
+
+
+def phase_parallel(card: str) -> dict:
+    """Data parallelism on the one card (bf16 unless said):
+
+    1. serving (``_serve_paths``): full-width Whisper-base ``surgical_hydra``
+       at inner batch 64 over the serving slice's WAV through
+       ``run_inference_on_audios`` with ``mesh="off"``, ``"auto"`` (one card:
+       no mesh) and a mesh of two replicas on cuda:0 (a thread and a stream
+       each, the windows split in two halves of two inner batches): logits
+       and RTTMs bit-equal to off's, launches equal (auto) or equal in total
+       (two replicas); the walls of the three, which on one card measure the
+       split and gather, not scaling; then one request to ``serve_forever``
+       over the two-replica mesh (``_serve_request``);
+    2. an NCCL world of one (``_nccl_world_of_one``): seeded two-epoch fits
+       of HuBERT-base bit-equal to the meshless fit, step and epoch dispatch;
+    3. a 2-rank gloo world on cuda:0 in child processes, HuBERT-base widths
+       at PARALLEL_LAYERS layers: one f32 step against one process's
+       global-batch step (``_world_step``), and the train CLI preempted by a
+       SIGTERM to one rank and resumed (``_gloo_preemption``).
+
+    Returns the launch counts by path."""
+    import dataclasses
+
+    import torch
+
+    from segma_tpu_torch.parallel import auto_mesh, make_mesh, replicate
+
+    paths: dict[str, dict] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cfg, model, wav_dir, audio_s, n_chunks = _serving_wav(tmp)
+        two = make_mesh(devices=list(PARALLEL_REPLICAS))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        replicate(model, two)
+        torch.cuda.synchronize()
+        copy_s = time.perf_counter() - t0
+        auto = auto_mesh(cfg, torch.device("cuda"))
+        serve = _serve_paths(
+            card, cfg, model, wav_dir, tmp / "serve", audio_s,
+            {"off": ("off", True),
+             "auto": ("auto", _whole_batches(n_chunks, 1 if auto is None else auto.shape["data"])),
+             "2 replicas": (two, _whole_batches(n_chunks, 2))},
+            "one card: the split and gather's cost, not a scaling figure; the two-replica "
+            f"run includes copying the model for its second replica, {copy_s:.4f} s alone")
+        paths.update({f"parallel serve {k}": v for k, v in serve.items()})
+        paths["parallel serve request"] = _serve_request(card, cfg, model, tmp, two,
+                                                         "2 replicas on cuda:0")
+        del model
+        torch.cuda.empty_cache()
+
+        paths.update({f"parallel train {k}": v
+                      for k, v in _nccl_world_of_one(card, tmp / "nccl").items()})
+
+        gloo = tmp / "gloo"
+        gloo.mkdir()
+        write_hubert_snapshot(gloo / "hubert4", seed=16,
+                              dims=dict(HUBERT_BASE, num_hidden_layers=PARALLEL_LAYERS))
+        root = tmp / "nccl" / "data"
+        cfg = surgical_hubert_hydra_config(root, precision="f32")
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, config=dataclasses.replace(cfg.model.config,
+                                                  wav_encoder=str(gloo / "hubert4"))))
+        _world_step(card, cfg, write_config(gloo / "step.json", cfg), gloo)
+        cli_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, precision="bf16", max_epochs=PARALLEL_CLI_EPOCHS, data_cache="host"))
+        _gloo_preemption(card, write_config(gloo / "cli.json", cli_cfg), gloo)
+    return paths
+
+
+def _cards_fits(card: str, cfg_path: Path, tmp: Path, n: int) -> None:
+    """``cli.auto_train`` run plainly with ``n`` visible cards: it starts
+    one NCCL rank per card. Three runs of PARALLEL_CLI_EPOCHS epochs: step
+    dispatch (A), epoch dispatch (the all-reduce captured in the graph), and
+    step dispatch with SIGTERM sent to the command once epoch 0 is logged
+    (every rank exits 75), then ``--auto-resume`` (exit 0); ``last/`` of the
+    second and the fourth bit-equal to A's."""
+    import signal
+
+    out = tmp / "runs"
+    base = ["-m", "segma_tpu_torch.cli.auto_train", "-c", str(cfg_path), "--output", str(out)]
+    walls = {}
+
+    def run(label: str, run_id: str, *extra: str, want: int = 0, signal_after: bool = False):
+        log = tmp / f"{label}.log"
+        proc = _child([*base, "--run-id", run_id, *extra], tmp / f"cwd_{label}", log)
+        metrics = out / run_id / "metrics.jsonl"
+        t0 = time.perf_counter()
+        try:
+            while signal_after and not (metrics.exists() and any(
+                    "train/loss" in r for r in _records(metrics))):
+                if proc.poll() is not None or time.perf_counter() - t0 > CHILD_WALL_S:
+                    raise AssertionError(f"{label}: ended or stalled before epoch 0 ended:\n"
+                                         + log.read_text()[-3000:])
+                time.sleep(0.02)
+            if signal_after:
+                proc.send_signal(signal.SIGTERM)
+            walls[label] = _wait(proc, log, label, want)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        return log.read_text()
+
+    log_a = run("step", "A")
+    if f"{n} cards visible" not in log_a or f"ranks exited with {[0] * n}" not in log_a:
+        raise AssertionError(f"cli.auto_train did not start {n} ranks:\n{log_a[-3000:]}")
+    run("epoch", "E", "train.dispatch=epoch")
+    log_p = run("preempted", "P", want=75, signal_after=True)
+    if f"ranks exited with {[75] * n}" not in log_p:
+        raise AssertionError(f"SIGTERM: not every rank exited 75:\n{log_p[-3000:]}")
+    run("resumed", "P", "--auto-resume")
+    ref = (out / "A" / "checkpoints" / "last" / "params.msgpack").read_bytes()
+    for run_id, what in (("E", "epoch dispatch"), ("P", "the preempted and resumed run")):
+        if (out / run_id / "checkpoints" / "last" / "params.msgpack").read_bytes() != ref:
+            raise AssertionError(f"{n} cards: {what} ends on other weights than step dispatch")
+    epochs = [r["epoch"] for r in _epochs(_records(out / "A" / "metrics.jsonl"))]
+    print(f"check parallel train {n} cards [{card}]: cli.auto_train started {n} NCCL ranks, "
+          f"one per card, epochs {epochs} logged once; epoch dispatch and a run preempted by "
+          f"SIGTERM (every rank exit 75) then --auto-resume end bit-equal to step dispatch; "
+          "walls " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()), flush=True)
+
+
+def phase_parallel_cards(card: str) -> dict:
+    """Data parallelism across the visible cards, when there are several
+    (on one card it prints that it is skipped and returns no path; the
+    two-replica and world-of-one checks of ``phase_parallel`` stand in):
+
+    1. serving: the serving slice through ``run_inference_on_audios`` with
+       ``mesh`` off and auto (one replica per card, a peer copy of each
+       block to its card and of its logits back): logits bit-equal where the
+       blocks are whole inner batches (else within LOGITS_ATOL), launches
+       equal; one run's wall each (not a scaling study: one run, one host);
+       a request through ``serve_forever(mesh="auto")``;
+    2. training, HuBERT-base widths at PARALLEL_LAYERS layers, 8 crops a
+       card: one f32 step of an NCCL world of one rank per card against one
+       process's global-batch step (``_world_step``), and ``_cards_fits``.
+
+    Returns the launch counts of the serving paths."""
+    import dataclasses
+
+    import torch
+
+    from segma_tpu_torch.parallel import auto_mesh, replicate
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"parallel cards [{card}]: skipped, {n} card visible", flush=True)
+        return {}
+    paths: dict[str, dict] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cfg, model, wav_dir, audio_s, n_chunks = _serving_wav(tmp)
+        mesh = auto_mesh(cfg, torch.device("cuda"))
+        replicate(model, mesh)  # the other cards' first use, untimed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        replicate(model, mesh)
+        torch.cuda.synchronize()
+        copy_s = time.perf_counter() - t0
+        label = f"auto, {n} cards"
+        serve = _serve_paths(card, cfg, model, wav_dir, tmp / "serve", audio_s,
+                             {"off": ("off", True), label: ("auto", _whole_batches(n_chunks, n))},
+                             f"{n} cards, one run each after a warm-up: not a scaling study; "
+                             f"the auto run includes copying the model to the other cards, "
+                             f"{copy_s:.4f} s alone")
+        paths.update({f"parallel serve cards {k}": v for k, v in serve.items()})
+        paths["parallel serve cards request"] = _serve_request(card, cfg, model, tmp, "auto",
+                                                               f"{mesh.shape['data']} cards")
+        del model
+        torch.cuda.empty_cache()
+
+        root = tmp / "data"
+        write_dataset(root, TRAIN_CLASSES, (max(TRAIN_FILES, n), max(VAL_FILES, n), TEST_FILES),
+                      TRAIN_FILE_S)
+        write_hubert_snapshot(tmp / "hubert4", seed=16,
+                              dims=dict(HUBERT_BASE, num_hidden_layers=PARALLEL_LAYERS))
+        cfg = surgical_hubert_hydra_config(root, precision="f32")
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, config=dataclasses.replace(cfg.model.config,
+                                                  wav_encoder=str(tmp / "hubert4"))))
+        _world_step(card, cfg, write_config(tmp / "step.json", cfg), tmp, n, "nccl",
+                    own_cards=True)
+        cli_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, precision="bf16", batch_size=8 * n, max_epochs=PARALLEL_CLI_EPOCHS,
+            data_cache="device"))
+        _cards_fits(card, write_config(tmp / "cli.json", cli_cfg), tmp, n)
+    return paths
+
+
 def profile_run(card: str, label: str, fn, wall_s: float) -> list[str]:
     """One more main-path run under torch.profiler: device time by kernel,
     and the device's busy share of ``wall_s``, the same run's wall time
@@ -4684,6 +5291,8 @@ def main() -> int:
     train_cli = phase(phase_train_cli)
     device_cache = phase(phase_device_cache)
     families = phase(phase_model_families)
+    parallel = phase(phase_parallel)
+    parallel.update(phase(phase_parallel_cards))
     # the f32 phases run under PyTorch's defaults, which let cuDNN take TF32:
     # the f32 model itself keeps its convolutions and LSTM in IEEE f32
     torch.backends.cudnn.allow_tf32 = True
@@ -4715,6 +5324,11 @@ def main() -> int:
                                              for path in families["launches"].values())
     for name in SERVE_LAUNCH_KEYS:  # the live-serving paths, all of them together
         by_name[name]["launches_live_serving"] = sum(path[name] for path in live.values())
+    for row in rows:  # the data-parallel paths, serving and training
+        for kind in ("serve", "train"):
+            row[f"launches_parallel_{kind}"] = sum(
+                counts[row["name"]] for path, counts in parallel.items()
+                if path.startswith(f"parallel {kind}"))
     by_name["logmel"]["vad_train"] = families["logmel"]
     # the artifacts' runs: the bf16 one in its loader child, the f32 one here
     for name, path in (("logmel", "export child bf16"), ("flash_attn_fwd", "export child bf16"),
@@ -4728,7 +5342,7 @@ def main() -> int:
              "train_cli": train_cli, **device_cache,
              **{f"families {label}": counts for label, counts in families["launches"].items()},
              **{f"live serve {label}": counts for label, counts in live.items()},
-             **export}
+             **export, **parallel}
     print(f"kernels: {json.dumps(paths)}", flush=True)
     print(card, flush=True)
     print(json.dumps({

@@ -453,7 +453,9 @@ class CheckpointManager:
     """top-k + last + best bookkeeping over checkpoint directories, with the
     JAX package's rules: ``save_top_k`` -1 keeps all, 0 is refused (best.ckpt
     must point somewhere), the best is never evicted; ``last/`` is written
-    every step and replaced by two renames, so one always exists on disk."""
+    every step and replaced by two renames, so one always exists on disk.
+    ``write=False`` keeps the same bookkeeping and touches nothing on disk:
+    the manager of a rank other than 0, whose decisions must be rank 0's."""
 
     def __init__(
         self,
@@ -461,6 +463,7 @@ class CheckpointManager:
         monitor: str = "val/loss",
         mode: str = "min",
         save_top_k: int = 5,
+        write: bool = True,
     ) -> None:
         if save_top_k == 0:
             raise ValueError(
@@ -468,7 +471,9 @@ class CheckpointManager:
                 "use save_top_k=1 to keep only the best, or -1 to keep all"
             )
         self.dirpath = Path(dirpath)
-        self.dirpath.mkdir(parents=True, exist_ok=True)
+        self.write = write
+        if write:
+            self.dirpath.mkdir(parents=True, exist_ok=True)
         self.monitor = monitor
         self.mode = mode
         self.save_top_k = save_top_k
@@ -504,22 +509,25 @@ class CheckpointManager:
         ``opt_state`` (``opt_state_tree``) and ``train_state`` go to ``last/``
         only: they make a resume exact without growing the top-k dirs."""
         meta = {**meta, "epoch": epoch, "score": float(score)}
-        self._write_last(trainable_params, meta, opt_state, train_state)
         name = f"epoch={epoch:02d}-{self.monitor.replace('/', '_')}={score:.3f}"
         path = self.dirpath / name
-        save_params(path, trainable_params, meta)
+        if self.write:
+            self._write_last(trainable_params, meta, opt_state, train_state)
+            save_params(path, trainable_params, meta)
         self.kept.append((score, path))
         self.kept.sort(key=lambda t: t[0], reverse=(self.mode == "max"))
         if self.save_top_k > 0:
             while len(self.kept) > self.save_top_k:
                 _, evicted = self.kept.pop()  # the best ranks first: never evicted
-                shutil.rmtree(evicted, ignore_errors=True)
+                if self.write:
+                    shutil.rmtree(evicted, ignore_errors=True)
         if self.best_score is None or self._is_better(score, self.best_score):
             self.best_score = float(score)
             self.best_path = path
-            best_link = self.dirpath / "best.ckpt"
-            best_link.unlink(missing_ok=True)
-            best_link.symlink_to(path.resolve())
+            if self.write:
+                best_link = self.dirpath / "best.ckpt"
+                best_link.unlink(missing_ok=True)
+                best_link.symlink_to(path.resolve())
 
     def _write_last(self, trainable_params: dict, meta: dict, opt_state: dict | None = None,
                     train_state: dict | None = None) -> None:
@@ -550,10 +558,16 @@ class CheckpointManager:
                      opt_state: dict | None = None, train_state: dict | None = None) -> None:
         """Rewrite ``last/`` without top-k accounting, for an epoch that was
         not scored."""
-        self._write_last(trainable_params, {**meta, "epoch": epoch}, opt_state, train_state)
+        if self.write:
+            self._write_last(trainable_params, {**meta, "epoch": epoch}, opt_state, train_state)
 
     @property
     def last_path(self) -> Path:
+        """``last/``; the writer adopts a ``.last.old`` left by a crash
+        (``recover_last_dir``), another rank only names the path: a rename
+        there could race the writer's own two renames."""
+        if not self.write:
+            return self.dirpath / "last"
         return recover_last_dir(self.dirpath)
 
 
@@ -634,5 +648,8 @@ def recover_last_dir(checkpoints_dir: Path | str) -> Path:
     last = checkpoints_dir / "last"
     old = checkpoints_dir / ".last.old"
     if not last.exists() and old.exists():
-        old.rename(last)
+        try:
+            old.rename(last)
+        except FileNotFoundError:  # another rank, resuming too, adopted it first
+            pass
     return last

@@ -7,14 +7,19 @@
 ``--auto-resume`` continues from that run's newest valid checkpoint
 (``checkpoint.find_resumable``: ``last/``, else the newest epoch directory),
 or starts fresh when there is none. An interrupted run exits with code 75,
-so a requeue loop runs the same command again.
+so a requeue loop runs the same command again. Several processes
+(``torchrun``, or one rank per visible card started here) as in
+``cli.train``: every rank resumes from the same checkpoint.
 """
 
 from __future__ import annotations
 
+import sys
 from pathlib import Path
 
-from segma_tpu_torch.cli.train import EX_TEMPFAIL, build_argparser, run_training
+from segma_tpu_torch.cli.train import (
+    EX_TEMPFAIL, build_argparser, launch_ranks, local_world_size, run_training,
+)
 from segma_tpu_torch.config import load_config
 from segma_tpu_torch.utils.logging import log
 
@@ -25,8 +30,13 @@ def main(argv: list[str] | None = None) -> None:
                         help="resume from the run's last checkpoint if present")
     parser.add_argument("--run-id", type=str, default=None)
     parser.add_argument("--output", type=str, default=None)
+    argv = sys.argv[1:] if argv is None else list(argv)
     args, extra_args = parser.parse_known_args(argv)
     cfg = load_config(args.config, cli_extra_args=extra_args)
+    n = local_world_size(cfg, args.device)
+    if n > 1:
+        log(f"{n} cards visible, mesh.data={cfg.mesh.data}: one rank per card")
+        raise SystemExit(launch_ranks("segma_tpu_torch.cli.auto_train", argv, n))
 
     resume_from = args.resume_from
     if args.auto_resume and resume_from is None and args.run_id:
@@ -43,7 +53,8 @@ def main(argv: list[str] | None = None) -> None:
             log("auto-resume requested but no (valid) checkpoint found; fresh run")
 
     result = run_training(cfg, args.tags, resume_from=resume_from, run_id=args.run_id,
-                          output=args.output, device=args.device)
+                          output=args.output, device=args.device,
+                          dist_backend=args.dist_backend)
     if result.get("interrupted"):
         raise SystemExit(EX_TEMPFAIL)
 

@@ -54,7 +54,8 @@ def main(argv: list[str] | None = None) -> None:
     )
     parser.add_argument(
         "--mesh", default="auto", choices=["auto", "off"],
-        help="auto or off: both serve on one card (multi-GPU is not ported yet)",
+        help="auto: with several visible cards, a live model's one-shot requests split "
+        "their windows over one replica per card (config mesh.data); off: one card",
     )
     parser.add_argument(
         "--transport", default="int16", choices=["int16", "mulaw", "adpcm", "f32"],

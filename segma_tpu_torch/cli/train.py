@@ -1,7 +1,18 @@
-"""Training CLI (counterpart of ``segma_tpu/cli/train.py``), one card:
+"""Training CLI (counterpart of ``segma_tpu/cli/train.py``):
 
     python -m segma_tpu_torch.cli.train -c <config.yml> [key.path=value ...]
         [--resume-from <checkpoint>] [--tags ...] [--device cuda|cpu]
+        [--dist-backend nccl|gloo]
+
+Data parallelism: under a launcher (``torchrun --nproc-per-node N python -m
+segma_tpu_torch.cli.train ...``, or the JAX package's ``COORDINATOR_ADDRESS``,
+``PROCESS_COUNT`` and ``PROCESS_ID``) each rank trains its shard of the files
+on card ``LOCAL_RANK`` (``parallel.distributed``), and rank 0 alone makes the
+run directory and writes ``config.yml``, ``metrics.jsonl`` and the
+checkpoints. Run plainly with several visible cards and ``mesh.data`` other
+than 1, the command starts one rank per card itself (``mesh.data`` = k: the
+first k) on a local rendezvous, forwards SIGTERM to them and exits with
+their code (75 when they were preempted).
 
 The run directory is ``<model.chkp_path or "models">/<timestamp>``; it holds
 ``config.yml`` (readable by both packages' ``load_config``),
@@ -18,6 +29,10 @@ from __future__ import annotations
 
 import argparse
 import os
+import signal
+import socket
+import subprocess
+import sys
 import time
 from datetime import datetime
 from pathlib import Path
@@ -38,6 +53,10 @@ def build_argparser() -> argparse.ArgumentParser:
                         help="Checkpoint to resume from.")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="where the model trains (the card unless cpu)")
+    parser.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                        help="the collectives' backend under several processes: nccl on "
+                        "cards, gloo on the CPU by default; gloo on cards lets several "
+                        "ranks share one card")
     return parser
 
 
@@ -61,11 +80,30 @@ def fast_context_hint(cfg: Config) -> str | None:
 
 def run_training(cfg: Config, tags: list[str], resume_from: str | None = None,
                  run_id: str | None = None, output: str | None = None,
-                 device: str = "cuda") -> dict[str, Any]:
+                 device: str = "cuda", dist_backend: str | None = None) -> dict[str, Any]:
     """Train ``cfg`` through ``Trainer.fit`` into a new (or ``run_id``'s) run
-    directory; returns ``fit``'s result."""
+    directory; returns ``fit``'s result. Under a launcher's environment this
+    process is one rank of the world (``maybe_init_distributed``)."""
+    from segma_tpu_torch.parallel import distributed
+
+    started = (not distributed.is_initialized()
+               and distributed.maybe_init_distributed(device, dist_backend))
+    if distributed.is_initialized():
+        device = distributed.local_device(device)
+        log(f"rank {distributed.rank()} of {distributed.world_size()} on {device}")
+    try:
+        return _train(cfg, tags, resume_from, run_id, output, device)
+    finally:
+        if started:  # a world this call joined; a caller's stays
+            distributed.destroy()
+
+
+def _train(cfg: Config, tags: list[str], resume_from: str | None, run_id: str | None,
+           output: str | None, device: Any) -> dict[str, Any]:
     from segma_tpu_torch.checkpoint import build_model
     from segma_tpu_torch.data import SegmaFileDataset, SegmentationDataLoader
+    from segma_tpu_torch.parallel import distributed
+    from segma_tpu_torch.parallel.distributed import current_world
     from segma_tpu_torch.train import Trainer
     from segma_tpu_torch.utils import set_seed
 
@@ -84,11 +122,16 @@ def run_training(cfg: Config, tags: list[str], resume_from: str | None = None,
     dm = SegmentationDataLoader(sfd, model.label_encoder, cfg, model.conv_settings)
     log("SegmentationDataLoader initialized")
 
+    world = current_world()
+    is_main = distributed.is_main()
     chkp_root = Path(output) if output else Path(cfg.model.chkp_path or "models")
     stamp = run_id or datetime.fromtimestamp(time.time()).strftime("%Y%m%d_%H%M%S")
+    if world is not None:
+        stamp = world.broadcast(stamp)  # one run directory: rank 0's clock
     run_dir = chkp_root / stamp
-    run_dir.mkdir(parents=True, exist_ok=True)
-    cfg.save(run_dir / "config.yml")
+    if is_main:  # the single writer
+        run_dir.mkdir(parents=True, exist_ok=True)
+        cfg.save(run_dir / "config.yml")
     if tags:
         log(f"tags: {tags}")
 
@@ -101,7 +144,7 @@ def run_training(cfg: Config, tags: list[str], resume_from: str | None = None,
         log(f"preempted — resume from {run_dir / 'checkpoints' / 'last'}")
         return result
 
-    if result["best_path"] is not None:
+    if result["best_path"] is not None and is_main:
         # the static best-model pointer; an atomic replace, so a concurrent
         # reader never sees a missing link
         static_p = Path("models/last")
@@ -117,10 +160,75 @@ def run_training(cfg: Config, tags: list[str], resume_from: str | None = None,
     return result
 
 
+def local_world_size(cfg: Config, device: str) -> int:
+    """How many ranks a plain run on ``device`` starts itself: one per card
+    of ``parallel.auto_mesh`` (several visible cards and ``mesh.data`` not
+    1; k: the first k); 1 under a launcher, on the CPU or on one card."""
+    import torch
+
+    from segma_tpu_torch.parallel.distributed import launcher_env
+    from segma_tpu_torch.parallel.mesh import auto_mesh, require_data_only
+
+    mesh = None if launcher_env() is not None else auto_mesh(cfg, torch.device(device))
+    if mesh is None:
+        return 1
+    require_data_only(mesh)
+    return mesh.shape["data"]
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(module: str, argv: list[str], n: int) -> int:
+    """Run ``python -m module argv`` as ``n`` ranks of one world on this
+    host (rank r on card r, a rendezvous on a free local port); SIGTERM is
+    forwarded to every rank, and a rank that fails ends the others. Returns
+    0 when every rank did, 75 when a rank was preempted and none failed
+    otherwise, else the first other code."""
+    port = _free_port()
+    procs = []
+    for r in range(n):
+        env = {**os.environ, "RANK": str(r), "LOCAL_RANK": str(r), "WORLD_SIZE": str(n),
+               "LOCAL_WORLD_SIZE": str(n), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+        procs.append(subprocess.Popen([sys.executable, "-m", module, *argv], env=env))
+
+    def forward(signum: int, _frame: Any) -> None:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.send_signal(signum)
+
+    previous = signal.signal(signal.SIGTERM, forward)
+    try:
+        # a rank that fails leaves the others waiting in a collective: end them
+        while any(proc.poll() is None for proc in procs):
+            if any(proc.poll() not in (None, 0, EX_TEMPFAIL) for proc in procs):
+                for proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+            time.sleep(0.2)
+        codes = [proc.wait() for proc in procs]
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+    log(f"ranks exited with {codes}")
+    failed = [c for c in codes if c not in (0, EX_TEMPFAIL)]
+    if failed:
+        return failed[0]
+    return EX_TEMPFAIL if EX_TEMPFAIL in codes else 0
+
+
 def main(argv: list[str] | None = None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args, extra_args = build_argparser().parse_known_args(argv)
     cfg = load_config(args.config, cli_extra_args=extra_args)
-    result = run_training(cfg, args.tags, resume_from=args.resume_from, device=args.device)
+    n = local_world_size(cfg, args.device)
+    if n > 1:
+        log(f"{n} cards visible, mesh.data={cfg.mesh.data}: one rank per card")
+        raise SystemExit(launch_ranks("segma_tpu_torch.cli.train", argv, n))
+    result = run_training(cfg, args.tags, resume_from=args.resume_from, device=args.device,
+                          dist_backend=args.dist_backend)
     if result.get("interrupted"):
         # not finished: the requeue loop keeps the run alive
         raise SystemExit(EX_TEMPFAIL)

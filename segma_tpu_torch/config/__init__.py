@@ -3,9 +3,11 @@
 What serving and training the ten models of the JAX registry need is
 modelled: the dataset, the audio
 geometry, the label classes, the models' hyper-parameters and the training
-fields of the one-process path. ``load_config`` reads the same YAML files as the JAX package
-(``default.yml`` plus the per-model YAML) with ``a.b.c=value`` overrides.
-The ``wandb`` and ``mesh`` sections are skipped.
+fields, and the ``mesh`` section (the device mesh's layout, validated as
+JAX validates it). ``load_config`` reads the same YAML files as the JAX
+package (``default.yml`` plus the per-model YAML) with ``a.b.c=value``
+overrides; it also reads the ``config.yml`` that JAX's ``Config.save`` writes
+into a run directory. The ``wandb`` section is skipped.
 ``Config.save`` writes a YAML file that both packages' ``load_config`` read.
 ``pyyaml`` is imported inside ``load_config`` and ``Config.save`` only, so a
 program that builds its ``Config`` in code does not need it.
@@ -51,6 +53,10 @@ class LSTMConfig:
     num_layers: int
     bidirectional: bool
     dropout: float
+    # JAX's lax.scan unroll factor: it changes how XLA schedules the steps,
+    # not the math. cuDNN's LSTM has no such knob, so the port reads it,
+    # checks it and writes it back, and it has no effect here
+    unroll: int = 1
 
 
 @dataclass
@@ -199,6 +205,19 @@ class TrainConfig:
     dataloader: DataloaderConfig = field(default_factory=DataloaderConfig)
 
 
+@dataclass
+class MeshConfig:
+    """The device mesh's layout (``parallel.make_mesh``): ``data`` replicas
+    of the model, each taking a block of the windows or of the batch; -1
+    takes every device not claimed by ``seq * model``. ``model`` (tensor
+    parallelism) and ``seq`` (the Whisper encoder's time axis) are read and
+    validated as in JAX; the pipeline and the trainer refuse them above 1."""
+
+    data: int = -1
+    model: int = 1
+    seq: int = 1
+
+
 VAL_METRICS = ("loss", "f1_score", "auroc")  # train.validation_metric
 # partial_loss: powerset models only (partial_f1_score and partial_auroc come
 # with f1_score and auroc)
@@ -213,6 +232,7 @@ class Config:
     audio: AudioConfig
     model: ModelConfig
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     def save(self, path: Path | str) -> None:
         """This config as YAML, with an offline ``wandb`` section, which the
@@ -244,6 +264,11 @@ _NESTED: dict[tuple[type, str], type] = {
     (TrainConfig, "scheduler"): SchedulerConfig,
     (TrainConfig, "dataloader"): DataloaderConfig,
 }
+# the families whose encoder time axis can shard over mesh.seq (JAX's
+# _SEQ_SHARDABLE_MODELS: Whisper's conv front end halves an even mel grid;
+# the HuBERT, WavLM and SincNet stacks emit odd time lengths)
+_SEQ_SHARDABLE_MODELS = frozenset(
+    {"whisperidou", "whisperimax", "surgical_whisper", "hydra_whisper", "surgical_hydra"})
 
 
 def _build(cls: type, data: dict, path: str) -> Any:
@@ -268,6 +293,10 @@ def _build(cls: type, data: dict, path: str) -> Any:
     if missing:
         raise ConfigError(f"{path}: missing required fields {missing}")
     return cls(**kwargs)
+
+
+def _positive_int(value: Any) -> bool:
+    return type(value) is int and value >= 1
 
 
 def config_from_dict(config_d: dict) -> Config:
@@ -314,11 +343,23 @@ def config_from_dict(config_d: dict) -> Config:
     if train.grad_accum_steps < 1:
         raise ConfigError(
             f"config.train.grad_accum_steps={train.grad_accum_steps}: must be at least 1")
+    lstm = getattr(model_d.get("config"), "lstm", None)
+    if lstm is not None and not _positive_int(lstm.unroll):
+        raise ConfigError(
+            f"config.model.config.lstm.unroll={lstm.unroll!r}: an int of at least 1")
+    mesh = _build(MeshConfig, config_d.get("mesh") or {}, "config.mesh")
+    if not (mesh.data == -1 or _positive_int(mesh.data)):
+        raise ConfigError(f"config.mesh.data={mesh.data!r}: -1 or an int of at least 1")
+    for axis in ("model", "seq"):
+        if not _positive_int(getattr(mesh, axis)):
+            raise ConfigError(
+                f"config.mesh.{axis}={getattr(mesh, axis)!r}: an int of at least 1")
     return Config(
         data=_build(DataConfig, data_d, "config.data"),
         audio=_build(AudioConfig, config_d["audio"], "config.audio"),
         model=_build(ModelConfig, model_d, "config.model"),
         train=train,
+        mesh=mesh,
     )
 
 
@@ -359,12 +400,45 @@ def load_config(config_path: Path | str, cli_extra_args: list[str] | None = None
             merged = yaml.safe_load(f)
         partial = config_d["model"].get("config") or {}
         config_d["model"]["config"] = _deep_merge(merged, partial)
-    return config_from_dict(config_d)
+    cfg = config_from_dict(config_d)
+    _validate_mesh_seq(cfg)
+    return cfg
+
+
+def _validate_mesh_seq(cfg: Config) -> None:
+    """Refuse a ``mesh.seq`` that cannot shard the encoder's time axis, with
+    JAX's messages (``segma_tpu/config/base.py:_validate_mesh_seq``)."""
+    seq = cfg.mesh.seq
+    if seq <= 1:
+        return
+    name = cfg.model.name
+    if name not in _SEQ_SHARDABLE_MODELS:
+        raise ConfigError(
+            f"mesh.seq={seq}: sequence parallelism is only available for "
+            f"the whisper family {sorted(_SEQ_SHARDABLE_MODELS)}; "
+            f"'{name}' emits odd encoder time lengths at every chunk size, "
+            "so its time axis cannot shard (see SCALING.md) — use "
+            "mesh.data/mesh.model instead"
+        )
+    if getattr(cfg.model.config, "fast_context", False):
+        grid = int(round(cfg.audio.chunk_duration_f / 320))
+        ctx = f"fast_context time grid {grid} (chunk_f/320)"
+    else:
+        grid = 1500
+        ctx = "padded 30 s context time grid 1500"
+    if grid % seq:
+        divisors = [d for d in range(2, min(grid, 33)) if grid % d == 0]
+        raise ConfigError(
+            f"mesh.seq={seq} does not divide the whisper encoder's {ctx}: "
+            "the sharding would silently degrade to seq-fold replication. "
+            f"Valid seq values here: {divisors}"
+        )
 
 
 __all__ = [
     "AudioConfig", "Config", "ConfigError", "ConvVADConfig", "DataConfig", "DataloaderConfig",
-    "HydraWhisperConfig", "LSTMConfig", "ModelConfig", "SchedulerConfig", "SincNetHydraConfig",
+    "HydraWhisperConfig", "LSTMConfig", "MeshConfig", "ModelConfig", "SchedulerConfig",
+    "SincNetHydraConfig",
     "SurgicalHubertHydraConfig", "SurgicalHydraConfig", "SurgicalWhisperConfig", "TrainConfig",
     "WhisperidouConfig", "WhisperimaxConfig", "config_from_dict", "load_config",
 ]

@@ -1,5 +1,5 @@
 """Device-resident training audio (counterpart of
-``segma_tpu/data/device_cache.py``, one process).
+``segma_tpu/data/device_cache.py``).
 
 With ``train.data_cache=device`` a subset's audio is uploaded to the
 training device once, and a batch carries only ``(crop offsets, labels)``:
@@ -14,8 +14,11 @@ starts from, so the crop of a short or truncated file reads trailing zeros
 (the host path's zero padding), never the next file's samples. The buffer is
 int16 when every source is mono PCM16, else f32 (PCM16 divided by 32768.0).
 
-The multi-process row layout (one row per process, ``pad_to`` and
-``force_f32`` from the global file list) waits for multi-process training.
+Under several processes each rank builds the cache of its own files and
+places it on its own card: JAX's row of process r, whose crops it gives.
+The dtype is the world's (``force_f32`` when any rank's source is not mono
+PCM16). JAX pads the rows to one length to stack them into one global
+array; the port's buffers never meet, so none is padded.
 """
 
 from __future__ import annotations
@@ -72,12 +75,14 @@ class DeviceAudioCache:
     @classmethod
     def build(
         cls, subset: DatasetSubset, dataset_path: str | Path, chunk_f: int,
-        plan: tuple | None = None,
+        plan: tuple | None = None, force_f32: bool = False,
     ) -> "DeviceAudioCache":
         """Decode each file into its slot. ``plan``: this subset's ``plan``
-        result, where the caller already probed the headers."""
+        result, where the caller already probed the headers. ``force_f32``:
+        an f32 buffer even when every source is mono PCM16."""
         any_f32, paths, bases, slots, pos = plan if plan is not None else (
             cls.plan(subset, dataset_path, chunk_f))
+        any_f32 = any_f32 or force_f32
         if pos >= MAX_SAMPLES:
             raise ValueError(
                 f"device cache would hold {pos} samples (>= 2^31): offsets are int32; "

@@ -1,5 +1,5 @@
 """Training data pipeline: random-crop sampler producing host batches
-(counterpart of ``segma_tpu/data/loaders.py``, one process).
+(counterpart of ``segma_tpu/data/loaders.py``).
 
 Batches are numpy arrays ``x: (B, chunk_f) float32`` and
 ``y: (B, n_windows, n_labels) float32``; the trainer moves them to the
@@ -22,9 +22,14 @@ from the same rng draws), or ``auto`` (the device within
 together, and within the host's available RAM, else the host). The
 resolution of each subset is the loader's ``data_cache_decision``.
 
-Not ported yet: host-side feature hooks, and multi-process sharding (the
-shard contract of the device cache, ``pad_to`` and ``force_f32`` from the
-global file list, comes with multi-process training).
+Under a world of several processes (``parallel.distributed``), rank r
+samples from the files ``uris[r::world]`` with the seed ``seed + 7919 * r``
+and yields ``batch_size / world`` crops a batch; the step count comes from
+the whole subset, so every rank runs the same number of steps, as JAX's
+loader does. The device cache's decision and dtype come from every rank's
+plan over the whole file list, so the ranks agree on them.
+
+Not ported yet: host-side feature hooks.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from segma_tpu_torch.data.device_cache import MAX_SAMPLES, DeviceAudioCache
 from segma_tpu_torch.data.file_dataset import DatasetSubset, SegmaFileDataset
 from segma_tpu_torch.data.intervals import IntervalIndex
 from segma_tpu_torch.geometry import ConvolutionSettings
+from segma_tpu_torch.parallel.distributed import process_shard
 from segma_tpu_torch.utils.conversions import frames_to_seconds, seconds_to_frames
 from segma_tpu_torch.utils.encoders import MultiLabelEncoder
 from segma_tpu_torch.utils.io import get_samples_in_range, read_pcm16_mono
@@ -287,6 +293,14 @@ class PrefetchingLoader:
             yield item
 
 
+def _shard(subset: DatasetSubset, rank: int, world: int) -> DatasetSubset:
+    """Rank ``rank``'s files of ``world`` (``distributed.process_shard``)."""
+    if world == 1:
+        return subset
+    return DatasetSubset(*(process_shard(a, rank, world)
+                           for a in (subset.uris, subset.durations, subset.indexes)))
+
+
 class SegmentationDataLoader:
     """Train/val loader factory bound to a loaded ``SegmaFileDataset``."""
 
@@ -297,12 +311,18 @@ class SegmentationDataLoader:
         config: Config,
         conv_settings: ConvolutionSettings,
         seed: int | None = None,
+        process: tuple[int, int] | None = None,
     ) -> None:
+        """``process``: (rank, world size); the torch.distributed world's by
+        default, (0, 1) without one."""
+        from segma_tpu_torch.parallel import distributed
+
         self.dataset = dataset
         self.label_encoder = label_encoder
         self.config = config
         self.conv_settings = conv_settings
         self.seed = seed if seed is not None else config.train.seed
+        self.rank, self.world = process or (distributed.rank(), distributed.world_size())
         # data_cache=auto: the device bytes planned per subset (keyed by its
         # seed offset, train before val), so the budget bounds their sum and
         # building a loader again does not count it twice
@@ -312,6 +332,19 @@ class SegmentationDataLoader:
 
     def _loader(self, subset: DatasetSubset, seed_offset: int) -> PrefetchingLoader:
         batch_size = self.config.train.batch_size
+        seed = self.seed
+        if self.world > 1:
+            if batch_size % self.world:
+                raise DataLoaderError(
+                    f"train.batch_size={batch_size} must divide evenly over "
+                    f"{self.world} processes")
+            if len(subset.uris) < self.world:
+                raise DataLoaderError(
+                    f"subset has {len(subset.uris)} files but {self.world} processes — "
+                    "every process needs at least one")
+            if seed is not None:  # decorrelate the ranks' crop streams
+                seed = seed + 7919 * self.rank
+        # the step count from the whole subset, equal on every rank
         spe = int(
             self.config.data.dataset_multiplier
             * max(
@@ -323,7 +356,10 @@ class SegmentationDataLoader:
             )
         )
         n_batches = max(1, spe // batch_size)  # drop_last
-        device_cache, decision_note = self._resolve_data_cache(subset, seed_offset)
+        shards = [_shard(subset, r, self.world) for r in range(self.world)]
+        subset = shards[self.rank]
+        batch_size //= self.world
+        device_cache, decision_note = self._resolve_data_cache(shards, self.rank, seed_offset)
         shared_cache = AudioCache(budget_bytes=int(DEFAULT_CACHE_GB * 1e9))
 
         def make_sampler(worker: int) -> AudioSegmentationSampler:
@@ -332,7 +368,7 @@ class SegmentationDataLoader:
                 config=self.config,
                 conv_settings=self.conv_settings,
                 label_encoder=self.label_encoder,
-                seed=None if self.seed is None else self.seed + seed_offset + 1000 * worker,
+                seed=None if seed is None else seed + seed_offset + 1000 * worker,
                 shared_audio_cache=shared_cache,
                 device_bases=None if device_cache is None else device_cache.bases,
             )
@@ -345,10 +381,13 @@ class SegmentationDataLoader:
         return loader
 
     def _resolve_data_cache(
-        self, subset: DatasetSubset, seed_offset: int
+        self, shards: list[DatasetSubset], rank: int, seed_offset: int
     ) -> tuple[DeviceAudioCache | None, str | None]:
-        """(the subset's device cache or None, how ``auto`` resolved), as the
-        JAX loader resolves ``train.data_cache`` in one process."""
+        """(the device cache of ``shards[rank]`` or None, how ``auto``
+        resolved), as the JAX loader resolves ``train.data_cache``: every
+        rank plans every rank's shard, so that the decision (from the largest
+        buffer) and the buffer's dtype (f32 when any rank's source is not
+        PCM16) are the same on every rank."""
         tc = self.config.train
         data_cache = tc.data_cache
         if data_cache not in ("host", "device", "auto"):
@@ -358,9 +397,11 @@ class SegmentationDataLoader:
             return None, None
         chunk_f = self.config.audio.chunk_duration_f
         # header probes only: nothing is decoded before the decision
-        plan = DeviceAudioCache.plan(subset, self.config.data.dataset_path, chunk_f)
-        any_f32, pos = plan[0], plan[4]
-        planned = pos * (4 if any_f32 else 2)
+        plans = [DeviceAudioCache.plan(s, self.config.data.dataset_path, chunk_f)
+                 for s in shards]
+        any_f32 = any(p[0] for p in plans)
+        pos = max(p[4] for p in plans)
+        planned = pos * (4 if any_f32 else 2)  # bytes on each rank's card, at most
         note = None
         if data_cache == "device" and pos >= MAX_SAMPLES:
             raise DataLoaderError(
@@ -371,7 +412,8 @@ class SegmentationDataLoader:
             self._planned_device_bytes.pop(seed_offset, None)
             budget = int(tc.device_cache_budget_gb * 1e9)
             remaining = budget - sum(self._planned_device_bytes.values())
-            avail = _mem_available_bytes()
+            # host RAM differs between hosts: only one process may ask it
+            avail = _mem_available_bytes() if len(shards) == 1 else None
             if pos >= MAX_SAMPLES:
                 decision = "host"
                 reason = (f"{pos} planned samples exceed the int32 offset range (2^31) of "
@@ -393,8 +435,8 @@ class SegmentationDataLoader:
             note = f"auto -> {decision} ({reason})"
             if decision == "host":
                 return None, note
-        return DeviceAudioCache.build(subset, self.config.data.dataset_path, chunk_f,
-                                      plan=plan), note
+        return DeviceAudioCache.build(shards[rank], self.config.data.dataset_path, chunk_f,
+                                      plan=plans[rank], force_f32=any_f32), note
 
     def train_dataloader(self) -> PrefetchingLoader:
         return self._loader(self.dataset.train, seed_offset=0)

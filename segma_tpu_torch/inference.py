@@ -14,6 +14,14 @@ lengths are bucketed in chunks to powers of two; long files go in segments of
 at most ``max_bucket_chunks`` chunks. Files of one bucket and transport dtype
 can share a dispatch (``logits_for_audios_async``, ``--pack-files``).
 
+Over a data mesh (``mesh=``, ``--mesh auto`` with several cards) the model
+has one replica per data coordinate, and every dispatch's window stack is cut
+into contiguous blocks, one per replica, in order (``parallel.mesh``): each
+replica runs its block's inner batches on its own card and CUDA stream, from
+a thread of its own, and the blocks' logits are gathered in order on the
+first card, where the decode runs. Buckets hold at least one chunk per
+replica.
+
 Transports, the samples copied to the device: int16 (default; exact, half
 the bytes of f32), int8 mu-law, f32, and 4-bit block ADPCM (``ops/adpcm``,
 0.547 bytes per sample, decoded on the device). Host buffers go to the card
@@ -32,6 +40,7 @@ remain; a run of frames [s, e] decodes to [max(0, rf_start(s)), rf_end(e) + 1].
 from __future__ import annotations
 
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from math import floor
 from pathlib import Path
@@ -47,6 +56,9 @@ from segma_tpu_torch.geometry import ConvolutionSettings
 from segma_tpu_torch.ops import cached_constant
 from segma_tpu_torch.ops.adpcm import (
     AdpcmAudio, adpcm_decode, adpcm_encode, adpcm_encode_audio, n_blocks,
+)
+from segma_tpu_torch.parallel.mesh import (
+    Mesh, auto_mesh, block_bounds, replicate, require_data_only,
 )
 from segma_tpu_torch.utils.conversions import frames_to_seconds
 from segma_tpu_torch.utils.encoders import MultiLabelEncoder
@@ -161,7 +173,8 @@ class _QueuedDecode:
 
 @dataclass
 class InferencePipeline:
-    """Batched inference for one model on one device.
+    """Batched inference for one model on one device, or over the data axis
+    of ``mesh``, whose first device is then the pipeline's ``device``.
 
     ``transport``: "auto" ships buffers as they are (their dtype selects the
     expansion on the device: f32, int16, int8 mu-law, or uint8 ADPCM bytes);
@@ -173,14 +186,30 @@ class InferencePipeline:
     max_bucket_chunks: int = 512
     device: str | torch.device | None = "cuda"
     transport: str = "auto"
+    mesh: Mesh | None = None
     frame_settings: ConvolutionSettings = field(init=False)
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
         if self.transport not in ("auto", "adpcm"):
             raise ValueError(f"transport must be 'auto' or 'adpcm', got {self.transport!r}")
+        if self.mesh is not None:
+            require_data_only(self.mesh)
+            if self.mesh.primary.type != self.device.type:
+                raise ValueError(f"device {self.device} and the mesh's first device "
+                                 f"{self.mesh.primary} differ in type")
+            self.device = self.mesh.primary
         if self.model.device != self.device:
             self.model.to(self.device)
+        # the replicas, their CUDA streams, and a thread for each replica:
+        # one thread enqueueing every card's inner batches would hold the
+        # later cards idle while it enqueues the earlier ones
+        self.replicas = [self.model] if self.mesh is None else replicate(self.model, self.mesh)
+        self._pool = self._streams = None
+        if len(self.replicas) > 1:
+            self._pool = ThreadPoolExecutor(len(self.replicas), thread_name_prefix="segma-replica")
+            self._streams = [torch.cuda.Stream(r.device) if r.device.type == "cuda" else None
+                             for r in self.replicas]
         cfg = self.model.config
         step = int(self.model.conv_settings.rf_step)
         self.frame_settings = ConvolutionSettings((step,), (step,), (0,))
@@ -214,18 +243,63 @@ class InferencePipeline:
         nxt = audio[:, stride : (n_chunks + 1) * stride].reshape(f, n_chunks, stride)
         chunks = torch.cat([body, nxt[:, :, :overlap]], dim=2).reshape(f * n_chunks, chunk_f)
 
-        total = f * n_chunks
+        logits = self._forward(chunks) if self._pool else self._batches(self.model, chunks)
+        return logits.reshape(f, n_chunks * logits.shape[1], -1)
+
+    @property
+    def min_chunks(self) -> int:
+        """The smallest bucket: one chunk per replica."""
+        return len(self.replicas)
+
+    def _batches(self, model: SegmentationModel, chunks: torch.Tensor) -> torch.Tensor:
+        """(N, chunk_f) chunks -> (N, n_w, L) logits, in inner batches of
+        ``batch_size`` rows and one batch of the rows left over."""
+        total = chunks.shape[0]
         bs = min(self.batch_size, total)
         n_batches = total // bs
         out = [
-            self.model.inference_transform(self.model.apply(chunks[i * bs : (i + 1) * bs]))
+            model.inference_transform(model.apply(chunks[i * bs : (i + 1) * bs]))
             for i in range(n_batches)
         ]
         rem = total - n_batches * bs
         if rem:
-            out.append(self.model.inference_transform(self.model.apply(chunks[-rem:])))
-        logits = torch.cat(out)
-        return logits.reshape(f, n_chunks * logits.shape[1], -1)
+            out.append(model.inference_transform(model.apply(chunks[-rem:])))
+        return torch.cat(out)
+
+    def _forward(self, chunks: torch.Tensor) -> torch.Tensor:
+        """The window stack over the replicas: contiguous blocks, in order,
+        each a whole number of inner batches where a block holds more than
+        one (so each replica runs the meshless pipeline's inner batches);
+        each block on its replica's card and stream, from the replica's
+        thread; the logits gathered in order on the first card."""
+        primary = self.device
+        on_card = primary.type == "cuda"
+        main_stream = torch.cuda.current_stream(primary) if on_card else None
+        bounds = block_bounds(chunks.shape[0], len(self.replicas), align=self.batch_size)
+
+        def run(i: int) -> torch.Tensor | None:
+            lo, hi = bounds[i]
+            if lo == hi:
+                return None
+            replica, stream = self.replicas[i], self._streams[i]
+            if not on_card:
+                return self._batches(replica, chunks[lo:hi])
+            # this thread's current streams: the caller's on the first card,
+            # the replica's own on its card; a copy between the two cards
+            # orders itself against both, and the replica's stream starts
+            # after the chunks and ends before the caller's stream goes on
+            with torch.cuda.stream(main_stream), torch.cuda.stream(stream):
+                stream.wait_stream(main_stream)
+                block = chunks[lo:hi]
+                block.record_stream(stream)
+                logits = self._batches(replica, block.to(replica.device, non_blocking=True))
+                logits = logits.to(primary, non_blocking=True)
+                main_stream.wait_stream(stream)
+            logits.record_stream(main_stream)
+            return logits
+
+        futures = [self._pool.submit(run, i) for i in range(len(self.replicas))]
+        return torch.cat([out for out in (f.result() for f in futures) if out is not None])
 
     def _ship(self, padded: np.ndarray) -> torch.Tensor:
         """Host buffer -> device tensor through the transport: uint8 buffers
@@ -270,7 +344,7 @@ class InferencePipeline:
         n_chunks_needed = -(-total_frames // ck.n_windows)
 
         if n_chunks_needed <= self.max_bucket_chunks:
-            n_chunks = _bucket(n_chunks_needed)
+            n_chunks = _bucket(n_chunks_needed, minimum=self.min_chunks)
             padded_len = n_chunks * ck.chunk_stride + ck.chunk_duration_f
             if isinstance(audio, AdpcmAudio):
                 padded = audio.block_slice(0, n_blocks(padded_len))[None]
@@ -285,7 +359,7 @@ class InferencePipeline:
         start_chunk = 0
         while start_chunk < n_chunks_needed:
             seg_chunks = min(self.max_bucket_chunks, n_chunks_needed - start_chunk)
-            n_chunks = _bucket(seg_chunks)
+            n_chunks = _bucket(seg_chunks, minimum=self.min_chunks)
             padded_len = n_chunks * ck.chunk_stride + ck.chunk_duration_f
             off = start_chunk * ck.chunk_stride
             if isinstance(audio, AdpcmAudio):
@@ -329,7 +403,8 @@ class InferencePipeline:
                 results[i] = self.logits_for_audio_async(audio)
                 continue
             tag = "adpcm" if isinstance(audio, AdpcmAudio) else np.dtype(audio.dtype).str
-            by_bucket.setdefault((_bucket(needed), tag), []).append((i, total_frames))
+            by_bucket.setdefault((_bucket(needed, minimum=self.min_chunks), tag), []).append(
+                (i, total_frames))
 
         step = max(1, pack_files)
         for (n_chunks, tag), items in by_bucket.items():
@@ -756,6 +831,18 @@ def get_list_of_files_to_process(
     return sorted(files), len(files)
 
 
+def resolve_mesh(mesh: Mesh | str | None, config: Config, device: torch.device) -> Mesh | None:
+    """A ``mesh`` argument of an entry point: "auto" (``parallel.auto_mesh``),
+    "off" or None (one card), or a ``parallel.Mesh``."""
+    if isinstance(mesh, Mesh) or mesh is None:
+        return mesh
+    if mesh == "auto":
+        return auto_mesh(config, device)
+    if mesh == "off":
+        return None
+    raise ValueError(f"mesh must be 'auto', 'off', None or a Mesh, got {mesh!r}")
+
+
 def run_inference_on_audios(
     config: Path | str | Config,
     wavs: Path | str,
@@ -773,9 +860,16 @@ def run_inference_on_audios(
     transport: str = "int16",
     device: str | torch.device | None = "cuda",
     pack_files: int = 1,
+    mesh: Mesh | str | None = "auto",
 ) -> list[Path]:
     """Batch entry point: inference over ``wavs`` with RTTMs under
     ``output / rttm_dirname``. Returns the files that got an RTTM, in order.
+
+    ``mesh``: "auto" (the default) serves over a data mesh of the visible
+    cards when more than one is visible and ``mesh.data`` is not 1
+    (``parallel.auto_mesh``): one replica of the model per card, each
+    dispatch's windows split over them; "off" or None serves on one card;
+    or a ``parallel.Mesh``.
 
     The model is ``model`` (which carries its own config), or else the one
     ``checkpoint.load_model_for_inference`` builds from ``config`` (a
@@ -812,6 +906,7 @@ def run_inference_on_audios(
     pipeline = InferencePipeline(
         model, batch_size=batch_size, device=dev,
         transport="adpcm" if transport == "adpcm" else "auto",
+        mesh=resolve_mesh(mesh, model.config, dev),
     )
     thr = thresholds or default_thresholds(model.label_encoder.base_labels)
     sr = model.config.audio.sample_rate
@@ -931,7 +1026,9 @@ def main(argv: list[str] | None = None) -> None:
     )
     parser.add_argument(
         "--mesh", default="auto", choices=["auto", "off"],
-        help="auto or off: both serve on one card (multi-GPU is not ported yet)",
+        help="auto: with several visible cards, one replica of the model per card and "
+        "each dispatch's windows split over them (config mesh.data: -1 every card, k "
+        "the first k, 1 one card); off: one card",
     )
     parser.add_argument(
         "--pack-files", type=int, default=1,
@@ -985,6 +1082,7 @@ def main(argv: list[str] | None = None) -> None:
         transport=args.transport,
         device=args.device,
         pack_files=args.pack_files,
+        mesh=args.mesh,
     )
 
 

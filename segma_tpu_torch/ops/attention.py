@@ -29,16 +29,14 @@ import math
 
 import torch
 
-from segma_tpu_torch.ops import _build
+from segma_tpu_torch.ops import _build, count_launch, launch_counts
 
 HEAD_DIM = 64  # the kernels' head dim (Whisper, HuBERT)
 
-# launches since the last reset (chip_smoke.py reads them): the bf16 forward
-# and backward (each backward runs the dq and the dkv kernel), then the f32 ones
-launches = 0
-bwd_launches = 0
-launches_f32 = 0
-bwd_launches_f32 = 0
+# the wrappers' launch counters (``ops.launch_counts``) under the names this
+# module gave them: ``attention.launches`` reads the bf16 forward's count
+_COUNTERS = {"launches": "flash_attn_fwd", "bwd_launches": "flash_attn_bwd",
+             "launches_f32": "flash_attn_fwd_f32", "bwd_launches_f32": "flash_attn_bwd_f32"}
 BWD_ROWS = 128  # rows of a backward work item (BR of csrc/flash_attn_bwd.cu and _f32.cu)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -108,6 +106,12 @@ def _check_inputs(name: str, **tensors: torch.Tensor) -> tuple[int, int, int]:
     return b, s, h
 
 
+def __getattr__(name: str) -> int:
+    if name in _COUNTERS:
+        return launch_counts()[_COUNTERS[name]]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -118,24 +122,23 @@ def flash_attn_fwd(
 ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on contiguous (B, S, H, 64) CUDA tensors:
     the bf16 kernel for bf16 inputs, the f32 kernel for f32 ones. ``with_lse``:
-    also return the (B, H, S) f32 log-sum-exp."""
-    global launches, launches_f32
+    also return the (B, H, S) f32 log-sum-exp. The launch runs on the
+    tensors' card, whatever the thread's current device: the library sizes
+    its grid and sets its shared memory on the current one."""
     b, s, h = _check_inputs("flash_attn_fwd", q=q, k=k, v=v)
     f32 = q.dtype == torch.float32
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
     lib = _build.library()
     entry = "segma_flash_attn_fwd_f32" if f32 else "segma_flash_attn_fwd"
-    err = getattr(lib, entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if with_lse else None, b, s, h,
-        sm_scale * math.log2(math.e), _stream(q),
-    )
+    with torch.cuda.device(q.device):
+        err = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None, b, s, h,
+            sm_scale * math.log2(math.e), _stream(q),
+        )
     _build.check(err, entry)
-    if f32:
-        launches_f32 += 1
-    else:
-        launches += 1
+    count_launch("flash_attn_fwd_f32" if f32 else "flash_attn_fwd")
     return (out, lse) if with_lse else out
 
 
@@ -145,8 +148,7 @@ def flash_attn_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernels (the dq pass, then the dk/dv pass) on
     contiguous (B, S, H, 64) CUDA tensors of one dtype, bf16 or f32, and the
-    forward's (B, H, S) f32 lse."""
-    global bwd_launches, bwd_launches_f32
+    forward's (B, H, S) f32 lse, on the tensors' card."""
     b, s, h = _check_inputs("flash_attn_bwd", q=q, k=k, v=v, out=out, dout=dout)
     f32 = q.dtype == torch.float32
     if lse.shape != (b, h, s) or lse.dtype != torch.float32 or not lse.is_contiguous():
@@ -161,16 +163,14 @@ def flash_attn_bwd(
     s_pad = -(-s // BWD_ROWS) * BWD_ROWS
     pairs = torch.empty((b, h, s_pad, 2), dtype=torch.float32, device=q.device)
     entry = "segma_flash_attn_bwd_f32" if f32 else "segma_flash_attn_bwd"
-    err = getattr(lib, entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), pairs.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, s, h, sm_scale * math.log2(math.e), sm_scale, _stream(q),
-    )
+    with torch.cuda.device(q.device):
+        err = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), pairs.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, s, h, sm_scale * math.log2(math.e), sm_scale, _stream(q),
+        )
     _build.check(err, entry)
-    if f32:
-        bwd_launches_f32 += 1
-    else:
-        bwd_launches += 1
+    count_launch("flash_attn_bwd_f32" if f32 else "flash_attn_bwd")
     return dq, dk, dv
 
 

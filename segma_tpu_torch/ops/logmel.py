@@ -23,14 +23,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from segma_tpu_torch.ops import _build, cached_constant
+from segma_tpu_torch.ops import _build, cached_constant, count_launch, launch_counts
 from segma_tpu_torch.ops.melspec import HOP_LENGTH, N_FFT, N_MELS, dft_basis, mel_filterbank
 
 N_BINS = 200  # bins 0..199: bin 200 (like bin 0) has no weight in the filterbank
 N_CHUNK_BINS = 40  # the kernel's bin chunk: its products are re and im of 40 bins
 MEL_FIRST, MEL_LAST = 1 << 8, 1 << 9  # a run's first and last bin (csrc/logmel.cu)
 
-launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 
 
 def _n_frames(t: int) -> int:
@@ -43,6 +42,13 @@ def _reflect_pad(wav: torch.Tensor) -> torch.Tensor:
 
 
 _tables: dict[tuple[str, torch.device], tuple[torch.Tensor, ...]] = {}
+
+
+def __getattr__(name: str) -> int:
+    """``logmel.launches``: the kernel's count in ``ops.launch_counts``."""
+    if name == "launches":
+        return launch_counts()["logmel"]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _plain_tables(device: torch.device) -> tuple[torch.Tensor, ...]:
@@ -151,24 +157,25 @@ def log10_mel_plain(wav: torch.Tensor) -> torch.Tensor:
 
 def launch(lib, wav: torch.Tensor) -> torch.Tensor:
     """Launch ``segma_logmel`` of the kernel library ``lib`` on a contiguous
-    (B, T) f32 CUDA waveform, T > 200; not counted (``logmel_ablations.py``
-    launches its variants of the kernel through it)."""
+    (B, T) f32 CUDA waveform, T > 200, on the waveform's card whatever the
+    thread's current device; not counted (``logmel_ablations.py`` launches
+    its variants of the kernel through it)."""
     b, t = wav.shape
     n_frames = _n_frames(t)
     basis, meta, weights, colsum = _kernel_tables(wav.device)
     out = torch.empty((b, n_frames, N_MELS), dtype=torch.float32, device=wav.device)
-    err = lib.segma_logmel(
-        wav.data_ptr(), basis.data_ptr(), meta.data_ptr(), weights.data_ptr(),
-        colsum.data_ptr(), out.data_ptr(), b, t, n_frames,
-        torch.cuda.current_stream(wav.device).cuda_stream,
-    )
+    with torch.cuda.device(wav.device):
+        err = lib.segma_logmel(
+            wav.data_ptr(), basis.data_ptr(), meta.data_ptr(), weights.data_ptr(),
+            colsum.data_ptr(), out.data_ptr(), b, t, n_frames,
+            torch.cuda.current_stream(wav.device).cuda_stream,
+        )
     _build.check(err, "segma_logmel")
     return out
 
 
 def log10_mel_cuda(wav: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on a (B, T) f32 CUDA waveform."""
-    global launches
     if not wav.is_cuda:
         raise ValueError("log10_mel_cuda needs a CUDA tensor")
     if wav.dtype != torch.float32 or wav.dim() != 2:
@@ -180,7 +187,7 @@ def log10_mel_cuda(wav: torch.Tensor) -> torch.Tensor:
         raise ValueError("empty batch")
     # read unpadded: the kernel reflects the edges as it loads
     out = launch(_build.library(), wav.contiguous())
-    launches += 1
+    count_launch("logmel")
     return out
 
 

@@ -1,0 +1,165 @@
+"""The device mesh and data-parallel placement (counterpart of
+``segma_tpu/parallel/mesh.py``).
+
+A ``Mesh`` is a (data, seq, model) array of ``torch.device``s under JAX's
+axis names. Along ``data`` the port keeps one replica of the model per
+coordinate (``replicate``) and splits a batch or a window stack into
+contiguous blocks of its leading axis, in order (``shard_batch``), as
+``PartitionSpec("data")`` places an array. ``model`` (tensor parallelism)
+and ``seq`` (the Whisper encoder's time axis) are resolved as JAX resolves
+them; the pipeline and the trainer refuse them above 1 (``require_data_only``).
+
+A device list may name one card more than once: N replicas on one card run
+the split, the streams and the gather where only one card exists.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from dataclasses import dataclass
+from typing import TYPE_CHECKING, Any
+
+import numpy as np
+import torch
+
+if TYPE_CHECKING:
+    from segma_tpu_torch.config import Config
+    from segma_tpu_torch.models.base import SegmentationModel
+
+AXIS_NAMES = ("data", "seq", "model")
+TP_SP_SLICE = ("tensor and sequence parallelism (mesh.model > 1, mesh.seq > 1) are not "
+               "ported yet: ROADMAP.md Queue 1, item 3")
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """``devices``: a (data, seq, model) object array of ``torch.device``."""
+
+    devices: np.ndarray
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(AXIS_NAMES, self.devices.shape))
+
+    @property
+    def data_devices(self) -> list[torch.device]:
+        """The device of each data coordinate (seq and model at 0)."""
+        return list(self.devices[:, 0, 0])
+
+    @property
+    def primary(self) -> torch.device:
+        """Where inputs arrive and outputs are gathered: the first device."""
+        return self.devices.flat[0]
+
+
+def visible_cards() -> list[torch.device]:
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def make_mesh(
+    config: Config | None = None,
+    devices: list | None = None,
+    data: int | None = None,
+    model: int | None = None,
+    seq: int | None = None,
+) -> Mesh:
+    """Build the (data, seq, model) mesh over ``devices`` (the visible cards
+    by default). ``data = -1`` (the default) takes every device not claimed
+    by ``seq * model``; each size comes from its argument, else from
+    ``config.mesh``."""
+    if devices is None:
+        devices = visible_cards()
+        if not devices:
+            raise RuntimeError("make_mesh: no CUDA device is visible; pass devices=")
+    devices = [torch.device(d) for d in devices]
+    n = len(devices)
+    model_sz = model if model is not None else (config.mesh.model if config is not None else 1)
+    seq_sz = seq if seq is not None else (config.mesh.seq if config is not None else 1)
+    data_sz = data if data is not None else (config.mesh.data if config is not None else -1)
+    if data_sz == -1:
+        if n % (model_sz * seq_sz):
+            raise ValueError(f"{n} devices not divisible by seq={seq_sz} * model={model_sz}")
+        data_sz = n // (model_sz * seq_sz)
+    if data_sz * seq_sz * model_sz != n:
+        raise ValueError(f"mesh {data_sz}x{seq_sz}x{model_sz} does not match {n} devices")
+    grid = np.empty(n, dtype=object)
+    grid[:] = devices
+    return Mesh(grid.reshape(data_sz, seq_sz, model_sz))
+
+
+def visible_devices(device: torch.device) -> list[torch.device]:
+    """What ``--mesh auto`` spreads over: every visible card for a card, the
+    CPU alone for the CPU."""
+    device = torch.device(device)
+    return visible_cards() if device.type == "cuda" else [device]
+
+
+def auto_mesh(config: Config, device: torch.device) -> Mesh | None:
+    """``--mesh auto``: a mesh over ``visible_devices(device)`` when there
+    are several and ``mesh.data`` is not 1; otherwise None, one device. A
+    ``mesh.data`` of k > 1 takes the first k (times ``seq * model``)."""
+    devices = visible_devices(device)
+    if config.mesh.data == 1 or len(devices) < 2:
+        return None
+    if config.mesh.data > 0:
+        devices = devices[: config.mesh.data * config.mesh.seq * config.mesh.model]
+    return make_mesh(config, devices)
+
+
+def require_data_only(mesh: Mesh) -> None:
+    """Raise unless the mesh is data-parallel only (model = seq = 1)."""
+    if mesh.shape["model"] > 1 or mesh.shape["seq"] > 1:
+        raise NotImplementedError(f"mesh {mesh.shape}: {TP_SP_SLICE}")
+
+
+def replicate(model: SegmentationModel, mesh: Mesh) -> list[SegmentationModel]:
+    """One model per data coordinate, on its device, each a copy of
+    ``model``'s module (weights, frozen parameters and buffers); the first
+    is ``model`` itself when it already lies on the first device."""
+    replicas = []
+    for i, device in enumerate(mesh.data_devices):
+        if i == 0 and _same_device(model.device, device):
+            replicas.append(model)
+            continue
+        with torch.inference_mode(False):  # parameters, not inference tensors
+            module = copy.deepcopy(model.module).to(device)
+        replicas.append(dataclasses.replace(model, module=module, device=device))
+    return replicas
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type == "cuda":
+        current = torch.cuda.current_device()
+        return (a.index if a.index is not None else current) == (
+            b.index if b.index is not None else current)
+    return True
+
+
+def block_bounds(n: int, parts: int, align: int = 1) -> list[tuple[int, int]]:
+    """``parts`` contiguous blocks of ``range(n)``, in order: each of
+    ceil(n / parts) rows, rounded up to a multiple of ``align`` when it is
+    larger than ``align``; the last blocks may be shorter or empty."""
+    size = -(-n // parts)
+    if size > align:
+        size = -(-size // align) * align
+    return [(min(n, i * size), min(n, (i + 1) * size)) for i in range(parts)]
+
+
+def shard_batch(batch: Any, mesh: Mesh) -> list[Any]:
+    """A batch (a tensor, or a dict of tensors) split along its leading
+    axis over ``data``: block i, on data device i. The leading axis must
+    divide over the data axis, as JAX's placement requires."""
+    tensors = batch if isinstance(batch, dict) else {None: batch}
+    n = len(next(iter(tensors.values())))
+    parts = mesh.shape["data"]
+    if n % parts:
+        raise ValueError(f"a leading axis of {n} does not divide over data={parts}")
+    blocks = []
+    for (lo, hi), device in zip(block_bounds(n, parts), mesh.data_devices):
+        block = {k: v[lo:hi].to(device) for k, v in tensors.items()}
+        blocks.append(block if isinstance(batch, dict) else block[None])
+    return blocks

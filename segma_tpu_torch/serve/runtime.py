@@ -5,7 +5,10 @@ entry point (counterpart of ``segma_tpu/serve/runtime.py``).
 artifacts on the card, warms it up (the kernel and WAV reader builds, one
 forward and decode) before it accepts traffic, binds the server and runs
 until SIGTERM/SIGINT, with a graceful drain and an optional RSS self-recycle
-(exit 75). A device mesh waits for the multi-GPU slice.
+(exit 75). A live model serves over a data mesh (``mesh="auto"`` with
+several cards, or a ``parallel.Mesh``): one-shot and micro-batched requests
+split their windows over the replicas; streaming sessions run on the first
+card, as artifacts and bundles do.
 """
 
 from __future__ import annotations
@@ -20,16 +23,14 @@ import numpy as np
 import torch
 
 from segma_tpu_torch import resolve_device
-from segma_tpu_torch.inference import InferencePipeline
+from segma_tpu_torch.inference import InferencePipeline, resolve_mesh
+from segma_tpu_torch.parallel.mesh import Mesh
 from segma_tpu_torch.serve.http import make_server
 from segma_tpu_torch.serve.router import ModelRouter, _warm_stream_programs, bundle_reloader
 from segma_tpu_torch.serve.service import MAX_STREAM_SESSIONS, SegmentationService
 from segma_tpu_torch.streaming import StreamingSegmenter
 from segma_tpu_torch.utils import host_rss_gb
 from segma_tpu_torch.utils.logging import log
-
-MESH_SLICE = "a device mesh is not ported yet: ROADMAP.md Queue 1, 'Multi-GPU'"
-
 
 def _start_rss_watchdog(
     server: ThreadingHTTPServer, limit_gb: float, poll_s: float = 10.0
@@ -144,11 +145,13 @@ def serve_forever(
     (None: the random weights of ``train.seed``) for a live model;
     ``artifact``, an exported artifact directory; or ``bundle``, a directory
     of artifacts served behind one port (``?model=<name>``; POST
-    /admin/reload re-scans it). Everything runs on ``device``. ``mesh``
-    "auto" and "off" both serve on one card, and a mesh object raises."""
-    if mesh not in ("auto", "off", None):
-        raise NotImplementedError(MESH_SLICE)
+    /admin/reload re-scans it). Everything runs on ``device``; a live
+    model's ``mesh`` ("auto", "off", None or a ``parallel.Mesh``, as
+    ``inference.resolve_mesh`` takes it) spreads one-shot requests over the
+    mesh's cards. Artifacts and bundles serve on ``device`` alone."""
     dev = resolve_device(device)
+    if not (mesh in ("auto", "off", None) or isinstance(mesh, Mesh)):
+        raise ValueError(f"mesh must be 'auto', 'off', None or a Mesh, got {mesh!r}")
     max_body_bytes = int(max_body_mb * (1 << 20))
     if bundle is not None:
         from segma_tpu_torch.ops import _build
@@ -183,7 +186,11 @@ def serve_forever(
         pipeline = InferencePipeline(
             model, batch_size=batch_size, device=dev,
             transport="adpcm" if transport == "adpcm" else "auto",
+            mesh=resolve_mesh(mesh, cfg, dev),
         )
+        if pipeline.mesh is not None:
+            log(f"serving over a data mesh of {len(pipeline.replicas)} replicas on "
+                f"{', '.join(str(r.device) for r in pipeline.replicas)}")
     service = SegmentationService(
         pipeline, thresholds, transport=transport, batch_window_ms=batch_window_ms,
         max_batch=max_batch, max_sessions=max_sessions,

@@ -1,7 +1,8 @@
 """Training loop: AdamW over the trainable parameters, the plateau or cosine
 LR schedule, gradient accumulation, early stopping, per-epoch validation
 metrics, preemption, the device audio cache and epoch dispatch
-(counterpart of ``segma_tpu/train.py`` on one device).
+(counterpart of ``segma_tpu/train.py``), on one card or as one rank of a
+data-parallel world.
 
 The optimizer is ``torch.optim.AdamW`` with optax's ``adamw`` defaults
 (betas 0.9/0.999, eps 1e-8, weight decay 1e-4, where torch's own default
@@ -41,7 +42,19 @@ uploaded in one copy each; on the card the step is captured once as a CUDA
 graph and replayed for every step, on the CPU the same body runs in a plain
 loop. The losses are read once per epoch.
 
-Not ported yet: multi-process training.
+Under a ``torch.distributed`` world (``parallel.distributed``: one process
+per card, each on its shard of the files, with ``batch_size / world`` crops
+a step) every rank runs the local step, and before AdamW the gradients are
+replaced by their mean over the ranks (under ``GradAccumulation``, the
+accumulated mean, on the micro-step that emits), so every rank makes the
+update of the global batch; the step's loss is the world's mean. Under epoch
+dispatch the all-reduce is part of the captured graph. Validation reduces
+its sums (the losses, the F1 counts) and gathers its scores (AUROC, ROC), so
+every rank computes the same metrics and takes the same plateau,
+early-stopping and checkpoint decisions; rank 0 alone writes ``metrics.jsonl``,
+the checkpoints and the profiles. A SIGTERM on any rank is agreed on at the
+next step boundary (the end of the epoch under epoch dispatch): every rank
+stops there, and rank 0 writes ``last/``.
 """
 
 from __future__ import annotations
@@ -78,7 +91,9 @@ from segma_tpu_torch.data.loaders import BatchContractError
 from segma_tpu_torch.models.base import (
     SegmentationModel, ieee_f32, no_tf32, weighted_index_ce,
 )
-from segma_tpu_torch.ops import launch_counts, set_launch_counts
+from segma_tpu_torch.ops import add_launch_counts, launch_counts, set_launch_counts
+from segma_tpu_torch.parallel.distributed import World, current_world
+from segma_tpu_torch.parallel.mesh import TP_SP_SLICE
 from segma_tpu_torch.ops.metrics import (
     binary_auroc_np,
     binary_counts,
@@ -261,9 +276,12 @@ class GradAccumulation:
     The device work (``apply``) reads the count ``mini_step + 1`` from the
     device scalar ``count``, which ``step`` fills; an epoch replay copies it
     from the epoch's stacked counts. The host keeps the counters (``advance``),
-    so it knows every micro-step's kind in advance."""
+    so it knows every micro-step's kind in advance. Under a ``world`` the
+    emitting micro-step replaces the buffers by their mean over the ranks
+    before AdamW reads them."""
 
-    def __init__(self, model: SegmentationModel, k: int) -> None:
+    def __init__(self, model: SegmentationModel, k: int, world: World | None = None) -> None:
+        self.world = world
         named = [(n, p) for n, p in model.module.named_parameters() if p.requires_grad]
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
@@ -295,6 +313,8 @@ class GradAccumulation:
             else:
                 acc.sub_(torch.div(acc, self.count))
         if emit:
+            if self.world is not None:
+                self.world.mean_(self.acc)
             for acc, p in zip(self.acc, self.params):
                 p.grad = acc.to(p.dtype)
             optimizer.step()
@@ -309,20 +329,41 @@ class GradAccumulation:
         self.mini_step = (self.mini_step + 1) % self.k
 
 
-def _finite_flags(loss: torch.Tensor, model: SegmentationModel) -> tuple[list[str], torch.Tensor]:
+def _finite_flags(loss: torch.Tensor, model: SegmentationModel, world: World | None = None
+                  ) -> tuple[list[str], torch.Tensor]:
     """(names, device bools): whether the loss and each trainable gradient
-    hold only finite values."""
+    hold only finite values (on every rank of ``world``)."""
     named = [(n, p.grad) for n, p in model.module.named_parameters()
              if p.requires_grad and p.grad is not None]
     flags = torch.stack([torch.isfinite(loss).all()] + [torch.isfinite(g).all() for _, g in named])
+    if world is not None:
+        votes = flags.float()
+        world.mean_([votes])
+        flags = votes == 1.0
     return ["loss"] + [n for n, _ in named], flags
 
 
-def _nonfinite(loss: torch.Tensor, model: SegmentationModel) -> list[str]:
+def _nonfinite(loss: torch.Tensor, model: SegmentationModel, world: World | None = None
+               ) -> list[str]:
     """The names of the loss and of the trainable gradients that hold a NaN
-    or an infinity (one host sync)."""
-    names, flags = _finite_flags(loss, model)
+    or an infinity, on any rank of ``world`` (one host sync)."""
+    names, flags = _finite_flags(loss, model, world)
     return [name for name, ok in zip(names, flags.cpu().tolist()) if not ok]
+
+
+def world_mean(world: World | None, model: SegmentationModel, loss: torch.Tensor,
+               per_label: torch.Tensor, grads: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The step's (loss, per_label) as the world's means; with ``grads``,
+    also each trainable ``.grad`` in place. Without a world, unchanged."""
+    if world is None:
+        return loss, per_label
+    both = torch.cat([loss.reshape(1), per_label])
+    tensors = [both]
+    if grads:
+        tensors += [p.grad for p in model.module.parameters()
+                    if p.requires_grad and p.grad is not None]
+    world.mean_(tensors)
+    return both[0], both[1:]
 
 
 def forward_backward(
@@ -347,20 +388,22 @@ def forward_backward(
 def make_train_step(
     model: SegmentationModel, optimizer: torch.optim.Optimizer,
     accum: GradAccumulation | None = None, debug_nans: bool = False,
-    source: WaveformSource | None = None,
+    source: WaveformSource | None = None, world: World | None = None,
 ) -> Callable[[dict[str, torch.Tensor], torch.Generator | None], tuple[torch.Tensor, torch.Tensor]]:
     """One step (``train.dispatch=step``): ``forward_backward``, then AdamW, or
     ``accum``'s micro-step. The step updates the module's parameters in place
     and returns the (loss, per_label) of the batch, on the device. The batch's
     waveforms come from ``source`` (host waveforms without one).
     ``debug_nans``: raise ``FloatingPointError``, before any update, when the
-    loss or a trainable gradient is not finite."""
+    loss or a trainable gradient is not finite. Under a ``world`` the loss,
+    and the gradients before AdamW, are the ranks' means (``world_mean``)."""
     source = source or WaveformSource()
 
     def train_step(batch: dict[str, torch.Tensor], generator: torch.Generator | None):
         loss, per_label = forward_backward(model, optimizer, source(batch), batch["y"], generator)
+        loss, per_label = world_mean(world, model, loss, per_label, grads=accum is None)
         if debug_nans:
-            bad = _nonfinite(loss, model)
+            bad = _nonfinite(loss, model, world)
             if bad:
                 raise FloatingPointError(f"non-finite {', '.join(bad[:8])}"
                                          + (f" and {len(bad) - 8} more" if len(bad) > 8 else ""))
@@ -435,9 +478,9 @@ class EpochReplay:
     def __init__(
         self, model: SegmentationModel, optimizer: torch.optim.Optimizer,
         accum: GradAccumulation | None, cache: DeviceAudioCache, generator: torch.Generator,
-        batch_size: int, y_shape: tuple[int, ...], debug_nans: bool,
+        batch_size: int, y_shape: tuple[int, ...], debug_nans: bool, world: World | None = None,
     ) -> None:
-        self.model, self.optimizer, self.accum = model, optimizer, accum
+        self.model, self.optimizer, self.accum, self.world = model, optimizer, accum, world
         self.cache, self.generator, self.debug_nans = cache, generator, debug_nans
         device = model.device
         self.offsets = torch.zeros(batch_size, dtype=torch.int32, device=device)
@@ -453,7 +496,12 @@ class EpochReplay:
         wav = device_waveform(self.cache.gather(self.offsets))
         loss, per_label = forward_backward(self.model, self.optimizer, wav, self.y,
                                            self.generator)
-        finite = _finite_flags(loss, self.model)[1].all() if self.debug_nans else None
+        # the world's all-reduces, captured with the step: the eager warm-up
+        # run before the capture has set the communicator up
+        loss, per_label = world_mean(self.world, self.model, loss, per_label,
+                                     grads=self.accum is None)
+        finite = (_finite_flags(loss, self.model, self.world)[1].all() if self.debug_nans
+                  else None)
         if self.accum is None:
             self.optimizer.step()
         else:
@@ -467,7 +515,7 @@ class EpochReplay:
         if emit in self.graphs:
             graph, outs = self.graphs[emit]
             graph.replay()
-            count_replay(self.captured_launches[emit])
+            add_launch_counts(self.captured_launches[emit])
             return outs
         current = torch.cuda.current_stream(self.model.device)
         self.side.wait_stream(current)
@@ -482,22 +530,16 @@ class EpochReplay:
         before = launch_counts()
         with torch.cuda.graph(graph):
             outs = self.body(emit)
-        # capture records the kernels without running them: a replay counts
-        # them (``count_replay``), the capture does not
+        # capture records the kernels without running them, and the wrappers
+        # cannot see a replay: each replay adds the captured counts, the
+        # capture adds none
         after = launch_counts()
         self.captured_launches[emit] = {k: after[k] - before[k] for k in after}
         set_launch_counts(before)
         self.graphs[emit] = (graph, outs)
         graph.replay()
-        count_replay(self.captured_launches[emit])
+        add_launch_counts(self.captured_launches[emit])
         return outs
-
-
-def count_replay(captured: dict[str, int]) -> None:
-    """A graph replay launches the kernels its capture recorded: the wrappers
-    cannot see it, so their counters are advanced by the captured counts."""
-    now = launch_counts()
-    set_launch_counts({k: now[k] + captured.get(k, 0) for k in now})
 
 
 def _sync(device: torch.device) -> None:
@@ -510,7 +552,9 @@ class Trainer:
     """The training loop over a datamodule's loaders. Runs on the card
     unless ``device="cpu"``. Checkpoints go to ``run_dir / "checkpoints"``;
     a model built by ``checkpoint.build_model`` (weights from ``train.seed``)
-    can be served from them by ``checkpoint.load_model_for_inference``."""
+    can be served from them by ``checkpoint.load_model_for_inference``.
+    Under an initialised ``torch.distributed`` world it is one rank of a
+    data-parallel run, and only rank 0 writes to ``run_dir``."""
 
     model: SegmentationModel
     config: Config
@@ -521,12 +565,21 @@ class Trainer:
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
         self.run_dir = Path(self.run_dir)
-        self.run_dir.mkdir(parents=True, exist_ok=True)
+        # the single writer: rank 0 makes the run's files, the other ranks
+        # keep the same bookkeeping in memory
+        self.world = current_world()
+        self.is_main = self.world is None or self.world.is_main
+        if self.is_main:
+            self.run_dir.mkdir(parents=True, exist_ok=True)
         self.global_step = 0  # micro-steps taken, the cosine schedule's clock
-        self.logger = MetricsLogger(self.run_dir / "metrics.jsonl")
+        self.logger = MetricsLogger(self.run_dir / "metrics.jsonl" if self.is_main else None,
+                                    echo=self.is_main)
         self.model.to(self.device)
         tc = self.config.train
         self.mode, self.monitor = get_metric(tc.validation_metric)
+        mc = self.config.mesh
+        if self.world is not None and (mc.model > 1 or mc.seq > 1):
+            raise NotImplementedError(f"mesh.model={mc.model}, mesh.seq={mc.seq}: {TP_SP_SLICE}")
         if tc.dispatch not in ("step", "epoch"):
             raise ValueError(f"train.dispatch must be 'step' or 'epoch', got {tc.dispatch!r}")
         if tc.dispatch == "epoch" and tc.data_cache == "host":
@@ -535,12 +588,13 @@ class Trainer:
                 "train.dispatch=epoch replays the step over device-resident crops: it "
                 "requires train.data_cache=device (or auto within budget)")
         self.optimizer = make_optimizer(self.model, tc.lr)
-        self.accum = (GradAccumulation(self.model, tc.grad_accum_steps)
+        self.accum = (GradAccumulation(self.model, tc.grad_accum_steps, self.world)
                       if tc.grad_accum_steps > 1 else None)
         # fit places the loaders' device caches into these
         self.train_source, self.val_source = WaveformSource(), WaveformSource()
         self.train_step = make_train_step(self.model, self.optimizer, self.accum,
-                                          debug_nans=tc.debug_nans, source=self.train_source)
+                                          debug_nans=tc.debug_nans, source=self.train_source,
+                                          world=self.world)
         # the dropout masks' generator, reseeded from (seed, epoch) every epoch
         self.generator = torch.Generator(self.device)
         self.replay: EpochReplay | None = None
@@ -548,7 +602,7 @@ class Trainer:
         self.early_stopping = EarlyStopping(self.mode, patience=tc.early_stop_patience)
         self.ckpt = CheckpointManager(
             self.run_dir / "checkpoints", monitor=self.monitor, mode=self.mode,
-            save_top_k=tc.save_top_k,
+            save_top_k=tc.save_top_k, write=self.is_main,
         )
         self._preempt_requested = False
         self._preempt_signum: int | None = None
@@ -566,6 +620,13 @@ class Trainer:
         # interrupted bytecode; the loop logs when it sees the flag
         self._preempt_signum = int(signum)
         self.request_preemption()
+
+    def _agree(self, flag: bool) -> bool:
+        """Whether ``flag`` holds on any rank (on one process, ``flag``):
+        the ranks must stop at the same step to run the same collectives."""
+        if self.world is None or self.world.size == 1:
+            return flag
+        return self.world.any(flag)
 
     # -- epochs --------------------------------------------------------------------
 
@@ -598,7 +659,8 @@ class Trainer:
                     record[f"train/loss_step_{label}"] = float(per_label[i])
                 self.logger.log(record)
             n_seen += 1
-            if self._preempt_requested:
+            if self._agree(self._preempt_requested):
+                self._preempt_requested = True
                 break
         # counted, not a for/else: a signal during the last step still
         # leaves a completed epoch
@@ -617,7 +679,8 @@ class Trainer:
         ``FloatingPointError`` names the first bad step after the epoch; the
         updates of the steps after it have run by then."""
         tc = self.config.train
-        if self._preempt_requested:  # a signal between epochs
+        if self._agree(self._preempt_requested):  # a signal between epochs
+            self._preempt_requested = True
             return float("nan"), False
         offs, ys = [], []
         for batch in loader:
@@ -645,7 +708,7 @@ class Trainer:
         if replay is None or replay.cache is not self.train_source.cache:
             replay = self.replay = EpochReplay(
                 self.model, self.optimizer, accum, self.train_source.cache, self.generator,
-                offsets_e.shape[1], tuple(y_e.shape[2:]), tc.debug_nans)
+                offsets_e.shape[1], tuple(y_e.shape[2:]), tc.debug_nans, self.world)
         lr = self.optimizer.param_groups[0]["lr"]
         losses_e = torch.empty(n, dtype=torch.float32, device=self.device)
         per_label_e = torch.empty((n, len(self.model.label_encoder.base_labels)),
@@ -715,7 +778,10 @@ class Trainer:
         A powerset model adds ``val/partial_loss`` (with ``partial_loss`` in
         ``extra_val_metrics``), ``val/partial_f1_score`` and
         ``val/partial_auroc`` (with f1_score and auroc), each averaged over
-        its classes of fewer than two labels."""
+        its classes of fewer than two labels. Under a world the losses are
+        the ranks' means (every rank runs as many batches of one size), the
+        counts their sums, and the scores are gathered, so every rank
+        computes the same metrics."""
         tc = self.config.train
         labels = self.model.label_encoder.base_labels
         wants = lambda m: tc.validation_metric == m or m in tc.extra_val_metrics  # noqa: E731
@@ -743,37 +809,52 @@ class Trainer:
                 if wants("auroc"):
                     subset_probs.append(s_probs)
                     subset_ids.append(s_ids)
+        world = self.world
         metrics: dict[str, float] = {}
         if losses:
-            metrics["val/loss"] = float(torch.stack(losses).mean())
-            per_label = torch.stack(per_labels).mean(0).cpu()
+            loss, per_label = torch.stack(losses).mean(), torch.stack(per_labels).mean(0)
+            if world is not None:
+                world.mean_([loss, per_label])
+            metrics["val/loss"] = float(loss)
+            per_label = per_label.cpu()
             for i, label in enumerate(labels):
                 metrics[f"val/loss_{label}"] = float(per_label[i])
+        if world is not None and counts_acc is not None:
+            counts_acc = {k: world.sum_(v) for k, v in counts_acc.items()}
         if counts_acc is not None and wants("f1_score"):
             f1 = f1_from_counts({k: v.cpu() for k, v in counts_acc.items()})
             metrics["val/f1_score"] = float(f1.mean())
             for i, label in enumerate(labels):
                 metrics[f"val/f1_{label}"] = float(f1[i])
         if need_scores and all_probs:
-            probs = torch.cat(all_probs).cpu().numpy()
-            targets = np.concatenate(all_targets)
+            probs, targets = torch.cat(all_probs), np.concatenate(all_targets)
+            if world is not None:
+                probs = world.gather_cat(probs)
+                targets = world.gather_cat(torch.from_numpy(targets).to(probs.device)).cpu().numpy()
+            probs = probs.cpu().numpy()
             if wants("auroc"):
                 auroc = binary_auroc_np(probs, targets)
                 metrics["val/auroc"] = float(auroc.mean())
                 for i, label in enumerate(labels):
                     metrics[f"val/auroc_{label}"] = float(auroc[i])
-            if "roc" in tc.extra_val_metrics:
+            if "roc" in tc.extra_val_metrics and self.is_main:
                 self._plot_roc(probs, targets, labels)
         if partial_losses:
             n_single = self.model.powerset.n_single_classes
+            partial_loss = torch.stack(partial_losses).mean()
+            if world is not None:
+                world.mean_([partial_loss])
+                subset_acc = {k: world.sum_(v) for k, v in subset_acc.items()}
             if "partial_loss" in tc.extra_val_metrics:
-                metrics["val/partial_loss"] = float(torch.stack(partial_losses).mean())
+                metrics["val/partial_loss"] = float(partial_loss)
             if wants("f1_score"):
                 subset_f1 = f1_from_counts({k: v.cpu() for k, v in subset_acc.items()})
                 metrics["val/partial_f1_score"] = float(subset_f1[:n_single].mean())
             if subset_probs:
-                s_probs = torch.cat(subset_probs).cpu().numpy()
-                s_ids = torch.cat(subset_ids).cpu().numpy()
+                s_probs, s_ids = torch.cat(subset_probs), torch.cat(subset_ids)
+                if world is not None:
+                    s_probs, s_ids = world.gather_cat(s_probs), world.gather_cat(s_ids)
+                s_probs, s_ids = s_probs.cpu().numpy(), s_ids.cpu().numpy()
                 s_auroc = binary_auroc_np(s_probs, np.eye(s_probs.shape[-1])[s_ids])
                 metrics["val/partial_auroc"] = float(s_auroc[:n_single].mean())
         return metrics
@@ -917,7 +998,10 @@ class Trainer:
                 for epoch in range(start_epoch, max_epochs):
                     for ldr in (train_loader, val_loader):
                         ldr.set_epoch(epoch)
-                    self.generator.manual_seed(seed * 100_003 + epoch)
+                    # each rank its own dropout stream (rank 0's is one process's)
+                    size, rank = (1, 0) if self.world is None else (self.world.size,
+                                                                    self.world.rank)
+                    self.generator.manual_seed((seed * 100_003 + epoch) * size + rank)
                     prof = self._profiler() if epoch == profile_epoch else None
                     if prof is not None:
                         prof.start()
@@ -930,11 +1014,13 @@ class Trainer:
                     train_time = time.perf_counter() - t0
                     if prof is not None:
                         prof.stop()
-                        profile_dir = self.run_dir / "profile"
-                        profile_dir.mkdir(parents=True, exist_ok=True)
-                        prof.export_chrome_trace(str(profile_dir / f"epoch_{epoch}.json"))
-                        self.logger.log({"profile_dir": str(profile_dir)})
-                    if self._preempt_requested:
+                        if self.is_main:
+                            profile_dir = self.run_dir / "profile"
+                            profile_dir.mkdir(parents=True, exist_ok=True)
+                            prof.export_chrome_trace(str(profile_dir / f"epoch_{epoch}.json"))
+                            self.logger.log({"profile_dir": str(profile_dir)})
+                    if self._agree(self._preempt_requested):
+                        self._preempt_requested = True
                         if self._preempt_signum is not None:
                             self.logger.log({"preempt_signal": self._preempt_signum})
                         if completed:  # the boundary, without validation
@@ -977,7 +1063,7 @@ class Trainer:
                             self.logger.log({"early_stop": epoch})
                             break
                     rss = host_rss_gb() if rss_limit else 0.0
-                    if rss_limit and rss > rss_limit:
+                    if self._agree(bool(rss_limit) and rss > rss_limit):
                         # last/ was just written: the resume is exact
                         self.logger.log({"recycle_at_epoch": epoch, "host_rss_gb": round(rss, 2),
                                          "host_rss_limit_gb": round(rss_limit, 2)})

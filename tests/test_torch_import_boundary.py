@@ -81,6 +81,9 @@ REQUIRED = (
     "segma_tpu_torch.ops.rnn", "segma_tpu_torch.cli", "segma_tpu_torch.cli.export",
     "segma_tpu_torch.cli.bundle", "segma_tpu_torch.cli.doctor",
     "segma_tpu_torch.utils.experiment",
+    # data parallelism
+    "segma_tpu_torch.parallel", "segma_tpu_torch.parallel.mesh",
+    "segma_tpu_torch.parallel.distributed",
 )
 
 

@@ -963,3 +963,37 @@ def test_tiny_exported_program_on_the_card_launches_the_kernels(tmp_path):
     assert after["flash_attn_fwd"] == before["flash_attn_fwd"] + 2
     ref = InferencePipeline(model, batch_size=2).logits_for_audio(wav)
     np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.gpu
+def test_kernels_launch_on_the_tensor_s_card():
+    """Each kernel on tensors on cuda:1 while the thread's current device is
+    cuda:0 (a replica's card, driven from another card's thread): the launch
+    sizes its grid, sets its shared memory and takes its stream on the
+    tensors' card, and agrees with the plain version there. Needs two cards."""
+    _cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: the launch guard is checked on a second card")
+    other = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    g = torch.Generator().manual_seed(3)
+    wav = (torch.randn((2, 64_000), generator=g) * 0.1).to(other)
+    before = logmel.launches
+    got = logmel.log10_mel_cuda(wav)
+    assert logmel.launches == before + 1 and got.device == other
+    torch.testing.assert_close(got, logmel.log10_mel_plain(wav), atol=LOGMEL_ATOL, rtol=0)
+    for dtype, tol, bwd_rel in ((torch.bfloat16, FLASH_TOL, FLASH_BWD_REL),
+                                (torch.float32, FLASH_F32_ATOL, FLASH_F32_BWD_REL)):
+        q, k, v, dout = (torch.randn((2, 199, 4, 64), generator=g).to(other, dtype)
+                         for _ in range(4))
+        sm = 0.125
+        out, lse = attention.flash_attn_fwd(q, k, v, sm, with_lse=True)
+        assert torch.cuda.current_device() == 0 and out.device == other
+        ref = attention.attention_plain(q, k, v, sm, dtype)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+        dq, dk, dv = attention.flash_attn_bwd(q, k, v, out, lse, dout, sm)
+        for got_g, ref_g in zip((dq, dk, dv), attention.attention_bwd_plain(
+                q, k, v, out, lse, dout, sm)):
+            scale = max(1.0, float(ref_g.abs().max()))
+            assert float((got_g.float() - ref_g.float()).abs().max()) <= bwd_rel * scale
+    torch.cuda.synchronize(other)

@@ -386,7 +386,8 @@ def test_iter_wav_chunks_and_adpcm_uploads(env):
 def test_export_paths_raise(env, tmp_path):
     """The export paths are ported (tests/test_torch_export.py and
     test_torch_bundle.py serve them): here, a missing artifact or bundle
-    raises before anything binds, and a mesh still names the multi-GPU slice."""
+    raises before anything binds, and a mesh that is not a ``parallel.Mesh``
+    (nor "auto", "off" or None) is refused."""
     missing = str(tmp_path / "missing")
     with pytest.raises(FileNotFoundError):
         serve.serve_forever(artifact=missing, device="cpu")
@@ -394,7 +395,7 @@ def test_export_paths_raise(env, tmp_path):
         serve.serve_forever(bundle=missing, device="cpu")
     with pytest.raises(FileNotFoundError):
         serve.bundle_reloader(missing, device="cpu")({})
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+    with pytest.raises(ValueError, match="mesh must be"):
         serve.serve_forever(config=env["model"].config, mesh=object(), device="cpu")
     from segma_tpu_torch.cli import serve as cli_serve
 
