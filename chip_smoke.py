@@ -108,8 +108,8 @@ exits nonzero without printing the final result line:
    run's input, against the CPU's f32 model). (It runs before the f32
    phases, 7 and 8.)
 10b. the device audio cache and epoch dispatch (``phase_device_cache``,
-   full width): HuBERT-base bf16 over 2.1 GB of synthetic audio for three
-   40-step epochs with the host path, the device cache under step
+   full width): HuBERT-base bf16 over 1.05 GB of synthetic audio for three
+   20-step epochs with the host path, the device cache under step
    dispatch, and epoch dispatch (the step replayed from a captured CUDA
    graph), each bit-equal to the one before, with equal launch counts;
    k=3 accumulation, f32 and whisperimax, step against epoch dispatch,
@@ -164,7 +164,21 @@ exits nonzero without printing the final result line:
    replica per card, steps an NCCL world of one rank per card against the
    global-batch step, and runs ``cli.auto_train`` as one rank per card
    (epoch dispatch, SIGTERM and ``--auto-resume`` bit-equal to step
-   dispatch); on one card it is skipped.
+   dispatch), and serves over five tensor- and sequence-parallel meshes of
+   four cards and one request through ``serve_forever`` at (2, 1, 2); on
+   one card it is skipped.
+10g. tensor and sequence parallelism in serving (``phase_tensor_seq``, one
+   card, every member of a mesh on cuda:0 with a thread and a stream of its
+   own): the serving slice over the (data, seq, model) meshes (1,1,2),
+   (1,2,1), (1,2,2), (1,4,1) and (2,2,2) against the meshless pipeline:
+   logits within the card's bf16 rule (LOGITS_BF16_FACTOR times the CPU's
+   bf16 distance from its f32 model, or LOGITS_ATOL), RTTM frames equal
+   but near the threshold, the members of each data coordinate ending in
+   the same bits, launches seq x model times meshless; the f32 model at
+   (1,2,2) within LOGITS_F32_ATOL x max(1, max|logit|); HuBERT-base and
+   WavLM-base at model=2 over 400 s. Before the phases, the bf16 and f32
+   flash forward are checked and timed at a seq member's unequal lengths
+   (``flash_unequal_checks``: Sq query rows against Skv keys).
 11. the ``kernels`` JSON line (log-mel, the bf16 and the f32 flash forward
    and backward; each with its fast_context times where it has them, and
    log-mel's at (32, 64000) as ``vad_train``) and
@@ -173,7 +187,9 @@ exits nonzero without printing the final result line:
    epoch-dispatch paths and the live-serving paths among them); log-mel and
    the bf16 flash forward also carry ``launches_live_serving``, and they and
    the f32 flash forward ``launches_export``; every row carries
-   ``launches_parallel_serve`` and ``launches_parallel_train``.
+   ``launches_parallel_serve``, ``launches_parallel_train`` and
+   ``launches_tensor_seq``; both flash forwards carry ``unequal_lengths``,
+   their times, bounds and SDPA times at FLASH_UNEQUAL_SHAPES.
 12. last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -3246,12 +3262,12 @@ def hydra_whisper_stages(card: str, on_card, cpu, f32, wav, device: str = "cuda"
 
 
 DEVICE_CACHE_EPOCHS = 3
-# the timed runs' data: 32 train files of 2048 s, 2.1 GB of 16 kHz PCM16 (an
+# the timed runs' data: 16 train files of 2048 s, 1.05 GB of 16 kHz PCM16 (an
 # int16 device cache of that size), 2 val files, 1 test file; the virtual
 # epoch cut by data.dataset_multiplier to DEVICE_CACHE_STEPS steps of 32
-DEVICE_CACHE_FILES = (32, 2, 1)
+DEVICE_CACHE_FILES = (16, 2, 1)
 DEVICE_CACHE_FILE_S = 2048.0
-DEVICE_CACHE_STEPS = 40
+DEVICE_CACHE_STEPS = 20
 
 
 def _dispatch_fit(card: str, label: str, cfg, ds, run_dir: Path, model=None,
@@ -3432,7 +3448,7 @@ def phase_device_cache(card: str) -> dict:
     """The device audio cache and epoch dispatch on the card: the training
     slice's config (full HuBERT-base, bf16, batch 32, seed 0, dropout on)
     over ``write_dataset``'s data at a deployment's size (DEVICE_CACHE_FILES
-    of DEVICE_CACHE_FILE_S: a 2.1 GB int16 train cache), the virtual epoch
+    of DEVICE_CACHE_FILE_S: a 1.05 GB int16 train cache), the virtual epoch
     cut to DEVICE_CACHE_STEPS steps, for DEVICE_CACHE_EPOCHS epochs, three
     times:
 
@@ -4795,10 +4811,14 @@ def _serve_paths(card: str, cfg, model, wav_dir: Path, out: Path, audio_s: float
     return paths
 
 
-def _serve_request(card: str, cfg, model, tmp: Path, mesh, label: str) -> dict:
+def _serve_request(card: str, cfg, model, tmp: Path, mesh, label: str,
+                   near: float | None = None) -> dict:
     """One request to ``serve_forever`` (in a thread of this process) over
-    ``mesh``, answered as a meshless service on the same model answers it.
-    Returns the request's launch counts."""
+    ``mesh``, answered as a meshless service on the same model answers it;
+    with ``near`` (a mesh whose logits are not bit-equal to meshless, as
+    under ``model``), each answer's frames equal the meshless pipeline's
+    logits thresholded, except where a logit lies within ``near`` of the
+    threshold. Returns the request's launch counts."""
     import threading
 
     from segma_tpu_torch import checkpoint, serve
@@ -4846,13 +4866,28 @@ def _serve_request(card: str, cfg, model, tmp: Path, mesh, label: str) -> dict:
         thread.join(60)
     if thread.is_alive():
         raise AssertionError("serve_forever did not stop")
-    if got != want or not got:
+    if near is None and (got != want or not got):
         raise AssertionError(f"the server over {label} answered {len(got)} intervals, the "
                              f"meshless one {len(want)}, not the same")
+    how = f"as the meshless service does ({len(got)} intervals)"
+    if near is not None:
+        from segma_tpu_torch.inference import _load_mono
+
+        ref = InferencePipeline(model, batch_size=INNER_BATCH, device="cuda").logits_for_audio(
+            _load_mono(wav))
+        labels = list(cfg.data.classes)
+        flips = [_near_threshold_check(f"the server over {label}, {side}",
+                                       _frames_of(answer, labels, len(ref)), ref, near)
+                 for side, answer in (("mesh", got), ("meshless", want))]
+        if not got:
+            raise AssertionError(f"the server over {label} answered no interval")
+        how = (f"with {len(got)} intervals against the meshless service's {len(want)}: "
+               f"{flips[0]} and {flips[1]} frames off the meshless logits, all within {near:.3e} "
+               "of the threshold")
     _launched(launches, SERVE_LAUNCH_KEYS, "parallel serve request")
     print(f"check parallel serve request [{card}]: serve_forever over {label} answered a "
-          f"{PARALLEL_REQUEST_S:.0f} s request as the meshless service does ({len(got)} "
-          f"intervals) in {wall:.3f} s, launches {launches}", flush=True)
+          f"{PARALLEL_REQUEST_S:.0f} s request {how} in {wall:.3f} s, launches {launches}",
+          flush=True)
     return launches
 
 
@@ -5151,6 +5186,269 @@ def _cards_fits(card: str, cfg_path: Path, tmp: Path, n: int) -> None:
           "walls " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()), flush=True)
 
 
+TENSOR_SEQ_MESHES = ((1, 1, 2), (1, 2, 1), (1, 2, 2), (1, 4, 1), (2, 2, 2))  # (data, seq, model)
+TENSOR_SEQ_F32_MESH = (1, 2, 2)
+# over four cards (phase_parallel_cards)
+TENSOR_SEQ_CARD_MESHES = ((1, 2, 2), (1, 4, 1), (1, 1, 4), (2, 1, 2), (2, 2, 1))
+TENSOR_SEQ_FAMILY_S = 400.0  # HuBERT-base and WavLM-base at model=2: 100 chunks of 4 s
+# the flash forward at a seq member's shapes (B, Sq, Skv, H): Whisper-base's
+# 1500 positions over seq 2 and, at model 2, over seq 4; fast_context's 200
+# over seq 2; a query block that is not a multiple of 64 rows; and the shapes
+# of TENSOR_SEQ_MESHES' members not among those: (1,2,2) and (2,2,2) give
+# (750 | 1500, 4), (1,4,1) (375 | 1500, 8)
+FLASH_UNEQUAL_SHAPES = ((INNER_BATCH, 750, 1500, 8), (INNER_BATCH, 375, 1500, 4),
+                        (INNER_BATCH, 100, 200, 8), (INNER_BATCH, 333, 1500, 8),
+                        (INNER_BATCH, 750, 1500, 4), (INNER_BATCH, 375, 1500, 8))
+
+
+def flash_unequal_checks(card: str) -> dict:
+    """The bf16 and the f32 forward at FLASH_UNEQUAL_SHAPES: the output
+    against ``attention_plain`` (bf16 at FLASH_ATOL and FLASH_RTOL, f32 at
+    FLASH_F32_ATOL) and the LSE against ``attention_lse_plain``; timed in
+    turns beside every SDPA backend that takes the shape, and the plain
+    version; bounds for the work of Sq x Skv: bf16 products at the
+    tensor-core peak or Sq Skv exp2 on the special-function units, f32 as
+    3xTF32 at the TF32 peak. Returns {kernel name: {shape: row}}."""
+    import torch
+
+    from segma_tpu_torch.ops import attention
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    sm = 64**-0.5
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = max_sm_clock_hz()
+    out_rows: dict[str, dict] = {"flash_attn_fwd": {}, "flash_attn_fwd_f32": {}}
+    for dtype, name in ((torch.bfloat16, "flash_attn_fwd"), (torch.float32, "flash_attn_fwd_f32")):
+        f32 = dtype == torch.float32
+        for b, sq, skv, h in FLASH_UNEQUAL_SHAPES:
+            label = f"({b}, {sq} | {skv}, {h}, 64)"
+            q = torch.randn((b, sq, h, 64), device="cuda", generator=g).to(dtype)
+            k, v = (torch.randn((b, skv, h, 64), device="cuda", generator=g).to(dtype)
+                    for _ in range(2))
+            out, lse = attention.flash_attn_fwd(q, k, v, sm, with_lse=True)
+            err = check_close(f"{name} {label}", out,
+                              attention.attention_plain(q, k, v, sm, torch.float32),
+                              FLASH_F32_ATOL if f32 else FLASH_ATOL, 0.0 if f32 else FLASH_RTOL)
+            check_close(f"{name} lse {label}", lse, attention.attention_lse_plain(q, k, sm),
+                        LSE_F32_ATOL if f32 else LSE_ATOL)
+            if not torch.equal(out, attention.flash_attn_fwd(q, k, v, sm)):
+                raise AssertionError(f"{name} {label}: output differs without the LSE")
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            times = time_turns({"kernel": lambda: attention.flash_attn_fwd(q, k, v, sm),
+                                **sdpa_calls(qt, kt, vt, sm)}, groups=3, iters=10)
+            ms = median(times.pop("kernel"))
+            library = {n: median(t) for n, t in times.items()}
+            plain_ms = time_ms(lambda: attention.attention_plain(q, k, v, sm, dtype), iters=2)
+            flops = 4 * b * h * sq * skv * 64
+            n_bytes = 2 * (sq + skv) * b * h * 64 * q.element_size()
+            if f32:
+                bms, by = bound_ms(3 * flops, PEAK_TF32_FLOPS, n_bytes)
+            else:
+                bms, by = bound_ms(flops, PEAK_BF16_FLOPS, n_bytes)
+                exp_ms = b * h * sq * skv / (EXP2_PER_SM_CLOCK * n_sm * clock) * 1e3
+                bms, by = max((bms, by), (exp_ms, "operations"))
+            out_rows[name][label] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                "library_ms": min(library.values()) if library else None,
+                "library_backends_ms": library, "max_abs_err": err}
+            print(f"time {name} {label} [{card}]: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+                  f"bound {bms:.4f} ms ({by}), sdpa " + ", ".join(
+                      f"{n[5:]} {t:.4f} ms" for n, t in library.items()), flush=True)
+            del q, k, v, qt, kt, vt, out, lse
+            torch.cuda.empty_cache()
+    return out_rows
+
+
+def _train_precision(cfg, precision: str):
+    """``cfg`` with train.precision ``precision`` (the encoder models' dtype)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, precision=precision))
+
+
+def _one_card_mesh(shape: tuple[int, int, int], device: str = "cuda:0"):
+    from segma_tpu_torch.parallel import make_mesh
+
+    data, seq, model = shape
+    return make_mesh(devices=[device] * (data * seq * model), data=data, seq=seq, model=model)
+
+
+def _two_chunks(pcm: np.ndarray):
+    """The first two 4 s chunks of an int16 waveform, as f32 in [-1, 1)."""
+    import torch
+
+    return torch.from_numpy(pcm[: 2 * 64_000].reshape(2, 64_000).astype(np.float32) / 32768)
+
+
+def _bf16_limit(name: str, cfg, chunks) -> float:
+    """The card's bf16 rule for a mesh run against the meshless one:
+    LOGITS_BF16_FACTOR times the CPU's bf16 distance from its f32 model on
+    ``chunks`` (same seed-0 weights), or LOGITS_ATOL."""
+    import warnings
+
+    import torch
+
+    from segma_tpu_torch.models import Models
+    from segma_tpu_torch.utils.encoders import MultiLabelEncoder
+
+    out = {}
+    for precision in ("bf16", "f32"):
+        c = _train_precision(cfg, precision)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # random encoder weights, on purpose
+            m = Models[name](MultiLabelEncoder(c.data.classes), c, device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+        out[precision] = m.apply(chunks).double()
+    cpu_off = float((out["bf16"] - out["f32"]).abs().max())
+    limit = max(LOGITS_ATOL, LOGITS_BF16_FACTOR * cpu_off)
+    print(f"tensor_seq {name}: the CPU's bf16 logits are {cpu_off:.3e} from its f32 model on "
+          f"{len(chunks)} chunks: the card's rule allows {limit:.3e}", flush=True)
+    return limit
+
+
+def _mesh_serving(card: str, label: str, model, wav: Path, out: Path, meshes, limit: float,
+                  keys: tuple[str, ...], atol_scale: bool = False,
+                  mesh_of=_one_card_mesh) -> dict:
+    """``model`` over the WAV meshless and over each of ``meshes`` (the
+    (data, seq, model) shapes ``mesh_of`` places: by default every member on
+    one card): each mesh's logits within ``limit`` of the meshless ones
+    (times max(1, max|logit|) with ``atol_scale``), its RTTM the meshless
+    one except where the meshless logit lies within ``limit`` of the
+    threshold, every member of a coordinate ending in the same bits on a
+    batch of windows, its launches of ``keys`` (the kernels of the model's
+    path, each launched) the meshless run's times seq x model. Returns the
+    launch counts by mesh."""
+    import torch
+
+    from segma_tpu_torch.inference import InferencePipeline, infer_file
+    from segma_tpu_torch.parallel.collectives import run_members
+
+    labels = list(model.config.data.classes)
+
+    def serve(mesh, tag: str):
+        pipe = InferencePipeline(model, batch_size=INNER_BATCH, device="cuda", mesh=mesh)
+        infer_file(wav, pipe, out / f"{tag}_warm")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        infer_file(wav, pipe, out / tag, dump_logits=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        logits = np.load(out / tag / "logits" / f"{wav.stem}-logits_dict_t.npz")
+        logits = np.stack([logits[k] for k in labels], axis=1)
+        rttm = _rttm_mask(out / tag / "raw_rttm" / f"{wav.stem}.rttm", labels, len(logits))
+        return pipe, wall, launches, logits, rttm
+
+    _, wall0, ref_launches, ref, ref_rttm = serve(None, "meshless")
+    _launched(ref_launches, keys, f"tensor_seq {label} meshless")
+    tol = limit * (max(1.0, float(np.abs(ref).max())) if atol_scale else 1.0)
+    paths, walls = {}, {"meshless": wall0}
+    for shape in meshes:
+        tag = "x".join(map(str, shape))
+        pipe, walls[tag], launches, logits, rttm = serve(mesh_of(shape), tag)
+        per = shape[1] * shape[2]
+        want = {k: ref_launches[k] * per for k in ref_launches}
+        if launches != want:
+            raise AssertionError(f"tensor_seq {label} {tag}: launches {launches}, want {want}")
+        err = check_close(f"tensor_seq {label} {tag} logits against meshless",
+                          torch.from_numpy(logits), torch.from_numpy(ref), tol)
+        diff = rttm != ref_rttm
+        far = diff & (np.abs(ref) > tol)
+        if far.any():
+            raise AssertionError(f"tensor_seq {label} {tag}: {int(far.sum())} RTTM frames "
+                                 f"differ from meshless away from the threshold")
+        chunks = torch.randn((INNER_BATCH, model.config.audio.chunk_duration_f),
+                             generator=torch.Generator().manual_seed(3)).mul_(0.1)
+        for i in range(shape[0]):
+            members = list(pipe.members[i].flat)
+            got = run_members(pipe._pool, [lambda m=m: m.apply(chunks.to(m.device)).cpu()
+                                           for m in members], pipe._groups)
+            if not all(torch.equal(x, got[0]) for x in got[1:]):
+                raise AssertionError(f"tensor_seq {label} {tag}: the members of data "
+                                     f"coordinate {i} end in different bits")
+        paths[f"tensor_seq {label} {tag}"] = launches
+        print(f"check tensor_seq {label} {tag} [{card}]: logits {err:.3e} from meshless "
+              f"(limit {tol:.3e}), {int(diff.sum())} RTTM frames differ, all near the "
+              f"threshold; {pipe.members.size} members bit-identical within each coordinate; "
+              f"launches {launches}", flush=True)
+        del pipe
+        torch.cuda.empty_cache()
+    audio_s = len(ref) * 0.02
+    print(f"tensor_seq {label} walls [{card}] over {audio_s:.1f} s of audio, one run each "
+          "after a warm-up (not a scaling figure): " + ", ".join(
+              f"{k} {v:.4f} s" for k, v in walls.items()), flush=True)
+    return paths
+
+
+def phase_tensor_seq(card: str) -> dict:
+    """Tensor and sequence parallelism in serving on the one card, every
+    member of a mesh naming cuda:0 (a thread and a stream each):
+
+    1. the serving slice (full-width Whisper-base ``surgical_hydra``, bf16,
+       seed-0 weights, the ~600 s WAV, inner batch 64) meshless and over each
+       of TENSOR_SEQ_MESHES (``_mesh_serving``: logits within the card's bf16
+       rule of meshless, RTTMs equal but near the threshold, members
+       bit-identical, launches seq x model times meshless);
+    2. the same in f32 at TENSOR_SEQ_F32_MESH, within LOGITS_F32_ATOL x
+       max(1, max|logit|) of the meshless f32 run;
+    3. HuBERT-base and WavLM-base (bf16) at model=2 over TENSOR_SEQ_FAMILY_S
+       seconds.
+
+    Returns the launch counts by path. The flash forward at a seq member's
+    unequal lengths is checked and timed by ``flash_unequal_checks``."""
+    import dataclasses
+    import warnings
+
+    import torch
+
+    from segma_tpu_torch.inference import _load_mono
+    from segma_tpu_torch.models import Models
+    from segma_tpu_torch.utils.encoders import MultiLabelEncoder
+
+    paths: dict[str, dict] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cfg, model, wav_dir, _, _ = _serving_wav(tmp)
+        wav = wav_dir / "smoke.wav"
+        chunks = _two_chunks(_load_mono(wav))
+        limit = _bf16_limit("surgical_hydra", cfg, chunks)
+        paths.update(_mesh_serving(card, "surgical_hydra", model, wav, tmp / "bf16",
+                                   TENSOR_SEQ_MESHES, limit, SERVE_LAUNCH_KEYS))
+        del model
+        cfg32 = _train_precision(cfg, "f32")
+        model = Models["surgical_hydra"](MultiLabelEncoder(cfg32.data.classes), cfg32,
+                                         device="cuda", generator=torch.Generator().manual_seed(0))
+        paths.update(_mesh_serving(card, "surgical_hydra f32", model, wav, tmp / "f32",
+                                   (TENSOR_SEQ_F32_MESH,), LOGITS_F32_ATOL,
+                                   ("logmel", "flash_attn_fwd_f32"), atol_scale=True))
+        del model
+        torch.cuda.empty_cache()
+        fam_wav = tmp / "family.wav"
+        write_wav(fam_wav, int(TENSOR_SEQ_FAMILY_S * 16_000), seed=7)
+        fam_chunks = _two_chunks(_load_mono(fam_wav))
+        for name in ("surgical_hubert_hydra", "surgical_wavlm_hydra"):
+            if name == "surgical_hubert_hydra":
+                fcfg = surgical_hubert_hydra_config(Path("data/baby_train"))
+            else:
+                fcfg = family_config(name, "data/baby_train")
+            fcfg = dataclasses.replace(fcfg, model=dataclasses.replace(
+                fcfg.model, config=dataclasses.replace(fcfg.model.config,
+                                                       wav_encoder=f"{name}_random")))
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # random encoder weights, on purpose
+                fmodel = Models[name](MultiLabelEncoder(fcfg.data.classes), fcfg, device="cuda",
+                                      generator=torch.Generator().manual_seed(0))
+            flimit = _bf16_limit(name, fcfg, fam_chunks)
+            # WavLM's biased attention is torch ops, as in JAX: no kernel on its path
+            keys = ("flash_attn_fwd",) if name == "surgical_hubert_hydra" else ()
+            paths.update(_mesh_serving(card, name, fmodel, fam_wav, tmp / name, ((1, 1, 2),),
+                                       flimit, keys))
+            del fmodel
+            torch.cuda.empty_cache()
+    return paths
+
+
 def phase_parallel_cards(card: str) -> dict:
     """Data parallelism across the visible cards, when there are several
     (on one card it prints that it is skipped and returns no path; the
@@ -5161,7 +5459,10 @@ def phase_parallel_cards(card: str) -> dict:
        block to its card and of its logits back): logits bit-equal where the
        blocks are whole inner batches (else within LOGITS_ATOL), launches
        equal; one run's wall each (not a scaling study: one run, one host);
-       a request through ``serve_forever(mesh="auto")``;
+       a request through ``serve_forever(mesh="auto")``; with four cards,
+       the serving slice over each of TENSOR_SEQ_CARD_MESHES (tensor and
+       sequence parallelism, ``_mesh_serving``'s gates) and a request
+       through ``serve_forever`` over (2, 1, 2);
     2. training, HuBERT-base widths at PARALLEL_LAYERS layers, 8 crops a
        card: one f32 step of an NCCL world of one rank per card against one
        process's global-batch step (``_world_step``), and ``_cards_fits``.
@@ -5171,7 +5472,8 @@ def phase_parallel_cards(card: str) -> dict:
 
     import torch
 
-    from segma_tpu_torch.parallel import auto_mesh, replicate
+    from segma_tpu_torch.inference import _load_mono
+    from segma_tpu_torch.parallel import auto_mesh, make_mesh, replicate
 
     n = torch.cuda.device_count()
     if n < 2:
@@ -5197,6 +5499,21 @@ def phase_parallel_cards(card: str) -> dict:
         paths.update({f"parallel serve cards {k}": v for k, v in serve.items()})
         paths["parallel serve cards request"] = _serve_request(card, cfg, model, tmp, "auto",
                                                                f"{mesh.shape['data']} cards")
+        if n >= 4:  # tensor and sequence parallelism across four cards
+            cards = [f"cuda:{i}" for i in range(4)]
+
+            def on_cards(shape):
+                d, s, m = shape
+                return make_mesh(devices=cards[: d * s * m], data=d, seq=s, model=m)
+
+            limit = _bf16_limit("surgical_hydra", cfg,
+                                _two_chunks(_load_mono(wav_dir / "smoke.wav")))
+            tp = _mesh_serving(card, "surgical_hydra 4 cards", model, wav_dir / "smoke.wav",
+                               tmp / "tp", TENSOR_SEQ_CARD_MESHES, limit, SERVE_LAUNCH_KEYS,
+                               mesh_of=on_cards)
+            paths.update({f"parallel serve cards {k}": v for k, v in tp.items()})
+            paths["parallel serve cards request 2x1x2"] = _serve_request(
+                card, cfg, model, tmp, on_cards((2, 1, 2)), "(2, 1, 2) over 4 cards", near=limit)
         del model
         torch.cuda.empty_cache()
 
@@ -5271,6 +5588,10 @@ def main() -> int:
     rows.extend(flash_f32_checks(card))
     with torch.inference_mode():
         fast = fast_context_kernel_times(card)
+        unequal = flash_unequal_checks(card)
+    for row in rows:  # a seq member's query block against its group's keys
+        if row["name"] in unequal:
+            row["unequal_lengths"] = unequal[row["name"]]
     for row in rows:
         if row["name"] in fast:
             row["fast_context"] = fast[row["name"]]
@@ -5292,6 +5613,7 @@ def main() -> int:
     device_cache = phase(phase_device_cache)
     families = phase(phase_model_families)
     parallel = phase(phase_parallel)
+    tensor_seq = phase(phase_tensor_seq)
     parallel.update(phase(phase_parallel_cards))
     # the f32 phases run under PyTorch's defaults, which let cuDNN take TF32:
     # the f32 model itself keeps its convolutions and LSTM in IEEE f32
@@ -5329,6 +5651,8 @@ def main() -> int:
             row[f"launches_parallel_{kind}"] = sum(
                 counts[row["name"]] for path, counts in parallel.items()
                 if path.startswith(f"parallel {kind}"))
+        # the tensor- and sequence-parallel serving paths, every mesh together
+        row["launches_tensor_seq"] = sum(counts[row["name"]] for counts in tensor_seq.values())
     by_name["logmel"]["vad_train"] = families["logmel"]
     # the artifacts' runs: the bf16 one in its loader child, the f32 one here
     for name, path in (("logmel", "export child bf16"), ("flash_attn_fwd", "export child bf16"),
@@ -5342,7 +5666,7 @@ def main() -> int:
              "train_cli": train_cli, **device_cache,
              **{f"families {label}": counts for label, counts in families["launches"].items()},
              **{f"live serve {label}": counts for label, counts in live.items()},
-             **export, **parallel}
+             **export, **parallel, **tensor_seq}
     print(f"kernels: {json.dumps(paths)}", flush=True)
     print(card, flush=True)
     print(json.dumps({

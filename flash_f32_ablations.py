@@ -218,7 +218,7 @@ def fwd_launcher(lib):
     import torch
 
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.segma_flash_attn_fwd_f32.argtypes = [p] * 5 + [i] * 3 + [f, p]
+    lib.segma_flash_attn_fwd_f32.argtypes = [p] * 5 + [i] * 4 + [f, p]
     lib.segma_flash_attn_fwd_f32.restype = i
 
     def fwd(q, k, v, sm):
@@ -226,7 +226,7 @@ def fwd_launcher(lib):
         out = torch.empty_like(q)
         lse = torch.empty((b, h, s), device=q.device)
         err = lib.segma_flash_attn_fwd_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, s, h,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, s, s, h,
             sm * math.log2(math.e), torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed with CUDA error {err}")

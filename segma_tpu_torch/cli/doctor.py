@@ -6,8 +6,9 @@ One command that says whether a machine is ready to train or serve: the
 versions, the card, a timed round-trip to it with a real data dependency,
 the kernel library's build state (built, stale or absent, and whether
 ``nvcc`` is there to build it), the native WAV reader, host memory, and with
-``--config`` the mesh its ``mesh`` section resolves to over the visible
-cards (``parallel.make_mesh``). Exit code 0: healthy;
+``--config`` the (data, seq, model) mesh its ``mesh`` section resolves to
+over the visible cards (``parallel.make_mesh``) and what serves over it
+(``parallel.mesh.describe``). Exit code 0: healthy;
 1: a check failed (so 1 on a machine without a card).
 """
 
@@ -102,11 +103,11 @@ def main(argv: list[str] | None = None) -> None:
     if args.config:
         try:
             from segma_tpu_torch.config import load_config
-            from segma_tpu_torch.parallel.mesh import make_mesh
+            from segma_tpu_torch.parallel.mesh import describe, make_mesh
 
             mesh = make_mesh(load_config(args.config))
             cards = ", ".join(str(d) for d in mesh.devices.flat)
-            healthy &= _row("mesh", True, f"{mesh.shape} on {cards}")
+            healthy &= _row("mesh", True, f"{mesh.shape} on {cards}: serves as {describe(mesh)}")
         except Exception as e:  # noqa: BLE001 — reported as the row
             healthy = _row("mesh", False, f"{type(e).__name__}: {e}")
 

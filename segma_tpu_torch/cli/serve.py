@@ -54,8 +54,8 @@ def main(argv: list[str] | None = None) -> None:
     )
     parser.add_argument(
         "--mesh", default="auto", choices=["auto", "off"],
-        help="auto: with several visible cards, a live model's one-shot requests split "
-        "their windows over one replica per card (config mesh.data); off: one card",
+        help="auto: with several visible cards, a live model's one-shot requests run "
+        "over the config's (data, seq, model) mesh (config mesh.*); off: one card",
     )
     parser.add_argument(
         "--transport", default="int16", choices=["int16", "mulaw", "adpcm", "f32"],

@@ -111,6 +111,18 @@ def _flax_path(name: str) -> list[str]:
     return parts
 
 
+def flax_path(module: torch.nn.Module, name: str) -> list[str]:
+    """The flax path of ``module``'s state entry ``name`` (its parts):
+    ``encoder.layers.0.fc1.weight`` is ``encoder/layers_0/fc1/kernel``."""
+    *mods, leaf = name.split(".")
+    owner = module.get_submodule(".".join(mods))
+    if leaf == "weight" and isinstance(owner, (torch.nn.Linear, torch.nn.Conv1d)):
+        leaf = "kernel"
+    elif leaf == "weight" and isinstance(owner, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
+        leaf = "scale"
+    return [*_flax_path(".".join(mods)), leaf]
+
+
 def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", torch.float32).numpy()
 
@@ -160,15 +172,12 @@ def torch_to_flax(
     for name, t in state.items():
         if name.split(".")[0] == _LSTM_MODULE:
             continue
-        *mods, leaf = name.split(".")
-        owner = module.get_submodule(".".join(mods))
+        *parts, leaf = flax_path(module, name)
         a = _numpy(t)
-        if leaf == "weight" and isinstance(owner, (torch.nn.Linear, torch.nn.Conv1d)):
-            leaf, a = "kernel", (a.transpose(2, 1, 0) if a.ndim == 3 else a.T)
-        elif leaf == "weight" and isinstance(owner, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
-            leaf = "scale"
+        if leaf == "kernel":
+            a = a.transpose(2, 1, 0) if a.ndim == 3 else a.T
         node = tree
-        for part in _flax_path(".".join(mods)):
+        for part in parts:
             node = node.setdefault(part, {})
         node[leaf] = np.ascontiguousarray(a)
     prefix = f"{_LSTM_MODULE}.lstm."

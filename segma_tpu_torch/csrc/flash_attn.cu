@@ -6,35 +6,40 @@
 // SegmentIds masking of the padding.
 //
 // What it computes: out = softmax(q k^T * sm_scale) v for every (batch, head),
-// on q, k, v and out laid out (B, S, H, 64) as the encoders produce them, with
-// an online softmax (running max and sum, exp2 domain) and the output
-// accumulated in f32. Given a non-null lse pointer it also writes each row's
-// log-sum-exp of the scaled scores (natural log, f32, (B, H, S)), which the
-// backward kernels (flash_attn_bwd.cu) use to recompute P; the output is the
-// same bits with or without it.
+// on q and out laid out (B, Sq, H, 64) and k and v (B, Skv, H, 64) as the
+// encoders produce them, with an online softmax (running max and sum, exp2
+// domain) and the output accumulated in f32. Sq = Skv is self-attention;
+// under sequence parallelism a member's block of Sq query rows attends to
+// the Skv keys gathered from every member of its seq group. Given a non-null
+// lse pointer it also writes each row's log-sum-exp of the scaled scores
+// (natural log, f32, (B, H, Sq)), which the backward kernels
+// (flash_attn_bwd.cu, equal lengths only) use to recompute P; the output is
+// the same bits with or without it.
 //
 // What bounds it on this card: two ceilings of about the same height. The
-// products are 4 S^2 64 FLOP per (batch, head) against 8 S 64 bytes, so at
-// Whisper's S = 1500 they are bound by the bf16 tensor-core rate, not by
-// memory: 295 GFLOP at (64, 1500, 8, 64), 0.298 ms at 989 TFLOP/s. The
-// softmax needs S^2 exp2 per (batch, head), and the special-function unit
+// products are 4 Sq Skv 64 FLOP per (batch, head) against 4 (Sq + Skv) 64
+// bytes, so at Whisper's S = 1500 they are bound by the bf16 tensor-core
+// rate, not by memory: 295 GFLOP at (64, 1500, 8, 64), 0.298 ms at 989
+// TFLOP/s (half of that for a seq member's 750 rows against 1500 keys). The
+// softmax needs Sq Skv exp2 per (batch, head), and the special-function unit
 // gives 16 a clock per SM: 1.15e9 exp2 at that shape, 0.276 ms over 132 SMs
 // at 1.98 GHz. Run one after the other, the two add up; the design overlaps
 // them.
 //
-// Design. A work item is 128 query rows of one (batch, head). The grid is
+// Design. A work item is 128 query rows of one (batch, head): ceil(Sq / 128)
+// items per (batch, head), each walking ceil(Skv / 128) key tiles. The grid is
 // one block per SM (fewer if there are fewer items); each block walks the
 // items blockIdx.x, + gridDim.x, ..., so one block's next item loads while
 // its last one finishes. A block is three warpgroups:
 //  - Warpgroup 0 is the producer: one thread issues TMA loads through 3-D
-//    tensor maps {H 64, S, B} with 128-byte swizzle, each item's Q once its
+//    tensor maps {H 64, Sq or Skv, B} with 128-byte swizzle, each item's Q once its
 //    previous Q is read, and K and V in tiles of 128 keys into a ring of
 //    STAGES shared-memory stages, each with a full mbarrier (TMA bytes) and an
-//    empty one (consumer warps). The maps zero-fill rows past S within the
-//    batch, so no tile reads the next batch. It keeps 24 registers.
+//    empty one (consumer warps). The maps zero-fill rows past Sq (Q) and Skv
+//    (K, V) within the batch, so no tile reads the next batch. It keeps 24 registers.
 //  - Warpgroups 1 and 2 are consumers of 64 query rows each, with 240
 //    registers. Per key tile: S = Q K^T as 4 wgmma m64n128k16 with both
-//    operands K-major in shared memory; keys at or past S set to -inf; the
+//    operands K-major in shared memory; keys at or past Skv set to -inf; the
 //    online softmax in registers; P converted to bf16 in registers, where it
 //    is the A operand of O += P V, 8 wgmma m64n64k16 with V read straight from
 //    its TMA tile as an MN-major B operand (no transpose).
@@ -42,7 +47,10 @@
 //    barriers: each issues Q K_j^T and P_{j-1} V_{j-1}, hands the turn to the
 //    other, and computes the softmax of tile j as soon as its scores are in,
 //    while its own P V and the other consumer's products run.
-//  - Epilogue: O times 1 / l, cast to bf16, stored for rows < S only.
+//  - Epilogue: O times 1 / l, cast to bf16, stored for rows < Sq only.
+// The launch picks one of two instantiations: at Sq = Skv the kernel is
+// compiled with one length, as it was before it took two (taking both cost
+// 4.6% at the serving shape, flash_ab.py), at Sq != Skv with both.
 // No atomics, and an item's arithmetic does not depend on which block runs
 // it: two calls on the same inputs give the same bits.
 
@@ -93,7 +101,7 @@ __device__ __forceinline__ void pv_product(float (&acc)[32], const uint32_t (&p)
 }
 
 // One key tile of the online softmax, in the exp2 domain: mask keys at or
-// past S (the first `valid` keys of this tile are real), update the running
+// past Skv (the first `valid` keys of this tile are real), update the running
 // max m and sum l of rows r and r + 8, and leave the tile's probabilities in
 // s and the factor the O accumulator must take in a0, a1. Layout of the
 // m64n128k16 accumulator (sm90.cuh): s[4 n + 2 i + e] is (row + 8 i, key
@@ -183,11 +191,17 @@ __device__ __forceinline__ Item decode(int item, int n_qt, int H) {
   return {item - bh * n_qt, bh % H, bh / H};
 }
 
+// kEqual: self-attention (Skv = Sq), compiled with one length as the kernel
+// was before it took two (the same code, so the same time); otherwise a seq
+// member's Sq query rows against skv_arg keys.
+template <bool kEqual>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ o,
-                 float* __restrict__ lse, int S, int H, int n_items, float scale_log2) {
+                 float* __restrict__ lse, int Sq, int skv_arg, int H, int n_items,
+                 float scale_log2) {
+  const int Skv = kEqual ? Sq : skv_arg;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * STAGES + 2];  // full[], empty[], q full, q empty
 
@@ -201,8 +215,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   const uint32_t q_full = smem_addr(&bars[2 * STAGES]);
   const uint32_t q_empty = smem_addr(&bars[2 * STAGES + 1]);
 
-  const int n_qt = (S + BQ - 1) / BQ;
-  const int n_tiles = (S + BK - 1) / BK;
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int n_tiles = (Skv + BK - 1) / BK;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -290,7 +304,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
         __syncwarp();
         if (lane == 0) mbar_arrive(q_empty);  // Q is read
       }
-      softmax_tile(s, m0, m1, l0, l1, a0, a1, S, quad, scale_log2);
+      softmax_tile(s, m0, m1, l0, l1, a0, a1, Skv, quad, scale_log2);
       rescale_and_pack(acc, p, s, a0, a1);
 
       for (int j = 1; j < n_tiles; ++j) {
@@ -311,7 +325,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
           __syncwarp();
           if (lane == 0) mbar_arrive(q_empty);  // Q is read
         }
-        softmax_tile(s, m0, m1, l0, l1, a0, a1, S - j * BK, quad, scale_log2);
+        softmax_tile(s, m0, m1, l0, l1, a0, a1, Skv - j * BK, quad, scale_log2);
         wgmma_wait<0>();  // P_{j-1} V_{j-1}
         fence_regs<32>(acc);
         fence_regs<32>(p);
@@ -340,18 +354,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       const int r1 = r0 + 8;
       if (lse != nullptr && quad == 0) {
         // ln(sum exp(score * sm_scale)) = (max * scale_log2 + log2(sum)) * ln 2
-        const size_t row0 = ((size_t)it.b * H + it.h) * S;
-        if (r0 < S) lse[row0 + r0] = (m0 * scale_log2 + log2f(l0)) * 0.6931471805599453f;
-        if (r1 < S) lse[row0 + r1] = (m1 * scale_log2 + log2f(l1)) * 0.6931471805599453f;
+        const size_t row0 = ((size_t)it.b * H + it.h) * Sq;
+        if (r0 < Sq) lse[row0 + r0] = (m0 * scale_log2 + log2f(l0)) * 0.6931471805599453f;
+        if (r1 < Sq) lse[row0 + r1] = (m1 * scale_log2 + log2f(l1)) * 0.6931471805599453f;
       }
-      __nv_bfloat16* ob = o + (size_t)it.b * S * row_stride + (size_t)it.h * 64 + 2 * quad;
+      __nv_bfloat16* ob = o + (size_t)it.b * Sq * row_stride + (size_t)it.h * 64 + 2 * quad;
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
-        if (r0 < S) {
+        if (r0 < Sq) {
           *reinterpret_cast<uint32_t*>(ob + r0 * row_stride + 8 * n) =
               pack_bf16(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
         }
-        if (r1 < S) {
+        if (r1 < Sq) {
           *reinterpret_cast<uint32_t*>(ob + r1 * row_stride + 8 * n) =
               pack_bf16(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
         }
@@ -362,28 +376,29 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
 
 }  // namespace
 
-// q, k, v, o: contiguous (batch, seq, heads, 64) bf16, 16-byte aligned. lse:
-// null, or contiguous (batch, heads, seq) f32. scale_log2 is sm_scale *
-// log2(e). Launches one block per SM (or fewer, one per work item), each
+// q, o: contiguous (batch, seq_q, heads, 64) bf16; k, v: contiguous (batch,
+// seq_kv, heads, 64) bf16; all 16-byte aligned. lse: null, or contiguous
+// (batch, heads, seq_q) f32. scale_log2 is sm_scale * log2(e). Launches one block per SM (or fewer, one per work item), each
 // looping over work items. Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue when a tensor map cannot be encoded.
 extern "C" int segma_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                                    void* lse, int batch, int seq, int heads,
+                                    void* lse, int batch, int seq_q, int seq_kv, int heads,
                                     float scale_log2, void* stream) {
   alignas(64) CUtensorMap map_q, map_k, map_v;
-  if (!bshd_tensor_map(&map_q, q, batch, seq, heads, BQ) ||
-      !bshd_tensor_map(&map_k, k, batch, seq, heads, BK) ||
-      !bshd_tensor_map(&map_v, v, batch, seq, heads, BK)) {
+  if (!bshd_tensor_map(&map_q, q, batch, seq_q, heads, BQ) ||
+      !bshd_tensor_map(&map_k, k, batch, seq_kv, heads, BK) ||
+      !bshd_tensor_map(&map_v, v, batch, seq_kv, heads, BK)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int device = 0, n_sm = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-  const int n_items = (seq + BQ - 1) / BQ * heads * batch;
-  cudaFuncSetAttribute(flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  flash_fwd_kernel<<<n_items < n_sm ? n_items : n_sm, THREADS, SMEM_BYTES,
-                     static_cast<cudaStream_t>(stream)>>>(
-      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), seq, heads,
-      n_items, scale_log2);
+  const int n_items = (seq_q + BQ - 1) / BQ * heads * batch;
+  const auto kernel = seq_q == seq_kv ? flash_fwd_kernel<true> : flash_fwd_kernel<false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  kernel<<<n_items < n_sm ? n_items : n_sm, THREADS, SMEM_BYTES,
+           static_cast<cudaStream_t>(stream)>>>(
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), seq_q,
+      seq_kv, heads, n_items, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,20 +7,23 @@
 // runs in f32, with the per-row log-sum-exp when the encoder trains.
 //
 // What it computes: out = softmax(q k^T * sm_scale) v for every (batch,
-// head), on q, k, v and out laid out (B, S, H, 64) as the encoders produce
-// them. Given a non-null lse pointer it also writes each row's log-sum-exp of
-// the scaled scores (natural log, f32, (B, H, S)) for the backward
-// (flash_attn_bwd_f32.cu); the output is the same bits with or without it.
+// head), on q and out laid out (B, Sq, H, 64) and k and v (B, Skv, H, 64) as
+// the encoders produce them. Sq = Skv is self-attention; under sequence
+// parallelism a member's block of Sq query rows attends to the Skv keys
+// gathered from its seq group. Given a non-null lse pointer it also writes
+// each row's log-sum-exp of the scaled scores (natural log, f32, (B, H, Sq))
+// for the backward (flash_attn_bwd_f32.cu, equal lengths only); the output is
+// the same bits with or without it.
 //
-// What bounds it on this card: two S x S x 64 products, 4 S^2 64 FLOP per
-// (batch, head), against 16 S 64 bytes and the lse: 295 GFLOP at (64, 1500,
-// 8, 64), 4.40 ms at the 67 TFLOP/s of IEEE f32 on the CUDA cores, 1.79 ms as
-// 3xTF32 (three TF32 products each) at the tensor cores' 495 TFLOP/s; 0.058
-// and 0.024 ms at (32, 199, 12, 64), where the bytes (19.6 MB) take 0.006
-// ms. This design pads the queries to items of 128 and the keys to tiles of
-// 32: 1536 x 1504 at S = 1500 (+2.7%), 256 x 224 at S = 199 (+45%). The S^2
-// exp2 (1.15e9 at the serving shape, 0.28 ms on the special-function units)
-// run beside the products.
+// What bounds it on this card: two Sq x Skv x 64 products, 4 Sq Skv 64 FLOP
+// per (batch, head), against 8 (Sq + Skv) 64 bytes and the lse. At Sq = Skv =
+// S: 295 GFLOP at (64, 1500, 8, 64), 4.40 ms at the 67 TFLOP/s of IEEE f32 on
+// the CUDA cores, 1.79 ms as 3xTF32 (three TF32 products each) at the
+// tensor cores' 495 TFLOP/s; 0.058 and 0.024 ms at (32, 199, 12, 64), where
+// the bytes (19.6 MB) take 0.006 ms. This design pads the queries to items
+// of 128 and the keys to tiles of 32: 1536 x 1504 at S = 1500 (+2.7%), 256 x
+// 224 at S = 199 (+45%). The Sq Skv exp2 (1.15e9 at the serving shape, 0.28
+// ms on the special-function units) run beside the products.
 //
 // Why 3xTF32. One TF32 product keeps 11 bits of each operand and misses the
 // f32 bar (atol 2e-5 against float64) 18 times over at S = 199 in the
@@ -35,15 +38,17 @@
 //
 // Design (the tiles and products it shares with the backward are sm90.cuh's
 // namespace tf32x3). No atomics, and an item's arithmetic does not depend on
-// which block runs it: two calls on the same inputs give the same bits.
+// which block runs it: two calls on the same inputs give the same bits. The
+// launch picks one of two instantiations: at Sq = Skv the kernel is compiled
+// with one length, as it was before it took two, at Sq != Skv with both.
 //  - A work item is 128 query rows of one (batch, head): item = (b H + h)
-//    n_qt + qt, so the items in flight are the query tiles of a few (batch,
+//    n_qt + qt, n_qt = ceil(Sq / 128), each walking ceil(Skv / 32) key tiles, so the items in flight are the query tiles of a few (batch,
 //    head)s, which read their K and V from L2. One persistent block per SM
 //    (fewer if there are fewer items) walks the items blockIdx.x, +
 //    gridDim.x, ... A block is three warpgroups.
-//  - Warpgroup 0, thread 0: TMA through 3-D tensor maps {H 64, S, B} of f32,
+//  - Warpgroup 0, thread 0: TMA through 3-D tensor maps {H 64, Sq or Skv, B} of f32,
 //    each 64 columns as two boxes of 32 (128 bytes, 128-byte swizzle), rows
-//    past S zero-filled: K and V in tiles of BT = 32 keys through a ring of
+//    past Sq or Skv zero-filled: K and V in tiles of BT = 32 keys through a ring of
 //    STAGES stages (full, ready and empty mbarriers per stage), and each
 //    item's Q raw, once both consumers are done with the last item's. An
 //    item's first STAGES tiles are loaded before its Q, into the stages the
@@ -65,12 +70,12 @@
 //    P V and the other consumer's products run. The first tile is peeled, so
 //    no wgmma sits under a condition (ptxas would serialise them all).
 //  - Softmax, per row, in the exp2 domain with c = sm_scale log2(e): keys
-//    at or past S get -inf (by index: TMA's zero rows would score 0); the
+//    at or past Skv get -inf (by index: TMA's zero rows would score 0); the
 //    running max m of the raw scores and ms = m c (rounded, __fmul_rn);
 //    alpha = exp2(ms_old - ms); P = exp2(fmaf(s, c, -ms)); l = fmaf(l,
 //    alpha, the thread's sum over its 8 columns); O = fmaf(O, alpha, O_tile).
 //    Key 0 lies in the first tile, so every max is finite from then on.
-//  - Epilogue: the four threads' row sums, O / l for rows < S; the LSE (ms
+//  - Epilogue: the four threads' row sums, O / l for rows < Sq; the LSE (ms
 //    + log2 l) ln 2, from the ms that P was taken against.
 //
 // What limits it (flash_f32_ablations.py fwd on an H100 80GB HBM3 at 700 W,
@@ -240,11 +245,17 @@ __device__ __forceinline__ void rescale_add(float (&o)[32], float (&blk)[32],
   }
 }
 
+// kEqual: self-attention (Skv = Sq), compiled with one length as the kernel
+// was before it took two (the same code, so the same time); otherwise a seq
+// member's Sq query rows against skv_arg keys.
+template <bool kEqual>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
                      const __grid_constant__ CUtensorMap map_v, float* __restrict__ o,
-                     float* __restrict__ lse, int S, int H, int n_items, float c) {
+                     float* __restrict__ lse, int Sq, int skv_arg, int H, int n_items,
+                     float c) {
+  const int Skv = kEqual ? Sq : skv_arg;
   extern __shared__ uint8_t smem_raw[];
   // full, ready and empty per stage; Q full, Q ready, Q empty
   __shared__ __align__(8) uint64_t bars[3 * STAGES + 3];
@@ -256,8 +267,8 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap map_q,
   const uint32_t q_full = smem_addr(&bars[3 * STAGES]);
   const uint32_t q_ready = q_full + 8;
   const uint32_t q_empty = q_full + 16;
-  const int n_qt = (S + BQ - 1) / BQ;
-  const int n_tiles = (S + BT - 1) / BT;
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int n_tiles = (Skv + BT - 1) / BT;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
@@ -371,7 +382,7 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_wait<0>();
     join(lg, sm);
     if (n_tiles == 1) release(q_empty, lane);  // Q is read
-    softmax_tile(lg, m, ms, l, alpha, S, quad, c);
+    softmax_tile(lg, m, ms, l, alpha, Skv, quad, c);
     acc_frags(ph, pl, lg);
 
     for (int j = 1; j < n_tiles; ++j) {
@@ -389,7 +400,7 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_wait<1>();  // the scores of tile j
       join(lg, sm);
       if (j + 1 == n_tiles) release(q_empty, lane);  // Q is read
-      softmax_tile(lg, m, ms, l, next, S - j * BT, quad, c);
+      softmax_tile(lg, m, ms, l, next, Skv - j * BT, quad, c);
       wgmma_wait<0>();  // P_{j-1} V_{j-1}
       fence_regs<16>(ph);
       fence_regs<16>(pl);
@@ -412,13 +423,13 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap map_q,
     ++tile;
 
     const int r0 = it.rt * BQ + cw * 64 + row;
-    float* ob = o + (size_t)it.b * S * row_stride + (size_t)it.h * 64 + 2 * quad;
+    float* ob = o + (size_t)it.b * Sq * row_stride + (size_t)it.h * 64 + 2 * quad;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
       const int r = r0 + 8 * i;
-      if (r < S) {
+      if (r < Sq) {
         const float inv = 1.f / l[i];
 #pragma unroll
         for (int n = 0; n < 8; ++n) {
@@ -427,7 +438,7 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap map_q,
         }
         // ln(sum exp(score * sm_scale)) = (ms + log2(l)) ln 2
         if (lse != nullptr && quad == 0) {
-          lse[((size_t)it.b * H + it.h) * S + r] = (ms[i] + log2f(l[i])) * LN2;
+          lse[((size_t)it.b * H + it.h) * Sq + r] = (ms[i] + log2f(l[i])) * LN2;
         }
       }
     }
@@ -436,29 +447,30 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap map_q,
 
 }  // namespace
 
-// q, k, v, o: contiguous (batch, seq, heads, 64) f32, 16-byte aligned. lse:
-// null, or contiguous (batch, heads, seq) f32. scale_log2 is sm_scale *
-// log2(e). Launches one block per SM (or fewer, one per work item), each
+// q, o: contiguous (batch, seq_q, heads, 64) f32; k, v: contiguous (batch,
+// seq_kv, heads, 64) f32; all 16-byte aligned. lse: null, or contiguous
+// (batch, heads, seq_q) f32. scale_log2 is sm_scale * log2(e). Launches one block per SM (or fewer, one per work item), each
 // looping over work items. Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue when a tensor map cannot be encoded.
 extern "C" int segma_flash_attn_fwd_f32(const void* q, const void* k, const void* v, void* o,
-                                        void* lse, int batch, int seq, int heads,
-                                        float scale_log2, void* stream) {
+                                        void* lse, int batch, int seq_q, int seq_kv,
+                                        int heads, float scale_log2, void* stream) {
   alignas(64) CUtensorMap map_q, map_k, map_v;
-  if (!bshd_tensor_map(&map_q, q, batch, seq, heads, 64, true) ||
-      !bshd_tensor_map(&map_k, k, batch, seq, heads, BT, true) ||
-      !bshd_tensor_map(&map_v, v, batch, seq, heads, BT, true)) {
+  if (!bshd_tensor_map(&map_q, q, batch, seq_q, heads, 64, true) ||
+      !bshd_tensor_map(&map_k, k, batch, seq_kv, heads, BT, true) ||
+      !bshd_tensor_map(&map_v, v, batch, seq_kv, heads, BT, true)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int device = 0, n_sm = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-  const int n_items = (seq + BQ - 1) / BQ * heads * batch;
-  cudaFuncSetAttribute(flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       SMEM_BYTES);
-  flash_fwd_f32_kernel<<<n_items < n_sm ? n_items : n_sm, THREADS, SMEM_BYTES,
-                         static_cast<cudaStream_t>(stream)>>>(
-      map_q, map_k, map_v, static_cast<float*>(o), static_cast<float*>(lse), seq, heads, n_items,
-      scale_log2);
+  const int n_items = (seq_q + BQ - 1) / BQ * heads * batch;
+  const auto kernel =
+      seq_q == seq_kv ? flash_fwd_f32_kernel<true> : flash_fwd_f32_kernel<false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  kernel<<<n_items < n_sm ? n_items : n_sm, THREADS, SMEM_BYTES,
+           static_cast<cudaStream_t>(stream)>>>(
+      map_q, map_k, map_v, static_cast<float*>(o), static_cast<float*>(lse), seq_q, seq_kv,
+      heads, n_items, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }

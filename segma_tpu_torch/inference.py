@@ -14,13 +14,17 @@ lengths are bucketed in chunks to powers of two; long files go in segments of
 at most ``max_bucket_chunks`` chunks. Files of one bucket and transport dtype
 can share a dispatch (``logits_for_audios_async``, ``--pack-files``).
 
-Over a data mesh (``mesh=``, ``--mesh auto`` with several cards) the model
-has one replica per data coordinate, and every dispatch's window stack is cut
-into contiguous blocks, one per replica, in order (``parallel.mesh``): each
-replica runs its block's inner batches on its own card and CUDA stream, from
-a thread of its own, and the blocks' logits are gathered in order on the
-first card, where the decode runs. Buckets hold at least one chunk per
-replica.
+Over a mesh (``mesh=``, ``--mesh auto`` with several cards) every dispatch's
+window stack is cut into contiguous blocks, one per data coordinate, in
+order (``parallel.mesh``). A data-only mesh has one replica of the model per
+coordinate; under ``model`` or ``seq`` each coordinate has ``seq * model``
+members, module copies that hold their shards (``parallel.sharding``) and
+meet in the collectives of their groups (``parallel.collectives``). Every
+member runs its coordinate's block, in the meshless pipeline's inner
+batches, on its own card and CUDA stream, from a thread of its own; member
+(seq 0, model 0) of each coordinate supplies the block's logits, gathered
+in order on the first card, where the decode runs. Buckets hold at least
+one chunk per data coordinate.
 
 Transports, the samples copied to the device: int16 (default; exact, half
 the bytes of f32), int8 mu-law, f32, and 4-bit block ADPCM (``ops/adpcm``,
@@ -39,6 +43,7 @@ remain; a run of frames [s, e] decodes to [max(0, rf_start(s)), rf_end(e) + 1].
 
 from __future__ import annotations
 
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -57,9 +62,8 @@ from segma_tpu_torch.ops import cached_constant
 from segma_tpu_torch.ops.adpcm import (
     AdpcmAudio, adpcm_decode, adpcm_encode, adpcm_encode_audio, n_blocks,
 )
-from segma_tpu_torch.parallel.mesh import (
-    Mesh, auto_mesh, block_bounds, replicate, require_data_only,
-)
+from segma_tpu_torch.parallel.collectives import run_members
+from segma_tpu_torch.parallel.mesh import Mesh, auto_mesh, block_bounds, replicate
 from segma_tpu_torch.utils.conversions import frames_to_seconds
 from segma_tpu_torch.utils.encoders import MultiLabelEncoder
 from segma_tpu_torch.utils.io import get_all_samples, get_audio_info, read_pcm16_mono
@@ -173,8 +177,9 @@ class _QueuedDecode:
 
 @dataclass
 class InferencePipeline:
-    """Batched inference for one model on one device, or over the data axis
-    of ``mesh``, whose first device is then the pipeline's ``device``.
+    """Batched inference for one model on one device, or over ``mesh`` (any
+    (data, seq, model) shape), whose first device is then the pipeline's
+    ``device``.
 
     ``transport``: "auto" ships buffers as they are (their dtype selects the
     expansion on the device: f32, int16, int8 mu-law, or uint8 ADPCM bytes);
@@ -194,22 +199,39 @@ class InferencePipeline:
         if self.transport not in ("auto", "adpcm"):
             raise ValueError(f"transport must be 'auto' or 'adpcm', got {self.transport!r}")
         if self.mesh is not None:
-            require_data_only(self.mesh)
             if self.mesh.primary.type != self.device.type:
                 raise ValueError(f"device {self.device} and the mesh's first device "
                                  f"{self.mesh.primary} differ in type")
             self.device = self.mesh.primary
         if self.model.device != self.device:
             self.model.to(self.device)
-        # the replicas, their CUDA streams, and a thread for each replica:
-        # one thread enqueueing every card's inner batches would hold the
-        # later cards idle while it enqueues the earlier ones
-        self.replicas = [self.model] if self.mesh is None else replicate(self.model, self.mesh)
+        # the members (a (data, seq, model) array of models), their CUDA
+        # streams, and a thread for each member: one thread enqueueing every
+        # card's inner batches would hold the later cards idle while it
+        # enqueues the earlier ones, and a member's collectives wait for its
+        # peers; ``replicas`` are the members that supply each data
+        # coordinate's logits
+        self.members = np.empty((1, 1, 1), dtype=object)
+        self.members[0, 0, 0] = self.model
+        self._groups = []
+        if self.mesh is not None and self.mesh.devices[0].size > 1:
+            from segma_tpu_torch.parallel.sharding import member_groups, shard_model
+
+            self.members = shard_model(self.model, self.mesh)
+            self._groups = list({g for m in self.members.flat for g in member_groups(m.module)})
+        elif self.mesh is not None:
+            self.members = np.empty(self.mesh.devices.shape, dtype=object)
+            self.members[:, 0, 0] = replicate(self.model, self.mesh)
+        self.replicas = list(self.members[:, 0, 0])
+        # one dispatch over the members at a time: the pool has a thread per
+        # member, and two calls' members waiting at each other's barriers
+        # would hold every thread
+        self._dispatch = threading.Lock()
         self._pool = self._streams = None
-        if len(self.replicas) > 1:
-            self._pool = ThreadPoolExecutor(len(self.replicas), thread_name_prefix="segma-replica")
-            self._streams = [torch.cuda.Stream(r.device) if r.device.type == "cuda" else None
-                             for r in self.replicas]
+        if self.members.size > 1:
+            self._pool = ThreadPoolExecutor(self.members.size, thread_name_prefix="segma-member")
+            self._streams = [torch.cuda.Stream(m.device) if m.device.type == "cuda" else None
+                             for m in self.members.flat]
         cfg = self.model.config
         step = int(self.model.conv_settings.rf_step)
         self.frame_settings = ConvolutionSettings((step,), (step,), (0,))
@@ -248,7 +270,7 @@ class InferencePipeline:
 
     @property
     def min_chunks(self) -> int:
-        """The smallest bucket: one chunk per replica."""
+        """The smallest bucket: one chunk per data coordinate."""
         return len(self.replicas)
 
     def _batches(self, model: SegmentationModel, chunks: torch.Tensor) -> torch.Tensor:
@@ -267,39 +289,49 @@ class InferencePipeline:
         return torch.cat(out)
 
     def _forward(self, chunks: torch.Tensor) -> torch.Tensor:
-        """The window stack over the replicas: contiguous blocks, in order,
-        each a whole number of inner batches where a block holds more than
-        one (so each replica runs the meshless pipeline's inner batches);
-        each block on its replica's card and stream, from the replica's
-        thread; the logits gathered in order on the first card."""
+        """The window stack over the mesh: contiguous blocks, in order, one
+        per data coordinate, each a whole number of inner batches where a
+        block holds more than one (so each member runs the meshless
+        pipeline's inner batches); every member of a coordinate runs its
+        block on its card and stream, from its thread; the first member's
+        logits are gathered in order on the first card. A member that
+        raises aborts the others' collectives, and its error is raised."""
         primary = self.device
         on_card = primary.type == "cuda"
         main_stream = torch.cuda.current_stream(primary) if on_card else None
         bounds = block_bounds(chunks.shape[0], len(self.replicas), align=self.batch_size)
+        per_coordinate = self.members[0].size
 
-        def run(i: int) -> torch.Tensor | None:
-            lo, hi = bounds[i]
+        def run(k: int) -> torch.Tensor | None:
+            lo, hi = bounds[k // per_coordinate]
             if lo == hi:
                 return None
-            replica, stream = self.replicas[i], self._streams[i]
+            member, stream = self.members.flat[k], self._streams[k]
+            supplies = k % per_coordinate == 0
             if not on_card:
-                return self._batches(replica, chunks[lo:hi])
+                logits = self._batches(member, chunks[lo:hi])
+                return logits if supplies else None
             # this thread's current streams: the caller's on the first card,
-            # the replica's own on its card; a copy between the two cards
-            # orders itself against both, and the replica's stream starts
+            # the member's own on its card; a copy between the two cards
+            # orders itself against both, and the member's stream starts
             # after the chunks and ends before the caller's stream goes on
             with torch.cuda.stream(main_stream), torch.cuda.stream(stream):
                 stream.wait_stream(main_stream)
                 block = chunks[lo:hi]
                 block.record_stream(stream)
-                logits = self._batches(replica, block.to(replica.device, non_blocking=True))
-                logits = logits.to(primary, non_blocking=True)
+                logits = self._batches(member, block.to(member.device, non_blocking=True))
+                if supplies:
+                    logits = logits.to(primary, non_blocking=True)
                 main_stream.wait_stream(stream)
+            if not supplies:
+                return None
             logits.record_stream(main_stream)
             return logits
 
-        futures = [self._pool.submit(run, i) for i in range(len(self.replicas))]
-        return torch.cat([out for out in (f.result() for f in futures) if out is not None])
+        with self._dispatch:
+            outs = run_members(self._pool, [lambda k=k: run(k) for k in range(self.members.size)],
+                               self._groups)
+        return torch.cat([out for out in outs if out is not None])
 
     def _ship(self, padded: np.ndarray) -> torch.Tensor:
         """Host buffer -> device tensor through the transport: uint8 buffers
@@ -865,11 +897,12 @@ def run_inference_on_audios(
     """Batch entry point: inference over ``wavs`` with RTTMs under
     ``output / rttm_dirname``. Returns the files that got an RTTM, in order.
 
-    ``mesh``: "auto" (the default) serves over a data mesh of the visible
-    cards when more than one is visible and ``mesh.data`` is not 1
-    (``parallel.auto_mesh``): one replica of the model per card, each
-    dispatch's windows split over them; "off" or None serves on one card;
-    or a ``parallel.Mesh``.
+    ``mesh``: "auto" (the default) serves over the config's (data, seq,
+    model) mesh of the visible cards when more than one is visible and the
+    config asks for more than one device (``parallel.auto_mesh``): each
+    dispatch's windows split over ``data``, each coordinate's members
+    splitting heads and features over ``model`` and the encoder's time axis
+    over ``seq``; "off" or None serves on one card; or a ``parallel.Mesh``.
 
     The model is ``model`` (which carries its own config), or else the one
     ``checkpoint.load_model_for_inference`` builds from ``config`` (a
@@ -1026,9 +1059,10 @@ def main(argv: list[str] | None = None) -> None:
     )
     parser.add_argument(
         "--mesh", default="auto", choices=["auto", "off"],
-        help="auto: with several visible cards, one replica of the model per card and "
-        "each dispatch's windows split over them (config mesh.data: -1 every card, k "
-        "the first k, 1 one card); off: one card",
+        help="auto: with several visible cards, the config's (data, seq, model) mesh: "
+        "each dispatch's windows split over data (mesh.data: -1 every card, k the first "
+        "k coordinates, 1 one), heads and features over mesh.model, the Whisper "
+        "encoder's time axis over mesh.seq; off: one card",
     )
     parser.add_argument(
         "--pack-files", type=int, default=1,

@@ -34,7 +34,9 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from segma_tpu_torch.models.layers import row_linear
 from segma_tpu_torch.models.whisper.encoder import MultiHeadAttention, layer_norm, linear
+from segma_tpu_torch.parallel.collectives import SOLO
 
 
 @dataclass(frozen=True)
@@ -89,7 +91,11 @@ class FeatureExtractor(nn.Module):
 
 
 class HubertTransformerLayer(nn.Module):
-    """Post-norm block: x + attn -> LN -> x + ff -> LN."""
+    """Post-norm block: x + attn -> LN -> x + ff -> LN. Under tensor
+    parallelism ``intermediate_dense`` holds the member's block of output
+    features and ``output_dense`` is row-parallel (``models.layers.row_linear``)."""
+
+    model_group = SOLO
 
     def __init__(self, cfg: HubertEncoderConfig) -> None:
         super().__init__()
@@ -101,7 +107,8 @@ class HubertTransformerLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = layer_norm(x + self.attention(x), self.layer_norm)
-        h = linear(F.gelu(linear(x, self.intermediate_dense)), self.output_dense)
+        h = row_linear(F.gelu(linear(x, self.intermediate_dense)), self.output_dense,
+                       self.model_group)
         return layer_norm(x + h, self.final_layer_norm)
 
 

@@ -55,6 +55,20 @@ def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     return F.linear(x, layer.weight.to(x.dtype), bias)
 
 
+def row_linear(x: torch.Tensor, layer: nn.Linear, group) -> torch.Tensor:
+    """A row-parallel ``layer`` (JAX's ``P("model", None)`` kernel): its
+    weight holds this member's block of input features, ``x`` the matching
+    block. The members' partial products are summed in f32 over ``group``
+    (``parallel.collectives``), the whole bias added once after the sum, and
+    the result cast to ``x``'s dtype. A group of one is ``linear``."""
+    if group.size == 1:
+        return linear(x, layer)
+    out = group.all_reduce_sum(F.linear(x, layer.weight.to(x.dtype)).float())
+    if layer.bias is not None:
+        out = out + layer.bias.float()
+    return out.to(x.dtype)
+
+
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
     """Inverted dropout with the keep mask drawn from ``generator`` (flax's
     ``nn.Dropout`` semantics: kept values scaled by 1 / (1 - rate))."""

@@ -39,8 +39,10 @@ from torch import nn
 
 from segma_tpu_torch.models.base import no_tf32
 from segma_tpu_torch.models.hubert.encoder import HubertEncoderConfig, HubertTransformer
+from segma_tpu_torch.models.layers import row_linear
 from segma_tpu_torch.models.whisper.encoder import layer_norm, linear
 from segma_tpu_torch.ops import cached_constant
+from segma_tpu_torch.parallel.collectives import SOLO
 
 
 @dataclass(frozen=True)
@@ -78,7 +80,10 @@ def relative_position_buckets(
 
 
 class WavLMAttention(nn.Module):
-    """MHA with the gated relative position bias added to the scores."""
+    """MHA with the gated relative position bias added to the scores; under
+    tensor parallelism head-parallel as ``whisper.encoder.MultiHeadAttention``."""
+
+    model_group = SOLO
 
     def __init__(self, cfg: WavLMEncoderConfig, has_relative_position_bias: bool) -> None:
         super().__init__()
@@ -108,32 +113,46 @@ class WavLMAttention(nn.Module):
         self, x: torch.Tensor, position_bias: torch.Tensor | None
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """(B, T, D) in the compute dtype, the (H, T, T) f32 bias of layer 0
-        (None in layer 0 itself) -> (output, bias)."""
+        (None in layer 0 itself) -> (output, bias). Under tensor parallelism
+        H is the member's heads, whose columns of ``rel_attn_embed`` and
+        ``gru_rel_pos_const`` (replicated, as in JAX) it takes."""
         b, t, d = x.shape
         h = self.n_heads
         hd = d // h
+        model = self.model_group
+        q, k, v = (linear(x, p) for p in (self.q_proj, self.k_proj, self.v_proj))
+        gathered = h % model.size != 0  # heads that do not divide: every member takes all
+        if gathered:
+            q, k, v = (model.all_gather(y, dim=2) for y in (q, k, v))
+        n = h if gathered else h // model.size
+        heads = slice(0, h) if gathered else slice(model.rank * n, (model.rank + 1) * n)
         if position_bias is None:
             if not hasattr(self, "rel_attn_embed"):
                 raise ValueError("the first layer must own the relative position embedding")
             with no_tf32():
-                bias = self.bucket_onehot(t, x.device) @ self.rel_attn_embed
-            position_bias = bias.view(t, t, h).permute(2, 0, 1)
-        proj = linear(x.view(b, t, h, hd).transpose(1, 2), self.gru_rel_pos_linear)
-        gates = torch.sigmoid(proj.view(b, h, t, 2, 4).sum(-1).float())  # (B, H, T, 2)
+                bias = self.bucket_onehot(t, x.device) @ self.rel_attn_embed[:, heads]
+            position_bias = bias.view(t, t, n).permute(2, 0, 1)
+        proj = linear(x.view(b, t, h, hd)[:, :, heads].transpose(1, 2), self.gru_rel_pos_linear)
+        gates = torch.sigmoid(proj.view(b, n, t, 2, 4).sum(-1).float())  # (B, H, T, 2)
         gate_a, gate_b = gates[..., 0:1], gates[..., 1:2]
-        gate_out = gate_a * (gate_b * self.gru_rel_pos_const - 1.0) + 2.0  # (B, H, T, 1)
-        q = (linear(x, self.q_proj).view(b, t, h, hd) * hd**-0.5).transpose(1, 2)
-        k = linear(x, self.k_proj).view(b, t, h, hd).transpose(1, 2)
-        v = linear(x, self.v_proj).view(b, t, h, hd).transpose(1, 2)
+        gate_out = gate_a * (gate_b * self.gru_rel_pos_const[:, heads] - 1.0) + 2.0  # (B, H, T, 1)
+        q = (q.view(b, t, n, hd) * hd**-0.5).transpose(1, 2)
+        k = k.view(b, t, n, hd).transpose(1, 2)
+        v = v.view(b, t, n, hd).transpose(1, 2)
         with no_tf32():  # f32 scores of the compute-dtype q and k
             scores = q.float() @ k.float().transpose(-1, -2)
         attn = torch.softmax(scores + gate_out * position_bias[None], dim=-1).to(x.dtype)
-        out = (attn @ v).transpose(1, 2).reshape(b, t, d)
-        return linear(out, self.out_proj), position_bias
+        out = (attn @ v).transpose(1, 2).reshape(b, t, n * hd)
+        if gathered:
+            width = d // model.size
+            out = out[..., model.rank * width : (model.rank + 1) * width]
+        return row_linear(out, self.out_proj, model), position_bias
 
 
 class WavLMTransformerLayer(nn.Module):
-    """Post-norm block (HuBERT's) with WavLM's attention."""
+    """Post-norm block (HuBERT's, tensor-parallel alike) with WavLM's attention."""
+
+    model_group = SOLO
 
     def __init__(self, cfg: WavLMEncoderConfig, has_relative_position_bias: bool) -> None:
         super().__init__()
@@ -148,7 +167,8 @@ class WavLMTransformerLayer(nn.Module):
     ) -> tuple[torch.Tensor, torch.Tensor]:
         attn_out, position_bias = self.attention(x, position_bias)
         x = layer_norm(x + attn_out, self.layer_norm)
-        h = linear(F.gelu(linear(x, self.intermediate_dense)), self.output_dense)
+        h = row_linear(F.gelu(linear(x, self.intermediate_dense)), self.output_dense,
+                       self.model_group)
         return layer_norm(x + h, self.final_layer_norm), position_bias
 
 

@@ -10,10 +10,13 @@ The log-mel frontend and the 30 s padding run on the device
 (``ops.melspec.whisper_input_features``); with ``fast_context`` the encoder
 runs on the log-mel of the chunk itself, its position table sliced to the
 chunk's frames. The encoder is frozen: it runs without autograd, JAX's
-``stop_gradient``. When ``model.config.encoder`` is a Whisper snapshot
-directory (config.json and model.safetensors or ``*.bin``), the encoder is
-that snapshot's (``whisper/convert.py``); otherwise it is random, sized by
-the name.
+``stop_gradient``. Under sequence parallelism (a member's module copy from
+``parallel.sharding``) the encoder's hidden states are the member's time
+block, gathered over the seq group after the layer tap, where JAX's
+``shard_time_axis`` gathers them. When ``model.config.encoder`` is a
+Whisper snapshot directory (config.json and model.safetensors or
+``*.bin``), the encoder is that snapshot's (``whisper/convert.py``);
+otherwise it is random, sized by the name.
 """
 
 from __future__ import annotations
@@ -121,6 +124,10 @@ class WhisperSegModule(nn.Module):
                 x = self.layer_mix(torch.stack([layer_outputs[i] for i in self.picks]))
             else:
                 x = last
+            # under sequence parallelism the time axis comes back whole here,
+            # after the layer mix (pointwise over time: one gather, not one per
+            # layer): the LSTM and the heads want the whole sequence
+            x = self.encoder.time_group(feats.shape[-1]).all_gather(x, dim=1)
             if self.trunc == "before_lstm":
                 x = x[:, : self.n_windows]
             if self.mixer == "lstm":

@@ -12,7 +12,10 @@ the forward kernel (saving the per-row log-sum-exp) and whose backward
 launches the backward kernels; it runs for every sequence length in bf16 or
 f32 at head_dim 64 and raises on what the kernels do not take. For a CPU
 tensor it runs the plain version, which matches ``_einsum_core`` and is
-differentiated by autograd.
+differentiated by autograd. The forward also takes Sq query rows against
+Skv keys, Sq ≠ Skv: a member of a sequence-parallel group attends its block
+of the time axis to the keys gathered from the group. The backward takes
+one length, so such a call is served and not trained.
 
 The forward is the registered op ``segma_tpu_torch::flash_attn_fwd`` (and
 ``::flash_attn_fwd_lse``, with the log-sum-exp): its CUDA implementation
@@ -50,14 +53,15 @@ def attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float,
     dtype: torch.dtype,
 ) -> torch.Tensor:
-    """f32 scores, softmax, cast to ``dtype``, weighted sum of v."""
+    """f32 scores, softmax, cast to ``dtype``, weighted sum of v: q of (B,
+    Sq, H, D) against k and v of (B, Skv, H, D)."""
     scores = torch.einsum("bqhd,bkhd->bhqk", _f32(q * sm_scale), _f32(k))
     attn = torch.softmax(scores, dim=-1).to(dtype)
     return torch.einsum("bhqk,bkhd->bqhd", _f32(attn), _f32(v)).to(dtype)
 
 
 def attention_lse_plain(q: torch.Tensor, k: torch.Tensor, sm_scale: float) -> torch.Tensor:
-    """(B, H, S) f32 log-sum-exp of each row of the scaled scores."""
+    """(B, H, Sq) f32 log-sum-exp of each row of the scaled scores."""
     scores = torch.einsum("bqhd,bkhd->bhqk", _f32(q), _f32(k)) * sm_scale
     return torch.logsumexp(scores, dim=-1)
 
@@ -81,12 +85,19 @@ def attention_bwd_plain(
     return dq, dk, dv
 
 
-def _check_inputs(name: str, **tensors: torch.Tensor) -> tuple[int, int, int]:
+def _check_inputs(
+    name: str, keys: tuple[str, ...] = (), **tensors: torch.Tensor
+) -> tuple[int, int, int]:
     """Raise unless every tensor is a contiguous, 16-byte aligned (B, S, H,
-    64) CUDA tensor of one shape and one dtype, bfloat16 or float32; return
-    (B, S, H)."""
+    64) CUDA tensor of one shape and one dtype, bfloat16 or float32, except
+    that the tensors named in ``keys`` share a length S of their own (the
+    keys'); return (B, S, H) of the first tensor."""
+    for arg, x in tensors.items():
+        if x.dim() != 4:
+            raise ValueError(f"{name}: {arg} has shape {tuple(x.shape)}")
     first = next(iter(tensors.values()))
     shape, dtype = first.shape, first.dtype
+    s_kv = tensors[keys[0]].shape[1] if keys else shape[1]
     for arg, x in tensors.items():
         if not x.is_cuda:
             raise ValueError(f"{name}: {arg} is not a CUDA tensor")
@@ -94,7 +105,7 @@ def _check_inputs(name: str, **tensors: torch.Tensor) -> tuple[int, int, int]:
             raise ValueError(f"{name}: {arg} is {x.dtype}, needs bfloat16 or float32")
         if x.dtype != dtype:
             raise ValueError(f"{name}: {arg} is {x.dtype}, the others {dtype}")
-        if x.shape != shape or x.dim() != 4:
+        if x.shape != (shape[0], s_kv if arg in keys else shape[1], *shape[2:]):
             raise ValueError(f"{name}: {arg} has shape {tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: {arg} is not contiguous")
@@ -120,12 +131,15 @@ def flash_attn_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float,
     with_lse: bool = False,
 ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel on contiguous (B, S, H, 64) CUDA tensors:
-    the bf16 kernel for bf16 inputs, the f32 kernel for f32 ones. ``with_lse``:
-    also return the (B, H, S) f32 log-sum-exp. The launch runs on the
-    tensors' card, whatever the thread's current device: the library sizes
-    its grid and sets its shared memory on the current one."""
-    b, s, h = _check_inputs("flash_attn_fwd", q=q, k=k, v=v)
+    """Launch the forward kernel on contiguous CUDA tensors, q of (B, Sq, H,
+    64) and k, v of (B, Skv, H, 64) (Sq = Skv in self-attention; a seq
+    member's query block against its group's keys otherwise): the bf16
+    kernel for bf16 inputs, the f32 kernel for f32 ones; returns (B, Sq, H,
+    64). ``with_lse``: also return the (B, H, Sq) f32 log-sum-exp. The launch
+    runs on the tensors' card, whatever the thread's current device: the
+    library sizes its grid and sets its shared memory on the current one."""
+    b, s, h = _check_inputs("flash_attn_fwd", ("k", "v"), q=q, k=k, v=v)
+    s_kv = k.shape[1]
     f32 = q.dtype == torch.float32
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
@@ -134,7 +148,7 @@ def flash_attn_fwd(
     with torch.cuda.device(q.device):
         err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if with_lse else None, b, s, h,
+            lse.data_ptr() if with_lse else None, b, s, s_kv, h,
             sm_scale * math.log2(math.e), _stream(q),
         )
     _build.check(err, entry)
@@ -241,7 +255,10 @@ def attention_core(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, sm_scale: float,
     dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """softmax(q kᵀ sm_scale) v over (B, S, H, D); returns ``dtype``.
+    """softmax(q kᵀ sm_scale) v over q of (B, Sq, H, D) and k, v of (B,
+    Skv, H, D); returns (B, Sq, H, D) in ``dtype``. Sq ≠ Skv (a seq member's
+    query block against its group's keys) is served only: a recorded call
+    raises, as the backward kernels take one length.
 
     On the card, ``dtype`` is bfloat16 or float32 (the inputs' dtype); a
     call that autograd records goes through ``FlashAttention``, one that it
@@ -249,6 +266,11 @@ def attention_core(
     without the log-sum-exp. On the CPU a recorded call runs the plain
     version under autograd, and an unrecorded one the op's plain version."""
     recorded = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    if recorded and q.shape[1] != k.shape[1]:
+        raise NotImplementedError(
+            f"attention with {q.shape[1]} query rows against {k.shape[1]} keys under autograd: "
+            "unequal lengths are not trainable, as the backward kernels take one length "
+            "(training under sequence parallelism is ROADMAP.md Queue 1, item 1)")
     if q.is_cuda:
         if dtype not in KERNEL_DTYPES:
             raise ValueError(

@@ -29,6 +29,19 @@ def f1_from_counts(counts: dict[str, torch.Tensor], zero_division: float = 0.0) 
     return torch.where(denom > 0, 2 * tp / denom.clamp(min=1), torch.full_like(tp, zero_division))
 
 
+def multiclass_f1(preds: np.ndarray, targets: np.ndarray, n_classes: int) -> np.ndarray:
+    """Per-class F1 on argmax predictions (torchmetrics
+    ``multiclass_f1_score(average=None, zero_division=0)`` semantics)."""
+    f1 = np.zeros(n_classes)
+    for c in range(n_classes):
+        tp = np.sum((preds == c) & (targets == c))
+        fp = np.sum((preds == c) & (targets != c))
+        fn = np.sum((preds != c) & (targets == c))
+        denom = 2 * tp + fp + fn
+        f1[c] = 2 * tp / denom if denom > 0 else 0.0
+    return f1
+
+
 def binary_auroc_np(scores: np.ndarray, targets: np.ndarray) -> np.ndarray:
     """Exact per-label AUROC (Mann-Whitney U with tie handling), numpy.
 

@@ -1,7 +1,8 @@
-"""Data parallelism (counterpart of ``segma_tpu/parallel/``): the device mesh
-with its replicas and blocks (``mesh``) and the multi-process world of
-training (``distributed``). Tensor and sequence parallelism
-(``segma_tpu/parallel/sharding.py``) are not ported yet."""
+"""Parallelism (counterpart of ``segma_tpu/parallel/``): the device mesh
+with its replicas and blocks (``mesh``), the tensor-parallel rules and the
+members' module copies (``sharding``), the collectives of a member's groups
+(``collectives``), and the multi-process world of data-parallel training
+(``distributed``)."""
 
 from segma_tpu_torch.parallel.mesh import (
     Mesh,

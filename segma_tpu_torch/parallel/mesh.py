@@ -5,9 +5,11 @@ A ``Mesh`` is a (data, seq, model) array of ``torch.device``s under JAX's
 axis names. Along ``data`` the port keeps one replica of the model per
 coordinate (``replicate``) and splits a batch or a window stack into
 contiguous blocks of its leading axis, in order (``shard_batch``), as
-``PartitionSpec("data")`` places an array. ``model`` (tensor parallelism)
-and ``seq`` (the Whisper encoder's time axis) are resolved as JAX resolves
-them; the pipeline and the trainer refuse them above 1 (``require_data_only``).
+``PartitionSpec("data")`` places an array. Each data coordinate holds
+``seq * model`` members (``Mesh.members``): under ``model`` (tensor
+parallelism) and ``seq`` (the Whisper encoder's time axis) every member is a
+module copy holding its blocks (``parallel.sharding``). Serving takes any
+mesh; the trainer refuses ``model`` or ``seq`` above 1 (``require_data_only``).
 
 A device list may name one card more than once: N replicas on one card run
 the split, the streams and the gather where only one card exists.
@@ -28,8 +30,8 @@ if TYPE_CHECKING:
     from segma_tpu_torch.models.base import SegmentationModel
 
 AXIS_NAMES = ("data", "seq", "model")
-TP_SP_SLICE = ("tensor and sequence parallelism (mesh.model > 1, mesh.seq > 1) are not "
-               "ported yet: ROADMAP.md Queue 1, item 3")
+TP_SP_SLICE = ("training under tensor and sequence parallelism (mesh.model > 1, mesh.seq > 1) "
+               "is not ported yet: ROADMAP.md Queue 1, item 1; serving takes such a mesh")
 
 
 @dataclass(frozen=True)
@@ -51,6 +53,13 @@ class Mesh:
     def primary(self) -> torch.device:
         """Where inputs arrive and outputs are gathered: the first device."""
         return self.devices.flat[0]
+
+    def members(self, i: int) -> list[tuple[torch.device, int, int]]:
+        """The (device, seq rank, model rank) of each member of data
+        coordinate ``i``, seq-major; the first supplies the coordinate's
+        outputs."""
+        return [(self.devices[i, s, m], s, m)
+                for s in range(self.devices.shape[1]) for m in range(self.devices.shape[2])]
 
 
 def visible_cards() -> list[torch.device]:
@@ -97,18 +106,32 @@ def visible_devices(device: torch.device) -> list[torch.device]:
 
 def auto_mesh(config: Config, device: torch.device) -> Mesh | None:
     """``--mesh auto``: a mesh over ``visible_devices(device)`` when there
-    are several and ``mesh.data`` is not 1; otherwise None, one device. A
-    ``mesh.data`` of k > 1 takes the first k (times ``seq * model``)."""
+    are several and the config asks for more than one device (``mesh.data``
+    not 1, or ``mesh.seq * mesh.model`` above 1); otherwise None, one device,
+    on which a config with ``mesh.seq`` or ``mesh.model`` above 1 serves
+    meshless, as JAX's builders then bake no mesh in. A ``mesh.data`` of
+    k > 0 takes the first k * seq * model."""
     devices = visible_devices(device)
-    if config.mesh.data == 1 or len(devices) < 2:
+    per_coordinate = config.mesh.seq * config.mesh.model
+    if (config.mesh.data == 1 and per_coordinate == 1) or len(devices) < 2:
         return None
     if config.mesh.data > 0:
-        devices = devices[: config.mesh.data * config.mesh.seq * config.mesh.model]
+        devices = devices[: config.mesh.data * per_coordinate]
     return make_mesh(config, devices)
 
 
+def describe(mesh: Mesh) -> str:
+    """What serves over ``mesh``, in words (the doctor's and the server's)."""
+    d, s, m = mesh.devices.shape
+    if s * m == 1:
+        return f"{d} replica(s), one per data coordinate, each dispatch's windows split over them"
+    return (f"{d} data coordinate(s) of {s * m} members: heads and MLP features over "
+            f"model={m}, the Whisper encoder's time axis over seq={s}; the trainer refuses it")
+
+
 def require_data_only(mesh: Mesh) -> None:
-    """Raise unless the mesh is data-parallel only (model = seq = 1)."""
+    """Raise unless the mesh is data-parallel only (model = seq = 1): the
+    trainer's check."""
     if mesh.shape["model"] > 1 or mesh.shape["seq"] > 1:
         raise NotImplementedError(f"mesh {mesh.shape}: {TP_SP_SLICE}")
 

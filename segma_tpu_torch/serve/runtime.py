@@ -5,10 +5,13 @@ entry point (counterpart of ``segma_tpu/serve/runtime.py``).
 artifacts on the card, warms it up (the kernel and WAV reader builds, one
 forward and decode) before it accepts traffic, binds the server and runs
 until SIGTERM/SIGINT, with a graceful drain and an optional RSS self-recycle
-(exit 75). A live model serves over a data mesh (``mesh="auto"`` with
-several cards, or a ``parallel.Mesh``): one-shot and micro-batched requests
-split their windows over the replicas; streaming sessions run on the first
-card, as artifacts and bundles do.
+(exit 75). A live model serves over the config's mesh (``mesh="auto"`` with
+several cards, as JAX's ``serve/runtime.py`` builds it from the config, or a
+``parallel.Mesh`` of any (data, seq, model) shape): one-shot and
+micro-batched requests split their windows over ``data``, each coordinate's
+members splitting the model over ``seq`` and ``model``; streaming sessions
+run on the first card, as artifacts and bundles do (JAX's ``streaming.py``
+and ``export.py`` stay on one device too).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 
 from segma_tpu_torch import resolve_device
 from segma_tpu_torch.inference import InferencePipeline, resolve_mesh
-from segma_tpu_torch.parallel.mesh import Mesh
+from segma_tpu_torch.parallel.mesh import Mesh, describe
 from segma_tpu_torch.serve.http import make_server
 from segma_tpu_torch.serve.router import ModelRouter, _warm_stream_programs, bundle_reloader
 from segma_tpu_torch.serve.service import MAX_STREAM_SESSIONS, SegmentationService
@@ -189,8 +192,9 @@ def serve_forever(
             mesh=resolve_mesh(mesh, cfg, dev),
         )
         if pipeline.mesh is not None:
-            log(f"serving over a data mesh of {len(pipeline.replicas)} replicas on "
-                f"{', '.join(str(r.device) for r in pipeline.replicas)}")
+            log(f"serving over the mesh {pipeline.mesh.shape} on "
+                f"{', '.join(str(m.device) for m in pipeline.members.flat)}: "
+                f"{describe(pipeline.mesh)}")
     service = SegmentationService(
         pipeline, thresholds, transport=transport, batch_window_ms=batch_window_ms,
         max_batch=max_batch, max_sessions=max_sessions,

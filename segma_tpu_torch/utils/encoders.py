@@ -1,13 +1,51 @@
 """Label encoders (counterpart of ``segma_tpu/utils/encoders.py``): the
-multi-label encoder's label <-> index maps, and the powerset encoder's
-subset classes."""
+interface every encoder gives (``LabelEncoder``), the multi-label encoder's
+label <-> index maps, and the powerset encoder's subset classes."""
 
 from __future__ import annotations
+
+from abc import ABC, abstractmethod
+from collections.abc import Iterable
 
 import numpy as np
 
 
-class MultiLabelEncoder:
+class LabelEncoder(ABC):
+    """The label encoder interface shared by every pipeline layer."""
+
+    @property
+    @abstractmethod
+    def labels(self) -> tuple[str, ...]:
+        """Encoded labels, in index order."""
+
+    @property
+    @abstractmethod
+    def base_labels(self) -> tuple[str, ...]:
+        """Raw label vocabulary."""
+
+    @abstractmethod
+    def transform(self, label: str | tuple[str, ...]) -> int: ...
+
+    @abstractmethod
+    def inv_transform(self, i: int) -> str | tuple[str, ...]: ...
+
+    @abstractmethod
+    def one_hot(self, labels: Iterable[str] | str) -> np.ndarray: ...
+
+    @abstractmethod
+    def i_to_one_hot(self, i: int) -> np.ndarray: ...
+
+    def __call__(self, labels: str | tuple[str, ...] = ()) -> int:
+        return self.transform(labels)
+
+    def __len__(self) -> int:
+        raise NotImplementedError
+
+    def __contains__(self, label) -> bool:
+        raise NotImplementedError
+
+
+class MultiLabelEncoder(LabelEncoder):
     """Maps each label to an integer index (one hydra head per label)."""
 
     def __init__(self, labels: list[str] | tuple[str, ...]) -> None:
@@ -35,6 +73,16 @@ class MultiLabelEncoder:
             )
         return self.rev_map[i]
 
+    def one_hot(self, labels: Iterable[str] | str) -> np.ndarray:
+        """Multi-hot vector over a set of simultaneously active labels."""
+        labels = (labels,) if isinstance(labels, str) else labels
+        vec = np.zeros(self.n_labels, dtype=int)
+        vec[[self.transform(label) for label in labels]] = 1
+        return vec
+
+    def i_to_one_hot(self, i: int) -> np.ndarray:
+        return self.one_hot(self.rev_map[i])
+
     def __len__(self) -> int:
         return self.n_labels
 
@@ -42,7 +90,7 @@ class MultiLabelEncoder:
         return label in self.map
 
 
-class PowersetEncoder:
+class PowersetEncoder(LabelEncoder):
     """Powerset multi-class encoder (a copy of the JAX package's): every
     subset of at most ``max_set_size`` simultaneously active labels is one
     class, ordered by set size, class 0 the empty set ("no speaker")."""
@@ -87,6 +135,16 @@ class PowersetEncoder:
                 f"{len(self._subsets)} classes are available."
             )
         return self.rev_map[i]
+
+    def one_hot(self, labels: Iterable[str] | str) -> np.ndarray:
+        vec = np.zeros(len(self._subsets), dtype=int)
+        vec[self.transform(tuple(labels) if not isinstance(labels, str) else labels)] = 1
+        return vec
+
+    def i_to_one_hot(self, i: int) -> np.ndarray:
+        vec = np.zeros(len(self._subsets), dtype=int)
+        vec[i] = 1
+        return vec
 
     @property
     def n_single_classes(self) -> int:

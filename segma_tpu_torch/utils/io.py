@@ -1,5 +1,6 @@
-"""WAV reading (counterpart of ``segma_tpu/utils/io.py``): header probing,
-ranged sample reads and the zero-decode int16 fast path.
+"""WAV reading and writing (counterpart of ``segma_tpu/utils/io.py``):
+header probing, ranged sample reads, the zero-decode int16 fast path, and
+``write_data_to_disk`` (16-bit PCM).
 
 ``get_audio_info``, ``get_samples_in_range``, ``probe_pcm16_mono`` and
 ``read_pcm16_mono`` read through the native reader (``utils/native``, built
@@ -231,3 +232,27 @@ def read_pcm16_mono_np(audio_p: Path | str) -> np.ndarray | None:
         f.seek(layout.data_offset)
         raw = f.read(layout.data_size)
     return np.frombuffer(raw, dtype="<i2")
+
+
+def write_data_to_disk(
+    data: np.ndarray, output_file: Path | str, sample_rate: int = 16_000
+) -> None:
+    """Write float32 samples (n_channels, n_samples) or (n_samples,) as a
+    16-bit PCM WAV file (``output_file`` with a ``.wav`` suffix)."""
+    output_file = Path(output_file).with_suffix(".wav")
+    data = np.asarray(data, dtype=np.float32)
+    if data.ndim == 1:
+        data = data[None, :]
+    pcm = (np.clip(data.T, -1.0, 1.0) * 32767.0).astype("<i2")
+    n_channels = pcm.shape[1]
+    data_bytes = pcm.tobytes()
+    with output_file.open("wb") as f:
+        f.write(b"RIFF")
+        f.write(struct.pack("<I", 36 + len(data_bytes)))
+        f.write(b"WAVE")
+        f.write(b"fmt ")
+        f.write(struct.pack("<IHHIIHH", 16, _PCM, n_channels, sample_rate,
+                            sample_rate * n_channels * 2, n_channels * 2, 16))
+        f.write(b"data")
+        f.write(struct.pack("<I", len(data_bytes)))
+        f.write(data_bytes)

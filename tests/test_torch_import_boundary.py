@@ -27,6 +27,7 @@ def _forbidden(name: str) -> bool:
 def _port_files() -> list[Path]:
     return sorted((REPO / "segma_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "logmel_ablations.py", REPO / "flash_f32_ablations.py",
+        REPO / "flash_ab.py",
     ]
 
 
@@ -84,6 +85,8 @@ REQUIRED = (
     # data parallelism
     "segma_tpu_torch.parallel", "segma_tpu_torch.parallel.mesh",
     "segma_tpu_torch.parallel.distributed",
+    # tensor and sequence parallelism
+    "segma_tpu_torch.parallel.sharding", "segma_tpu_torch.parallel.collectives",
 )
 
 

@@ -997,3 +997,96 @@ def test_kernels_launch_on_the_tensor_s_card():
             scale = max(1.0, float(ref_g.abs().max()))
             assert float((got_g.float() - ref_g.float()).abs().max()) <= bwd_rel * scale
     torch.cuda.synchronize(other)
+
+
+# Sequence parallelism's shapes (B, Sq, Skv, H): a seq member's block of
+# Whisper's 1500 positions against the gathered keys (seq 2 and 4),
+# fast_context's 200 over seq 2, a block that is not a multiple of 64 rows,
+# more queries than keys, and a lone query or key.
+FLASH_UNEQUAL_SHAPES = [(2, 750, 1500, 8), (2, 375, 1500, 4), (2, 100, 200, 8),
+                        (2, 77, 1500, 3), (2, 300, 129, 2), (1, 1, 129, 2), (2, 65, 1, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", FLASH_UNEQUAL_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_forward_at_unequal_lengths_matches_plain(dtype, shape):
+    """q of (B, Sq, H, 64) against k, v of (B, Skv, H, 64): the output and
+    the LSE against the plain versions, one launch of the dtype's kernel,
+    and each query row what the same row gives in a call over its block."""
+    _cuda()
+    b, sq, skv, h = shape
+    rng = np.random.default_rng(13)
+    q = _f32(rng, (b, sq, h, 64)).to(dtype)
+    k, v = (_f32(rng, (b, skv, h, 64)).to(dtype) for _ in range(2))
+    key = "launches" if dtype == torch.bfloat16 else "launches_f32"
+    before = getattr(attention, key)
+    out, lse = attention.flash_attn_fwd(q, k, v, 64**-0.5, with_lse=True)
+    torch.cuda.synchronize()
+    assert getattr(attention, key) == before + 1
+    assert out.shape == q.shape and lse.shape == (b, h, sq)
+    tol = FLASH_TOL if dtype == torch.bfloat16 else FLASH_F32_ATOL
+    ref = attention.attention_plain(q, k, v, 64**-0.5, torch.float32)
+    torch.testing.assert_close(out.float(), ref, atol=tol, rtol=tol if dtype == torch.bfloat16
+                               else 0)
+    torch.testing.assert_close(lse, attention.attention_lse_plain(q, k, 64**-0.5),
+                               atol=LSE_ATOL if dtype == torch.bfloat16 else LSE_F32_ATOL, rtol=0)
+    assert torch.equal(out, attention.attention_core(q, k, v, sm_scale=64**-0.5, dtype=dtype))
+
+
+@pytest.mark.gpu
+def test_flash_forward_query_block_is_the_full_call_s_rows():
+    """A seq member's query block against all the keys gives, bit for bit,
+    the rows that the self-attention call (Sq = Skv) gives them."""
+    _cuda()
+    rng = np.random.default_rng(14)
+    q, k, v = (_f32(rng, (2, 1500, 8, 64)).to(torch.bfloat16) for _ in range(3))
+    full = attention.flash_attn_fwd(q, k, v, 0.125)
+    block = attention.flash_attn_fwd(q[:, 768:].contiguous(), k, v, 0.125)
+    # a work item is 128 query rows: a block that starts on an item boundary
+    # computes its rows as the full call does
+    assert torch.equal(block, full[:, 768:])
+
+
+@pytest.mark.gpu
+def test_thread_group_on_two_streams_of_one_card():
+    """Two members on cuda:0, each on its own stream and thread. Member 1's
+    stream runs late (a sleep before each round), so it reads member 0's
+    tensors long after member 0's thread has freed them and filled new
+    allocations on its own stream: the event wait and ``record_stream``
+    must keep the freed memory from reuse until the read is done."""
+    _cuda()
+    from concurrent.futures import ThreadPoolExecutor
+
+    from segma_tpu_torch.parallel.collectives import ThreadGroup, run_members
+
+    group = ThreadGroup(["cuda:0"] * 2, timeout=120)
+    streams = [torch.cuda.Stream(0) for _ in range(2)]
+    n, rounds = 1 << 22, 6
+
+    def member(r: int):
+        me = group.member(r)
+        outs = []
+        with torch.cuda.stream(streams[r]):
+            for i in range(rounds):
+                if r == 1:
+                    torch.cuda._sleep(100_000_000)  # about 50 ms of this stream
+                x = torch.full((n,), float(10 * i + r), device="cuda")
+                outs.append(me.all_gather(x, dim=0))
+                total = me.all_reduce_sum(x)
+                del x
+                # freed blocks go back to this stream's pool at once
+                junk = [torch.full((n,), -1.0, device="cuda") for _ in range(4)]
+                del junk
+                outs.append(total)
+            streams[r].synchronize()
+        return [o.cpu() for o in outs]
+
+    with ThreadPoolExecutor(2) as pool:
+        got = run_members(pool, [lambda r=r: member(r) for r in range(2)], [group])
+    for r in range(2):
+        for i in range(rounds):
+            gathered, total = got[r][2 * i], got[r][2 * i + 1]
+            assert torch.equal(gathered[:n], torch.full((n,), 10.0 * i)), (r, i)
+            assert torch.equal(gathered[n:], torch.full((n,), 10.0 * i + 1)), (r, i)
+            assert torch.equal(total, torch.full((n,), 20.0 * i + 1)), (r, i)

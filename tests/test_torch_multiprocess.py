@@ -494,7 +494,7 @@ def test_local_world_size(monkeypatch):
     assert cli_train.local_world_size(load_config(default, ["mesh.data=2"]), "cuda") == 2
     assert cli_train.local_world_size(load_config(default, ["mesh.data=1"]), "cuda") == 1
     assert cli_train.local_world_size(cfg, "cpu") == 1
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 1"):
         cli_train.local_world_size(load_config(default, ["mesh.model=2"]), "cuda")
     for name, value in (("WORLD_SIZE", "4"), ("RANK", "0"), ("MASTER_ADDR", "127.0.0.1"),
                         ("MASTER_PORT", "1")):

@@ -2,7 +2,8 @@
 
 - Mesh: ``make_mesh``'s shapes and errors are JAX's; ``shard_batch``'s
   blocks are the shards of JAX's ``shard_batch``; replicas carry the source
-  model's weights and buffers; ``model > 1`` and ``seq > 1`` are refused.
+  model's weights and buffers; ``model > 1`` and ``seq > 1`` are refused by
+  the trainer's check and served.
 - Serving over 4 CPU replicas (conv_vad, hidden 32, depth 2, 1 s chunks, the
   JAX params bridged by ``convert.flax_to_torch``): one long file in
   segments, packed files and ADPCM, bit-equal to the port's meshless
@@ -224,9 +225,14 @@ def test_replicas_carry_the_source_weights(pair):
 
 @pytest.mark.parametrize("sizes", [dict(model=2), dict(seq=2), dict(data=1, seq=2, model=2)])
 def test_tensor_and_sequence_parallel_meshes_are_refused(pair, sizes):
+    """Refused by the trainer's check, naming the training queue item;
+    serving takes them (tests/test_torch_tensor_seq.py)."""
     _, model = pair
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        tinf.InferencePipeline(model, device="cpu", mesh=make_mesh(devices=CPU4, **sizes))
+    mesh = make_mesh(devices=CPU4, **sizes)
+    with pytest.raises(NotImplementedError, match="Queue 1, item 1"):
+        tmesh.require_data_only(mesh)
+    pipe = tinf.InferencePipeline(model, device="cpu", mesh=mesh)
+    assert pipe.members.shape == mesh.devices.shape
 
 
 def _pipelines(pair, transport: str = "auto"):
