@@ -30,15 +30,17 @@ exits nonzero without printing the final result line:
    128-key tiling), bitwise equal with and without the LSE and over two
    launches; its bound is the larger of the bf16 products at the tensor-core
    peak and its exp2 at 16 per SM per clock. The flash backward is checked
-   at FLASH_BWD_SHAPES (the training shape (32, 199, 12, 64), (64, 1500, 8,
-   64), (2, 70, 2, 64) and the edges of its tiling), on the forward's output
+   at FLASH_BWD_SHAPES (the training shape (32, 199, 12, 64), the training
+   meshes' (16, 199, 6, 64), (64, 1500, 8, 64), (2, 70, 2, 64) and the edges
+   of its tiling), on the forward's output
    and log-sum-exp, and bitwise over two launches. Kernels and library calls
    are timed in turns (``time_turns``: the median of 5 groups of 20 calls,
    the device held by a spin kernel while the host queues each group), and
    every SDPA backend that takes the shape is timed; the fastest is the
    ``library_ms``. The f32 forward and backward (both 3xTF32 on wgmma)
    are checked at FLASH_F32_SHAPES and
-   FLASH_F32_BWD_SHAPES against their plain versions in f32 and in float64
+   FLASH_F32_BWD_SHAPES (both with the f32 training mesh's (32, 199, 6,
+   64)) against their plain versions in f32 and in float64
    (the JAX suite's f32 pins), bitwise with and without the LSE and over
    two launches, and timed at both main paths' shapes beside every SDPA
    backend that takes f32 (the refusals are printed), with their bounds at
@@ -66,7 +68,8 @@ exits nonzero without printing the final result line:
    torch.profiler (the 15 longest kernels and the port's own); then the
    capturable AdamW against PyTorch's default one (``optimizer_times``).
 6. the reference workflow (``phase_workflow``, bf16, full width): exact
-   resume of HuBERT-base from ``last/`` with no cuDNN flag from the caller
+   resume of HuBERT-base's widths at TRAIN_CLI_LAYERS layers from
+   ``last/`` with no cuDNN flag from the caller
    (a seeded fit scopes cuDNN's deterministic algorithms itself): two
    seeded runs and the resumed run bit for bit, apart from a resume with
    fresh moments; a Whisper-base snapshot in HF's layout
@@ -101,20 +104,14 @@ exits nonzero without printing the final result line:
    in a child process; ``cli.auto_train`` stopped by SIGTERM inside epoch 2
    (exit 75) and resumed with ``--auto-resume`` to the uninterrupted run's
    final state bit for bit; remat and int16 transport each bit-equal to
-   their plain counterparts; the bf16 step under cuDNN's default and
-   deterministic algorithms, and hydra_whisper's bf16 logits with cuBLAS's
-   reduced-precision bf16 reductions allowed and not, then stage by stage
-   (``hydra_whisper_stages``: each stage on the card fed the CPU bf16
-   run's input, against the CPU's f32 model). (It runs before the f32
-   phases, 7 and 8.)
+   their plain counterparts. (It runs before the f32 phases, 7 and 8.)
 10b. the device audio cache and epoch dispatch (``phase_device_cache``,
-   full width): HuBERT-base bf16 over 1.05 GB of synthetic audio for three
+   full width): HuBERT-base bf16 over 1.05 GB of synthetic audio for two
    20-step epochs with the host path, the device cache under step
    dispatch, and epoch dispatch (the step replayed from a captured CUDA
    graph), each bit-equal to the one before, with equal launch counts;
    k=3 accumulation, f32 and whisperimax, step against epoch dispatch,
-   bit-equal; per-step medians and spread, device-busy shares and peak
-   memory printed.
+   bit-equal; per-step medians and spread and peak memory printed.
 10c. the JAX package's four other model families (``phase_model_families``,
    bf16, full width: WavLM-base ``surgical_wavlm_hydra`` from a random HF
    snapshot, ``sincnet_hydra``, ``conv_vad``, ``powerset_vad``): log-mel
@@ -154,7 +151,7 @@ exits nonzero without printing the final result line:
    thread and a CUDA stream each), logits, RTTMs and launches bit-equal to
    off's, with the walls of the three (the split and gather's cost on one
    card, not a scaling figure), and one request to ``serve_forever`` over
-   the two replicas; HuBERT-base's seeded two-epoch fit in an NCCL world of
+   the two replicas; HuBERT-base's seeded one-epoch fit in an NCCL world of
    one bit-equal to the meshless fit under step and epoch dispatch (the
    all-reduce captured in the graph); a 2-rank gloo world on cuda:0 in
    child processes at 4 HuBERT-base layers: one f32 step against one
@@ -179,6 +176,20 @@ exits nonzero without printing the final result line:
    WavLM-base at model=2 over 400 s. Before the phases, the bf16 and f32
    flash forward are checked and timed at a seq member's unequal lengths
    (``flash_unequal_checks``: Sq query rows against Skv keys).
+10h. training under tensor and sequence parallelism
+   (``phase_train_tensor_seq``, one card, gloo ranks on cuda:0 in child
+   processes, one process per mesh device): three steps of
+   ``Trainer.train_step`` on the training slice's batch of 32 crops of 4 s
+   for HuBERT-base bf16 at (2,1,2), Whisper-base ``surgical_hydra`` bf16 at
+   (1,2,2) and HuBERT-base f32 at (1,1,2), against this process's meshless
+   steps: each step's loss and the first step's gradients (f32 at rtol 1e-5
+   and 1e-4; bf16 within TRAIN_TP_BF16_FACTOR times the bf16 meshless
+   step's own distance from the f32 one), every replicated
+   parameter and the gathered tree the same bits on every rank, the flash
+   backward launched layers x steps times per rank; the first world's
+   gathered checkpoint served meshless. With four cards,
+   ``phase_parallel_cards`` runs the HuBERT and Whisper worlds as NCCL
+   ranks of their own cards and ``cli.train`` with ``mesh.model=2``.
 11. the ``kernels`` JSON line (log-mel, the bf16 and the f32 flash forward
    and backward; each with its fast_context times where it has them, and
    log-mel's at (32, 64000) as ``vad_train``) and
@@ -187,8 +198,9 @@ exits nonzero without printing the final result line:
    epoch-dispatch paths and the live-serving paths among them); log-mel and
    the bf16 flash forward also carry ``launches_live_serving``, and they and
    the f32 flash forward ``launches_export``; every row carries
-   ``launches_parallel_serve``, ``launches_parallel_train`` and
-   ``launches_tensor_seq``; both flash forwards carry ``unequal_lengths``,
+   ``launches_parallel_serve``, ``launches_parallel_train``,
+   ``launches_tensor_seq`` and ``launches_train_tensor_seq``; both flash
+   forwards carry ``unequal_lengths``,
    their times, bounds and SDPA times at FLASH_UNEQUAL_SHAPES.
 12. last line: ``{"ok": true, "device": {...}}``.
 """
@@ -702,8 +714,13 @@ def check_rel(name: str, got, ref, rel: float) -> float:
 # the edges of its tiling (128 resident rows per work item, 64 streamed rows
 # per tile): one row, one short of, at and one past each tile edge.
 FLASH_BWD_EDGE_S = (1, 63, 64, 65, 127, 128, 129, 255, 256)
+# The training meshes' shapes: HuBERT-base's 12 heads over model=2, the
+# training batch of 32 over data=2 in bf16 (phase_train_tensor_seq's (2, 1,
+# 2)), whole in f32 (its (1, 1, 2)).
+TRAIN_TP_ATTN_SHAPE = (16, 199, 6, 64)
+TRAIN_TP_F32_ATTN_SHAPE = (32, 199, 6, 64)
 FLASH_BWD_SHAPES = (
-    TRAIN_ATTN_SHAPE, (INNER_BATCH, 1500, 8, 64), (2, 70, 2, 64),
+    TRAIN_ATTN_SHAPE, TRAIN_TP_ATTN_SHAPE, (INNER_BATCH, 1500, 8, 64), (2, 70, 2, 64),
     *((2, s, 3, 64) for s in FLASH_BWD_EDGE_S),
 )
 
@@ -829,9 +846,10 @@ def flash_bwd_checks(card: str) -> tuple[dict, dict]:
 # streamed rows per tile.
 FLASH_F32_EDGE_S = (1, 31, 32, 33, 63, 64, 65, 127, 128, 129)
 FLASH_F32_BWD_EDGE_S = (1, 31, 32, 33, 63, 64, 65, 95, 96, 97, 127, 128, 129)
-FLASH_F32_SHAPES = ((INNER_BATCH, 1500, 8, 64), TRAIN_ATTN_SHAPE,
+FLASH_F32_SHAPES = ((INNER_BATCH, 1500, 8, 64), TRAIN_ATTN_SHAPE, TRAIN_TP_F32_ATTN_SHAPE,
                     *((2, s, 3, 64) for s in FLASH_F32_EDGE_S))
-FLASH_F32_BWD_SHAPES = (TRAIN_ATTN_SHAPE, *((2, s, 3, 64) for s in FLASH_F32_BWD_EDGE_S))
+FLASH_F32_BWD_SHAPES = (TRAIN_ATTN_SHAPE, TRAIN_TP_F32_ATTN_SHAPE,
+                        *((2, s, 3, 64) for s in FLASH_F32_BWD_EDGE_S))
 
 
 def f32_attention_bounds(b: int, s: int, h: int, d: int, products: int, tensors: int) -> dict:
@@ -2022,14 +2040,15 @@ def _max_dist(a: dict, b: dict) -> float:
 
 
 def phase_workflow(card: str) -> dict:
-    """The reference workflow on the card, in bf16 at full width:
+    """The reference workflow on the card, in bf16 at full width (the
+    exact-resume fits at TRAIN_CLI_LAYERS layers):
 
     1. exact resume, with no cuDNN flag set by the caller (a seeded
        ``Trainer.fit`` scopes cuDNN's deterministic algorithms itself, and
-       gives the caller's flags back): HuBERT-base
-       ``surgical_hubert_hydra`` (the training slice's config) trains 2
-       epochs, twice; 1 epoch, then a fresh model
-       and Trainer ``fit(..., resume_from=<run>/checkpoints/last)`` to epoch
+       gives the caller's flags back): ``surgical_hubert_hydra`` (the
+       training slice's config over a random snapshot of HuBERT-base's
+       widths at TRAIN_CLI_LAYERS layers) trains 2 epochs, twice; 1 epoch,
+       then a fresh model and Trainer ``fit(..., resume_from=<run>/checkpoints/last)`` to epoch
        2; and once more from a copy of last/ without opt_state.msgpack. The
        two uninterrupted runs and the resumed run must agree bit for bit,
        trainable parameters and epoch-1 loss. The run with fresh moments
@@ -2073,8 +2092,14 @@ def phase_workflow(card: str) -> dict:
         write_dataset(root, TRAIN_CLASSES, (TRAIN_FILES, VAL_FILES, TEST_FILES), TRAIN_FILE_S)
         labels = list(TRAIN_CLASSES)
 
-        # 1. exact resume
+        # 1. exact resume, at HuBERT-base's widths over TRAIN_CLI_LAYERS layers:
+        # resume's mechanics do not depend on depth, and its checkpoints'
+        # I/O scales with it
+        write_hubert_snapshot(tmp / "hubert_resume", seed=17,
+                              dims=dict(HUBERT_BASE, num_hidden_layers=TRAIN_CLI_LAYERS))
         cfg = surgical_hubert_hydra_config(root)
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, config=dataclasses.replace(
+            cfg.model.config, wav_encoder=str(tmp / "hubert_resume"))))
         ds = SegmaFileDataset.from_config(cfg)
         ds.load(use_cache=False)
 
@@ -2115,7 +2140,7 @@ def phase_workflow(card: str) -> dict:
         fresh, _, _, _, _ = fit("fresh_moments", TRAIN_EPOCHS, no_moments)
         if (cudnn.deterministic, cudnn.benchmark) != caller_flags:
             raise AssertionError("Trainer.fit left cuDNN's flags changed")
-        n_layers = HUBERT_BASE["num_hidden_layers"]
+        n_layers = TRAIN_CLI_LAYERS
         want = {"logmel": 0, "flash_attn_fwd": n_layers * (n_steps + n_val),
                 "flash_attn_bwd": n_layers * n_steps, "flash_attn_fwd_f32": 0,
                 "flash_attn_bwd_f32": 0}
@@ -3019,253 +3044,11 @@ def phase_model_families(card: str) -> dict:
 # -- the training entry points: repairs, the train CLIs ---------------------------------
 
 
-def determinism_step_times(card: str) -> dict:
-    """The bf16 HuBERT-base train step (batch 32, 4 s crops, one batch of
-    ``write_dataset``'s data) under cuDNN's default algorithms and under its
-    deterministic ones, in turns (default, deterministic, deterministic,
-    default), WARM_STEP_REPEATS timed steps each after two warm-up steps;
-    then one profiled step of each. Returns the median ms of each."""
-    import dataclasses
-    import warnings
-
-    import torch
-
-    from segma_tpu_torch import checkpoint
-    from segma_tpu_torch.data import SegmaFileDataset, SegmentationDataLoader
-    from segma_tpu_torch.train import make_optimizer, make_train_step
-
-    cudnn = torch.backends.cudnn
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp) / "data"
-        write_dataset(root, TRAIN_CLASSES, (TRAIN_FILES, VAL_FILES, TEST_FILES), TRAIN_FILE_S)
-        # one host batch, stepped without a loader
-        cfg = surgical_hubert_hydra_config(root)
-        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, data_cache="host"))
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")  # random encoder weights, on purpose
-            model = checkpoint.build_model(cfg, device="cuda")
-        ds = SegmaFileDataset.from_config(cfg)
-        ds.load(use_cache=False)
-        sampler = SegmentationDataLoader(ds, model.label_encoder, cfg,
-                                         model.conv_settings).train_dataloader().sampler
-        sampler.reseed(0)
-        batch = {k: torch.from_numpy(v).cuda()
-                 for k, v in sampler.sample_batch(cfg.train.batch_size).items()}
-        step = make_train_step(model, make_optimizer(model, cfg.train.lr))
-        gen = torch.Generator("cuda").manual_seed(1)
-
-        def flags(deterministic: bool):
-            return cudnn.flags(enabled=cudnn.enabled, benchmark=False,
-                               deterministic=deterministic, allow_tf32=cudnn.allow_tf32)
-
-        times: dict[str, list[float]] = {"default": [], "deterministic": []}
-        for mode in ("default", "deterministic", "deterministic", "default"):
-            with flags(mode == "deterministic"):
-                for _ in range(2):
-                    step(batch, gen)
-                for _ in range(WARM_STEP_REPEATS):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    step(batch, gen)
-                    torch.cuda.synchronize()
-                    times[mode].append(1e3 * (time.perf_counter() - t0))
-        out = {mode: median(ms) for mode, ms in times.items()}
-        for mode, ms in times.items():
-            print(f"train step, cuDNN {mode} algorithms [{card}]: median {out[mode]:.3f} ms over "
-                  f"{len(ms)} steps (min {min(ms):.3f}, max {max(ms):.3f})", flush=True)
-        for mode in times:
-            with flags(mode == "deterministic"):
-                profile_run(card, f"train step, cuDNN {mode}", lambda: step(batch, gen),
-                            out[mode] / 1e3)
-        del model, step
-        torch.cuda.empty_cache()
-    return out
-
-
-def hydra_whisper_reduction(card: str) -> dict:
-    """hydra_whisper's bf16 import (``phase_reference_models``' snapshot and
-    reference checkpoint: the same seeds) served by the predict CLI twice,
-    with ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
-    True (PyTorch's default) and then False; each time the saved logits of
-    the first two chunks against the CPU's f32 model, beside the CPU's bf16
-    distance. The caller's flag is restored. Returns the distances."""
-    import dataclasses
-    import warnings
-
-    import torch
-
-    from segma_tpu_torch import checkpoint, inference
-    from segma_tpu_torch.cli import import_checkpoint
-    from segma_tpu_torch.inference import Chunkyfier, _load_mono
-    from segma_tpu_torch.geometry import ConvolutionSettings
-
-    name = "hydra_whisper"
-    labels = list(TRAIN_CLASSES)
-    matmul = torch.backends.cuda.matmul
-    caller = matmul.allow_bf16_reduced_precision_reduction
-    out: dict[str, float] = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        root = tmp / "data"
-        write_dataset(root, TRAIN_CLASSES, (TRAIN_FILES, VAL_FILES, TEST_FILES), TRAIN_FILE_S)
-        uri = (root / "val.txt").read_text().split()[0]
-        (tmp / "one.txt").write_text(uri + "\n")
-        whisper = write_whisper_snapshot(tmp / "whisper_base", seed=11)
-        cfg = whisper_variant_config(name, str(tmp / "whisper_base"), str(root))
-        sd = reference_state_dict(name, whisper, labels, seed=20 + WHISPER_VARIANTS.index(name))
-        config_path = write_config(tmp / "cfg.yml", cfg)
-        import_checkpoint.main(["--ckpt", str(write_reference_ckpt(tmp / "ref.ckpt", sd)),
-                                "--config", str(config_path), "--out", str(tmp / "imported"),
-                                "--device", "cuda"])
-        ck = Chunkyfier(INNER_BATCH, cfg.audio.chunk_duration_f,
-                        ConvolutionSettings((320,), (320,), (0,)))
-        pcm = _load_mono(root / "wav" / f"{uri}.wav")
-        x = torch.from_numpy(pcm[: 2 * ck.chunk_stride + ck.missing_n_frames]
-                             .astype(np.float32) / 32768.0)
-        chunks = torch.stack([x[i * ck.chunk_stride : i * ck.chunk_stride + ck.chunk_duration_f]
-                              for i in range(2)])
-        with warnings.catch_warnings(), torch.inference_mode():
-            warnings.simplefilter("ignore")
-            cpu = checkpoint.load_model_for_inference(cfg, tmp / "imported", device="cpu")
-            ref = cpu.apply(chunks).reshape(-1, len(labels)).double()
-            f32_cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
-                                                                         precision="f32"))
-            f32 = checkpoint.load_model_for_inference(f32_cfg, tmp / "imported", device="cpu")
-            ref_f32 = f32.apply(chunks).reshape(-1, len(labels)).double()
-        out["cpu_bf16"] = float((ref - ref_f32).abs().max())
-        try:
-            for allowed in (True, False):
-                matmul.allow_bf16_reduced_precision_reduction = allowed
-                dest = tmp / f"out_{allowed}"
-                inference.main(["--config", str(config_path), "--wavs", str(root / "wav"),
-                                "--uris", str(tmp / "one.txt"), "--checkpoint",
-                                str(tmp / "imported"), "--output", str(dest),
-                                "--batch-size", str(INNER_BATCH), "--save-logits",
-                                "--device", "cuda"])
-                data = np.load(dest / "logits" / f"{uri}-logits_dict_t.npz")
-                got = torch.from_numpy(np.stack([data[lb] for lb in labels], 1)[: ref.shape[0]])
-                out[f"card_reduced_{allowed}"] = float((got.double() - ref_f32).abs().max())
-        finally:
-            matmul.allow_bf16_reduced_precision_reduction = caller
-        print(f"hydra_whisper bf16 logits from the CPU's f32 model [{card}]: card with cuBLAS's "
-              f"reduced-precision bf16 reductions allowed {out['card_reduced_True']:.3e}, not "
-              f"allowed {out['card_reduced_False']:.3e}; the CPU's bf16 {out['cpu_bf16']:.3e}",
-              flush=True)
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            on_card = checkpoint.load_model_for_inference(cfg, tmp / "imported", device="cuda")
-        out["stages"] = hydra_whisper_stages(card, on_card, cpu, f32, chunks)
-    return out
-
-
-def hydra_whisper_stages(card: str, on_card, cpu, f32, wav, device: str = "cuda") -> dict:
-    """Where hydra_whisper's bf16 logits on the card leave the CPU's: each
-    stage of the bf16 model (log-mel, the conv stem, each encoder layer's
-    attention and its MLP with the LayerNorms, the final LayerNorm, the
-    truncation to the chunk's rows, the BiLSTM, the heads) run on the card
-    on the CPU bf16 run's input to that stage, so that errors do not
-    compound. Printed per stage: the maximum distance from the CPU f32
-    model's output of the stage, the card's and the CPU bf16 model's, and
-    the card's from the CPU bf16 output; beside each attention, the card's
-    flash kernel against ``attention_plain`` on the card's q, k, v. Returns
-    the distances by stage."""
-    import torch
-    import torch.nn.functional as F
-
-    from segma_tpu_torch.models.whisper.encoder import layer_norm, linear
-    from segma_tpu_torch.ops.attention import attention_core, attention_plain
-    from segma_tpu_torch.ops.melspec import whisper_input_features
-
-    def record(model) -> dict:
-        """The stages' inputs and outputs of one CPU forward, by hooks."""
-        seen: dict = {}
-        mod = model.module
-
-        def hook(name):
-            def save(_m, args, output):
-                seen[name] = (args[0], output[0] if isinstance(output, tuple) else output)
-            return save
-
-        handles = [mod.encoder.register_forward_hook(hook("encoder")),
-                   mod.lstm_shared.register_forward_hook(hook("lstm")),
-                   mod.heads.register_forward_hook(hook("heads"))]
-        for i, layer in enumerate(mod.encoder.layers):
-            handles += [layer.register_forward_hook(hook(f"layer {i}")),
-                        layer.self_attn.register_forward_hook(hook(f"attention {i}"))]
-        try:
-            seen["logits"] = model.apply(wav)
-        finally:
-            for h in handles:
-                h.remove()
-        return seen
-
-    with torch.inference_mode():
-        bf, fp = record(cpu), record(f32)
-        enc = on_card.module.encoder
-        dtype = enc.dtype
-        n_rows = on_card.module.n_windows
-
-        def mha(attn, x, core):
-            b, n, d = x.shape
-            split = lambda t: t.view(b, n, attn.n_heads, d // attn.n_heads)  # noqa: E731
-            q, k, v = (split(linear(x, p)) for p in (attn.q_proj, attn.k_proj, attn.v_proj))
-            out = core(q, k, v, sm_scale=(d // attn.n_heads) ** -0.5, dtype=x.dtype)
-            return linear(out.reshape(b, n, d), attn.out_proj)
-
-        def plain(q, k, v, sm_scale, dtype):
-            return attention_plain(q, k, v, sm_scale, dtype)
-
-        stages: list[tuple[str, object, object, object, object]] = []
-        cuda = lambda t: t.to(device)  # noqa: E731
-        mel = whisper_input_features(cuda(wav))
-        stages.append(("log-mel", mel, bf["encoder"][0], fp["encoder"][0], None))
-        x = enc._conv(cuda(bf["encoder"][0]).to(dtype), enc.conv1)
-        x = enc._conv(x, enc.conv2).transpose(1, 2)
-        x = x + enc.embed_positions[: x.shape[1]].to(dtype)
-        stages.append(("conv stem", x, bf["layer 0"][0], fp["layer 0"][0], None))
-        for i, layer in enumerate(enc.layers):
-            a_in = cuda(bf[f"attention {i}"][0])
-            got = mha(layer.self_attn, a_in, attention_core)
-            ref = mha(layer.self_attn, a_in, plain)
-            stages.append((f"layer {i} attention", got, bf[f"attention {i}"][1],
-                           fp[f"attention {i}"][1], float((got.double() - ref.double()).abs().max())))
-            x2 = cuda(bf[f"layer {i}"][0]) + cuda(bf[f"attention {i}"][1])
-            h = layer_norm(x2, layer.final_layer_norm)
-            out = x2 + linear(F.gelu(linear(h, layer.fc1)), layer.fc2)
-            stages.append((f"layer {i} MLP and LayerNorms", out, bf[f"layer {i}"][1],
-                           fp[f"layer {i}"][1], None))
-        last = layer_norm(cuda(bf[f"layer {len(enc.layers) - 1}"][1]), enc.layer_norm)
-        stages.append(("final LayerNorm", last, bf["encoder"][1], fp["encoder"][1], None))
-        stages.append(("truncation", last[:, :n_rows], bf["encoder"][1][:, :n_rows],
-                       fp["encoder"][1][:, :n_rows], None))
-        stages.append(("BiLSTM", on_card.module.lstm_shared(cuda(bf["lstm"][0])), bf["lstm"][1],
-                       fp["lstm"][1], None))
-        stages.append(("heads", on_card.module.heads(cuda(bf["heads"][0])), bf["heads"][1],
-                       fp["heads"][1], None))
-        stages.append(("logits, end to end", on_card.apply(cuda(wav)), bf["logits"], fp["logits"],
-                       None))
-    dist = lambda a, b: float((a.detach().cpu().double() - b.double()).abs().max())  # noqa: E731
-    out = {}
-    for name, got, ref_bf, ref_fp, kernel in stages:
-        out[name] = {"card": dist(got, ref_fp), "cpu_bf16": dist(ref_bf, ref_fp),
-                     "card_vs_cpu_bf16": dist(got, ref_bf)}
-        if kernel is not None:
-            out[name]["kernel_vs_plain"] = kernel
-        ratio = out[name]["card"] / max(out[name]["cpu_bf16"], 1e-30)
-        print(f"hydra_whisper bf16 stage {name} [{card}]: from the CPU's f32 model card "
-              f"{out[name]['card']:.3e}, CPU bf16 {out[name]['cpu_bf16']:.3e} ({ratio:.2f}x); "
-              f"card from CPU bf16 {out[name]['card_vs_cpu_bf16']:.3e}"
-              + (f"; flash kernel vs attention_plain on the card {kernel:.3e}"
-                 if kernel is not None else ""), flush=True)
-    return out
-
-
-
-DEVICE_CACHE_EPOCHS = 3
+DEVICE_CACHE_EPOCHS = 2
 # the timed runs' data: 16 train files of 2048 s, 1.05 GB of 16 kHz PCM16 (an
-# int16 device cache of that size), 2 val files, 1 test file; the virtual
+# int16 device cache of that size), 1 val file, 1 test file; the virtual
 # epoch cut by data.dataset_multiplier to DEVICE_CACHE_STEPS steps of 32
-DEVICE_CACHE_FILES = (16, 2, 1)
+DEVICE_CACHE_FILES = (16, 1, 1)
 DEVICE_CACHE_FILE_S = 2048.0
 DEVICE_CACHE_STEPS = 20
 
@@ -3462,9 +3245,8 @@ def phase_device_cache(card: str) -> dict:
     losses, parameters, AdamW's state), run 3's launch counts must be run
     2's (a replay counts its captured launches), and run 2 must log its
     resolution note. Printed for each: the warm step, the median and spread
-    of the second epoch's steps (CUDA events), the device's busy share of
-    the third epoch's training (device time and wall both under
-    torch.profiler), the peak device memory, ``device_cache_mb``. Then,
+    of the second epoch's steps (CUDA events), the peak device memory,
+    ``device_cache_mb``. Then,
     over the training slice's small data, step against epoch dispatch,
     bit-equal each: k=3 accumulation over two epochs (so that both graphs,
     fold-in and update, replay), f32 (``train.precision=f32``: both f32
@@ -3508,7 +3290,7 @@ def phase_device_cache(card: str) -> dict:
                               ("auto step", dict(data_cache="auto")),
                               ("device epoch", dict(data_cache="device", dispatch="epoch"))):
             runs[label] = _dispatch_fit(card, label, train(timed, **fields), big_ds, tmp / label,
-                                        timed_epoch=1, profile_epoch=2)
+                                        timed_epoch=1)
         if runs["auto step"]["n_steps"] != DEVICE_CACHE_STEPS:
             raise AssertionError(f"{runs['auto step']['n_steps']} steps per epoch, not "
                                  f"{DEVICE_CACHE_STEPS}")
@@ -3693,9 +3475,7 @@ def phase_train_cli(card: str) -> dict:
     4. in this process, one epoch each with remat and int16 transport,
        without remat, and with f32 transport: the trainable parameters of
        each pair bit-equal; peak device memory, the warm step and the flash
-       forward's launches per step of remat on and off;
-    5. the repairs' measurements: ``determinism_step_times`` and
-       ``hydra_whisper_reduction``.
+       forward's launches per step of remat on and off.
 
     Children are killed after CHILD_WALL_S (a caught SIGTERM does not end
     them). Returns run 1's launch counts."""
@@ -3874,10 +3654,6 @@ def phase_train_cli(card: str) -> dict:
                 raise AssertionError(f"{a} against {b}: trainable parameters {d:.3e} apart")
             print(f"check {a} against {b}: trainable parameters and val/loss bit-equal",
                   flush=True)
-
-        # 5. the repairs' measurements
-        determinism_step_times(card)
-        hydra_whisper_reduction(card)
     print(f"train_cli walls [{card}]: " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()),
           flush=True)
     return launches
@@ -4650,7 +4426,7 @@ PARALLEL_REPLICAS = ("cuda:0", "cuda:0")  # two replicas on the one card
 PARALLEL_LAYERS = 4  # the gloo world's HuBERT-base widths at 4 layers, as phase_train_cli's
 PARALLEL_GLOBAL_BATCH = 8  # the world step's global batch: 4 crops a rank of two
 PARALLEL_LR = 1e-3
-PARALLEL_CLI_EPOCHS = 3
+PARALLEL_CLI_EPOCHS = 2
 PARALLEL_REQUEST_S = 20.0  # the request sent to the server over the two-replica mesh
 STEEP_GRAD = 100 * 1e-8  # updates held at 1e-5 where |grad| is 100 times AdamW's eps
 TRAIN_LAUNCH_KEYS = ("flash_attn_fwd", "flash_attn_bwd")  # the bf16 training path's kernels
@@ -4671,7 +4447,7 @@ PARALLEL_STEP_CHILD = (
     "b = np.load(out + '/batch.npz')\n"
     "n = len(b['x']) // world.size\n"
     "rows = slice(world.rank * n, (world.rank + 1) * n)\n"
-    "step = make_train_step(model, make_optimizer(model, lr), world=world)\n"
+    "step = make_train_step(model, make_optimizer(model, lr), world=world, group=world.group)\n"
     "loss, per_label = step({k: torch.from_numpy(b[k][rows]).cuda() for k in ('x', 'y')}, None)\n"
     "named = [(k, p) for k, p in model.module.named_parameters() if p.requires_grad]\n"
     "np.savez(f'{out}/rank{world.rank}.npz', loss=loss.cpu().numpy()[None],\n"
@@ -4892,7 +4668,7 @@ def _serve_request(card: str, cfg, model, tmp: Path, mesh, label: str,
 
 
 def _nccl_world_of_one(card: str, tmp: Path) -> dict:
-    """A seeded two-epoch fit of the training slice (HuBERT-base, bf16, the
+    """A seeded one-epoch fit of the training slice (HuBERT-base, bf16, the
     device cache) with and without an NCCL world of one in this process,
     under step and epoch dispatch: bit-equal in every epoch's losses and
     metrics, the trainable parameters and AdamW's state, with equal
@@ -4914,8 +4690,10 @@ def _nccl_world_of_one(card: str, tmp: Path) -> dict:
     env = _rank_env(0, 1, _free_port())
     paths = {}
     for dispatch in ("step", "epoch"):
+        # one epoch: its four steps cover the eager warm-up, the capture and
+        # the replays under epoch dispatch
         cfg = dataclasses.replace(base, train=dataclasses.replace(
-            base.train, dispatch=dispatch, data_cache="device"))
+            base.train, dispatch=dispatch, data_cache="device", max_epochs=1))
         alone = _dispatch_fit(card, f"{dispatch} dispatch, one process", cfg, ds,
                               tmp / f"alone_{dispatch}")
         os.environ.update(env)
@@ -5076,7 +4854,7 @@ def phase_parallel(card: str) -> dict:
        (two replicas); the walls of the three, which on one card measure the
        split and gather, not scaling; then one request to ``serve_forever``
        over the two-replica mesh (``_serve_request``);
-    2. an NCCL world of one (``_nccl_world_of_one``): seeded two-epoch fits
+    2. an NCCL world of one (``_nccl_world_of_one``): seeded one-epoch fits
        of HuBERT-base bit-equal to the meshless fit, step and epoch dispatch;
     3. a 2-rank gloo world on cuda:0 in child processes, HuBERT-base widths
        at PARALLEL_LAYERS layers: one f32 step against one process's
@@ -5449,6 +5227,427 @@ def phase_tensor_seq(card: str) -> dict:
     return paths
 
 
+TRAIN_TP_STEPS = 3  # steps each rank takes; replicated leaves compared after them
+TRAIN_TP_BATCH = 32  # the training slice's batch: 32 crops of 4 s
+TRAIN_TP_WAV_S = 60.0  # the WAV the gathered checkpoint serves, meshless
+TRAIN_TP_LR = 1e-3
+# the gates of a training mesh against this process's meshless steps: in
+# f32 each step's loss at JAX's rtol and the first step's gradients at the
+# CPU tests' pin (max |mesh - meshless| <= 1e-4 x max(1, max |meshless|));
+# in bf16 the mesh no further from the meshless bf16 step than
+# TRAIN_TP_BF16_FACTOR times the bf16 step is from the f32 step on the same
+# weights and batch (each step's loss against the largest such distance up
+# to that step; each leaf's gradient in the L2 norm, plus the f32 pin)
+TRAIN_TP_F32_RTOL = 1e-5
+TRAIN_TP_GRAD_ATOL = 1e-4
+TRAIN_TP_BF16_FACTOR = 3.0
+# (label, model, precision, (data, seq, model)) of each world on the one card,
+# and the four-card worlds (NCCL, one rank per card)
+TRAIN_TP_RUNS = (("hubert bf16", "surgical_hubert_hydra", "bf16", (2, 1, 2)),
+                 ("whisper bf16", "surgical_hydra", "bf16", (1, 2, 2)),
+                 ("hubert f32", "surgical_hubert_hydra", "f32", (1, 1, 2)))
+TRAIN_TP_CARD_RUNS = (("hubert bf16", "surgical_hubert_hydra", "bf16", (2, 1, 2)),
+                      ("whisper bf16", "surgical_hydra", "bf16", (1, 2, 2)))
+# one rank of a training mesh (argv: backend, then a config and an out dir
+# for each mesh in turn, one world for all): TRAIN_TP_STEPS steps of
+# Trainer.train_step on its data coordinate's block of <out>/batch.npz;
+# reports each step's loss, the step walls, its launches, sha256 of each
+# replicated parameter after the steps and of the gathered trainable tree,
+# and where its time went; checks that the gathered tree holds its own
+# blocks; rank 0 writes the first step's gradients, gathered whole, to
+# <out>/grads.pt and the gathered tree as a checkpoint to <out>/ckpt
+TENSOR_TRAIN_CHILD = (
+    "import time\n"
+    "t_start = time.perf_counter()\n"
+    "import hashlib, json, sys, warnings\n"
+    "import numpy as np, torch\n"
+    "import chip_smoke\n"
+    "from segma_tpu_torch import checkpoint\n"
+    "from segma_tpu_torch.config import load_config\n"
+    "from segma_tpu_torch.parallel import distributed\n"
+    "from segma_tpu_torch.train import Trainer, deterministic_cudnn\n"
+    "backend, runs = sys.argv[1], sys.argv[2:]\n"
+    "assert distributed.maybe_init_distributed('cuda', backend=backend)\n"
+    "world = distributed.current_world()\n"
+    "digest = lambda t: hashlib.sha256(t.float().cpu().numpy().tobytes()).hexdigest()\n"
+    "for cfg_path, out in zip(runs[::2], runs[1::2]):\n"
+    "    times = {'start': time.perf_counter() - t_start}\n"
+    "    t0 = time.perf_counter()\n"
+    "    cfg = load_config(cfg_path)\n"
+    "    with warnings.catch_warnings():\n"
+    "        warnings.simplefilter('ignore')  # random encoder weights, on purpose\n"
+    "        model = checkpoint.build_model(cfg, device='cuda')\n"
+    "    if hasattr(model.module, 'dropout'):\n"
+    "        model.module.dropout = 0.0\n"
+    "    times['build'] = time.perf_counter() - t0\n"
+    "    t0 = time.perf_counter()\n"
+    "    trainer = Trainer(model, cfg, out + '/run', device='cuda')\n"
+    "    del model\n"
+    "    times['trainer'] = time.perf_counter() - t0\n"
+    "    d, data = trainer.coordinate\n"
+    "    b = np.load(out + '/batch.npz')\n"
+    "    n = len(b['x']) // data\n"
+    "    batch = {k: torch.from_numpy(b[k][d * n:(d + 1) * n]).cuda() for k in ('x', 'y')}\n"
+    "    trainer.generator.manual_seed(1)\n"
+    "    chip_smoke.reset_launches()\n"
+    "    walls, losses = [], []\n"
+    "    for _ in range(chip_smoke.TRAIN_TP_STEPS):\n"
+    "        torch.cuda.synchronize()\n"
+    "        t0 = time.perf_counter()\n"
+    "        with deterministic_cudnn(True):  # as a seeded fit runs\n"
+    "            loss, per_label = trainer.train_step(batch, trainer.generator)\n"
+    "        torch.cuda.synchronize()\n"
+    "        walls.append(time.perf_counter() - t0)\n"
+    "        losses.append(float(loss))\n"
+    "        if len(losses) == 1:  # the first step's gradients, whole (a collective)\n"
+    "            grads = trainer.blocks.gather({k: p.grad.detach() for k, p in\n"
+    "                                           trainer.model.module.named_parameters()\n"
+    "                                           if p.requires_grad and p.grad is not None})\n"
+    "            if world.rank == 0:\n"
+    "                torch.save({k: v.float().cpu() for k, v in grads.items()}, out + '/grads.pt')\n"
+    "            del grads\n"
+    "    launches = chip_smoke.read_launches()\n"
+    "    t0 = time.perf_counter()\n"
+    "    member = trainer.model.module\n"
+    "    named = {k: p.detach() for k, p in member.named_parameters() if p.requires_grad}\n"
+    "    whole = trainer.blocks.gather(named)\n"
+    "    g = trainer.blocks.group\n"
+    "    for k, dim in trainer.blocks.dims.items():\n"
+    "        if k in named:\n"
+    "            w = named[k].shape[dim]\n"
+    "            assert torch.equal(whole[k].narrow(dim, g.rank * w, w), named[k]), k\n"
+    "    tree = checkpoint.flax_split(trainer.model, trainer.blocks)[0]\n"
+    "    if world.rank == 0:\n"
+    "        checkpoint.save_params(out + '/ckpt', tree, {'epoch': 0, 'frozen_fingerprint':\n"
+    "                               trainer.frozen_fp})\n"
+    "    times['trees'] = time.perf_counter() - t0\n"
+    "    report = {'rank': world.rank, 'coordinate': list(trainer.mesh.coordinate),\n"
+    "              'losses': losses, 'walls': walls, 'launches': launches, 'times': times,\n"
+    "              'sharded': sorted(trainer.blocks.dims),\n"
+    "              'replicated': {k: digest(v) for k, v in named.items()\n"
+    "                             if k not in trainer.blocks.dims},\n"
+    "              'whole': {k: digest(v) for k, v in whole.items()},\n"
+    "              'peak_gb': torch.cuda.max_memory_allocated() / 1e9}\n"
+    "    open(f'{out}/rank{world.rank}.json', 'w').write(json.dumps(report))\n"
+    "    del trainer, member, named, whole, tree\n"
+    "    torch.cuda.empty_cache()\n"
+    "    torch.cuda.reset_peak_memory_stats()\n"
+    "distributed.destroy()\n"
+)
+
+
+def _train_tp_config(name: str, precision: str, shape: tuple[int, int, int], tmp: Path):
+    """The training slice's HuBERT-base config, or the serving slice's
+    Whisper-base one, at ``precision`` over the mesh ``shape``."""
+    import dataclasses
+
+    from segma_tpu_torch.config import MeshConfig
+
+    if name == "surgical_hubert_hydra":
+        cfg = surgical_hubert_hydra_config(tmp / "data", precision=precision)
+    else:
+        cfg = _train_precision(surgical_hydra_config(), precision)
+    d, s, m = shape
+    return dataclasses.replace(cfg, mesh=MeshConfig(data=d, seq=s, model=m),
+                               train=dataclasses.replace(cfg.train, lr=TRAIN_TP_LR, seed=0))
+
+
+def _train_tp_meshless(cfg, batch: dict) -> dict:
+    """This process's meshless steps over the whole batch from the same
+    seed-0 weights: each step's loss, the first step's gradients (on the
+    host, f32), the walls, the launches."""
+    import warnings
+
+    import torch
+
+    from segma_tpu_torch import checkpoint
+    from segma_tpu_torch.train import deterministic_cudnn, make_optimizer, make_train_step
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # random encoder weights, on purpose
+        model = checkpoint.build_model(cfg, device="cuda")
+    if hasattr(model.module, "dropout"):
+        model.module.dropout = 0.0
+    step = make_train_step(model, make_optimizer(model, cfg.train.lr))
+    gen = torch.Generator("cuda").manual_seed(1)
+    x = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    walls, losses = [], []
+    reset_launches()
+    for _ in range(TRAIN_TP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with deterministic_cudnn(True):
+            loss, _ = step(x, gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        if len(losses) == 1:
+            grads = {k: p.grad.detach().float().cpu() for k, p in model.module.named_parameters()
+                     if p.requires_grad and p.grad is not None}
+    out = {"losses": losses, "grads": grads, "walls": walls, "launches": read_launches(),
+           "n_layers": sum(1 for m in model.module.modules()
+                           if type(m).__name__ in ("HubertTransformerLayer", "EncoderLayer"))}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _start_tp_world(runs, tmp: Path, backend: str = "gloo", own_cards: bool = False) -> dict:
+    """The training meshes ``runs`` ((label, model, precision, shape), all of
+    one size), one after the other in one world of ``TENSOR_TRAIN_CHILD``
+    ranks (gloo ranks on cuda:0, or NCCL ranks on cards of their own):
+    write each mesh's config and batch, and start the world's ranks."""
+    n = int(np.prod(runs[0][3]))
+    args, prepared = [backend], []
+    for label, name, precision, shape in runs:
+        out = tmp / label.replace(" ", "_")
+        out.mkdir(parents=True)
+        cfg = _train_tp_config(name, precision, shape, tmp)
+        if name == "surgical_hubert_hydra":
+            from segma_tpu_torch.models.hubert.builders import HUBERT_CONV_SETTINGS as conv
+        else:
+            from segma_tpu_torch.models.whisper.builders import WHISPER_CONV_SETTINGS as conv
+        n_windows = conv.n_windows(cfg.audio.chunk_duration_f, strict=cfg.audio.strict_frames)
+        rng = np.random.default_rng(29)
+        t = np.arange(64_000) / 16_000
+        x = (0.1 * rng.standard_normal((TRAIN_TP_BATCH, 64_000))
+             + 0.3 * np.sin(2 * np.pi * 440.0 * t)).astype(np.float32)
+        y = (rng.random((TRAIN_TP_BATCH, n_windows, len(TRAIN_CLASSES))) > 0.6).astype(
+            np.float32)
+        np.savez(out / "batch.npz", x=x, y=y)
+        args += [str(write_config(out / "cfg.json", cfg)), str(out)]
+        prepared.append((label, name, precision, shape, out, cfg, {"x": x, "y": y}))
+    tag = f"tp_world{n}_{backend}"
+    where = f"cuda:0 to cuda:{n - 1}" if own_cards else "cuda:0"
+    return {"procs": _ranks(["-c", TENSOR_TRAIN_CHILD, *args], tmp / f"cwd_{tag}", tmp, tag, n,
+                            own_cards),
+            "t0": time.perf_counter(), "tmp": tmp, "tag": tag, "n": n, "backend": backend,
+            "where": where, "prepared": prepared}
+
+
+def _join_tp_world(card: str, world: dict) -> None:
+    """Wait for a world's ranks (once): each must exit 0."""
+    if "wall" in world:
+        return
+    _wait_ranks(world["procs"], world["tmp"], world["tag"], 0)
+    world["wall"] = time.perf_counter() - world["t0"]
+    print(f"train tensor_seq [{card}]: a world of {world['n']} {world['backend']} ranks on "
+          f"{world['where']} ran {[p[0] for p in world['prepared']]}, ended within "
+          f"{world['wall']:.1f} s of its start", flush=True)
+
+
+def _tp_meshless(refs: dict, cfg, name: str, precision: str, batch: dict) -> dict:
+    """``_train_tp_meshless`` at ``precision``, once per (model, precision)
+    in ``refs``."""
+    import torch
+
+    if (name, precision) not in refs:
+        refs[name, precision] = _train_tp_meshless(_train_precision(cfg, precision), batch)
+        torch.cuda.empty_cache()
+    return refs[name, precision]
+
+
+def _tp_gradient_gate(label: str, precision: str, got: dict, ref: dict, ref32: dict) -> str:
+    """The first step's gradients of a mesh (gathered whole) against the
+    meshless step's, leaf by leaf (TRAIN_TP_GRAD_ATOL in f32; in bf16 the L2
+    norm against TRAIN_TP_BF16_FACTOR times the bf16 step's own distance from
+    the f32 step, plus the f32 pin). Returns a summary; raises naming the
+    leaves that miss."""
+    import torch
+
+    if set(got) != set(ref):
+        raise AssertionError(f"train tensor_seq {label}: gradients of {sorted(set(got) ^ set(ref))[:5]} "
+                             f"on one side only")
+    norm = lambda t: float(torch.linalg.vector_norm(t.double()))  # noqa: E731
+    err, lim = {}, {}
+    for k, g in ref.items():
+        pin = TRAIN_TP_GRAD_ATOL * max(1.0, float(ref32[k].abs().max()))
+        if precision == "f32":
+            err[k], lim[k] = float((got[k] - g).abs().max()), pin
+        else:
+            err[k] = norm(got[k] - g)
+            lim[k] = TRAIN_TP_BF16_FACTOR * norm(g - ref32[k]) + pin
+    bad = [k for k in ref if not err[k] <= lim[k]]
+    if bad:
+        raise AssertionError(f"train tensor_seq {label}: first-step gradients off the meshless "
+                             f"step's at {len(bad)} leaves: "
+                             + ", ".join(f"{k} {err[k]:.3e} > {lim[k]:.3e}" for k in bad[:5]))
+    worst = max(ref, key=lambda k: err[k] / lim[k])
+    kind = "max abs" if precision == "f32" else "L2"
+    # the gate's reach: where the meshless gradient itself is within the
+    # limit, a gradient doubled (a sum where a block was due) would pass
+    size = {k: float(g.abs().max()) if precision == "f32" else norm(g) for k, g in ref.items()}
+    blind = [k for k in ref if size[k] <= lim[k]]
+    return (f"first-step gradients of {len(ref)} leaves within their limits ({kind}; worst "
+            f"{worst} {err[worst]:.3e} of {lim[worst]:.3e}); a doubled gradient would pass at "
+            f"{len(blind)} leaves" + (f" ({', '.join(blind[:4])}"
+                                     + (", ..." if len(blind) > 4 else "") + ")" if blind else ""))
+
+
+def _tp_loss_limits(precision: str, ref: dict, ref32: dict) -> tuple[list[float], str]:
+    """Each step's limit on |mesh loss - meshless loss|: f32 at
+    TRAIN_TP_F32_RTOL; bf16 TRAIN_TP_BF16_FACTOR times the largest distance
+    of the bf16 meshless losses from the f32 ones up to that step (the
+    trajectories part as the steps go)."""
+    if precision == "f32":
+        return [TRAIN_TP_F32_RTOL * abs(x) for x in ref["losses"]], f"rtol {TRAIN_TP_F32_RTOL}"
+    yard = np.maximum.accumulate([abs(a - b) for a, b in zip(ref["losses"], ref32["losses"])])
+    return ([TRAIN_TP_BF16_FACTOR * float(y) for y in yard],
+            f"{TRAIN_TP_BF16_FACTOR} x the bf16 meshless losses' distance from the f32 ones, "
+            + ", ".join(f"{y:.3e}" for y in yard))
+
+
+def _finish_tp_world(card: str, world: dict, refs: dict | None = None) -> dict:
+    """Wait for a world of ``_start_tp_world``, then hold each of its meshes
+    to this process's meshless steps (cached in ``refs`` by model and
+    precision). Gates: each step's loss (``_tp_loss_limits``); the first
+    step's gradients
+    (``_tp_gradient_gate``); every replicated leaf and the gathered tree the
+    same bits on every rank (each rank checked its own blocks in it); flash
+    backward launches per rank = layers x steps; launches on every rank.
+    Returns, by label, the launch counts summed over the ranks, the first
+    rank's checkpoint and the config."""
+    import torch
+
+    refs = {} if refs is None else refs
+    n, backend, where, prepared = world["n"], world["backend"], world["where"], world["prepared"]
+    _join_tp_world(card, world)
+    results = {}
+    for label, name, precision, shape, out, cfg, batch in prepared:
+        ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(n)]
+        ref = _tp_meshless(refs, cfg, name, precision, batch)
+        ref32 = _tp_meshless(refs, cfg, name, "f32", batch)
+        steps = range(TRAIN_TP_STEPS)
+        d_loss = [max(abs(r["losses"][i] - ref["losses"][i]) for r in ranks) for i in steps]
+        limits, rule = _tp_loss_limits(precision, ref, ref32)
+        for i in steps:
+            if not d_loss[i] <= limits[i]:
+                raise AssertionError(f"train tensor_seq {label}: step {i + 1}'s loss "
+                                     f"{ranks[0]['losses'][i]} against meshless "
+                                     f"{ref['losses'][i]}: {d_loss[i]:.3e} > {limits[i]:.3e}")
+        grads = _tp_gradient_gate(label, precision, torch.load(out / "grads.pt"), ref["grads"],
+                                  ref32["grads"])
+        for r, rep in enumerate(ranks):
+            if tuple(rep["coordinate"]) != tuple(int(c) for c in np.unravel_index(r, shape)):
+                raise AssertionError(f"train tensor_seq {label}: rank {r} at "
+                                     f"{rep['coordinate']}")
+            for key in ("replicated", "whole"):
+                if rep[key] != ranks[0][key]:
+                    bad = [k for k in rep[key] if rep[key][k] != ranks[0][key].get(k)]
+                    raise AssertionError(f"train tensor_seq {label}: rank {r}'s {key} leaves "
+                                         f"differ from rank 0's: {bad[:5]}")
+        bwd = "flash_attn_bwd" if precision == "bf16" else "flash_attn_bwd_f32"
+        want_bwd = ref["n_layers"] * TRAIN_TP_STEPS if name == "surgical_hubert_hydra" else 0
+        for r, rep in enumerate(ranks):
+            if rep["launches"][bwd] != want_bwd or rep["launches"][bwd] != ref["launches"][bwd]:
+                raise AssertionError(f"train tensor_seq {label}: rank {r} launched {bwd} "
+                                     f"{rep['launches'][bwd]} times, not {want_bwd}")
+        keys = (("flash_attn_fwd", "flash_attn_bwd") if name == "surgical_hubert_hydra"
+                else ("logmel", "flash_attn_fwd"))
+        if precision == "f32":
+            keys = tuple(k + "_f32" if k.startswith("flash") else k for k in keys)
+        for rep in ranks:
+            _launched(rep["launches"], keys, f"train tensor_seq {label} rank {rep['rank']}")
+        warm = float(np.median([w for rep in ranks for w in rep["walls"][1:]]))
+        warm_ref = float(np.median(ref["walls"][1:]))
+        times = {k: max(rep["times"][k] for rep in ranks) for k in ranks[0]["times"]}
+        print(f"check train tensor_seq {label} [{card}]: {n} {backend} ranks on {where} at "
+              f"(data, seq, model) {shape}, {TRAIN_TP_BATCH} crops of 4 s: losses "
+              + ", ".join(f"{x:.6f}" for x in ranks[0]["losses"]) + " against meshless "
+              + ", ".join(f"{x:.6f}" for x in ref["losses"]) + " (off by "
+              + ", ".join(f"{x:.3e}" for x in d_loss) + "; limits "
+              + ", ".join(f"{x:.3e}" for x in limits) + f", {rule}); "
+              f"{grads}; {len(ranks[0]['replicated'])} replicated and "
+              f"{len(ranks[0]['whole'])} gathered leaves the same bits on every rank after "
+              f"{TRAIN_TP_STEPS} steps ({len(ranks[0]['sharded'])} sharded entries, each rank's "
+              f"blocks in the gathered tree); {bwd} {ranks[0]['launches'][bwd]} per rank; warm "
+              f"step {warm * 1e3:.1f} ms (median over ranks; steps "
+              + ", ".join(f"{w * 1e3:.1f}" for w in ranks[0]["walls"])
+              + f" ms on rank 0) against meshless {warm_ref * 1e3:.1f} ms; peak "
+              f"{max(r['peak_gb'] for r in ranks):.2f} GB a rank; slowest rank's seconds: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in times.items()), flush=True)
+        results[label] = {"launches": {k: sum(rep["launches"][k] for rep in ranks)
+                                       for k in ranks[0]["launches"]},
+                          "ckpt": out / "ckpt", "cfg": cfg}
+    return results
+
+
+def _serve_gathered(card: str, label: str, cfg, ckpt: Path, tmp: Path) -> dict:
+    """A mesh's gathered checkpoint served meshless: ``load_model_for_inference``
+    (the frozen fingerprint checked), its trainable tree bit-equal to the
+    file's, TRAIN_TP_WAV_S seconds served with finite logits. Returns the
+    serving run's launches."""
+    import dataclasses
+
+    import torch
+
+    from segma_tpu_torch import checkpoint
+    from segma_tpu_torch.inference import InferencePipeline, _load_mono
+
+    cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh, data=-1, seq=1, model=1))
+    model = checkpoint.load_model_for_inference(cfg, ckpt, device="cuda")
+    tree = checkpoint.load_params(ckpt, checkpoint.flax_split(model)[0])
+    n = _same_tree(checkpoint.flax_split(model)[0], tree, f"{label} served tree")
+    wav = tmp / "served.wav"
+    write_wav(wav, int(TRAIN_TP_WAV_S * 16_000), seed=9)
+    reset_launches()
+    logits = InferencePipeline(model, batch_size=INNER_BATCH, device="cuda").logits_for_audio(
+        _load_mono(wav))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if not np.isfinite(logits).all() or logits.shape[-1] != len(TRAIN_CLASSES):
+        raise AssertionError(f"{label}: served logits {logits.shape}, finite "
+                             f"{np.isfinite(logits).all()}")
+    _launched(launches, ("flash_attn_fwd",), f"{label} served")
+    print(f"check train tensor_seq {label} [{card}]: the gathered checkpoint loads meshless "
+          f"(fingerprint checked, {n} trainable leaves bit-equal to the file) and serves "
+          f"{TRAIN_TP_WAV_S:.0f} s: logits {logits.shape} finite, launches {launches}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_tensor_seq(card: str) -> dict:
+    """Training under tensor and sequence parallelism on the one card: each
+    world of TRAIN_TP_RUNS as gloo ranks on cuda:0 in child processes (full
+    widths, seed-0 weights, dropout 0, the training slice's batch of 32
+    crops of 4 s, TRAIN_TP_STEPS steps of ``Trainer.train_step``), against
+    this process's meshless steps (``_finish_tp_world``'s gates; the meshes
+    of four ranks share one world, which runs at once with the world of two,
+    so their steps' walls overlap): HuBERT-base
+    bf16 at (2, 1, 2), Whisper-base ``surgical_hydra`` bf16 at (1, 2, 2)
+    (log-mel and the flash forward at 750 | 1500 without autograd; the
+    layer mix, the BiLSTM and the heads trained), HuBERT-base f32 at (1, 1,
+    2); then the first world's gathered checkpoint served meshless
+    (``_serve_gathered``). Returns the launch counts by path (each world's
+    summed over its ranks)."""
+    paths: dict[str, dict] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # the worlds run at once (the phase's time), their steps overlapping
+        sizes = sorted({int(np.prod(r[3])) for r in TRAIN_TP_RUNS}, reverse=True)
+        worlds = [_start_tp_world([r for r in TRAIN_TP_RUNS if int(np.prod(r[3])) == size], tmp)
+                  for size in sizes]
+        results, refs = {}, {}
+        try:
+            for world in worlds:  # every world ends before the meshless steps run
+                _join_tp_world(card, world)
+            for world in worlds:
+                results.update(_finish_tp_world(card, world, refs))
+        finally:
+            for proc in (p for world in worlds for p in world["procs"]):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for label, got in results.items():
+            paths[f"train tensor_seq {label}"] = got["launches"]
+        first = results[TRAIN_TP_RUNS[0][0]]
+        paths["train tensor_seq served"] = _serve_gathered(
+            card, f"{TRAIN_TP_RUNS[0][0]} {TRAIN_TP_RUNS[0][3]}", first["cfg"], first["ckpt"],
+            tmp)
+    return paths
+
+
 def phase_parallel_cards(card: str) -> dict:
     """Data parallelism across the visible cards, when there are several
     (on one card it prints that it is skipped and returns no path; the
@@ -5465,7 +5664,12 @@ def phase_parallel_cards(card: str) -> dict:
        through ``serve_forever`` over (2, 1, 2);
     2. training, HuBERT-base widths at PARALLEL_LAYERS layers, 8 crops a
        card: one f32 step of an NCCL world of one rank per card against one
-       process's global-batch step (``_world_step``), and ``_cards_fits``.
+       process's global-batch step (``_world_step``), and ``_cards_fits``;
+       with four cards, training under tensor and sequence parallelism:
+       TRAIN_TP_CARD_RUNS as NCCL ranks on cards of their own with
+       ``phase_train_tensor_seq``'s gates (``_finish_tp_world``), and
+       ``cli.train`` started plainly with ``mesh.model=2`` and with
+       ``mesh.seq=2 mesh.model=2`` (``_cards_tp_cli``).
 
     Returns the launch counts of the serving paths."""
     import dataclasses
@@ -5532,7 +5736,58 @@ def phase_parallel_cards(card: str) -> dict:
             cfg.train, precision="bf16", batch_size=8 * n, max_epochs=PARALLEL_CLI_EPOCHS,
             data_cache="device"))
         _cards_fits(card, write_config(tmp / "cli.json", cli_cfg), tmp, n)
+        if n >= 4:  # training under tensor and sequence parallelism across four cards
+            runs = [(f"{label} 4 cards", *rest) for label, *rest in TRAIN_TP_CARD_RUNS]
+            got = _finish_tp_world(card, _start_tp_world(runs, tmp / "tp_train", backend="nccl",
+                                                           own_cards=True))
+            for label, result in got.items():
+                paths[f"parallel train cards tensor_seq {label}"] = result["launches"]
+            _cards_tp_cli(card, root, tmp / "tp_cli")
     return paths
+
+
+def _cards_tp_cli(card: str, root: Path, tmp: Path) -> None:
+    """``python -m segma_tpu_torch.cli.train`` run plainly on four cards with
+    ``mesh.model=2`` (HuBERT-base, the training slice's two epochs: the
+    auto-resolved (2, 1, 2)) and with ``mesh.seq=2 mesh.model=2``
+    (Whisper-base ``surgical_hydra``, one epoch: (1, 2, 2)): four NCCL ranks,
+    exit 0, each epoch logged once, ``last/`` holding the whole tree."""
+    import dataclasses
+
+    from segma_tpu_torch import checkpoint
+
+    tmp.mkdir(parents=True, exist_ok=True)
+    hubert = surgical_hubert_hydra_config(root)
+    whisper = _train_precision(surgical_hydra_config(), "bf16")
+    whisper = dataclasses.replace(
+        whisper, data=dataclasses.replace(whisper.data, dataset_path=str(root)),
+        train=dataclasses.replace(whisper.train, batch_size=TRAIN_TP_BATCH, max_epochs=1, seed=0))
+    for label, cfg, extra, q in (
+            ("hubert", hubert, ["mesh.model=2"], "encoder/layers_0/attention/q_proj/kernel"),
+            ("whisper", whisper, ["mesh.seq=2", "mesh.model=2"], "layer_mix/layer_weights")):
+        out = tmp / label
+        log = tmp / f"{label}.log"
+        cfg_path = write_config(tmp / f"{label}.json", cfg)
+        wall = _wait(_child(["-m", "segma_tpu_torch.cli.train", "-c", str(cfg_path),
+                             f"model.chkp_path={out}", *extra], tmp / f"cwd_{label}", log),
+                     log, f"cards cli.train {label}", 0)
+        text = log.read_text()
+        if "4 cards visible" not in text or "ranks exited with [0, 0, 0, 0]" not in text:
+            raise AssertionError(f"cards cli.train {label}: not 4 ranks:\n{text[-3000:]}")
+        (run,) = out.iterdir()
+        epochs = _epochs(_records(run / "metrics.jsonl"))
+        if [r["epoch"] for r in epochs] != list(range(cfg.train.max_epochs)):
+            raise AssertionError(f"cards cli.train {label}: epochs {[r['epoch'] for r in epochs]}")
+        tree = checkpoint.msgpack_restore((run / "checkpoints" / "last" / "params.msgpack")
+                                          .read_bytes())
+        leaf = tree
+        for part in q.split("/"):
+            leaf = leaf[part]
+        print(f"check parallel train cards cli.train {label} [{card}]: {' '.join(extra)} as 4 "
+              f"NCCL ranks, exit 0 in {wall:.1f} s; epochs "
+              + ", ".join(f"{r['epoch']}: loss {r['train/loss']:.4f}, train "
+                          f"{r['train_time_s']:.2f} s" for r in epochs)
+              + f"; last/ {q} {tuple(np.asarray(leaf).shape)} (the whole leaf)", flush=True)
 
 
 def profile_run(card: str, label: str, fn, wall_s: float) -> list[str]:
@@ -5614,6 +5869,7 @@ def main() -> int:
     families = phase(phase_model_families)
     parallel = phase(phase_parallel)
     tensor_seq = phase(phase_tensor_seq)
+    train_tp = phase(phase_train_tensor_seq)
     parallel.update(phase(phase_parallel_cards))
     # the f32 phases run under PyTorch's defaults, which let cuDNN take TF32:
     # the f32 model itself keeps its convolutions and LSTM in IEEE f32
@@ -5653,6 +5909,10 @@ def main() -> int:
                 if path.startswith(f"parallel {kind}"))
         # the tensor- and sequence-parallel serving paths, every mesh together
         row["launches_tensor_seq"] = sum(counts[row["name"]] for counts in tensor_seq.values())
+        # training under tensor and sequence parallelism: every rank of every
+        # world, and the gathered checkpoint served
+        row["launches_train_tensor_seq"] = sum(counts[row["name"]]
+                                               for counts in train_tp.values())
     by_name["logmel"]["vad_train"] = families["logmel"]
     # the artifacts' runs: the bf16 one in its loader child, the f32 one here
     for name, path in (("logmel", "export child bf16"), ("flash_attn_fwd", "export child bf16"),
@@ -5666,7 +5926,7 @@ def main() -> int:
              "train_cli": train_cli, **device_cache,
              **{f"families {label}": counts for label, counts in families["launches"].items()},
              **{f"live serve {label}": counts for label, counts in live.items()},
-             **export, **parallel, **tensor_seq}
+             **export, **parallel, **tensor_seq, **train_tp}
     print(f"kernels: {json.dumps(paths)}", flush=True)
     print(card, flush=True)
     print(json.dumps({

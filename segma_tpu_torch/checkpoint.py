@@ -13,6 +13,12 @@ frozen parameters, which are never written: inference rebuilds them from
 fingerprint. So the JAX package's ``load_params`` restores a checkpoint
 written here, and this module restores one written there.
 
+A member of a tensor-parallel mesh holds blocks of the sharded entries
+(``parallel.sharding.Blocks``): what it writes is the whole tree, its
+blocks gathered over the model group first (``blocks.gather``, which every
+member calls), and what it reads it cuts into its blocks (``blocks.take``),
+so a checkpoint written under one mesh resumes under another, or none.
+
 ```
 <run_dir>/checkpoints/
 ├── epoch=03-val_loss=0.123/   (one per kept epoch: params.msgpack, meta.yaml)
@@ -34,7 +40,7 @@ from __future__ import annotations
 import hashlib
 import shutil
 from pathlib import Path
-from typing import Any
+from typing import Any, Callable
 
 import msgpack
 import numpy as np
@@ -43,6 +49,7 @@ import torch
 from segma_tpu_torch.config import Config
 from segma_tpu_torch.convert import flax_to_torch, load_flax_subtrees, torch_to_flax
 from segma_tpu_torch.models.base import SegmentationModel
+from segma_tpu_torch.parallel.sharding import WHOLE, Blocks
 from segma_tpu_torch.utils.logging import log
 
 MAX_CHUNK_SIZE = 2**30  # flax's largest array leaf before chunking, in bytes
@@ -77,13 +84,27 @@ def build_model(config: Config, seed: int | None = None,
 # -- flax trees ------------------------------------------------------------------
 
 
-def flax_split(model: SegmentationModel) -> tuple[dict, dict]:
+def _split_state(model: SegmentationModel) -> tuple[dict, dict]:
+    state = model.module.state_dict()
+    frozen = {n: t for n, t in state.items() if n.split(".")[0] in model.frozen_prefixes}
+    return {n: t for n, t in state.items() if n not in frozen}, frozen
+
+
+def flax_split(model: SegmentationModel, blocks: Blocks = WHOLE) -> tuple[dict, dict]:
     """(trainable, frozen) flax trees of the model's weights, split at the
     top level by ``frozen_prefixes`` as ``SegmentationModel.split_params``
-    splits the JAX tree."""
-    tree = torch_to_flax(model.module)
-    frozen = {k: v for k, v in tree.items() if k in model.frozen_prefixes}
-    return {k: v for k, v in tree.items() if k not in frozen}, frozen
+    splits the JAX tree. A mesh member's trainable tree is the whole one
+    (``blocks.gather``, a collective of its model group), its frozen tree
+    its own blocks."""
+    trainable, frozen = _split_state(model)
+    return (torch_to_flax(model.module, blocks.gather(trainable)),
+            torch_to_flax(model.module, frozen) if frozen else {})
+
+
+def frozen_tree(model: SegmentationModel) -> dict:
+    """The frozen flax tree alone (``flax_split``'s second)."""
+    frozen = _split_state(model)[1]
+    return torch_to_flax(model.module, frozen) if frozen else {}
 
 
 def _masked(tree: Any) -> Any:
@@ -96,16 +117,17 @@ def _bidirectional(model: SegmentationModel) -> bool:
     return lstm.cfg.bidirectional if lstm is not None else True
 
 
-def load_trainable(model: SegmentationModel, trainable: dict) -> None:
-    """Load a trainable flax tree into the model's module: every parameter
-    outside ``frozen_prefixes``, and nothing else."""
+def load_trainable(model: SegmentationModel, trainable: dict, blocks: Blocks = WHOLE) -> None:
+    """Load a whole trainable flax tree into the model's module (a mesh
+    member's blocks of it): every parameter outside ``frozen_prefixes``, and
+    nothing else."""
     want = {k.split(".")[0] for k in model.module.state_dict()} - set(model.frozen_prefixes)
     if set(trainable) != want:
         raise ValueError(
             f"checkpoint tree does not match the model's trainable parameters: top-level "
             f"keys {sorted(trainable)}, the model's {sorted(want)}"
         )
-    load_flax_subtrees(model.module, trainable, _bidirectional(model))
+    load_flax_subtrees(model.module, trainable, _bidirectional(model), take=blocks.take)
 
 
 def _leaves(tree: dict, prefix: str = ""):
@@ -200,7 +222,7 @@ def _f32(x: float | torch.Tensor) -> np.ndarray:
 
 
 def opt_state_tree(model: SegmentationModel, optimizer: torch.optim.Optimizer,
-                   accum: Any = None) -> dict:
+                   accum: Any = None, blocks: Blocks = WHOLE) -> dict:
     """The optimizer state as optax's tree: ``_adamw_tree``, or, with
     ``accum`` (``train.GradAccumulation``, ``train.grad_accum_steps`` > 1), the
     ``optax.MultiSteps`` state around it, as flax's ``to_state_dict`` writes
@@ -212,14 +234,17 @@ def opt_state_tree(model: SegmentationModel, optimizer: torch.optim.Optimizer,
     ``mini_step`` and ``gradient_step`` are int32 scalars. ``acc_grads``
     spans the whole parameter tree, as optax's does; a frozen leaf has no
     effect on the masked update, so it is written as zeros in its shape (JAX
-    accumulates its gradient there) and ignored when read."""
-    inner = _adamw_tree(model, optimizer)
+    accumulates its gradient there) and ignored when read.
+
+    A mesh member's tree is the whole model's: its moments and accumulator
+    gathered (``blocks.gather``, a collective of its model group)."""
+    inner = _adamw_tree(model, optimizer, blocks.gather)
     if accum is None:
         return inner
-    acc = torch_to_flax(model.module, dict(zip(accum.names, accum.acc)), moments=True)
-    frozen = {n: t for n, t in model.module.state_dict().items()
-              if n.split(".")[0] in model.frozen_prefixes}
-    zeros = _zeros(torch_to_flax(model.module, frozen)) if frozen else {}
+    acc = torch_to_flax(model.module, blocks.gather(dict(zip(accum.names, accum.acc))),
+                        moments=True)
+    frozen = _split_state(model)[1]
+    zeros = _zeros(torch_to_flax(model.module, blocks.zeros(frozen))) if frozen else {}
     return {"mini_step": np.asarray(accum.mini_step, np.int32),
             "gradient_step": np.asarray(accum.gradient_step, np.int32),
             "inner_opt_state": inner, "acc_grads": {**acc, **zeros}, "skip_state": {}}
@@ -231,7 +256,8 @@ def _zeros(tree: Any) -> Any:
     return np.zeros_like(tree)
 
 
-def _adamw_tree(model: SegmentationModel, optimizer: torch.optim.Optimizer) -> dict:
+def _adamw_tree(model: SegmentationModel, optimizer: torch.optim.Optimizer,
+                whole: Callable[[dict], dict]) -> dict:
     """The AdamW state of ``optimizer`` over ``model`` as optax's state tree
     of ``masked(inject_hyperparams(adamw)(learning_rate=lr), trainable_mask)``
     initialised over the whole flax tree (flax's ``to_state_dict``)::
@@ -259,10 +285,9 @@ def _adamw_tree(model: SegmentationModel, optimizer: torch.optim.Optimizer) -> d
     def moment(key: str) -> dict:
         tensors = {n: states[n][key] if states[n] else torch.zeros_like(p)
                    for n, p in named.items()}
-        return torch_to_flax(model.module, tensors, moments=True)
+        return torch_to_flax(model.module, whole(tensors), moments=True)
 
-    frozen = {n: t for n, t in model.module.state_dict().items()
-              if n.split(".")[0] in model.frozen_prefixes}
+    frozen = _split_state(model)[1]
     masked = _masked(torch_to_flax(model.module, frozen)) if frozen else {}
     mu, nu = moment("exp_avg"), moment("exp_avg_sq")
     group = optimizer.param_groups[0]
@@ -282,7 +307,7 @@ def _adamw_tree(model: SegmentationModel, optimizer: torch.optim.Optimizer) -> d
 
 
 def restore_opt_state(model: SegmentationModel, optimizer: torch.optim.Optimizer,
-                      tree: dict, accum: Any = None) -> None:
+                      tree: dict, accum: Any = None, blocks: Blocks = WHOLE) -> None:
     """Set ``optimizer``'s AdamW state from optax's tree (``opt_state_tree``'s
     inverse): each trainable parameter's ``step``, ``exp_avg`` and
     ``exp_avg_sq``, matched by name through ``flax_to_torch``, and every
@@ -290,8 +315,9 @@ def restore_opt_state(model: SegmentationModel, optimizer: torch.optim.Optimizer
     its counters and running mean from the ``MultiSteps`` state. The other
     hyperparameters must be the optimizer's own (at f32). A tree of another
     structure (one with or without ``MultiSteps`` where ``accum`` says the
-    other) raises before anything is set."""
-    template = opt_state_tree(model, optimizer, accum)
+    other) raises before anything is set. A mesh member takes its
+    ``blocks`` of the whole moments and accumulator."""
+    template = opt_state_tree(model, optimizer, accum, blocks)
     tree = _match(template, tree, "opt_state")
     outer, tree = (tree, tree["inner_opt_state"]) if accum is not None else (None, tree)
     inner = tree["inner_state"]
@@ -302,9 +328,9 @@ def restore_opt_state(model: SegmentationModel, optimizer: torch.optim.Optimizer
             raise ValueError(f"opt_state: {key} {float(hp[key])} is not the optimizer's "
                              f"{float(want)}")
     trainable = {k: v for k, v in adam["mu"].items() if k not in model.frozen_prefixes}
-    mu = flax_to_torch(trainable, _bidirectional(model), moments=True)
-    nu = flax_to_torch({k: adam["nu"][k] for k in trainable}, _bidirectional(model),
-                       moments=True)
+    mu = blocks.take(flax_to_torch(trainable, _bidirectional(model), moments=True))
+    nu = blocks.take(flax_to_torch({k: adam["nu"][k] for k in trainable}, _bidirectional(model),
+                                   moments=True))
     step = float(adam["count"])
     # a capturable AdamW (the card's) keeps its step on the parameters' device
     on_device = bool(optimizer.param_groups[0].get("capturable"))
@@ -316,8 +342,8 @@ def restore_opt_state(model: SegmentationModel, optimizer: torch.optim.Optimizer
                       "exp_avg": mu[name].to(p.device, p.dtype),
                       "exp_avg_sq": nu[name].to(p.device, p.dtype)}
     if outer is not None:
-        acc = flax_to_torch({k: outer["acc_grads"][k] for k in trainable},
-                            _bidirectional(model), moments=True)
+        acc = blocks.take(flax_to_torch({k: outer["acc_grads"][k] for k in trainable},
+                                        _bidirectional(model), moments=True))
         for name, buf in zip(accum.names, accum.acc):
             buf.copy_(acc[name].to(buf.device, buf.dtype))
         accum.mini_step = int(outer["mini_step"])
@@ -332,7 +358,8 @@ def restore_opt_state(model: SegmentationModel, optimizer: torch.optim.Optimizer
 
 
 def load_opt_state(path: Path | str, model: SegmentationModel,
-                   optimizer: torch.optim.Optimizer, accum: Any = None) -> bool:
+                   optimizer: torch.optim.Optimizer, accum: Any = None,
+                   blocks: Blocks = WHOLE) -> bool:
     """Restore optimizer state from a ``last/`` checkpoint; True when it was.
 
     The moments are an exactness extra, not a correctness requirement (top-k
@@ -342,7 +369,7 @@ def load_opt_state(path: Path | str, model: SegmentationModel,
     if not p.exists():
         return False
     try:
-        restore_opt_state(model, optimizer, msgpack_restore(p.read_bytes()), accum)
+        restore_opt_state(model, optimizer, msgpack_restore(p.read_bytes()), accum, blocks)
         return True
     except Exception as e:  # noqa: BLE001 — degrade, never crash resume
         log(f"WARNING: {p}: optimizer state not restorable ({type(e).__name__}); "

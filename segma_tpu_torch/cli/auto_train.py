@@ -8,8 +8,9 @@
 (``checkpoint.find_resumable``: ``last/``, else the newest epoch directory),
 or starts fresh when there is none. An interrupted run exits with code 75,
 so a requeue loop runs the same command again. Several processes
-(``torchrun``, or one rank per visible card started here) as in
-``cli.train``: every rank resumes from the same checkpoint.
+(``torchrun``, or one rank per card of the config's mesh started here) as
+in ``cli.train``: every rank resumes from the same checkpoint, a mesh
+member taking its blocks of it.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ def main(argv: list[str] | None = None) -> None:
     cfg = load_config(args.config, cli_extra_args=extra_args)
     n = local_world_size(cfg, args.device)
     if n > 1:
-        log(f"{n} cards visible, mesh.data={cfg.mesh.data}: one rank per card")
+        log(f"{n} cards visible, mesh.data={cfg.mesh.data}, mesh.seq={cfg.mesh.seq}, "
+            f"mesh.model={cfg.mesh.model}: one rank per card")
         raise SystemExit(launch_ranks("segma_tpu_torch.cli.auto_train", argv, n))
 
     resume_from = args.resume_from

@@ -7,8 +7,10 @@ versions, the card, a timed round-trip to it with a real data dependency,
 the kernel library's build state (built, stale or absent, and whether
 ``nvcc`` is there to build it), the native WAV reader, host memory, and with
 ``--config`` the (data, seq, model) mesh its ``mesh`` section resolves to
-over the visible cards (``parallel.make_mesh``) and what serves over it
-(``parallel.mesh.describe``). Exit code 0: healthy;
+over the visible cards (``parallel.make_mesh``), how serving and training
+run over it (``parallel.mesh.describe``), and whether its
+``train.dispatch`` trains over it (``parallel.mesh.check_dispatch``: epoch
+dispatch refuses seq or model above 1). Exit code 0: healthy;
 1: a check failed (so 1 on a machine without a card).
 """
 
@@ -103,11 +105,18 @@ def main(argv: list[str] | None = None) -> None:
     if args.config:
         try:
             from segma_tpu_torch.config import load_config
-            from segma_tpu_torch.parallel.mesh import describe, make_mesh
+            from segma_tpu_torch.parallel.mesh import check_dispatch, describe, make_mesh
 
-            mesh = make_mesh(load_config(args.config))
+            cfg = load_config(args.config)
+            mesh = make_mesh(cfg)
             cards = ", ".join(str(d) for d in mesh.devices.flat)
-            healthy &= _row("mesh", True, f"{mesh.shape} on {cards}: serves as {describe(mesh)}")
+            healthy &= _row("mesh", True, f"{mesh.shape} on {cards}: {describe(mesh)}")
+            try:
+                check_dispatch(cfg, tuple(mesh.shape.values()))
+                healthy &= _row("mesh training", True,
+                                f"train.dispatch={cfg.train.dispatch} trains over it")
+            except NotImplementedError as e:
+                healthy = _row("mesh training", False, str(e))
         except Exception as e:  # noqa: BLE001 — reported as the row
             healthy = _row("mesh", False, f"{type(e).__name__}: {e}")
 

@@ -4,15 +4,21 @@
         [--resume-from <checkpoint>] [--tags ...] [--device cuda|cpu]
         [--dist-backend nccl|gloo]
 
-Data parallelism: under a launcher (``torchrun --nproc-per-node N python -m
+Several cards: under a launcher (``torchrun --nproc-per-node N python -m
 segma_tpu_torch.cli.train ...``, or the JAX package's ``COORDINATOR_ADDRESS``,
-``PROCESS_COUNT`` and ``PROCESS_ID``) each rank trains its shard of the files
-on card ``LOCAL_RANK`` (``parallel.distributed``), and rank 0 alone makes the
-run directory and writes ``config.yml``, ``metrics.jsonl`` and the
-checkpoints. Run plainly with several visible cards and ``mesh.data`` other
-than 1, the command starts one rank per card itself (``mesh.data`` = k: the
-first k) on a local rendezvous, forwards SIGTERM to them and exits with
-their code (75 when they were preempted).
+``PROCESS_COUNT`` and ``PROCESS_ID``) each rank trains on card
+``LOCAL_RANK`` (``parallel.distributed``): its shard of the files in a
+data-parallel world, or, with ``mesh.model`` or ``mesh.seq`` above 1, its
+member of the (data, seq, model) mesh of ranks (``train.Trainer``), and rank
+0 alone makes the run directory and writes ``config.yml``,
+``metrics.jsonl`` and the checkpoints. Run plainly with several visible
+cards and a config that asks for more than one device (``mesh.data`` other
+than 1, or ``mesh.seq * mesh.model`` above 1), the command starts one rank
+per card of ``parallel.auto_mesh`` itself (data x seq x model of them, as
+JAX's CLI builds its mesh over the visible devices) on a local rendezvous,
+forwards SIGTERM to them and exits with their code (75 when they were
+preempted). On one card such a config trains meshless, as JAX's does on
+one device.
 
 The run directory is ``<model.chkp_path or "models">/<timestamp>``; it holds
 ``config.yml`` (readable by both packages' ``load_config``),
@@ -37,6 +43,8 @@ import time
 from datetime import datetime
 from pathlib import Path
 from typing import Any
+
+import numpy as np
 
 from segma_tpu_torch.config import CONFIG_DIR, Config, load_config
 from segma_tpu_torch.utils.logging import log
@@ -136,6 +144,8 @@ def _train(cfg: Config, tags: list[str], resume_from: str | None, run_id: str | 
         log(f"tags: {tags}")
 
     trainer = Trainer(model=model, config=cfg, run_dir=run_dir, device=device)
+    # under a mesh the trainer holds its member copy: let the whole model go
+    del model
     log("started training")
     result = trainer.fit(dm, resume_from=resume_from)
 
@@ -162,18 +172,21 @@ def _train(cfg: Config, tags: list[str], resume_from: str | None, run_id: str | 
 
 def local_world_size(cfg: Config, device: str) -> int:
     """How many ranks a plain run on ``device`` starts itself: one per card
-    of ``parallel.auto_mesh`` (several visible cards and ``mesh.data`` not
-    1; k: the first k); 1 under a launcher, on the CPU or on one card."""
+    of ``parallel.auto_mesh`` (several visible cards and a config that asks
+    for more than one device), data x seq x model of them; 1 under a
+    launcher, on the CPU or on one card. ``train.dispatch=epoch`` over seq
+    or model above 1 raises (``parallel.mesh.check_dispatch``)."""
     import torch
 
     from segma_tpu_torch.parallel.distributed import launcher_env
-    from segma_tpu_torch.parallel.mesh import auto_mesh, require_data_only
+    from segma_tpu_torch.parallel.mesh import auto_mesh, check_dispatch
 
     mesh = None if launcher_env() is not None else auto_mesh(cfg, torch.device(device))
     if mesh is None:
         return 1
-    require_data_only(mesh)
-    return mesh.shape["data"]
+    shape = tuple(mesh.shape.values())
+    check_dispatch(cfg, shape)
+    return int(np.prod(shape))
 
 
 def _free_port() -> int:
@@ -225,7 +238,8 @@ def main(argv: list[str] | None = None) -> None:
     cfg = load_config(args.config, cli_extra_args=extra_args)
     n = local_world_size(cfg, args.device)
     if n > 1:
-        log(f"{n} cards visible, mesh.data={cfg.mesh.data}: one rank per card")
+        log(f"{n} cards visible, mesh.data={cfg.mesh.data}, mesh.seq={cfg.mesh.seq}, "
+            f"mesh.model={cfg.mesh.model}: one rank per card")
         raise SystemExit(launch_ranks("segma_tpu_torch.cli.train", argv, n))
     result = run_training(cfg, args.tags, resume_from=args.resume_from, device=args.device,
                           dist_backend=args.dist_backend)

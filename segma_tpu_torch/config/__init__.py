@@ -211,7 +211,9 @@ class MeshConfig:
     of the model, each taking a block of the windows or of the batch; -1
     takes every device not claimed by ``seq * model``. ``model`` (tensor
     parallelism) and ``seq`` (the Whisper encoder's time axis) are read and
-    validated as in JAX; the pipeline and the trainer refuse them above 1."""
+    validated as in JAX: the pipeline serves over any mesh, the trainer
+    trains over one of one process per device (``train.dispatch=step``
+    where they are above 1)."""
 
     data: int = -1
     model: int = 1

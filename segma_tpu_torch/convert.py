@@ -197,13 +197,17 @@ def load_flax_params(module: torch.nn.Module, params: dict[str, Any]) -> None:
 
 
 def load_flax_subtrees(
-    module: torch.nn.Module, params: dict[str, Any], bidirectional: bool = True
+    module: torch.nn.Module, params: dict[str, Any], bidirectional: bool = True,
+    take: Any = None,
 ) -> None:
     """Overlay top-level subtrees of a flax params tree (an encoder snapshot's,
     a checkpoint's trainable tree) on a module: every state entry under those
     top-level names must be matched, in shape too, and no other entry
-    changes."""
+    changes. ``take`` maps the tree's tensors (by state entry name) to the
+    module's, where it holds blocks of them (a tensor-parallel member)."""
     state = flax_to_torch(params, bidirectional)
+    if take is not None:
+        state = take(state)
     want = {k for k in module.state_dict() if k.split(".")[0] in params}
     if set(state) != want:
         raise ValueError(

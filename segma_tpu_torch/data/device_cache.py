@@ -14,8 +14,9 @@ starts from, so the crop of a short or truncated file reads trailing zeros
 (the host path's zero padding), never the next file's samples. The buffer is
 int16 when every source is mono PCM16, else f32 (PCM16 divided by 32768.0).
 
-Under several processes each rank builds the cache of its own files and
-places it on its own card: JAX's row of process r, whose crops it gives.
+Under several processes each data coordinate's ranks build the cache of
+its own files and place it on their cards: JAX's row of process d, whose
+crops they give.
 The dtype is the world's (``force_f32`` when any rank's source is not mono
 PCM16). JAX pads the rows to one length to stack them into one global
 array; the port's buffers never meet, so none is padded.

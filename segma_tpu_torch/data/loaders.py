@@ -22,12 +22,17 @@ from the same rng draws), or ``auto`` (the device within
 together, and within the host's available RAM, else the host). The
 resolution of each subset is the loader's ``data_cache_decision``.
 
-Under a world of several processes (``parallel.distributed``), rank r
-samples from the files ``uris[r::world]`` with the seed ``seed + 7919 * r``
-and yields ``batch_size / world`` crops a batch; the step count comes from
-the whole subset, so every rank runs the same number of steps, as JAX's
-loader does. The device cache's decision and dtype come from every rank's
-plan over the whole file list, so the ranks agree on them.
+Under a world of several processes (``parallel.distributed``), data
+coordinate d of ``data`` (a rank's own, rank r of ``world`` processes, in
+a data-parallel world; ``distributed.data_process`` under tensor or
+sequence parallelism, where the ``seq * model`` ranks of a coordinate take
+the same batches) samples from the files ``uris[d::data]`` with the seed
+``seed + 7919 * d`` and yields ``batch_size / data`` crops a batch: JAX's
+loader with ``(process_count, process_index) = (data, d)``. The step count
+comes from the whole subset, so every rank runs the same number of steps,
+as JAX's loader does. The device cache's decision and dtype come from
+every coordinate's plan over the whole file list, so the ranks agree on
+them.
 
 Not ported yet: host-side feature hooks.
 """
@@ -313,8 +318,9 @@ class SegmentationDataLoader:
         seed: int | None = None,
         process: tuple[int, int] | None = None,
     ) -> None:
-        """``process``: (rank, world size); the torch.distributed world's by
-        default, (0, 1) without one."""
+        """``process``: (data coordinate, data size); the torch.distributed
+        world's by default (``distributed.data_process`` under the config's
+        mesh), (0, 1) without one."""
         from segma_tpu_torch.parallel import distributed
 
         self.dataset = dataset
@@ -322,7 +328,7 @@ class SegmentationDataLoader:
         self.config = config
         self.conv_settings = conv_settings
         self.seed = seed if seed is not None else config.train.seed
-        self.rank, self.world = process or (distributed.rank(), distributed.world_size())
+        self.rank, self.world = process or distributed.data_process(config)
         # data_cache=auto: the device bytes planned per subset (keyed by its
         # seed offset, train before val), so the budget bounds their sum and
         # building a loader again does not count it twice
@@ -412,8 +418,12 @@ class SegmentationDataLoader:
             self._planned_device_bytes.pop(seed_offset, None)
             budget = int(tc.device_cache_budget_gb * 1e9)
             remaining = budget - sum(self._planned_device_bytes.values())
-            # host RAM differs between hosts: only one process may ask it
-            avail = _mem_available_bytes() if len(shards) == 1 else None
+            # host RAM differs between hosts and over time: only a process
+            # alone may ask it
+            from segma_tpu_torch.parallel import distributed
+
+            avail = (_mem_available_bytes()
+                     if len(shards) == 1 and distributed.world_size() == 1 else None)
             if pos >= MAX_SAMPLES:
                 decision = "host"
                 reason = (f"{pos} planned samples exceed the int32 offset range (2^31) of "

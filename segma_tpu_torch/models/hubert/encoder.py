@@ -36,7 +36,7 @@ from torch import nn
 
 from segma_tpu_torch.models.layers import row_linear
 from segma_tpu_torch.models.whisper.encoder import MultiHeadAttention, layer_norm, linear
-from segma_tpu_torch.parallel.collectives import SOLO
+from segma_tpu_torch.parallel.collectives import SOLO, enter
 
 
 @dataclass(frozen=True)
@@ -93,7 +93,8 @@ class FeatureExtractor(nn.Module):
 class HubertTransformerLayer(nn.Module):
     """Post-norm block: x + attn -> LN -> x + ff -> LN. Under tensor
     parallelism ``intermediate_dense`` holds the member's block of output
-    features and ``output_dense`` is row-parallel (``models.layers.row_linear``)."""
+    features (its input a ``collectives.enter``) and ``output_dense`` is
+    row-parallel (``models.layers.row_linear``)."""
 
     model_group = SOLO
 
@@ -107,8 +108,9 @@ class HubertTransformerLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = layer_norm(x + self.attention(x), self.layer_norm)
-        h = row_linear(F.gelu(linear(x, self.intermediate_dense)), self.output_dense,
-                       self.model_group)
+        model = self.model_group
+        h = row_linear(F.gelu(linear(enter(x, model), self.intermediate_dense)),
+                       self.output_dense, model)
         return layer_norm(x + h, self.final_layer_norm)
 
 

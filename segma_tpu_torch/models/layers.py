@@ -12,6 +12,7 @@ from torch import nn
 from segma_tpu_torch.config import LSTMConfig
 from segma_tpu_torch.models.base import no_tf32
 from segma_tpu_torch.ops import rnn
+from segma_tpu_torch.parallel.collectives import SOLO, enter, reduce_sum
 
 
 class MLPHead(nn.Module):
@@ -59,11 +60,12 @@ def row_linear(x: torch.Tensor, layer: nn.Linear, group) -> torch.Tensor:
     """A row-parallel ``layer`` (JAX's ``P("model", None)`` kernel): its
     weight holds this member's block of input features, ``x`` the matching
     block. The members' partial products are summed in f32 over ``group``
-    (``parallel.collectives``), the whole bias added once after the sum, and
-    the result cast to ``x``'s dtype. A group of one is ``linear``."""
+    (``collectives.reduce_sum``: the gradient reaches each member's partial
+    unchanged), the whole bias added once after the sum, and the result cast
+    to ``x``'s dtype. A group of one is ``linear``."""
     if group.size == 1:
         return linear(x, layer)
-    out = group.all_reduce_sum(F.linear(x, layer.weight.to(x.dtype)).float())
+    out = reduce_sum(F.linear(x, layer.weight.to(x.dtype)).float(), group)
     if layer.bias is not None:
         out = out + layer.bias.float()
     return out.to(x.dtype)
@@ -190,9 +192,13 @@ class LayerWeightedSum(nn.Module):
         else:  # a constant, as in flax: no parameter, nothing in the state_dict
             self.register_buffer("layer_weights", weights, persistent=False)
 
-    def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
+    def forward(self, hidden_states: torch.Tensor, time_group=SOLO) -> torch.Tensor:
+        """``time_group``: the group over whose members the time axis of
+        ``hidden_states`` is split (the Whisper encoder's under sequence
+        parallelism); the weights' gradient, each member's of its time
+        block, is then summed over it (``collectives.enter``)."""
         if self.reduction == "weighted":
-            w = torch.softmax(self.layer_weights, dim=0)
+            w = torch.softmax(enter(self.layer_weights, time_group), dim=0)
         else:
             w = torch.full_like(self.layer_weights, 1.0 / self.layer_weights.numel())
         return torch.einsum("l,lbtd->btd", w.to(hidden_states.dtype), hidden_states)

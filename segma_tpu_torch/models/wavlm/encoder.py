@@ -42,7 +42,7 @@ from segma_tpu_torch.models.hubert.encoder import HubertEncoderConfig, HubertTra
 from segma_tpu_torch.models.layers import row_linear
 from segma_tpu_torch.models.whisper.encoder import layer_norm, linear
 from segma_tpu_torch.ops import cached_constant
-from segma_tpu_torch.parallel.collectives import SOLO
+from segma_tpu_torch.parallel.collectives import SOLO, enter, gather
 
 
 @dataclass(frozen=True)
@@ -115,27 +115,36 @@ class WavLMAttention(nn.Module):
         """(B, T, D) in the compute dtype, the (H, T, T) f32 bias of layer 0
         (None in layer 0 itself) -> (output, bias). Under tensor parallelism
         H is the member's heads, whose columns of ``rel_attn_embed`` and
-        ``gru_rel_pos_const`` (replicated, as in JAX) it takes."""
+        ``gru_rel_pos_const`` (replicated, as in JAX) it takes; those two and
+        the gate's projection enter each member's work through
+        ``collectives.enter``, so that their gradients, each member's of
+        its own heads, are summed over ``model``, as is ``x``'s."""
         b, t, d = x.shape
         h = self.n_heads
         hd = d // h
         model = self.model_group
+        x = enter(x, model)
         q, k, v = (linear(x, p) for p in (self.q_proj, self.k_proj, self.v_proj))
         gathered = h % model.size != 0  # heads that do not divide: every member takes all
         if gathered:
-            q, k, v = (model.all_gather(y, dim=2) for y in (q, k, v))
+            q, k, v = (gather(y, model, dim=2) for y in (q, k, v))
         n = h if gathered else h // model.size
         heads = slice(0, h) if gathered else slice(model.rank * n, (model.rank + 1) * n)
         if position_bias is None:
             if not hasattr(self, "rel_attn_embed"):
                 raise ValueError("the first layer must own the relative position embedding")
             with no_tf32():
-                bias = self.bucket_onehot(t, x.device) @ self.rel_attn_embed[:, heads]
+                bias = (self.bucket_onehot(t, x.device)
+                        @ enter(self.rel_attn_embed, model)[:, heads])
             position_bias = bias.view(t, t, n).permute(2, 0, 1)
-        proj = linear(x.view(b, t, h, hd)[:, :, heads].transpose(1, 2), self.gru_rel_pos_linear)
+        gate_proj = self.gru_rel_pos_linear
+        proj = F.linear(x.view(b, t, h, hd)[:, :, heads].transpose(1, 2),
+                        enter(gate_proj.weight, model).to(x.dtype),
+                        enter(gate_proj.bias, model).to(x.dtype))
         gates = torch.sigmoid(proj.view(b, n, t, 2, 4).sum(-1).float())  # (B, H, T, 2)
         gate_a, gate_b = gates[..., 0:1], gates[..., 1:2]
-        gate_out = gate_a * (gate_b * self.gru_rel_pos_const[:, heads] - 1.0) + 2.0  # (B, H, T, 1)
+        const = enter(self.gru_rel_pos_const, model)[:, heads]
+        gate_out = gate_a * (gate_b * const - 1.0) + 2.0  # (B, H, T, 1)
         q = (q.view(b, t, n, hd) * hd**-0.5).transpose(1, 2)
         k = k.view(b, t, n, hd).transpose(1, 2)
         v = v.view(b, t, n, hd).transpose(1, 2)
@@ -167,8 +176,9 @@ class WavLMTransformerLayer(nn.Module):
     ) -> tuple[torch.Tensor, torch.Tensor]:
         attn_out, position_bias = self.attention(x, position_bias)
         x = layer_norm(x + attn_out, self.layer_norm)
-        h = row_linear(F.gelu(linear(x, self.intermediate_dense)), self.output_dense,
-                       self.model_group)
+        model = self.model_group
+        h = row_linear(F.gelu(linear(enter(x, model), self.intermediate_dense)),
+                       self.output_dense, model)
         return layer_norm(x + h, self.final_layer_norm), position_bias
 
 

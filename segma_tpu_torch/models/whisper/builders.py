@@ -36,6 +36,7 @@ from segma_tpu_torch.models.base import (
 from segma_tpu_torch.models.layers import BiLSTM, HydraHeads, LayerWeightedSum, MLPHead, linear
 from segma_tpu_torch.models.whisper.encoder import WhisperEncoder, WhisperEncoderConfig
 from segma_tpu_torch.ops.melspec import log_mel_spectrogram, whisper_input_features
+from segma_tpu_torch.parallel.collectives import gather
 from segma_tpu_torch.utils.encoders import MultiLabelEncoder
 
 WHISPER_CONV_SETTINGS = ConvolutionSettings(
@@ -119,15 +120,18 @@ class WhisperSegModule(nn.Module):
                 else:
                     feats = whisper_input_features(wav)  # (B, 80, 3000)
                 last, hidden = self.encoder(feats, output_hidden_states=self.tap == "weighted")
+            time = self.encoder.time_group(feats.shape[-1])
             if self.tap == "weighted":
                 layer_outputs = hidden[1:]  # per-layer outputs, HF indexing
-                x = self.layer_mix(torch.stack([layer_outputs[i] for i in self.picks]))
+                x = self.layer_mix(torch.stack([layer_outputs[i] for i in self.picks]), time)
             else:
                 x = last
             # under sequence parallelism the time axis comes back whole here,
             # after the layer mix (pointwise over time: one gather, not one per
-            # layer): the LSTM and the heads want the whole sequence
-            x = self.encoder.time_group(feats.shape[-1]).all_gather(x, dim=1)
+            # layer): the LSTM and the heads want the whole sequence, and run
+            # alike on every member, so each keeps its own block of the
+            # gradient (not summed over seq)
+            x = gather(x, time, dim=1, summed=False)
             if self.trunc == "before_lstm":
                 x = x[:, : self.n_windows]
             if self.mixer == "lstm":

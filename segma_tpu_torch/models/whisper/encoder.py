@@ -31,7 +31,7 @@ from torch import nn
 
 from segma_tpu_torch.models.layers import linear, row_linear
 from segma_tpu_torch.ops.attention import attention_core
-from segma_tpu_torch.parallel.collectives import SOLO
+from segma_tpu_torch.parallel.collectives import SOLO, enter, gather
 
 _seq_degrade_warned: set = set()
 
@@ -86,7 +86,9 @@ class MultiHeadAttention(nn.Module):
     every member attends all heads, and keeps its block of the output's
     features for ``out_proj``. Under sequence parallelism (``seq_group``)
     the member's rows attend to the keys and values gathered over the
-    group's time blocks."""
+    group's time blocks. Under autograd the input's gradient is summed over
+    ``model`` (``collectives.enter``) and a gathered block's over its group
+    (``collectives.gather``)."""
 
     model_group = SOLO
 
@@ -101,13 +103,14 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x: torch.Tensor, seq_group=SOLO) -> torch.Tensor:
         b, s, d_model = x.shape
         head_dim = d_model // self.n_heads
-        q, k, v = (linear(x, p) for p in (self.q_proj, self.k_proj, self.v_proj))
         model = self.model_group
+        x = enter(x, model)
+        q, k, v = (linear(x, p) for p in (self.q_proj, self.k_proj, self.v_proj))
         gathered = self.n_heads % model.size != 0
         if gathered:
-            q, k, v = (model.all_gather(t, dim=2) for t in (q, k, v))
+            q, k, v = (gather(t, model, dim=2) for t in (q, k, v))
         if seq_group.size > 1:
-            k, v = (seq_group.all_gather(t, dim=1) for t in (k, v))
+            k, v = (gather(t, seq_group, dim=1) for t in (k, v))
         heads = q.shape[2] // head_dim
 
         def split(t: torch.Tensor) -> torch.Tensor:
@@ -124,8 +127,8 @@ class MultiHeadAttention(nn.Module):
 
 class EncoderLayer(nn.Module):
     """Pre-LN transformer block (self-attention + exact-GELU MLP); under
-    tensor parallelism fc1 holds the member's block of output features and
-    fc2 is row-parallel."""
+    tensor parallelism fc1 holds the member's block of output features (its
+    input a ``collectives.enter``) and fc2 is row-parallel."""
 
     model_group = SOLO
 
@@ -139,7 +142,7 @@ class EncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, seq_group=SOLO) -> torch.Tensor:
         x = x + self.self_attn(layer_norm(x, self.self_attn_layer_norm), seq_group)
-        h = layer_norm(x, self.final_layer_norm)
+        h = enter(layer_norm(x, self.final_layer_norm), self.model_group)
         h = row_linear(F.gelu(linear(h, self.fc1)), self.fc2, self.model_group)
         return x + h
 

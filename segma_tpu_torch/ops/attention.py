@@ -15,7 +15,10 @@ tensor it runs the plain version, which matches ``_einsum_core`` and is
 differentiated by autograd. The forward also takes Sq query rows against
 Skv keys, Sq ≠ Skv: a member of a sequence-parallel group attends its block
 of the time axis to the keys gathered from the group. The backward takes
-one length, so such a call is served and not trained.
+one length, and no trained path needs another: only the Whisper encoder
+splits time over ``seq``, and it is always frozen (it runs without
+autograd, JAX's ``stop_gradient``), so such a call is served, or run
+without autograd in training, and a recorded one raises.
 
 The forward is the registered op ``segma_tpu_torch::flash_attn_fwd`` (and
 ``::flash_attn_fwd_lse``, with the log-sum-exp): its CUDA implementation
@@ -269,8 +272,9 @@ def attention_core(
     if recorded and q.shape[1] != k.shape[1]:
         raise NotImplementedError(
             f"attention with {q.shape[1]} query rows against {k.shape[1]} keys under autograd: "
-            "unequal lengths are not trainable, as the backward kernels take one length "
-            "(training under sequence parallelism is ROADMAP.md Queue 1, item 1)")
+            "unequal lengths are not trainable, as the backward kernels take one length; no "
+            "trained path needs them: only the Whisper encoder splits time over mesh.seq, "
+            "and it is frozen, as in JAX")
     if q.is_cuda:
         if dtype not in KERNEL_DTYPES:
             raise ValueError(

@@ -1,8 +1,9 @@
 """Parallelism (counterpart of ``segma_tpu/parallel/``): the device mesh
 with its replicas and blocks (``mesh``), the tensor-parallel rules and the
 members' module copies (``sharding``), the collectives of a member's groups
-(``collectives``), and the multi-process world of data-parallel training
-(``distributed``)."""
+(``collectives``, with their backward under autograd), and the
+multi-process world of training, data-parallel or over a (data, seq, model)
+mesh of ranks (``distributed``)."""
 
 from segma_tpu_torch.parallel.mesh import (
     Mesh,

@@ -9,7 +9,34 @@ are written once against that interface:
   as it always did, bit for bit;
 - ``ThreadGroup``, an in-process rendezvous of members that each run on a
   thread of their own (serving: one process drives every card's members);
-  ``ThreadGroup.member(rank)`` is the interface one member calls.
+  ``ThreadGroup.member(rank)`` is the interface one member calls;
+- ``DistGroup``, a ``torch.distributed`` group of processes, this process
+  one member (training: one process per mesh device; the autograd engine
+  runs one card's backward passes on one thread, so members that are
+  threads on one card would wait for each other inside a backward).
+
+``SOLO`` and ``DistGroup`` also reduce tensors in place for the trainer
+(``mean_``, ``sum_``): a data-parallel reduction runs over a group, and
+``SOLO`` where there is one process.
+
+Under autograd a collective needs the right backward, and the layers call
+them through three functions that give it (``torch.autograd.Function``s over
+any of the three groups; over a group of one each is the identity):
+
+- ``enter(x, group)``: the identity forward, a sum over the group backward,
+  where a replicated activation (or parameter) feeds work that the members
+  split, such as a column-parallel layer's heads or features, so that its
+  gradient is the whole one on every member;
+- ``reduce_sum(x, group)``: the sum forward, the identity backward (after a
+  row-parallel layer);
+- ``gather(x, group, dim, summed=...)``: the members' blocks concatenated;
+  the backward keeps this member's block of the gradient, summed over the
+  group first (``summed=True``: every member used every block) or not
+  (``summed=False``: what follows runs whole and alike on every member, so
+  each holds the whole gradient already).
+
+A call that autograd does not record (serving) calls the group's method
+directly.
 
 A collective of a ``ThreadGroup`` is a deposit and a barrier: each member
 leaves its tensor (and, on a card, an event recorded on its stream) in a
@@ -55,6 +82,12 @@ class Solo:
         return x
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return x
+
+    def mean_(self, tensors: list[torch.Tensor]) -> None:
+        pass
+
+    def sum_(self, x: torch.Tensor) -> torch.Tensor:
         return x
 
 
@@ -178,3 +211,128 @@ def run_members(pool: Executor, tasks: Sequence[Callable[[], T]],
         own = [e for e in errors if not isinstance(e, GroupAborted)]
         raise (own or errors)[0]
     return results
+
+
+class DistGroup:
+    """A ``torch.distributed`` group (``group``, None for the whole world)
+    over the world ranks ``ranks``, in group-rank order; this process is
+    member ``rank``. Every member holds the same bits after a collective.
+    Gloo gathers host memory only: a card's tensor is gathered through the
+    host (gloo on cards is the rehearsal of several ranks on one card)."""
+
+    def __init__(self, ranks: Sequence[int], group=None) -> None:
+        self.ranks = list(ranks)
+        self.group = group
+        self.size = len(self.ranks)
+        self.rank = self.ranks.index(torch.distributed.get_rank())
+
+    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+        out = x.contiguous().clone()
+        torch.distributed.all_reduce(out, group=self.group)
+        return out
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        if x.is_cuda and torch.distributed.get_backend(self.group) == "gloo":
+            return self.all_gather(x.cpu(), dim).to(x.device)
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        torch.distributed.all_gather(parts, x, group=self.group)
+        return torch.cat(parts, dim=dim)
+
+    def mean_(self, tensors: list[torch.Tensor]) -> None:
+        """Each tensor replaced in place by its mean over the members: one
+        all-reduce per dtype over the tensors flattened together; nothing
+        here waits for the host, so it runs inside a captured CUDA graph."""
+        by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
+        for t in tensors:
+            by_dtype.setdefault(t.dtype, []).append(t)
+        for same in by_dtype.values():
+            flat = torch.cat([t.reshape(-1) for t in same])
+            torch.distributed.all_reduce(flat, group=self.group)
+            flat.div_(self.size)
+            offset = 0
+            for t in same:
+                t.copy_(flat[offset : offset + t.numel()].view_as(t))
+                offset += t.numel()
+
+    def sum_(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed in place over the members."""
+        torch.distributed.all_reduce(x, group=self.group)
+        return x
+
+
+def _sum_f32(x: torch.Tensor, group) -> torch.Tensor:
+    """The members' ``x`` summed in f32, in ``x``'s dtype."""
+    return group.all_reduce_sum(x.float()).to(x.dtype)
+
+
+def _block(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n = x.shape[dim] // group.size
+    return x.narrow(dim, group.rank * n, n)
+
+
+def _recorded(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_f32(grad, ctx.group), None
+
+
+class _ReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce_sum(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, summed):
+        ctx.group, ctx.dim, ctx.summed = group, dim, summed
+        return group.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.summed:
+            grad = _sum_f32(grad, ctx.group)
+        return _block(grad, ctx.group, ctx.dim).contiguous(), None, None, None
+
+
+def enter(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself; under autograd its gradient is summed over ``group``."""
+    if group.size == 1 or not _recorded(x):
+        return x
+    return _Enter.apply(x, group)
+
+
+def reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The members' ``x`` summed (``group.all_reduce_sum``); the gradient
+    passes to each member unchanged."""
+    if group.size == 1:
+        return x
+    if not _recorded(x):
+        return group.all_reduce_sum(x)
+    return _ReduceSum.apply(x, group)
+
+
+def gather(x: torch.Tensor, group, dim: int, summed: bool = True) -> torch.Tensor:
+    """The members' blocks ``x`` concatenated along ``dim``
+    (``group.all_gather``). Under autograd this member's block of the
+    gradient comes back, summed over ``group`` first with ``summed``, as it
+    is without."""
+    if group.size == 1:
+        return x
+    if not _recorded(x):
+        return group.all_gather(x, dim)
+    return _Gather.apply(x, group, dim, summed)

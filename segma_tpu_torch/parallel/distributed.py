@@ -1,9 +1,13 @@
-"""Multi-process data-parallel training (counterpart of
+"""Multi-process training (counterpart of
 ``segma_tpu/parallel/distributed.py``).
 
-Every process runs the same program on its own card and its own shard of
-the files (``process_shard``); ``torch.distributed`` joins them into one
-world. ``maybe_init_distributed()`` reads the launcher's environment:
+Every process runs the same program on its own card; ``torch.distributed``
+joins them into one world. Data-parallel, each rank takes its own shard of
+the files (``process_shard``). Under tensor or sequence parallelism
+(``mesh.model`` or ``mesh.seq`` above 1) the world is a (data, seq, model)
+mesh of ranks (``World.mesh``): the ``seq * model`` ranks of one data
+coordinate take the same shard and hold the blocks of one model, joined by
+their seq and model groups, and the trainer reduces over the data group. ``maybe_init_distributed()`` reads the launcher's environment:
 ``torchrun``'s (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
 ``MASTER_PORT``) or the JAX package's (``SEGMA_TPU_MULTIHOST=1``,
 ``COORDINATOR_ADDRESS`` as ``host:port``, ``PROCESS_COUNT``,
@@ -19,10 +23,18 @@ agreeing on them never waits for the card.
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 from datetime import timedelta
-from typing import Any
+from typing import TYPE_CHECKING, Any
 
+import numpy as np
 import torch
+
+from segma_tpu_torch.parallel.collectives import SOLO, DistGroup, Solo
+from segma_tpu_torch.parallel.mesh import rank_coordinate, world_shape
+
+if TYPE_CHECKING:
+    from segma_tpu_torch.config import Config
 
 BACKENDS = ("nccl", "gloo")
 # a rank that never arrives fails the others after this long
@@ -88,6 +100,7 @@ def maybe_init_distributed(device: str | torch.device = "cuda", backend: str | N
 
 
 _host_group = None  # the gloo group of host flags, when the world's backend is not gloo
+_meshes: dict[tuple[int, int, int], WorldMesh] = {}  # the groups made, by mesh shape
 
 
 def is_initialized() -> bool:
@@ -116,6 +129,17 @@ def local_device(device: str | torch.device) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def data_process(config: Config) -> tuple[int, int]:
+    """(this process's data coordinate, the data size) under ``config``'s
+    mesh: (rank, world size) in a data-parallel world, (0, 1) without one.
+    The loader shards the files by it: the members of a coordinate take the
+    same batches."""
+    if not is_initialized():
+        return 0, 1
+    shape = world_shape(config, world_size())
+    return rank_coordinate(rank(), shape)[0], shape[0]
+
+
 def process_shard(items: list, process_index: int | None = None,
                   process_count: int | None = None) -> list:
     """This process's share of a work list: every ``world``-th item from
@@ -125,9 +149,24 @@ def process_shard(items: list, process_index: int | None = None,
     return items[idx::n]
 
 
+@dataclass(frozen=True)
+class WorldMesh:
+    """This process's place in a world of ``shape`` = (data, seq, model)
+    ranks: its (d, s, m) ``coordinate``, and the ``data``, ``seq`` and
+    ``model`` groups it belongs to (``DistGroup``; ``SOLO`` where that axis
+    is 1)."""
+
+    shape: tuple[int, int, int]
+    coordinate: tuple[int, int, int]
+    data: DistGroup | Solo
+    seq: DistGroup | Solo
+    model: DistGroup | Solo
+
+
 class World:
-    """The initialised world as the trainer uses it: means of tensors over
-    the ranks, sums, gathers in rank order, and host-side votes."""
+    """The initialised world as the trainer uses it: the world as a group
+    (``group``: tensor means, sums and gathers in rank order), its
+    (data, seq, model) mesh, and host-side votes."""
 
     def __init__(self) -> None:
         if not is_initialized():
@@ -135,39 +174,42 @@ class World:
         self.rank = torch.distributed.get_rank()
         self.size = torch.distributed.get_world_size()
         self.is_main = self.rank == 0
+        self.group = DistGroup(range(self.size))
         global _host_group
         if _host_group is None and torch.distributed.get_backend() != "gloo":
             # made once, by every rank at the same point (a collective)
             _host_group = torch.distributed.new_group(backend="gloo")
 
-    def mean_(self, tensors: list[torch.Tensor]) -> None:
-        """Each tensor replaced in place by its mean over the ranks: one
-        all-reduce per dtype over the tensors flattened together; nothing
-        here waits for the host, so it runs inside a captured CUDA graph."""
-        by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
-        for t in tensors:
-            by_dtype.setdefault(t.dtype, []).append(t)
-        for group in by_dtype.values():
-            flat = torch.cat([t.reshape(-1) for t in group])
-            torch.distributed.all_reduce(flat)
-            flat.div_(self.size)
-            offset = 0
-            for t in group:
-                t.copy_(flat[offset : offset + t.numel()].view_as(t))
-                offset += t.numel()
-
-    def sum_(self, tensor: torch.Tensor) -> torch.Tensor:
-        torch.distributed.all_reduce(tensor)
-        return tensor
-
-    def gather_cat(self, tensor: torch.Tensor) -> torch.Tensor:
-        """The ranks' tensors (one shape on every rank) concatenated along
-        the first axis, in rank order."""
-        if tensor.is_cuda and torch.distributed.get_backend() == "gloo":
-            return self.gather_cat(tensor.cpu()).to(tensor.device)  # gloo gathers host memory
-        parts = [torch.empty_like(tensor) for _ in range(self.size)]
-        torch.distributed.all_gather(parts, tensor.contiguous())
-        return torch.cat(parts)
+    def mesh(self, config: Config) -> WorldMesh:
+        """The world as the (data, seq, model) mesh of ``config`` (its
+        ``world_shape``), one rank per mesh device. The groups are made once
+        per shape, by every rank in one order (``new_group`` is a
+        collective of the world): for each (d, s) the model group, for each
+        (d, m) the seq group, for each (s, m) the data group, each only
+        where its axis is above 1. In a data-parallel world the data group
+        is the world itself."""
+        shape = world_shape(config, self.size)
+        if shape not in _meshes:
+            grid = np.arange(self.size).reshape(shape)
+            lines = {axis: {} for axis in ("model", "seq", "data")}
+            for axis, ranks_of in (
+                    ("model", [grid[d, s, :] for d in range(shape[0]) for s in range(shape[1])]),
+                    ("seq", [grid[d, :, m] for d in range(shape[0]) for m in range(shape[2])]),
+                    ("data", [grid[:, s, m] for s in range(shape[1]) for m in range(shape[2])])):
+                for ranks in ranks_of:
+                    ranks = [int(r) for r in ranks]
+                    if len(ranks) == 1:
+                        continue
+                    if len(ranks) == self.size:  # the whole world
+                        pg = None
+                    else:
+                        pg = torch.distributed.new_group(ranks)
+                    if self.rank in ranks:
+                        lines[axis] = DistGroup(ranks, pg)
+            _meshes[shape] = WorldMesh(
+                shape, rank_coordinate(self.rank, shape),
+                **{axis: group or SOLO for axis, group in lines.items()})
+        return _meshes[shape]
 
     def any(self, flag: bool) -> bool:
         """Whether ``flag`` holds on any rank (a host vote)."""
@@ -193,3 +235,4 @@ def destroy() -> None:
     if is_initialized():
         torch.distributed.destroy_process_group()
     _host_group = None
+    _meshes.clear()

@@ -8,8 +8,11 @@ contiguous blocks of its leading axis, in order (``shard_batch``), as
 ``PartitionSpec("data")`` places an array. Each data coordinate holds
 ``seq * model`` members (``Mesh.members``): under ``model`` (tensor
 parallelism) and ``seq`` (the Whisper encoder's time axis) every member is a
-module copy holding its blocks (``parallel.sharding``). Serving takes any
-mesh; the trainer refuses ``model`` or ``seq`` above 1 (``require_data_only``).
+module copy holding its blocks (``parallel.sharding``). Serving runs a
+mesh's members as threads of one process; training runs one process per
+member, rank r at coordinate ``rank_coordinate(r, shape)`` of the world's
+``world_shape``, and takes any mesh under ``train.dispatch=step``
+(``check_dispatch``).
 
 A device list may name one card more than once: N replicas on one card run
 the split, the streams and the gather where only one card exists.
@@ -30,8 +33,9 @@ if TYPE_CHECKING:
     from segma_tpu_torch.models.base import SegmentationModel
 
 AXIS_NAMES = ("data", "seq", "model")
-TP_SP_SLICE = ("training under tensor and sequence parallelism (mesh.model > 1, mesh.seq > 1) "
-               "is not ported yet: ROADMAP.md Queue 1, item 1; serving takes such a mesh")
+EPOCH_TP_SP = ("train.dispatch=epoch under tensor or sequence parallelism (mesh.model > 1 or "
+               "mesh.seq > 1) is not ported yet: ROADMAP.md Queue 1, item 1; "
+               "train.dispatch=step trains over such a mesh")
 
 
 @dataclass(frozen=True)
@@ -86,15 +90,49 @@ def make_mesh(
     model_sz = model if model is not None else (config.mesh.model if config is not None else 1)
     seq_sz = seq if seq is not None else (config.mesh.seq if config is not None else 1)
     data_sz = data if data is not None else (config.mesh.data if config is not None else -1)
-    if data_sz == -1:
-        if n % (model_sz * seq_sz):
-            raise ValueError(f"{n} devices not divisible by seq={seq_sz} * model={model_sz}")
-        data_sz = n // (model_sz * seq_sz)
-    if data_sz * seq_sz * model_sz != n:
-        raise ValueError(f"mesh {data_sz}x{seq_sz}x{model_sz} does not match {n} devices")
+    shape = _resolve(n, data_sz, seq_sz, model_sz)
     grid = np.empty(n, dtype=object)
     grid[:] = devices
-    return Mesh(grid.reshape(data_sz, seq_sz, model_sz))
+    return Mesh(grid.reshape(shape))
+
+
+def _resolve(n: int, data: int, seq: int, model: int) -> tuple[int, int, int]:
+    """(data, seq, model) over ``n`` devices; ``data = -1`` takes the rest."""
+    if data == -1:
+        if n % (model * seq):
+            raise ValueError(f"{n} devices not divisible by seq={seq} * model={model}")
+        data = n // (model * seq)
+    if data * seq * model != n:
+        raise ValueError(f"mesh {data}x{seq}x{model} does not match {n} devices")
+    return data, seq, model
+
+
+def world_shape(config: Config, size: int) -> tuple[int, int, int]:
+    """The (data, seq, model) shape of a training world of ``size`` ranks,
+    one per mesh device, resolved from ``config.mesh`` as ``make_mesh``
+    resolves it (and with its errors). A data-only config (seq = model = 1)
+    gives (size, 1, 1) whatever ``mesh.data`` says, as data-parallel
+    training always took one rank per process of the world."""
+    mc = config.mesh
+    if mc.seq * mc.model == 1:
+        return size, 1, 1
+    return _resolve(size, mc.data, mc.seq, mc.model)
+
+
+def rank_coordinate(rank: int, shape: tuple[int, int, int]) -> tuple[int, int, int]:
+    """Rank ``rank``'s (d, s, m) in a world of ``shape``: ``make_mesh``'s
+    device order, rank r standing for device r."""
+    d, s, m = np.unravel_index(rank, shape)
+    return int(d), int(s), int(m)
+
+
+def check_dispatch(config: Config, shape: tuple[int, int, int]) -> None:
+    """Raise where the trainer cannot run ``config`` over ``shape``:
+    ``train.dispatch=epoch`` with seq or model above 1 (the step's
+    collectives would have to be captured in a CUDA graph, and the gloo
+    groups of several ranks on one card cannot be)."""
+    if config.train.dispatch == "epoch" and shape[1] * shape[2] > 1:
+        raise NotImplementedError(f"mesh {dict(zip(AXIS_NAMES, shape))}: {EPOCH_TP_SP}")
 
 
 def visible_devices(device: torch.device) -> list[torch.device]:
@@ -126,14 +164,8 @@ def describe(mesh: Mesh) -> str:
     if s * m == 1:
         return f"{d} replica(s), one per data coordinate, each dispatch's windows split over them"
     return (f"{d} data coordinate(s) of {s * m} members: heads and MLP features over "
-            f"model={m}, the Whisper encoder's time axis over seq={s}; the trainer refuses it")
-
-
-def require_data_only(mesh: Mesh) -> None:
-    """Raise unless the mesh is data-parallel only (model = seq = 1): the
-    trainer's check."""
-    if mesh.shape["model"] > 1 or mesh.shape["seq"] > 1:
-        raise NotImplementedError(f"mesh {mesh.shape}: {TP_SP_SLICE}")
+            f"model={m}, the Whisper encoder's time axis over seq={s}; serving runs the members "
+            f"as threads, training as one process each (train.dispatch=step)")
 
 
 def replicate(model: SegmentationModel, mesh: Mesh) -> list[SegmentationModel]:

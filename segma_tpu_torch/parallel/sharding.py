@@ -22,6 +22,13 @@ is 1 (its collectives are then the identity). A row-parallel layer keeps
 its whole bias and adds it once, after the sum over ``model``
 (``models.layers.row_linear``), where XLA adds JAX's replicated bias after
 its psum.
+
+Training runs one process per mesh device: ``shard_member`` makes that
+process's one copy, its groups ``torch.distributed`` ones
+(``collectives.DistGroup``). ``Blocks`` relates a member's state entries to
+the whole model's: ``gather`` puts the whole tensors together over the
+model group (a checkpoint holds JAX's full tree), ``take`` cuts a member's
+blocks out of whole tensors (a resume, under any mesh or none).
 """
 
 from __future__ import annotations
@@ -36,7 +43,9 @@ import torch
 from torch import nn
 
 from segma_tpu_torch.convert import flax_path
-from segma_tpu_torch.parallel.collectives import SOLO, Solo, ThreadGroup, ThreadMember
+from segma_tpu_torch.parallel.collectives import (
+    SOLO, DistGroup, Solo, ThreadGroup, ThreadMember,
+)
 from segma_tpu_torch.parallel.mesh import Mesh
 
 if TYPE_CHECKING:
@@ -89,8 +98,8 @@ def _check_divisible(name: str, t: torch.Tensor, spec: Spec, n: int) -> None:
             f"shape {tuple(t.shape)} should be divisible by {n}, but it is {t.shape[dim]}")
 
 
-def attach_groups(module: nn.Module, seq: ThreadMember | Solo,
-                  model: ThreadMember | Solo) -> None:
+def attach_groups(module: nn.Module, seq: ThreadMember | DistGroup | Solo,
+                  model: ThreadMember | DistGroup | Solo) -> None:
     """Give every parallel-aware submodule its member of the seq and the
     model group (a class that declares ``seq_group`` or ``model_group``)."""
     for sub in module.modules():
@@ -116,6 +125,15 @@ def _members(devices: np.ndarray) -> list[ThreadMember | Solo]:
     return [group.member(r) for r in range(len(devices))]
 
 
+def check_divisible(module: nn.Module, n_model: int) -> dict[str, Spec]:
+    """``module``'s specs; ``ValueError`` where an entry's features do not
+    divide over ``model=n_model``, as JAX's placement raises."""
+    specs = param_shardings(module)
+    for name, t in module.state_dict().items():
+        _check_divisible(name, t, specs[name], n_model)
+    return specs
+
+
 def shard_params(module: nn.Module, mesh: Mesh) -> np.ndarray:
     """One copy of ``module`` per device of ``mesh`` ((data, seq, model)
     object array), on that device: a parameter that ``TP_RULES`` shards
@@ -123,9 +141,7 @@ def shard_params(module: nn.Module, mesh: Mesh) -> np.ndarray:
     and the copy carries its groups. Features that do not divide over
     ``model`` raise ``ValueError``, as JAX's placement does."""
     n_seq, n_model = mesh.shape["seq"], mesh.shape["model"]
-    specs = param_shardings(module)
-    for name, t in module.state_dict().items():
-        _check_divisible(name, t, specs[name], n_model)
+    specs = check_divisible(module, n_model)
     copies = np.empty(mesh.devices.shape, dtype=object)
     for i in range(mesh.shape["data"]):
         seq_groups = [_members(mesh.devices[i, :, m]) for m in range(n_model)]
@@ -135,6 +151,81 @@ def shard_params(module: nn.Module, mesh: Mesh) -> np.ndarray:
             attach_groups(member, seq_groups[m][s], model_groups[s][m])
             copies[i, s, m] = member
     return copies
+
+
+def shard_member(module: nn.Module, seq: DistGroup | Solo, model: DistGroup | Solo
+                 ) -> nn.Module:
+    """This process's member of a training mesh: a copy of ``module`` on its
+    device whose sharded entries hold model rank ``model.rank``'s block of
+    ``model.size``, carrying ``seq`` and ``model`` (``ValueError`` as in
+    ``shard_params``)."""
+    specs = check_divisible(module, model.size)
+    device = next(module.parameters()).device
+    member = _member_copy(module, specs, model.rank, model.size, device)
+    attach_groups(member, seq, model)
+    return member
+
+
+class Blocks:
+    """The blocks a member module holds of the whole model's state entries:
+    model rank ``group.rank`` of ``group.size`` holds block ``rank`` of each
+    entry that ``TP_RULES`` shards, along its ``torch_dim``. Tensors are
+    passed by state entry name (parameters, or their optimizer moments);
+    over a group of one every method gives them back."""
+
+    def __init__(self, module: nn.Module | None = None, group: DistGroup | Solo = SOLO) -> None:
+        self.group = group
+        self.dims: dict[str, int] = {}
+        if group.size > 1:
+            for name, spec in param_shardings(module).items():
+                dim = torch_dim(spec)
+                if dim is not None:
+                    self.dims[name] = dim
+
+    def gather(self, tensors: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """The whole tensors, put together over the model group (a
+        collective: every member calls it with the same names): one
+        all-gather per dtype of the sharded blocks flattened together."""
+        names = [n for n in tensors if n in self.dims]
+        if not names:
+            return dict(tensors)
+        out = dict(tensors)
+        by_dtype: dict[torch.dtype, list[str]] = {}
+        for n in names:
+            by_dtype.setdefault(tensors[n].dtype, []).append(n)
+        for same in by_dtype.values():
+            flat = torch.cat([tensors[n].detach().reshape(-1) for n in same])
+            rows = self.group.all_gather(flat, 0).view(self.group.size, -1)
+            offset = 0
+            for n in same:
+                t = tensors[n]
+                parts = [row[offset : offset + t.numel()].view_as(t) for row in rows]
+                out[n] = torch.cat(parts, dim=self.dims[n])
+                offset += t.numel()
+        return out
+
+    def take(self, tensors: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """This member's blocks of the whole ``tensors``."""
+        out = dict(tensors)
+        for n, dim in self.dims.items():
+            if n in out:
+                width = out[n].shape[dim] // self.group.size
+                out[n] = out[n].narrow(dim, self.group.rank * width, width).clone()
+        return out
+
+    def zeros(self, tensors: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """Zeros in the whole shapes of this member's ``tensors``, without a
+        collective."""
+        out = {}
+        for n, t in tensors.items():
+            shape = list(t.shape)
+            if n in self.dims:
+                shape[self.dims[n]] *= self.group.size
+            out[n] = torch.zeros(shape, dtype=t.dtype)
+        return out
+
+
+WHOLE = Blocks()  # a module that holds every entry whole
 
 
 def _member_copy(module: nn.Module, specs: dict[str, Spec], rank: int, n: int,

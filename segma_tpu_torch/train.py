@@ -43,18 +43,32 @@ graph and replayed for every step, on the CPU the same body runs in a plain
 loop. The losses are read once per epoch.
 
 Under a ``torch.distributed`` world (``parallel.distributed``: one process
-per card, each on its shard of the files, with ``batch_size / world`` crops
-a step) every rank runs the local step, and before AdamW the gradients are
-replaced by their mean over the ranks (under ``GradAccumulation``, the
+per card) every rank runs the local step, and before AdamW the gradients are
+replaced by their mean over the data group (under ``GradAccumulation``, the
 accumulated mean, on the micro-step that emits), so every rank makes the
-update of the global batch; the step's loss is the world's mean. Under epoch
-dispatch the all-reduce is part of the captured graph. Validation reduces
-its sums (the losses, the F1 counts) and gathers its scores (AUROC, ROC), so
-every rank computes the same metrics and takes the same plateau,
-early-stopping and checkpoint decisions; rank 0 alone writes ``metrics.jsonl``,
-the checkpoints and the profiles. A SIGTERM on any rank is agreed on at the
-next step boundary (the end of the epoch under epoch dispatch): every rank
-stops there, and rank 0 writes ``last/``.
+update of the global batch; the step's loss is the data group's mean. In a
+data-parallel world the data group is the world: each rank takes its shard
+of the files, ``batch_size / world`` crops a step, and under epoch dispatch
+the all-reduce is part of the captured graph. With ``mesh.model`` or
+``mesh.seq`` above 1 the world is the (data, seq, model) mesh of ranks
+(``World.mesh``; JAX's ``segma_tpu/train.py`` places the parameters by the
+tensor-parallel rules): each rank trains its member copy of the model
+(``parallel.sharding.shard_member``: its blocks of the sharded parameters,
+its seq and model groups), the ``seq * model`` ranks of a data coordinate
+take the same batches and draw the same dropout masks, and the layers'
+collectives carry their own backward (``parallel.collectives``), so every
+member's gradient is the meshless gradient of its blocks and each
+replicated parameter gets the same bits on every rank; only
+``train.dispatch=step`` (``parallel.mesh.check_dispatch``).
+
+Validation reduces its sums (the losses, the F1 counts) and gathers its
+scores (AUROC, ROC) over the data group, so every rank computes the same
+metrics and takes the same plateau, early-stopping and checkpoint
+decisions; rank 0 alone writes ``metrics.jsonl``, the checkpoints (the whole
+trees, gathered from the model group's blocks) and the profiles. A SIGTERM
+on any rank is agreed on at the next step boundary (the end of the epoch
+under epoch dispatch), world-wide: every rank stops there, and rank 0
+writes ``last/``.
 """
 
 from __future__ import annotations
@@ -77,6 +91,7 @@ from segma_tpu_torch.checkpoint import (
     CheckpointManager,
     flax_split,
     frozen_fingerprint,
+    frozen_tree,
     load_meta,
     load_opt_state,
     load_params,
@@ -92,8 +107,10 @@ from segma_tpu_torch.models.base import (
     SegmentationModel, ieee_f32, no_tf32, weighted_index_ce,
 )
 from segma_tpu_torch.ops import add_launch_counts, launch_counts, set_launch_counts
-from segma_tpu_torch.parallel.distributed import World, current_world
-from segma_tpu_torch.parallel.mesh import TP_SP_SLICE
+from segma_tpu_torch.parallel.collectives import SOLO, DistGroup, Solo
+from segma_tpu_torch.parallel.distributed import World, WorldMesh, current_world
+from segma_tpu_torch.parallel.mesh import check_dispatch
+from segma_tpu_torch.parallel.sharding import WHOLE, Blocks, shard_member
 from segma_tpu_torch.ops.metrics import (
     binary_auroc_np,
     binary_counts,
@@ -276,12 +293,13 @@ class GradAccumulation:
     The device work (``apply``) reads the count ``mini_step + 1`` from the
     device scalar ``count``, which ``step`` fills; an epoch replay copies it
     from the epoch's stacked counts. The host keeps the counters (``advance``),
-    so it knows every micro-step's kind in advance. Under a ``world`` the
-    emitting micro-step replaces the buffers by their mean over the ranks
-    before AdamW reads them."""
+    so it knows every micro-step's kind in advance. The emitting micro-step
+    replaces the buffers by their mean over ``group`` (the data group of a
+    world; ``SOLO``, nothing, on one process) before AdamW reads them."""
 
-    def __init__(self, model: SegmentationModel, k: int, world: World | None = None) -> None:
-        self.world = world
+    def __init__(self, model: SegmentationModel, k: int,
+                 group: DistGroup | Solo = SOLO) -> None:
+        self.group = group
         named = [(n, p) for n, p in model.module.named_parameters() if p.requires_grad]
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
@@ -313,8 +331,7 @@ class GradAccumulation:
             else:
                 acc.sub_(torch.div(acc, self.count))
         if emit:
-            if self.world is not None:
-                self.world.mean_(self.acc)
+            self.group.mean_(self.acc)
             for acc, p in zip(self.acc, self.params):
                 p.grad = acc.to(p.dtype)
             optimizer.step()
@@ -332,13 +349,15 @@ class GradAccumulation:
 def _finite_flags(loss: torch.Tensor, model: SegmentationModel, world: World | None = None
                   ) -> tuple[list[str], torch.Tensor]:
     """(names, device bools): whether the loss and each trainable gradient
-    hold only finite values (on every rank of ``world``)."""
+    hold only finite values (on every rank of ``world``: a vote of the whole
+    world, which a mesh's repeated members do not change, so that every
+    rank raises or none does)."""
     named = [(n, p.grad) for n, p in model.module.named_parameters()
              if p.requires_grad and p.grad is not None]
     flags = torch.stack([torch.isfinite(loss).all()] + [torch.isfinite(g).all() for _, g in named])
     if world is not None:
         votes = flags.float()
-        world.mean_([votes])
+        world.group.mean_([votes])
         flags = votes == 1.0
     return ["loss"] + [n for n, _ in named], flags
 
@@ -351,18 +370,19 @@ def _nonfinite(loss: torch.Tensor, model: SegmentationModel, world: World | None
     return [name for name, ok in zip(names, flags.cpu().tolist()) if not ok]
 
 
-def world_mean(world: World | None, model: SegmentationModel, loss: torch.Tensor,
+def world_mean(group: DistGroup | Solo, model: SegmentationModel, loss: torch.Tensor,
                per_label: torch.Tensor, grads: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """The step's (loss, per_label) as the world's means; with ``grads``,
-    also each trainable ``.grad`` in place. Without a world, unchanged."""
-    if world is None:
+    """The step's (loss, per_label) as their means over ``group`` (the data
+    group of a world); with ``grads``, also each trainable ``.grad`` in
+    place. Over ``SOLO``, unchanged."""
+    if group.size == 1:
         return loss, per_label
     both = torch.cat([loss.reshape(1), per_label])
     tensors = [both]
     if grads:
         tensors += [p.grad for p in model.module.parameters()
                     if p.requires_grad and p.grad is not None]
-    world.mean_(tensors)
+    group.mean_(tensors)
     return both[0], both[1:]
 
 
@@ -389,19 +409,21 @@ def make_train_step(
     model: SegmentationModel, optimizer: torch.optim.Optimizer,
     accum: GradAccumulation | None = None, debug_nans: bool = False,
     source: WaveformSource | None = None, world: World | None = None,
+    group: DistGroup | Solo = SOLO,
 ) -> Callable[[dict[str, torch.Tensor], torch.Generator | None], tuple[torch.Tensor, torch.Tensor]]:
     """One step (``train.dispatch=step``): ``forward_backward``, then AdamW, or
     ``accum``'s micro-step. The step updates the module's parameters in place
     and returns the (loss, per_label) of the batch, on the device. The batch's
     waveforms come from ``source`` (host waveforms without one).
     ``debug_nans``: raise ``FloatingPointError``, before any update, when the
-    loss or a trainable gradient is not finite. Under a ``world`` the loss,
-    and the gradients before AdamW, are the ranks' means (``world_mean``)."""
+    loss or a trainable gradient is not finite, on any rank of ``world``. The
+    loss, and the gradients before AdamW, are their means over ``group``, the
+    data group of a world (``world_mean``)."""
     source = source or WaveformSource()
 
     def train_step(batch: dict[str, torch.Tensor], generator: torch.Generator | None):
         loss, per_label = forward_backward(model, optimizer, source(batch), batch["y"], generator)
-        loss, per_label = world_mean(world, model, loss, per_label, grads=accum is None)
+        loss, per_label = world_mean(group, model, loss, per_label, grads=accum is None)
         if debug_nans:
             bad = _nonfinite(loss, model, world)
             if bad:
@@ -479,8 +501,10 @@ class EpochReplay:
         self, model: SegmentationModel, optimizer: torch.optim.Optimizer,
         accum: GradAccumulation | None, cache: DeviceAudioCache, generator: torch.Generator,
         batch_size: int, y_shape: tuple[int, ...], debug_nans: bool, world: World | None = None,
+        group: DistGroup | Solo = SOLO,
     ) -> None:
         self.model, self.optimizer, self.accum, self.world = model, optimizer, accum, world
+        self.group = group
         self.cache, self.generator, self.debug_nans = cache, generator, debug_nans
         device = model.device
         self.offsets = torch.zeros(batch_size, dtype=torch.int32, device=device)
@@ -498,7 +522,7 @@ class EpochReplay:
                                            self.generator)
         # the world's all-reduces, captured with the step: the eager warm-up
         # run before the capture has set the communicator up
-        loss, per_label = world_mean(self.world, self.model, loss, per_label,
+        loss, per_label = world_mean(self.group, self.model, loss, per_label,
                                      grads=self.accum is None)
         finite = (_finite_flags(loss, self.model, self.world)[1].all() if self.debug_nans
                   else None)
@@ -553,8 +577,10 @@ class Trainer:
     unless ``device="cpu"``. Checkpoints go to ``run_dir / "checkpoints"``;
     a model built by ``checkpoint.build_model`` (weights from ``train.seed``)
     can be served from them by ``checkpoint.load_model_for_inference``.
-    Under an initialised ``torch.distributed`` world it is one rank of a
-    data-parallel run, and only rank 0 writes to ``run_dir``."""
+    Under an initialised ``torch.distributed`` world it is one rank of the
+    run, and only rank 0 writes to ``run_dir``; with ``mesh.model`` or
+    ``mesh.seq`` above 1 it is one member of the world's mesh, and
+    ``model`` becomes its member copy (``mesh``, ``blocks``)."""
 
     model: SegmentationModel
     config: Config
@@ -577,9 +603,28 @@ class Trainer:
         self.model.to(self.device)
         tc = self.config.train
         self.mode, self.monitor = get_metric(tc.validation_metric)
-        mc = self.config.mesh
-        if self.world is not None and (mc.model > 1 or mc.seq > 1):
-            raise NotImplementedError(f"mesh.model={mc.model}, mesh.seq={mc.seq}: {TP_SP_SLICE}")
+        # the whole model's counts and frozen fingerprint, before a member
+        # takes its blocks (JAX's fingerprint comes before sharding too)
+        trainable, frozen = self.model.split_state()
+        self.n_params = {"n_params_trainable": sum(int(v.numel()) for v in trainable.values()),
+                         "n_params_frozen": sum(int(v.numel()) for v in frozen.values())}
+        frozen = frozen_tree(self.model)
+        self.frozen_fp = frozen_fingerprint(frozen) if frozen else None
+        # this rank's place: the mesh, the data group the step reduces over
+        # (SOLO on one process), (data coordinate, data size), the blocks
+        self.mesh: WorldMesh | None = None
+        self.data_group: DistGroup | Solo = SOLO
+        self.coordinate = (0, 1)
+        self.blocks: Blocks = WHOLE
+        if self.world is not None:
+            self.mesh = self.world.mesh(self.config)
+            check_dispatch(self.config, self.mesh.shape)
+            self.data_group = self.mesh.data
+            self.coordinate = (self.mesh.coordinate[0], self.mesh.shape[0])
+            if self.mesh.seq.size * self.mesh.model.size > 1:
+                member = shard_member(self.model.module, self.mesh.seq, self.mesh.model)
+                self.model = dataclasses.replace(self.model, module=member)
+                self.blocks = Blocks(member, self.mesh.model)
         if tc.dispatch not in ("step", "epoch"):
             raise ValueError(f"train.dispatch must be 'step' or 'epoch', got {tc.dispatch!r}")
         if tc.dispatch == "epoch" and tc.data_cache == "host":
@@ -588,13 +633,13 @@ class Trainer:
                 "train.dispatch=epoch replays the step over device-resident crops: it "
                 "requires train.data_cache=device (or auto within budget)")
         self.optimizer = make_optimizer(self.model, tc.lr)
-        self.accum = (GradAccumulation(self.model, tc.grad_accum_steps, self.world)
+        self.accum = (GradAccumulation(self.model, tc.grad_accum_steps, self.data_group)
                       if tc.grad_accum_steps > 1 else None)
         # fit places the loaders' device caches into these
         self.train_source, self.val_source = WaveformSource(), WaveformSource()
         self.train_step = make_train_step(self.model, self.optimizer, self.accum,
                                           debug_nans=tc.debug_nans, source=self.train_source,
-                                          world=self.world)
+                                          world=self.world, group=self.data_group)
         # the dropout masks' generator, reseeded from (seed, epoch) every epoch
         self.generator = torch.Generator(self.device)
         self.replay: EpochReplay | None = None
@@ -708,7 +753,8 @@ class Trainer:
         if replay is None or replay.cache is not self.train_source.cache:
             replay = self.replay = EpochReplay(
                 self.model, self.optimizer, accum, self.train_source.cache, self.generator,
-                offsets_e.shape[1], tuple(y_e.shape[2:]), tc.debug_nans, self.world)
+                offsets_e.shape[1], tuple(y_e.shape[2:]), tc.debug_nans, self.world,
+                self.data_group)
         lr = self.optimizer.param_groups[0]["lr"]
         losses_e = torch.empty(n, dtype=torch.float32, device=self.device)
         per_label_e = torch.empty((n, len(self.model.label_encoder.base_labels)),
@@ -779,9 +825,11 @@ class Trainer:
         ``extra_val_metrics``), ``val/partial_f1_score`` and
         ``val/partial_auroc`` (with f1_score and auroc), each averaged over
         its classes of fewer than two labels. Under a world the losses are
-        the ranks' means (every rank runs as many batches of one size), the
-        counts their sums, and the scores are gathered, so every rank
-        computes the same metrics."""
+        the means over the data group (every rank runs as many batches of
+        one size), the counts its sums, and the scores are gathered over it,
+        so every rank computes the same metrics (the members of a data
+        coordinate score the same batches: reduced over the world, they
+        would count them ``seq * model`` times)."""
         tc = self.config.train
         labels = self.model.label_encoder.base_labels
         wants = lambda m: tc.validation_metric == m or m in tc.extra_val_metrics  # noqa: E731
@@ -809,18 +857,17 @@ class Trainer:
                 if wants("auroc"):
                     subset_probs.append(s_probs)
                     subset_ids.append(s_ids)
-        world = self.world
+        group = self.data_group
         metrics: dict[str, float] = {}
         if losses:
             loss, per_label = torch.stack(losses).mean(), torch.stack(per_labels).mean(0)
-            if world is not None:
-                world.mean_([loss, per_label])
+            group.mean_([loss, per_label])
             metrics["val/loss"] = float(loss)
             per_label = per_label.cpu()
             for i, label in enumerate(labels):
                 metrics[f"val/loss_{label}"] = float(per_label[i])
-        if world is not None and counts_acc is not None:
-            counts_acc = {k: world.sum_(v) for k, v in counts_acc.items()}
+        if counts_acc is not None:
+            counts_acc = {k: group.sum_(v) for k, v in counts_acc.items()}
         if counts_acc is not None and wants("f1_score"):
             f1 = f1_from_counts({k: v.cpu() for k, v in counts_acc.items()})
             metrics["val/f1_score"] = float(f1.mean())
@@ -828,9 +875,10 @@ class Trainer:
                 metrics[f"val/f1_{label}"] = float(f1[i])
         if need_scores and all_probs:
             probs, targets = torch.cat(all_probs), np.concatenate(all_targets)
-            if world is not None:
-                probs = world.gather_cat(probs)
-                targets = world.gather_cat(torch.from_numpy(targets).to(probs.device)).cpu().numpy()
+            if group.size > 1:
+                probs = group.all_gather(probs, 0)
+                targets = group.all_gather(torch.from_numpy(targets).to(probs.device),
+                                           0).cpu().numpy()
             probs = probs.cpu().numpy()
             if wants("auroc"):
                 auroc = binary_auroc_np(probs, targets)
@@ -842,9 +890,8 @@ class Trainer:
         if partial_losses:
             n_single = self.model.powerset.n_single_classes
             partial_loss = torch.stack(partial_losses).mean()
-            if world is not None:
-                world.mean_([partial_loss])
-                subset_acc = {k: world.sum_(v) for k, v in subset_acc.items()}
+            group.mean_([partial_loss])
+            subset_acc = {k: group.sum_(v) for k, v in subset_acc.items()}
             if "partial_loss" in tc.extra_val_metrics:
                 metrics["val/partial_loss"] = float(partial_loss)
             if wants("f1_score"):
@@ -852,8 +899,7 @@ class Trainer:
                 metrics["val/partial_f1_score"] = float(subset_f1[:n_single].mean())
             if subset_probs:
                 s_probs, s_ids = torch.cat(subset_probs), torch.cat(subset_ids)
-                if world is not None:
-                    s_probs, s_ids = world.gather_cat(s_probs), world.gather_cat(s_ids)
+                s_probs, s_ids = group.all_gather(s_probs, 0), group.all_gather(s_ids, 0)
                 s_probs, s_ids = s_probs.cpu().numpy(), s_ids.cpu().numpy()
                 s_auroc = binary_auroc_np(s_probs, np.eye(s_probs.shape[-1])[s_ids])
                 metrics["val/partial_auroc"] = float(s_auroc[:n_single].mean())
@@ -897,17 +943,25 @@ class Trainer:
         counters; returns the epoch to start at."""
         ckpt = resolve_checkpoint(resume_from)
         self.replay = None  # a graph captured before reads the replaced optimizer state
-        load_trainable(self.model, load_params(ckpt, flax_split(self.model)[0]))
-        load_opt_state(ckpt, self.model, self.optimizer, self.accum)
+        load_trainable(self.model, load_params(ckpt, flax_split(self.model, self.blocks)[0]),
+                       self.blocks)
+        load_opt_state(ckpt, self.model, self.optimizer, self.accum, self.blocks)
         for obj, section in ((self.scheduler, "scheduler"),
                              (self.early_stopping, "early_stopping")):
             for attr, value in (load_train_state(ckpt).get(section) or {}).items():
                 setattr(obj, attr, value)
         return int(load_meta(ckpt).get("epoch", -1)) + 1
 
+    def _trees(self) -> tuple[dict, dict]:
+        """The whole trainable tree and optax's tree, as every rank computes
+        them (a mesh member gathers its blocks: a collective); rank 0
+        writes them."""
+        return (flax_split(self.model, self.blocks)[0],
+                opt_state_tree(self.model, self.optimizer, self.accum, self.blocks))
+
     def _refresh_last(self, epoch: int, meta: dict) -> None:
-        self.ckpt.refresh_last(epoch, flax_split(self.model)[0], meta,
-                               opt_state=opt_state_tree(self.model, self.optimizer, self.accum),
+        params, opt_state = self._trees()
+        self.ckpt.refresh_last(epoch, params, meta, opt_state=opt_state,
                                train_state=self._train_state())
 
     def _profiler(self) -> torch.profiler.profile:
@@ -947,19 +1001,14 @@ class Trainer:
         tc = self.config.train
         seed = tc.seed if tc.seed is not None else 0
         start_epoch = 0 if resume_from is None else self._resume(resume_from)
-        trainable, frozen = self.model.split_state()
-        self.logger.log({
-            "n_params_trainable": sum(int(v.numel()) for v in trainable.values()),
-            "n_params_frozen": sum(int(v.numel()) for v in frozen.values()),
-        })
+        self.logger.log(self.n_params)
         # metadata of every checkpoint: the config, the monitored metric and
         # the frozen tree's fingerprint, which inference checks its rebuilt
         # frozen parameters against
         meta: dict[str, Any] = {"config": dataclasses.asdict(self.config),
                                 "monitor": self.monitor}
-        frozen_tree = flax_split(self.model)[1]
-        if frozen_tree:
-            meta["frozen_fingerprint"] = frozen_fingerprint(frozen_tree)
+        if self.frozen_fp is not None:
+            meta["frozen_fingerprint"] = self.frozen_fp
         train_loader = datamodule.train_dataloader()
         val_loader = datamodule.val_dataloader()
         t_cache = getattr(train_loader, "device_cache", None)
@@ -998,10 +1047,11 @@ class Trainer:
                 for epoch in range(start_epoch, max_epochs):
                     for ldr in (train_loader, val_loader):
                         ldr.set_epoch(epoch)
-                    # each rank its own dropout stream (rank 0's is one process's)
-                    size, rank = (1, 0) if self.world is None else (self.world.size,
-                                                                    self.world.rank)
-                    self.generator.manual_seed((seed * 100_003 + epoch) * size + rank)
+                    # each data coordinate its own dropout stream (coordinate
+                    # 0's is one process's): the members of a coordinate draw
+                    # the same masks on their replicated activations
+                    d, data = self.coordinate
+                    self.generator.manual_seed((seed * 100_003 + epoch) * data + d)
                     prof = self._profiler() if epoch == profile_epoch else None
                     if prof is not None:
                         prof.start()
@@ -1055,10 +1105,9 @@ class Trainer:
                         if tc.scheduler.type == "plateau" and self.scheduler.step(monitored):
                             set_learning_rate(self.optimizer, tc.lr * self.scheduler.scale)
                         stop = self.early_stopping.step(monitored)
-                        self.ckpt.step(
-                            epoch, monitored, flax_split(self.model)[0], meta,
-                            opt_state=opt_state_tree(self.model, self.optimizer, self.accum),
-                            train_state=self._train_state())
+                        params, opt_state = self._trees()
+                        self.ckpt.step(epoch, monitored, params, meta, opt_state=opt_state,
+                                       train_state=self._train_state())
                         if stop:
                             self.logger.log({"early_stop": epoch})
                             break

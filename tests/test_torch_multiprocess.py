@@ -114,7 +114,7 @@ if mode == "step":
         return {k: torch.from_numpy(batches[f"{k}{i}"][rows]) for k in ("x", "y")}
 
     model = model_at_start()
-    step = make_train_step(model, make_optimizer(model, 1e-3), world=world)
+    step = make_train_step(model, make_optimizer(model, 1e-3), world=world, group=world.group)
     loss, per_label = step(local(0), None)
     named = dict(model.module.named_parameters())
     dump("step", {"loss": loss.numpy()[None], "per_label": per_label.numpy(),
@@ -122,8 +122,8 @@ if mode == "step":
                   **{f"param:{n}": p.detach().numpy() for n, p in named.items()}})
     model = model_at_start()
     opt = make_optimizer(model, 1e-3)
-    accum = GradAccumulation(model, 3, world)
-    step = make_train_step(model, opt, accum=accum, world=world)
+    accum = GradAccumulation(model, 3, world.group)
+    step = make_train_step(model, opt, accum=accum, world=world, group=world.group)
     for i in range(3):
         step(local(i), None)
     dump("accum", {f"param:{n}": p.detach().numpy()
@@ -479,7 +479,8 @@ def test_rank_device_cache_crops_equal_its_host_crops(dataset):
 def test_local_world_size(monkeypatch):
     """A plain run starts one rank per visible card when there are several
     and ``mesh.data`` is not 1; under a launcher, on the CPU, on one card or
-    with ``mesh.data=1`` it runs alone; TP/SP is refused."""
+    with ``mesh.data=1`` it runs alone; under TP/SP data x seq x model ranks
+    (one card: meshless), and epoch dispatch is refused there."""
     from segma_tpu_torch.cli import train as cli_train
     from segma_tpu_torch.parallel import mesh as tmesh
 
@@ -494,8 +495,15 @@ def test_local_world_size(monkeypatch):
     assert cli_train.local_world_size(load_config(default, ["mesh.data=2"]), "cuda") == 2
     assert cli_train.local_world_size(load_config(default, ["mesh.data=1"]), "cuda") == 1
     assert cli_train.local_world_size(cfg, "cpu") == 1
+    assert cli_train.local_world_size(load_config(default, ["mesh.model=2"]), "cuda") == 4
+    assert cli_train.local_world_size(
+        load_config(default, ["mesh.data=1", "mesh.model=2"]), "cuda") == 2
     with pytest.raises(NotImplementedError, match="Queue 1, item 1"):
-        cli_train.local_world_size(load_config(default, ["mesh.model=2"]), "cuda")
+        cli_train.local_world_size(
+            load_config(default, ["mesh.model=2", "train.dispatch=epoch"]), "cuda")
+    monkeypatch.setattr(tmesh, "visible_cards", lambda: [torch.device("cuda", 0)])
+    assert cli_train.local_world_size(load_config(default, ["mesh.model=2"]), "cuda") == 1
+    monkeypatch.setattr(tmesh, "visible_cards", lambda: [torch.device("cuda", i) for i in range(4)])
     for name, value in (("WORLD_SIZE", "4"), ("RANK", "0"), ("MASTER_ADDR", "127.0.0.1"),
                         ("MASTER_PORT", "1")):
         monkeypatch.setenv(name, value)

@@ -24,7 +24,9 @@ of one device list; JAX's tolerance applies, rtol 2e-4 and atol 2e-5:
   do not divide, the features do); packing and ADPCM under (4,1,2) against
   per-file results; a seq config served without a mesh; the service over
   (2,1,2) answering as the meshless one does;
-- the trainer's refusals name the training queue item.
+- the trainer refuses epoch dispatch over seq or model above 1, naming the
+  queue item, and a recorded attention at unequal lengths says why none is
+  needed.
 """
 
 from __future__ import annotations
@@ -356,9 +358,11 @@ def test_query_block_attention_is_jax_s(block):
 
 
 def test_recorded_attention_at_unequal_lengths_names_the_training_item():
+    """Refused under autograd, with the reason: no trained path splits time
+    (the Whisper encoder, the one that does, is frozen)."""
     q = torch.zeros(1, 4, 1, 64, requires_grad=True)
     kv = torch.zeros(1, 8, 1, 64)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 1"):
+    with pytest.raises(NotImplementedError, match="only the Whisper encoder splits time .* frozen"):
         attention_core(q, kv, kv, sm_scale=0.125, dtype=torch.float32)
     with torch.no_grad():
         assert attention_core(q, kv, kv, sm_scale=0.125, dtype=torch.float32).shape == q.shape
@@ -547,14 +551,21 @@ def test_service_over_a_tp_mesh_answers_as_one_device(whisper, tmp_path, monkeyp
     assert not t.is_alive()
 
 
-# -- training stays refused ------------------------------------------------------------
+# -- training refuses epoch dispatch only ---------------------------------------------
 
 
 def test_training_refuses_tp_and_sp_naming_the_queue_item():
-    from segma_tpu_torch.parallel.mesh import TP_SP_SLICE, require_data_only
+    """The trainer's check refuses ``train.dispatch=epoch`` over seq or model
+    above 1, naming the queue item; step dispatch, and epoch dispatch over a
+    data-only mesh, pass."""
+    from segma_tpu_torch.parallel.mesh import EPOCH_TP_SP, check_dispatch
 
-    assert "Queue 1, item 1" in TP_SP_SLICE
+    assert "Queue 1, item 1" in EPOCH_TP_SP
+    epoch = load_config(PORT_DEFAULT, ["train.dispatch=epoch"])
+    step = load_config(PORT_DEFAULT, ["train.dispatch=step"])
     for sizes in (dict(model=2), dict(seq=2), dict(data=1, seq=2, model=2)):
-        with pytest.raises(NotImplementedError, match="training under tensor and sequence"):
-            require_data_only(make_mesh(devices=["cpu"] * 4, **sizes))
-    require_data_only(make_mesh(devices=["cpu"] * 4))
+        shape = tuple(make_mesh(devices=["cpu"] * 4, **sizes).shape.values())
+        with pytest.raises(NotImplementedError, match="train.dispatch=epoch under tensor"):
+            check_dispatch(epoch, shape)
+        check_dispatch(step, shape)
+    check_dispatch(epoch, tuple(make_mesh(devices=["cpu"] * 4).shape.values()))
