@@ -161,9 +161,13 @@ exits nonzero without printing the final result line:
    replica per card, steps an NCCL world of one rank per card against the
    global-batch step, and runs ``cli.auto_train`` as one rank per card
    (epoch dispatch, SIGTERM and ``--auto-resume`` bit-equal to step
-   dispatch), and serves over five tensor- and sequence-parallel meshes of
-   four cards and one request through ``serve_forever`` at (2, 1, 2); on
-   one card it is skipped.
+   dispatch), fits HuBERT-base bf16 at (1, 1, 2) as NCCL ranks under epoch
+   dispatch (the layers' collectives in the captured graph) bit-equal to
+   step dispatch, and with four cards serves over five tensor- and
+   sequence-parallel meshes and one request through ``serve_forever`` at
+   (2, 1, 2), and fits HuBERT-base f32 at (1, 1, 2), HuBERT-base bf16 at
+   (2, 1, 2) and Whisper-base at (1, 2, 2) under both dispatches the same
+   way; on one card it is skipped.
 10g. tensor and sequence parallelism in serving (``phase_tensor_seq``, one
    card, every member of a mesh on cuda:0 with a thread and a stream of its
    own): the serving slice over the (data, seq, model) meshes (1,1,2),
@@ -187,9 +191,13 @@ exits nonzero without printing the final result line:
    step's own distance from the f32 one), every replicated
    parameter and the gathered tree the same bits on every rank, the flash
    backward launched layers x steps times per rank; the first world's
-   gathered checkpoint served meshless. With four cards,
-   ``phase_parallel_cards`` runs the HuBERT and Whisper worlds as NCCL
-   ranks of their own cards and ``cli.train`` with ``mesh.model=2``.
+   gathered checkpoint served meshless; a ``Trainer`` asked for
+   ``train.dispatch=epoch`` refused on every gloo rank, the message read
+   back (gloo collectives wait for the host: no CUDA graph holds them).
+   With four cards, ``phase_parallel_cards`` runs the HuBERT and Whisper
+   worlds as NCCL ranks of their own cards, ``cli.train`` with
+   ``mesh.model=2`` under both dispatches, and the epoch-dispatch fits
+   (``_cards_epoch_worlds``).
 11. the ``kernels`` JSON line (log-mel, the bf16 and the f32 flash forward
    and backward; each with its fast_context times where it has them, and
    log-mel's at (32, 64000) as ``vad_train``) and
@@ -199,7 +207,9 @@ exits nonzero without printing the final result line:
    the bf16 flash forward also carry ``launches_live_serving``, and they and
    the f32 flash forward ``launches_export``; every row carries
    ``launches_parallel_serve``, ``launches_parallel_train``,
-   ``launches_tensor_seq`` and ``launches_train_tensor_seq``; both flash
+   ``launches_parallel_train_epoch`` (the epoch-dispatch fits across cards,
+   a replay counting its captured launches), ``launches_tensor_seq`` and
+   ``launches_train_tensor_seq``; both flash
    forwards carry ``unequal_lengths``,
    their times, bounds and SDPA times at FLASH_UNEQUAL_SHAPES.
 12. last line: ``{"ok": true, "device": {...}}``.
@@ -3065,8 +3075,9 @@ def _dispatch_fit(card: str, label: str, cfg, ds, run_dir: Path, model=None,
     the history, the launch counts, the peak memory, the warm step (the
     second epoch's train time over its steps; the first's in a one-epoch
     run), the timed steps, the profiled epoch's device time and wall, the
-    logged records, and copies of the trainable parameters and AdamW
-    state."""
+    logged records (rank 0's: none on the other ranks of a world), and
+    copies of the trainable parameters (a mesh member's blocks) and AdamW
+    state, the names of the sharded ones and the member's coordinate."""
     import gc
     import json
 
@@ -3149,8 +3160,11 @@ def _dispatch_fit(card: str, label: str, cfg, ds, run_dir: Path, model=None,
     launches = read_launches()
     history = result["history"]
     n_steps = trainer.global_step // len(history)
-    records = [json.loads(ln) for ln in (run_dir / "metrics.jsonl").read_text().splitlines()]
-    params = dict(model.module.named_parameters())
+    # rank 0 alone writes metrics.jsonl under a world
+    records = ([json.loads(ln) for ln in (run_dir / "metrics.jsonl").read_text().splitlines()]
+               if trainer.is_main else [])
+    # a mesh member trains its member copy: its blocks of the parameters
+    params = dict(trainer.model.module.named_parameters())
     steps_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
     out = {
         "history": history, "launches": launches, "peak": torch.cuda.max_memory_allocated(),
@@ -3162,6 +3176,8 @@ def _dispatch_fit(card: str, label: str, cfg, ds, run_dir: Path, model=None,
         "adam": {n: {k: v.detach().cpu() for k, v in trainer.optimizer.state[p].items()}
                  for n, p in params.items() if p.requires_grad},
         "graphs": sorted(trainer.replay.graphs) if trainer.replay is not None else [],
+        "sharded": sorted(trainer.blocks.dims),
+        "coordinate": list(trainer.mesh.coordinate) if trainer.mesh is not None else None,
     }
     mb = [r["device_cache_mb"] for r in records if "device_cache_mb" in r]
     notes = {k: r[k] for r in records for k in ("data_cache_train", "data_cache_val") if k in r}
@@ -5253,13 +5269,14 @@ TRAIN_TP_CARD_RUNS = (("hubert bf16", "surgical_hubert_hydra", "bf16", (2, 1, 2)
 # Trainer.train_step on its data coordinate's block of <out>/batch.npz;
 # reports each step's loss, the step walls, its launches, sha256 of each
 # replicated parameter after the steps and of the gathered trainable tree,
-# and where its time went; checks that the gathered tree holds its own
+# where its time went, and over gloo the refusal of a Trainer asked for
+# train.dispatch=epoch first; checks that the gathered tree holds its own
 # blocks; rank 0 writes the first step's gradients, gathered whole, to
 # <out>/grads.pt and the gathered tree as a checkpoint to <out>/ckpt
 TENSOR_TRAIN_CHILD = (
     "import time\n"
     "t_start = time.perf_counter()\n"
-    "import hashlib, json, sys, warnings\n"
+    "import dataclasses, hashlib, json, sys, warnings\n"
     "import numpy as np, torch\n"
     "import chip_smoke\n"
     "from segma_tpu_torch import checkpoint\n"
@@ -5280,6 +5297,15 @@ TENSOR_TRAIN_CHILD = (
     "    if hasattr(model.module, 'dropout'):\n"
     "        model.module.dropout = 0.0\n"
     "    times['build'] = time.perf_counter() - t0\n"
+    "    refusal = None\n"
+    "    if backend == 'gloo':  # epoch dispatch over gloo ranks on a card: refused\n"
+    "        epoch = dataclasses.replace(cfg, train=dataclasses.replace(\n"
+    "            cfg.train, dispatch='epoch', data_cache='device'))\n"
+    "        try:\n"
+    "            Trainer(model, epoch, out + '/refused', device='cuda')\n"
+    "        except ValueError as e:\n"
+    "            refusal = str(e)\n"
+    "        assert refusal is not None, 'epoch dispatch over gloo on a card was not refused'\n"
     "    t0 = time.perf_counter()\n"
     "    trainer = Trainer(model, cfg, out + '/run', device='cuda')\n"
     "    del model\n"
@@ -5327,7 +5353,7 @@ TENSOR_TRAIN_CHILD = (
     "              'replicated': {k: digest(v) for k, v in named.items()\n"
     "                             if k not in trainer.blocks.dims},\n"
     "              'whole': {k: digest(v) for k, v in whole.items()},\n"
-    "              'peak_gb': torch.cuda.max_memory_allocated() / 1e9}\n"
+    "              'peak_gb': torch.cuda.max_memory_allocated() / 1e9, 'refusal': refusal}\n"
     "    open(f'{out}/rank{world.rank}.json', 'w').write(json.dumps(report))\n"
     "    del trainer, member, named, whole, tree\n"
     "    torch.cuda.empty_cache()\n"
@@ -5548,6 +5574,16 @@ def _finish_tp_world(card: str, world: dict, refs: dict | None = None) -> dict:
             keys = tuple(k + "_f32" if k.startswith("flash") else k for k in keys)
         for rep in ranks:
             _launched(rep["launches"], keys, f"train tensor_seq {label} rank {rep['rank']}")
+        if backend == "gloo":  # epoch dispatch refused on every rank, saying why
+            from segma_tpu_torch.parallel.mesh import EPOCH_GLOO_CARD
+
+            for rep in ranks:
+                if EPOCH_GLOO_CARD not in (rep["refusal"] or ""):
+                    raise AssertionError(f"train tensor_seq {label} rank {rep['rank']}: "
+                                         f"refusal {rep['refusal']!r}")
+            print(f"check train tensor_seq {label} refusal [{card}]: train.dispatch=epoch over "
+                  f"{n} gloo ranks on {where} refused by each rank's Trainer before any work: "
+                  f"{ranks[0]['refusal']}", flush=True)
         warm = float(np.median([w for rep in ranks for w in rep["walls"][1:]]))
         warm_ref = float(np.median(ref["walls"][1:]))
         times = {k: max(rep["times"][k] for rep in ranks) for k in ranks[0]["times"]}
@@ -5572,11 +5608,12 @@ def _finish_tp_world(card: str, world: dict, refs: dict | None = None) -> dict:
     return results
 
 
-def _serve_gathered(card: str, label: str, cfg, ckpt: Path, tmp: Path) -> dict:
+def _serve_gathered(card: str, label: str, cfg, ckpt: Path, tmp: Path,
+                    kernel: str = "flash_attn_fwd") -> dict:
     """A mesh's gathered checkpoint served meshless: ``load_model_for_inference``
     (the frozen fingerprint checked), its trainable tree bit-equal to the
-    file's, TRAIN_TP_WAV_S seconds served with finite logits. Returns the
-    serving run's launches."""
+    file's, TRAIN_TP_WAV_S seconds served with finite logits, ``kernel``
+    launched. Returns the serving run's launches."""
     import dataclasses
 
     import torch
@@ -5598,7 +5635,7 @@ def _serve_gathered(card: str, label: str, cfg, ckpt: Path, tmp: Path) -> dict:
     if not np.isfinite(logits).all() or logits.shape[-1] != len(TRAIN_CLASSES):
         raise AssertionError(f"{label}: served logits {logits.shape}, finite "
                              f"{np.isfinite(logits).all()}")
-    _launched(launches, ("flash_attn_fwd",), f"{label} served")
+    _launched(launches, (kernel,), f"{label} served")
     print(f"check train tensor_seq {label} [{card}]: the gathered checkpoint loads meshless "
           f"(fingerprint checked, {n} trainable leaves bit-equal to the file) and serves "
           f"{TRAIN_TP_WAV_S:.0f} s: logits {logits.shape} finite, launches {launches}", flush=True)
@@ -5668,10 +5705,18 @@ def phase_parallel_cards(card: str) -> dict:
        with four cards, training under tensor and sequence parallelism:
        TRAIN_TP_CARD_RUNS as NCCL ranks on cards of their own with
        ``phase_train_tensor_seq``'s gates (``_finish_tp_world``), and
-       ``cli.train`` started plainly with ``mesh.model=2`` and with
-       ``mesh.seq=2 mesh.model=2`` (``_cards_tp_cli``).
+       ``cli.train`` started plainly with ``mesh.model=2`` (step and epoch
+       dispatch) and with ``mesh.seq=2 mesh.model=2`` (``_cards_tp_cli``);
+    3. epoch dispatch under tensor and sequence parallelism
+       (``_cards_epoch_worlds``, ``_finish_epoch_world``'s gates):
+       TRAIN_EPOCH_CARD_RUNS as NCCL ranks on cards of their own, each
+       mesh fitted under step and under epoch dispatch from the device
+       cache, bit for bit; the two-rank meshes from two cards, the
+       four-rank ones with four.
 
-    Returns the launch counts of the serving paths."""
+    The epoch-dispatch worlds run first, then 1 and 2; the phase prints the
+    wall of each piece. Returns the launch counts of the serving and
+    training paths."""
     import dataclasses
 
     import torch
@@ -5684,8 +5729,26 @@ def phase_parallel_cards(card: str) -> dict:
         print(f"parallel cards [{card}]: skipped, {n} card visible", flush=True)
         return {}
     paths: dict[str, dict] = {}
+    walls: dict[str, float] = {}
+    t_piece = [time.perf_counter()]
+
+    def piece(name: str) -> None:
+        now = time.perf_counter()
+        walls[name] = now - t_piece[0]
+        t_piece[0] = now
+
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
+        root = tmp / "data"
+        write_dataset(root, TRAIN_CLASSES, (max(TRAIN_FILES, n), max(VAL_FILES, n), TEST_FILES),
+                      TRAIN_FILE_S)
+        write_hubert_snapshot(tmp / "hubert4", seed=16,
+                              dims=dict(HUBERT_BASE, num_hidden_layers=PARALLEL_LAYERS))
+        piece("data")
+        # epoch dispatch under tensor and sequence parallelism first: the
+        # step's graph holds the layers' NCCL collectives
+        paths.update(_cards_epoch_worlds(card, root, tmp / "epoch_worlds", n))
+        piece("epoch dispatch worlds")
         cfg, model, wav_dir, audio_s, n_chunks = _serving_wav(tmp)
         mesh = auto_mesh(cfg, torch.device("cuda"))
         replicate(model, mesh)  # the other cards' first use, untimed
@@ -5720,51 +5783,62 @@ def phase_parallel_cards(card: str) -> dict:
                 card, cfg, model, tmp, on_cards((2, 1, 2)), "(2, 1, 2) over 4 cards", near=limit)
         del model
         torch.cuda.empty_cache()
+        piece("serving")
 
-        root = tmp / "data"
-        write_dataset(root, TRAIN_CLASSES, (max(TRAIN_FILES, n), max(VAL_FILES, n), TEST_FILES),
-                      TRAIN_FILE_S)
-        write_hubert_snapshot(tmp / "hubert4", seed=16,
-                              dims=dict(HUBERT_BASE, num_hidden_layers=PARALLEL_LAYERS))
         cfg = surgical_hubert_hydra_config(root, precision="f32")
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, config=dataclasses.replace(cfg.model.config,
                                                   wav_encoder=str(tmp / "hubert4"))))
         _world_step(card, cfg, write_config(tmp / "step.json", cfg), tmp, n, "nccl",
                     own_cards=True)
+        piece("world step")
         cli_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, precision="bf16", batch_size=8 * n, max_epochs=PARALLEL_CLI_EPOCHS,
             data_cache="device"))
         _cards_fits(card, write_config(tmp / "cli.json", cli_cfg), tmp, n)
+        piece("data-parallel fits")
         if n >= 4:  # training under tensor and sequence parallelism across four cards
             runs = [(f"{label} 4 cards", *rest) for label, *rest in TRAIN_TP_CARD_RUNS]
             got = _finish_tp_world(card, _start_tp_world(runs, tmp / "tp_train", backend="nccl",
                                                            own_cards=True))
             for label, result in got.items():
                 paths[f"parallel train cards tensor_seq {label}"] = result["launches"]
-            _cards_tp_cli(card, root, tmp / "tp_cli")
+            piece("tensor_seq step worlds")
+            _cards_tp_cli(card, root, tmp / "tp_cli", tmp / "hubert4")
+            piece("cli.train")
+    print(f"parallel cards walls [{card}]: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+          + f"; total {sum(walls.values()):.1f} s", flush=True)
     return paths
 
 
-def _cards_tp_cli(card: str, root: Path, tmp: Path) -> None:
+def _cards_tp_cli(card: str, root: Path, tmp: Path, hubert: Path) -> None:
     """``python -m segma_tpu_torch.cli.train`` run plainly on four cards with
-    ``mesh.model=2`` (HuBERT-base, the training slice's two epochs: the
-    auto-resolved (2, 1, 2)) and with ``mesh.seq=2 mesh.model=2``
-    (Whisper-base ``surgical_hydra``, one epoch: (1, 2, 2)): four NCCL ranks,
-    exit 0, each epoch logged once, ``last/`` holding the whole tree."""
+    ``mesh.model=2`` (HuBERT-base's widths at PARALLEL_LAYERS layers, the
+    snapshot ``hubert``, the training slice's two epochs: the auto-resolved
+    (2, 1, 2)), with ``mesh.seq=2 mesh.model=2``
+    (Whisper-base ``surgical_hydra``, one epoch: (1, 2, 2)), and with
+    ``mesh.model=2 train.dispatch=epoch train.data_cache=device`` (HuBERT-base
+    again, the step captured as a CUDA graph): four NCCL ranks, exit 0, each
+    epoch logged once, ``last/`` holding the whole tree."""
     import dataclasses
 
     from segma_tpu_torch import checkpoint
 
     tmp.mkdir(parents=True, exist_ok=True)
+    snapshot = hubert
     hubert = surgical_hubert_hydra_config(root)
+    hubert = dataclasses.replace(hubert, model=dataclasses.replace(
+        hubert.model, config=dataclasses.replace(hubert.model.config, wav_encoder=str(snapshot))))
     whisper = _train_precision(surgical_hydra_config(), "bf16")
     whisper = dataclasses.replace(
         whisper, data=dataclasses.replace(whisper.data, dataset_path=str(root)),
         train=dataclasses.replace(whisper.train, batch_size=TRAIN_TP_BATCH, max_epochs=1, seed=0))
+    q_proj = "encoder/layers_0/attention/q_proj/kernel"
     for label, cfg, extra, q in (
-            ("hubert", hubert, ["mesh.model=2"], "encoder/layers_0/attention/q_proj/kernel"),
-            ("whisper", whisper, ["mesh.seq=2", "mesh.model=2"], "layer_mix/layer_weights")):
+            ("hubert", hubert, ["mesh.model=2"], q_proj),
+            ("whisper", whisper, ["mesh.seq=2", "mesh.model=2"], "layer_mix/layer_weights"),
+            ("hubert_epoch", hubert, ["mesh.model=2", "train.dispatch=epoch",
+                                      "train.data_cache=device"], q_proj)):
         out = tmp / label
         log = tmp / f"{label}.log"
         cfg_path = write_config(tmp / f"{label}.json", cfg)
@@ -5788,6 +5862,231 @@ def _cards_tp_cli(card: str, root: Path, tmp: Path) -> None:
               + ", ".join(f"{r['epoch']}: loss {r['train/loss']:.4f}, train "
                           f"{r['train_time_s']:.2f} s" for r in epochs)
               + f"; last/ {q} {tuple(np.asarray(leaf).shape)} (the whole leaf)", flush=True)
+
+
+# epoch dispatch under tensor and sequence parallelism, NCCL ranks on cards of
+# their own: (label, model, precision, (data, seq, model)); the two-rank
+# worlds need two cards (and run at once on cards 0-1 and 2-3 where four
+# are visible), the others four
+TRAIN_EPOCH_CARD_RUNS = (("hubert bf16", "surgical_hubert_hydra", "bf16", (1, 1, 2)),
+                         ("hubert f32", "surgical_hubert_hydra", "f32", (1, 1, 2)),
+                         ("hubert bf16", "surgical_hubert_hydra", "bf16", (2, 1, 2)),
+                         ("whisper bf16", "surgical_hydra", "bf16", (1, 2, 2)))
+TRAIN_EPOCH_EPOCHS = 3  # epoch 0 warms up and captures, 1 is timed, 2 runs under the profiler
+# the attention layers whose flash backward a step launches (Whisper's encoder is frozen)
+TRAIN_EPOCH_LAYERS = {"surgical_hubert_hydra": HUBERT_BASE["num_hidden_layers"],
+                      "surgical_hydra": 0}
+TRAIN_EPOCH_STEPS = 8  # steps an epoch: data.dataset_multiplier 2 over the slice's 8 files
+# one rank of an epoch-dispatch world (argv: the card's line, then a config
+# and an out dir for each mesh in turn, one NCCL world for all): each mesh's
+# seeded fit under step dispatch, then under epoch dispatch, from the device
+# cache (``_dispatch_fit``: the second epoch's steps timed by CUDA events,
+# the third profiled); rank 0's fits write <out>/<dispatch>/checkpoints;
+# each rank reports each fit's history, step losses (rank 0), launches,
+# graphs, readings and sha256 of its trainable parameters to
+# <out>/rank<r>.json
+TENSOR_EPOCH_CHILD = (
+    "import dataclasses, faulthandler, hashlib, json, sys, warnings\n"
+    "from pathlib import Path\n"
+    "import chip_smoke\n"
+    "from segma_tpu_torch.config import load_config\n"
+    "from segma_tpu_torch.data import SegmaFileDataset\n"
+    "from segma_tpu_torch.parallel import distributed\n"
+    "assert distributed.maybe_init_distributed('cuda', backend='nccl')\n"
+    "world = distributed.current_world()\n"
+    "digest = lambda t: hashlib.sha256(t.float().numpy().tobytes()).hexdigest()\n"
+    "card, runs = sys.argv[1], sys.argv[2:]\n"
+    "for cfg_path, out in zip(runs[::2], runs[1::2]):\n"
+    "    base = load_config(cfg_path)\n"
+    "    ds = SegmaFileDataset.from_config(base)\n"
+    "    ds.load(use_cache=False)\n"
+    "    report = {'rank': world.rank}\n"
+    "    for dispatch in ('step', 'epoch'):\n"
+    "        cfg = dataclasses.replace(base, train=dataclasses.replace(base.train,\n"
+    "                                                                 dispatch=dispatch))\n"
+    "        with warnings.catch_warnings():\n"
+    "            warnings.simplefilter('ignore')  # random encoder weights, on purpose\n"
+    "            run = chip_smoke._dispatch_fit(\n"
+    "                card, f'{Path(out).name} {dispatch} rank {world.rank}', cfg, ds,\n"
+    "                Path(out) / dispatch, timed_epoch=1, profile_epoch=2)\n"
+    "        report[dispatch] = {\n"
+    "            'history': [{k: v for k, v in h.items() if 'time' not in k and\n"
+    "                         k != 'samples_per_s'} for h in run['history']],\n"
+    "            'steps': [(r['step'], r['train/loss_step']) for r in run['records']\n"
+    "                      if 'train/loss_step' in r],\n"
+    "            'params': {k: digest(v) for k, v in run['params'].items()},\n"
+    "            'adam': {k: {n: digest(t) for n, t in state.items()}\n"
+    "                     for k, state in run['adam'].items()},\n"
+    "            **{k: run[k] for k in ('launches', 'graphs', 'sharded', 'coordinate',\n"
+    "                                   'steps_ms', 'warm_ms', 'n_steps', 'peak', 'busy_ms',\n"
+    "                                   'wall_ms')}}\n"
+    "    Path(out, f'rank{world.rank}.json').write_text(json.dumps(report))\n"
+    "faulthandler.dump_traceback_later(120, exit=True)  # a leaving rank that hangs fails\n"
+    "distributed.destroy()\n"
+)
+
+
+def _epoch_world_config(name: str, precision: str, shape: tuple[int, int, int], root: Path):
+    """The training slice's HuBERT-base config, or the serving slice's
+    Whisper-base one, over ``root`` at ``precision`` and the mesh ``shape``:
+    batch 32, seed 0, the device cache, TRAIN_EPOCH_EPOCHS epochs of
+    TRAIN_EPOCH_STEPS steps, every step's loss logged."""
+    import dataclasses
+
+    from segma_tpu_torch.config import MeshConfig
+
+    if name == "surgical_hubert_hydra":
+        cfg = surgical_hubert_hydra_config(root, precision=precision)
+    else:
+        cfg = _train_precision(surgical_hydra_config(), precision)
+    chunks = TRAIN_FILES * TRAIN_FILE_S / 4.0
+    d, s, m = shape
+    return dataclasses.replace(
+        cfg, mesh=MeshConfig(data=d, seq=s, model=m),
+        data=dataclasses.replace(cfg.data, dataset_path=str(root), dataset_multiplier=(
+            TRAIN_EPOCH_STEPS * TRAIN_TP_BATCH / chunks)),
+        train=dataclasses.replace(cfg.train, batch_size=TRAIN_TP_BATCH, seed=0,
+                                  max_epochs=TRAIN_EPOCH_EPOCHS, data_cache="device",
+                                  log_every_n_steps=1))
+
+
+def _start_epoch_world(card: str, runs, root: Path, tmp: Path, cards: list[int]) -> dict:
+    """The meshes ``runs`` ((label, model, precision, shape), each of
+    len(cards) devices), one after the other in one world of
+    ``TENSOR_EPOCH_CHILD`` ranks, rank r on card ``cards[r]``."""
+    n = len(cards)
+    args, prepared = [card], []
+    for label, name, precision, shape in runs:
+        out = tmp / f"{label.replace(' ', '_')}_{'x'.join(map(str, shape))}"
+        out.mkdir(parents=True)
+        cfg = _epoch_world_config(name, precision, shape, root)
+        args += [str(write_config(out / "cfg.json", cfg)), str(out)]
+        prepared.append((f"{label} {shape}", name, precision, shape, out, cfg))
+    tag = f"epoch_world_cards{'_'.join(map(str, cards))}"
+    port = _free_port()
+    procs = [_child(["-c", TENSOR_EPOCH_CHILD, *args], tmp / f"cwd_{tag}" / f"rank{r}",
+                    tmp / f"{tag}{r}.log", _rank_env(r, n, port, cards[r])) for r in range(n)]
+    return {"procs": procs, "t0": time.perf_counter(), "tmp": tmp, "tag": tag, "n": n,
+            "cards": cards, "prepared": prepared}
+
+
+def _finish_epoch_world(card: str, world: dict, tmp: Path) -> dict:
+    """Wait for a world of ``_start_epoch_world`` (every rank exit 0), then
+    hold each mesh's epoch-dispatch fit to its step-dispatch fit: each
+    step's loss and ``last/``'s params.msgpack and opt_state.msgpack bytes
+    equal; on every rank the same history, launch counts (a replay counts
+    its captured launches) and parameter and AdamW bits under both
+    dispatches, and the flash backward launched layers x steps times; every
+    replicated parameter the same bits on every rank, each sharded block on
+    the ranks of its model coordinate; then the epoch fit's gathered
+    ``last/`` served meshless (``_serve_gathered``). Prints the warm
+    step's median and p10 to p90 (CUDA events) and the device-busy share
+    under each dispatch. Returns the launch counts by path, each summed
+    over the ranks."""
+    import torch
+
+    n = world["n"]
+    _wait_ranks(world["procs"], world["tmp"], world["tag"], 0)
+    wall = time.perf_counter() - world["t0"]
+    print(f"train epoch dispatch [{card}]: a world of {n} nccl ranks on cards {world['cards']} "
+          f"ran {[p[0] for p in world['prepared']]}, ended within {wall:.1f} s of its start",
+          flush=True)
+    paths = {}
+    for label, name, precision, shape, out, cfg in world["prepared"]:
+        what = f"train epoch dispatch {label}"
+        ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(n)]
+        lasts = {d: out / d / "checkpoints" / "last" for d in ("step", "epoch")}
+        for f in ("params.msgpack", "opt_state.msgpack"):
+            if (lasts["step"] / f).read_bytes() != (lasts["epoch"] / f).read_bytes():
+                raise AssertionError(f"{what}: last/{f} differs between the dispatches")
+        steps = ranks[0]["step"]["steps"]
+        if len(steps) != TRAIN_EPOCH_EPOCHS * TRAIN_EPOCH_STEPS:
+            raise AssertionError(f"{what}: {len(steps)} step losses logged")
+        if ranks[0]["epoch"]["steps"] != steps:
+            raise AssertionError(f"{what}: the step losses differ between the dispatches")
+        layers = TRAIN_EPOCH_LAYERS[name]
+        bwd = "flash_attn_bwd" if precision == "bf16" else "flash_attn_bwd_f32"
+        for rep in ranks:
+            r, a, b = rep["rank"], rep["step"], rep["epoch"]
+            if b["graphs"] != [True] or a["graphs"]:
+                raise AssertionError(f"{what} rank {r}: graphs {a['graphs']}, {b['graphs']}")
+            for key in ("history", "launches", "params", "adam", "coordinate"):
+                if a[key] != b[key]:
+                    raise AssertionError(f"{what} rank {r}: {key} differs between the dispatches")
+            if a["history"] != ranks[0]["step"]["history"]:
+                raise AssertionError(f"{what} rank {r}: another history than rank 0's")
+            if b["launches"][bwd] != layers * len(steps):
+                raise AssertionError(f"{what} rank {r}: {bwd} launched {b['launches'][bwd]} "
+                                     f"times, not {layers} layers x {len(steps)} steps")
+            for k, h in b["params"].items():
+                # sharded blocks agree along data and seq, replicated leaves everywhere
+                twin = next(t for t in ranks if k not in b["sharded"]
+                            or t["epoch"]["coordinate"][2] == b["coordinate"][2])
+                if h != twin["epoch"]["params"][k]:
+                    raise AssertionError(f"{what} rank {r}: {k} differs from rank "
+                                         f"{twin['rank']}'s")
+        keys = (("flash_attn_fwd", "flash_attn_bwd") if name == "surgical_hubert_hydra"
+                else ("logmel", "flash_attn_fwd"))
+        if precision == "f32":
+            keys = tuple(k + "_f32" if k.startswith("flash") else k for k in keys)
+        for rep in ranks:
+            _launched(rep["epoch"]["launches"], keys, f"{what} rank {rep['rank']}")
+        readings = []
+        for d in ("step", "epoch"):
+            q = np.percentile([x for rep in ranks for x in rep[d]["steps_ms"]], [10, 50, 90])
+            busy = [rep[d]["busy_ms"] / rep[d]["wall_ms"] for rep in ranks]
+            readings.append(
+                f"{d} dispatch: warm step {q[1]:.3f} ms (median of every rank's epoch-1 "
+                f"step-to-step gaps, CUDA events; p10 {q[0]:.3f}, p90 {q[2]:.3f}; epoch train "
+                f"time over steps {np.median([rep[d]['warm_ms'] for rep in ranks]):.3f} ms), "
+                f"device busy {100 * min(busy):.1f}% to {100 * max(busy):.1f}% of the profiled "
+                f"epoch's wall, peak {max(rep[d]['peak'] for rep in ranks) / 2**30:.2f} GiB a "
+                f"rank")
+        n_leaves = len(ranks[0]["epoch"]["params"])
+        print(f"check {what} [{card}]: {n} NCCL ranks at (data, seq, model) {shape}, "
+              f"{TRAIN_EPOCH_EPOCHS} epochs of {TRAIN_EPOCH_STEPS} steps of {TRAIN_TP_BATCH} "
+              f"crops from the device cache: epoch dispatch (one graph captured, the layers' "
+              f"collectives and the data group's mean in it) bit-equal to step dispatch: "
+              f"{len(steps)} step losses, every rank's epochs, last/ params and opt_state "
+              f"bytes, {n_leaves} parameters and their AdamW moments on each rank; replicated "
+              f"leaves the same bits on every rank ({len(ranks[0]['epoch']['sharded'])} "
+              f"sharded); launches equal, {bwd} {ranks[0]['epoch']['launches'][bwd]} per rank "
+              f"({layers} layers x {len(steps)} steps); " + "; ".join(readings), flush=True)
+        for d in ("step", "epoch"):
+            paths[f"parallel train cards tensor_seq {d} {label}"] = {
+                k: sum(rep[d]["launches"][k] for rep in ranks) for k in ranks[0][d]["launches"]}
+        paths[f"parallel train cards tensor_seq epoch {label} served"] = _serve_gathered(
+            card, f"epoch dispatch {label}", cfg, lasts["epoch"], tmp,
+            "flash_attn_fwd_f32" if precision == "f32" else "flash_attn_fwd")
+        torch.cuda.empty_cache()
+    return paths
+
+
+def _cards_epoch_worlds(card: str, root: Path, tmp: Path, n_cards: int) -> dict:
+    """TRAIN_EPOCH_CARD_RUNS that fit on ``n_cards`` cards: the two-rank
+    worlds at once on cards (0, 1) and (2, 3), or one after the other on
+    two cards; then the four-rank meshes in one world on four."""
+    two = [r for r in TRAIN_EPOCH_CARD_RUNS if int(np.prod(r[3])) == 2]
+    four = [r for r in TRAIN_EPOCH_CARD_RUNS if int(np.prod(r[3])) == 4]
+    paths = {}
+    worlds = []
+    try:
+        if n_cards >= 4:
+            worlds = [_start_epoch_world(card, [run], root, tmp / f"w2_{i}", [2 * i, 2 * i + 1])
+                      for i, run in enumerate(two)]
+            for world in worlds:
+                paths.update(_finish_epoch_world(card, world, tmp))
+            worlds = [_start_epoch_world(card, four, root, tmp / "w4", [0, 1, 2, 3])]
+            paths.update(_finish_epoch_world(card, worlds[0], tmp))
+        else:
+            worlds = [_start_epoch_world(card, two[:1], root, tmp / "w2_0", [0, 1])]
+            paths.update(_finish_epoch_world(card, worlds[0], tmp))
+    finally:
+        for proc in (p for world in worlds for p in world["procs"]):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return paths
 
 
 def profile_run(card: str, label: str, fn, wall_s: float) -> list[str]:
@@ -5907,6 +6206,11 @@ def main() -> int:
             row[f"launches_parallel_{kind}"] = sum(
                 counts[row["name"]] for path, counts in parallel.items()
                 if path.startswith(f"parallel {kind}"))
+        # epoch dispatch under tensor and sequence parallelism across cards:
+        # every rank's replays of every mesh, and the served checkpoints
+        row["launches_parallel_train_epoch"] = sum(
+            counts[row["name"]] for path, counts in parallel.items()
+            if path.startswith("parallel train cards tensor_seq epoch"))
         # the tensor- and sequence-parallel serving paths, every mesh together
         row["launches_tensor_seq"] = sum(counts[row["name"]] for counts in tensor_seq.values())
         # training under tensor and sequence parallelism: every rank of every

@@ -9,8 +9,10 @@ the kernel library's build state (built, stale or absent, and whether
 ``--config`` the (data, seq, model) mesh its ``mesh`` section resolves to
 over the visible cards (``parallel.make_mesh``), how serving and training
 run over it (``parallel.mesh.describe``), and whether its
-``train.dispatch`` trains over it (``parallel.mesh.check_dispatch``: epoch
-dispatch refuses seq or model above 1). Exit code 0: healthy;
+``train.dispatch`` trains over it as ``cli.train`` starts it there, one NCCL
+rank per card (``parallel.mesh.check_dispatch``, which refuses epoch
+dispatch only over gloo ranks on cards with seq or model above 1). Exit
+code 0: healthy;
 1: a check failed (so 1 on a machine without a card).
 """
 
@@ -111,12 +113,12 @@ def main(argv: list[str] | None = None) -> None:
             mesh = make_mesh(cfg)
             cards = ", ".join(str(d) for d in mesh.devices.flat)
             healthy &= _row("mesh", True, f"{mesh.shape} on {cards}: {describe(mesh)}")
-            try:
-                check_dispatch(cfg, tuple(mesh.shape.values()))
-                healthy &= _row("mesh training", True,
-                                f"train.dispatch={cfg.train.dispatch} trains over it")
-            except NotImplementedError as e:
-                healthy = _row("mesh training", False, str(e))
+            # as cli.train starts it over these cards: one NCCL rank each
+            check_dispatch(cfg, tuple(mesh.shape.values()), "nccl", mesh.primary)
+            healthy &= _row("mesh training", True,
+                            f"train.dispatch={cfg.train.dispatch} trains over it, one NCCL rank "
+                            f"per card (epoch dispatch refuses gloo ranks on cards where seq or "
+                            f"model is above 1)")
         except Exception as e:  # noqa: BLE001 — reported as the row
             healthy = _row("mesh", False, f"{type(e).__name__}: {e}")
 

@@ -170,12 +170,14 @@ def _train(cfg: Config, tags: list[str], resume_from: str | None, run_id: str | 
     return result
 
 
-def local_world_size(cfg: Config, device: str) -> int:
+def local_world_size(cfg: Config, device: str, backend: str | None = None) -> int:
     """How many ranks a plain run on ``device`` starts itself: one per card
     of ``parallel.auto_mesh`` (several visible cards and a config that asks
-    for more than one device), data x seq x model of them; 1 under a
-    launcher, on the CPU or on one card. ``train.dispatch=epoch`` over seq
-    or model above 1 raises (``parallel.mesh.check_dispatch``)."""
+    for more than one device), data x seq x model of them, under either
+    dispatch; 1 under a launcher, on the CPU or on one card. ``backend``
+    (``--dist-backend``, NCCL by default) is checked against the dispatch
+    first: epoch dispatch over gloo ranks on cards with seq or model above
+    1 raises (``parallel.mesh.check_dispatch``)."""
     import torch
 
     from segma_tpu_torch.parallel.distributed import launcher_env
@@ -185,7 +187,7 @@ def local_world_size(cfg: Config, device: str) -> int:
     if mesh is None:
         return 1
     shape = tuple(mesh.shape.values())
-    check_dispatch(cfg, shape)
+    check_dispatch(cfg, shape, backend or "nccl", device)
     return int(np.prod(shape))
 
 
@@ -236,7 +238,7 @@ def main(argv: list[str] | None = None) -> None:
     argv = sys.argv[1:] if argv is None else list(argv)
     args, extra_args = build_argparser().parse_known_args(argv)
     cfg = load_config(args.config, cli_extra_args=extra_args)
-    n = local_world_size(cfg, args.device)
+    n = local_world_size(cfg, args.device, args.dist_backend)
     if n > 1:
         log(f"{n} cards visible, mesh.data={cfg.mesh.data}, mesh.seq={cfg.mesh.seq}, "
             f"mesh.model={cfg.mesh.model}: one rank per card")

@@ -163,7 +163,7 @@ class SchedulerConfig:
 
 @dataclass
 class DataloaderConfig:
-    num_workers: int = 8  # sampler threads; 1 gives a deterministic batch order
+    num_workers: int = 8  # sampler threads, their batches taken in a fixed order
 
 
 @dataclass

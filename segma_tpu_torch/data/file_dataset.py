@@ -293,9 +293,10 @@ class SegmaFileDataset:
         )
         # write-then-rename per file: a process killed mid-save leaves the
         # previous entry (or an incomplete set, which load_cache treats as
-        # absent), never a torn pickle
+        # absent), never a torn pickle; the temporary file is this process's
+        # own, so the ranks of a world saving at once each rename their own
         for name, payload in payloads:
-            tmp = cache_path / f".{name}.tmp"
+            tmp = cache_path / f".{name}.{os.getpid()}.tmp"
             with tmp.open("wb") as bf:
                 pickle.dump(payload, bf)
             os.replace(tmp, cache_path / name)

@@ -8,8 +8,8 @@ device, where the model extracts its features. Under
 which the train step normalises on the device (``train.device_waveform``),
 half the bytes per batch; a batch with a source that is not PCM16 ships f32. A background thread per
 sampler keeps batches ready. The same seed and epoch give the same crops and
-targets as the JAX loader, bit for bit (at ``num_workers=1``, which also
-fixes the batch order).
+targets as the JAX loader, bit for bit (at ``num_workers=1``; with more
+workers the port takes their batches in a fixed order, JAX as they come).
 
 Virtual-epoch semantics: ``samples_per_epoch = dataset_multiplier *
 max(ceil(total_audio_s / chunk_s), batch_size)``, with drop-last batching.
@@ -239,8 +239,13 @@ class AudioSegmentationSampler:
 
 class PrefetchingLoader:
     """Background-thread batch producer. ``num_workers`` > 1 runs several
-    sampler threads, each with its own derived seed; batch ORDER is then
-    nondeterministic, so use 1 worker for bit-reproducible runs."""
+    sampler threads, each with its own derived seed, and takes their batches
+    in a fixed round-robin order (worker 0's, 1's, ..., then 0's again), so
+    the same seeds give the same batch sequence whatever the threads'
+    timing: the ranks of a data coordinate under tensor or sequence
+    parallelism, each with its own loader, take the same batches. (JAX's
+    loader takes them as they arrive; at ``num_workers=1`` both give the
+    same sequence.)"""
 
     def __init__(
         self,
@@ -270,32 +275,31 @@ class PrefetchingLoader:
 
     def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
         samplers = [self.sampler] + self.extra_samplers
-        q: queue.Queue = queue.Queue(maxsize=max(self.prefetch, len(samplers)))
-        stop = object()
+        # a queue per worker, about ``prefetch`` batches deep together
+        depth = max(1, -(-self.prefetch // len(samplers)))
+        queues = [queue.Queue(maxsize=depth) for _ in samplers]
+        failed = object()
         shares = [self.n_batches // len(samplers)] * len(samplers)
         shares[0] += self.n_batches - sum(shares)
 
-        def producer(sampler, n):
+        def producer(sampler, n, q):
             try:
                 for _ in range(n):
                     q.put(sampler.sample_batch(self.batch_size))
             except BaseException as e:  # noqa: BLE001 — surfaced in the consumer
-                q.put((stop, e))
-            finally:
-                q.put(stop)
+                q.put((failed, e))
 
-        for sampler, n in zip(samplers, shares):
-            threading.Thread(target=producer, args=(sampler, n), daemon=True).start()
+        for sampler, n, q in zip(samplers, shares, queues):
+            threading.Thread(target=producer, args=(sampler, n, q), daemon=True).start()
 
-        finished = 0
-        while finished < len(samplers):
-            item = q.get()
-            if item is stop:
-                finished += 1
-                continue
-            if isinstance(item, tuple) and len(item) == 2 and item[0] is stop:
-                raise RuntimeError("data loader worker failed") from item[1]
-            yield item
+        for i in range(max(shares)):
+            for n, q in zip(shares, queues):
+                if i >= n:
+                    continue
+                item = q.get()
+                if isinstance(item, tuple) and len(item) == 2 and item[0] is failed:
+                    raise RuntimeError("data loader worker failed") from item[1]
+                yield item
 
 
 def _shard(subset: DatasetSubset, rank: int, world: int) -> DatasetSubset:

@@ -213,38 +213,70 @@ def run_members(pool: Executor, tasks: Sequence[Callable[[], T]],
     return results
 
 
+# one gather of equal blocks into one buffer (renamed all_gather_single in
+# later PyTorch, which warns on the old name)
+_all_gather_single = (getattr(torch.distributed, "all_gather_single", None)
+                      or torch.distributed.all_gather_into_tensor)
+
+
 class DistGroup:
     """A ``torch.distributed`` group (``group``, None for the whole world)
     over the world ranks ``ranks``, in group-rank order; this process is
     member ``rank``. Every member holds the same bits after a collective.
-    Gloo gathers host memory only: a card's tensor is gathered through the
-    host (gloo on cards is the rehearsal of several ranks on one card)."""
+
+    Over NCCL no collective waits for the host, so a captured CUDA graph
+    holds them (``train.EpochReplay``); every communicator must exist
+    before the capture, which the replay's eager warm-up of each kind of
+    step sees to. Gloo gathers host memory only: a card's tensor is
+    gathered through the host (gloo on cards is the rehearsal of several
+    ranks on one card), and a gloo collective on a card's tensor raises
+    inside a capture instead of breaking it."""
 
     def __init__(self, ranks: Sequence[int], group=None) -> None:
         self.ranks = list(ranks)
         self.group = group
         self.size = len(self.ranks)
         self.rank = self.ranks.index(torch.distributed.get_rank())
+        self.backend = torch.distributed.get_backend(group)
+
+    def _through_host(self, x: torch.Tensor) -> bool:
+        """Whether a collective on ``x`` waits for the host (gloo on a card's
+        tensor); raises when a CUDA graph is being captured."""
+        if not (x.is_cuda and self.backend == "gloo"):
+            return False
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "a gloo collective on a card's tensor waits for the host, so a CUDA graph "
+                "cannot hold it: capture the step over NCCL, one rank per card "
+                "(parallel.mesh.check_dispatch)")
+        return True
 
     def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+        self._through_host(x)
         out = x.contiguous().clone()
         torch.distributed.all_reduce(out, group=self.group)
         return out
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        if x.is_cuda and torch.distributed.get_backend(self.group) == "gloo":
+        """The members' ``x`` concatenated along ``dim`` in rank order: one
+        gather into a single buffer of the blocks in rank order, then the
+        member axis moved next to ``dim`` and merged into it."""
+        if self._through_host(x):
             return self.all_gather(x.cpu(), dim).to(x.device)
         x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(self.size)]
-        torch.distributed.all_gather(parts, x, group=self.group)
-        return torch.cat(parts, dim=dim)
+        out = x.new_empty((self.size * x.shape[0], *x.shape[1:]))
+        _all_gather_single(out, x, group=self.group)
+        out = out.view(self.size, *x.shape)
+        dim = dim % x.dim()
+        shape = (*x.shape[:dim], self.size * x.shape[dim], *x.shape[dim + 1:])
+        return out.movedim(0, dim).reshape(shape)
 
     def mean_(self, tensors: list[torch.Tensor]) -> None:
         """Each tensor replaced in place by its mean over the members: one
-        all-reduce per dtype over the tensors flattened together; nothing
-        here waits for the host, so it runs inside a captured CUDA graph."""
+        all-reduce per dtype over the tensors flattened together."""
         by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
         for t in tensors:
+            self._through_host(t)
             by_dtype.setdefault(t.dtype, []).append(t)
         for same in by_dtype.values():
             flat = torch.cat([t.reshape(-1) for t in same])
@@ -257,6 +289,7 @@ class DistGroup:
 
     def sum_(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed in place over the members."""
+        self._through_host(x)
         torch.distributed.all_reduce(x, group=self.group)
         return x
 

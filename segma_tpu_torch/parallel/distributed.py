@@ -22,6 +22,7 @@ agreeing on them never waits for the card.
 
 from __future__ import annotations
 
+import gc
 import os
 from dataclasses import dataclass
 from datetime import timedelta
@@ -164,9 +165,10 @@ class WorldMesh:
 
 
 class World:
-    """The initialised world as the trainer uses it: the world as a group
-    (``group``: tensor means, sums and gathers in rank order), its
-    (data, seq, model) mesh, and host-side votes."""
+    """The initialised world as the trainer uses it: its collectives'
+    ``backend``, the world as a group (``group``: tensor means, sums and
+    gathers in rank order), its (data, seq, model) mesh, and host-side
+    votes."""
 
     def __init__(self) -> None:
         if not is_initialized():
@@ -174,9 +176,10 @@ class World:
         self.rank = torch.distributed.get_rank()
         self.size = torch.distributed.get_world_size()
         self.is_main = self.rank == 0
+        self.backend = torch.distributed.get_backend()
         self.group = DistGroup(range(self.size))
         global _host_group
-        if _host_group is None and torch.distributed.get_backend() != "gloo":
+        if _host_group is None and self.backend != "gloo":
             # made once, by every rank at the same point (a collective)
             _host_group = torch.distributed.new_group(backend="gloo")
 
@@ -230,9 +233,16 @@ def current_world() -> World | None:
 
 
 def destroy() -> None:
-    """Leave the world (the end of a training process)."""
+    """Leave the world (the end of a training process). Garbage is
+    collected and the card synchronised first: NCCL does not destroy a
+    communicator while a CUDA graph that captured its collectives lives
+    (``train.EpochReplay``), so a trainer left in a reference cycle must go
+    before its world does."""
     global _host_group
     if is_initialized():
+        gc.collect()
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
         torch.distributed.destroy_process_group()
     _host_group = None
     _meshes.clear()

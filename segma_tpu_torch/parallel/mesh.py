@@ -11,8 +11,8 @@ parallelism) and ``seq`` (the Whisper encoder's time axis) every member is a
 module copy holding its blocks (``parallel.sharding``). Serving runs a
 mesh's members as threads of one process; training runs one process per
 member, rank r at coordinate ``rank_coordinate(r, shape)`` of the world's
-``world_shape``, and takes any mesh under ``train.dispatch=step``
-(``check_dispatch``).
+``world_shape``, under either dispatch, but for epoch dispatch over gloo
+ranks on cards (``check_dispatch``).
 
 A device list may name one card more than once: N replicas on one card run
 the split, the streams and the gather where only one card exists.
@@ -33,9 +33,12 @@ if TYPE_CHECKING:
     from segma_tpu_torch.models.base import SegmentationModel
 
 AXIS_NAMES = ("data", "seq", "model")
-EPOCH_TP_SP = ("train.dispatch=epoch under tensor or sequence parallelism (mesh.model > 1 or "
-               "mesh.seq > 1) is not ported yet: ROADMAP.md Queue 1, item 1; "
-               "train.dispatch=step trains over such a mesh")
+EPOCH_GLOO_CARD = (
+    "train.dispatch=epoch captures the step as a CUDA graph, and under tensor or sequence "
+    "parallelism (mesh.model > 1 or mesh.seq > 1) the step holds the layers' own collectives: "
+    "a gloo collective on a card's tensors waits on the host, so a graph cannot hold it, and "
+    "NCCL refuses two ranks on one card; train one NCCL rank per card, or with "
+    "train.dispatch=step, which trains this mesh over gloo")
 
 
 @dataclass(frozen=True)
@@ -126,13 +129,18 @@ def rank_coordinate(rank: int, shape: tuple[int, int, int]) -> tuple[int, int, i
     return int(d), int(s), int(m)
 
 
-def check_dispatch(config: Config, shape: tuple[int, int, int]) -> None:
-    """Raise where the trainer cannot run ``config`` over ``shape``:
-    ``train.dispatch=epoch`` with seq or model above 1 (the step's
-    collectives would have to be captured in a CUDA graph, and the gloo
-    groups of several ranks on one card cannot be)."""
-    if config.train.dispatch == "epoch" and shape[1] * shape[2] > 1:
-        raise NotImplementedError(f"mesh {dict(zip(AXIS_NAMES, shape))}: {EPOCH_TP_SP}")
+def check_dispatch(config: Config, shape: tuple[int, int, int], backend: str,
+                   device: str | torch.device) -> None:
+    """Raise ``ValueError`` where the trainer cannot run ``config`` over a
+    world of ``shape`` whose collectives run on ``backend`` over tensors on
+    ``device``: ``train.dispatch=epoch`` with seq or model above 1 over gloo
+    on a card (``EPOCH_GLOO_CARD``). Over NCCL, one rank per card, the
+    step's graph holds the layers' collectives; over gloo on the CPU the
+    epoch runs eagerly."""
+    if (config.train.dispatch == "epoch" and shape[1] * shape[2] > 1 and backend == "gloo"
+            and torch.device(device).type == "cuda"):
+        raise ValueError(f"mesh {dict(zip(AXIS_NAMES, shape))} of gloo ranks on cards: "
+                         f"{EPOCH_GLOO_CARD}")
 
 
 def visible_devices(device: torch.device) -> list[torch.device]:
@@ -165,7 +173,7 @@ def describe(mesh: Mesh) -> str:
         return f"{d} replica(s), one per data coordinate, each dispatch's windows split over them"
     return (f"{d} data coordinate(s) of {s * m} members: heads and MLP features over "
             f"model={m}, the Whisper encoder's time axis over seq={s}; serving runs the members "
-            f"as threads, training as one process each (train.dispatch=step)")
+            f"as threads, training as one process each")
 
 
 def replicate(model: SegmentationModel, mesh: Mesh) -> list[SegmentationModel]:

@@ -58,8 +58,12 @@ its seq and model groups), the ``seq * model`` ranks of a data coordinate
 take the same batches and draw the same dropout masks, and the layers'
 collectives carry their own backward (``parallel.collectives``), so every
 member's gradient is the meshless gradient of its blocks and each
-replicated parameter gets the same bits on every rank; only
-``train.dispatch=step`` (``parallel.mesh.check_dispatch``).
+replicated parameter gets the same bits on every rank. Under epoch dispatch
+the step's graph holds those collectives too, with the data group's mean
+and, under ``debug_nans``, the world's finiteness vote: over NCCL, one rank
+per card; gloo ranks on cards are refused there
+(``parallel.mesh.check_dispatch``: a gloo collective waits for the host),
+and over gloo on the CPU the epoch runs eagerly.
 
 Validation reduces its sums (the losses, the F1 counts) and gathers its
 scores (AUROC, ROC) over the data group, so every rank computes the same
@@ -487,8 +491,15 @@ class EpochReplay:
     AdamW's state, cuBLAS's workspaces and the kernel library outside the
     capture); from then on every such step is a replay. The dropout
     generator is registered with each graph, so a replay draws the masks an
-    eager step would, and reseeding it reaches the replays. On the CPU the
-    same body runs eagerly: the graph's plain version.
+    eager step would, and reseeding it reaches the replays. Under a world
+    the graph holds the step's collectives (NCCL): the data group's mean of
+    the loss and the gradients (``world_mean``, or ``GradAccumulation``'s
+    on the step that updates), the world's finiteness vote and, for a mesh
+    member, its layers' own in forward and backward; the eager warm-up of
+    each kind of step has created every communicator the kind uses before
+    its capture; free the graphs (the trainer) before the world
+    (``distributed.destroy``). On the CPU the same body runs eagerly: the
+    graph's plain version.
 
     A step's outputs (loss, per_label and, with ``debug_nans``, whether the
     loss and the trainable gradients are finite) are the body's tensors,
@@ -520,8 +531,9 @@ class EpochReplay:
         wav = device_waveform(self.cache.gather(self.offsets))
         loss, per_label = forward_backward(self.model, self.optimizer, wav, self.y,
                                            self.generator)
-        # the world's all-reduces, captured with the step: the eager warm-up
-        # run before the capture has set the communicator up
+        # the data group's mean, captured with the step as the layers'
+        # collectives are: the eager warm-up before the capture has set the
+        # communicators up
         loss, per_label = world_mean(self.group, self.model, loss, per_label,
                                      grads=self.accum is None)
         finite = (_finite_flags(loss, self.model, self.world)[1].all() if self.debug_nans
@@ -600,6 +612,12 @@ class Trainer:
         self.global_step = 0  # micro-steps taken, the cosine schedule's clock
         self.logger = MetricsLogger(self.run_dir / "metrics.jsonl" if self.is_main else None,
                                     echo=self.is_main)
+        # this rank's place in the world's mesh, refused before any work
+        # where its dispatch cannot run there
+        self.mesh: WorldMesh | None = None
+        if self.world is not None:
+            self.mesh = self.world.mesh(self.config)
+            check_dispatch(self.config, self.mesh.shape, self.world.backend, self.device)
         self.model.to(self.device)
         tc = self.config.train
         self.mode, self.monitor = get_metric(tc.validation_metric)
@@ -610,15 +628,12 @@ class Trainer:
                          "n_params_frozen": sum(int(v.numel()) for v in frozen.values())}
         frozen = frozen_tree(self.model)
         self.frozen_fp = frozen_fingerprint(frozen) if frozen else None
-        # this rank's place: the mesh, the data group the step reduces over
-        # (SOLO on one process), (data coordinate, data size), the blocks
-        self.mesh: WorldMesh | None = None
+        # the data group the step reduces over (SOLO on one process), (data
+        # coordinate, data size), the blocks
         self.data_group: DistGroup | Solo = SOLO
         self.coordinate = (0, 1)
         self.blocks: Blocks = WHOLE
-        if self.world is not None:
-            self.mesh = self.world.mesh(self.config)
-            check_dispatch(self.config, self.mesh.shape)
+        if self.mesh is not None:
             self.data_group = self.mesh.data
             self.coordinate = (self.mesh.coordinate[0], self.mesh.shape[0])
             if self.mesh.seq.size * self.mesh.model.size > 1:

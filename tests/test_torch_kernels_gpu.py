@@ -1090,3 +1090,120 @@ def test_thread_group_on_two_streams_of_one_card():
             assert torch.equal(gathered[:n], torch.full((n,), 10.0 * i)), (r, i)
             assert torch.equal(gathered[n:], torch.full((n,), 10.0 * i + 1)), (r, i)
             assert torch.equal(total, torch.full((n,), 20.0 * i + 1)), (r, i)
+
+
+# one rank of a 2-rank NCCL world on its own card: the layers' collectives
+# (enter, reduce_sum, gather summed and not) in a forward and backward, run
+# eagerly on two sets of inputs, then captured in a CUDA graph and replayed
+# on each set; exits 1 unless every replay gives the eager bits
+CAPTURE_WORKER = r'''
+import faulthandler
+import sys
+
+faulthandler.dump_traceback_later(120, exit=True)  # a hung rank shows where it waits
+import torch
+from segma_tpu_torch.parallel import distributed
+from segma_tpu_torch.parallel.collectives import enter, gather, reduce_sum
+
+assert distributed.maybe_init_distributed("cuda")
+world = distributed.current_world()
+group, rank = world.group, world.rank
+bad = []
+for dtype in (torch.float32, torch.bfloat16):
+    def inputs(seed):
+        shared = torch.Generator().manual_seed(seed)  # replicated: x and the loss weights
+        own = torch.Generator().manual_seed(seed + 100 * (rank + 1))  # this member's blocks
+        x = torch.randn((8, 16), generator=shared)
+        c = torch.randn((8, 12), generator=shared)
+        k = torch.randn((16, 6), generator=shared)
+        w, v = torch.randn((16, 6), generator=own), torch.randn((6, 5), generator=own)
+        return [t.to("cuda", dtype) for t in (x, w, v, c, k)]
+
+    static = [t.clone().requires_grad_(i < 3) for i, t in enumerate(inputs(1))]
+
+    def body():
+        x, w, v, c, k = static
+        for t in (x, w, v):
+            t.grad = None
+        h = enter(x, group) @ w
+        z = reduce_sum((h @ v).float(), group)
+        summed = gather(h, group, dim=1, summed=True)  # each member reads its own columns
+        kept = gather(h, group, dim=0, summed=False)  # what follows is alike on every member
+        loss = ((z ** 2).sum() + (summed * c)[:, rank * 6:(rank + 1) * 6].float().sum()
+                + (kept @ k.T).float().sum())
+        loss.backward()
+        return [z, summed, kept, x.grad, w.grad, v.grad]
+
+    def load(seed):
+        with torch.no_grad():
+            for t, new in zip(static, inputs(seed)):
+                t.copy_(new)
+
+    eager = {}
+    for seed in (1, 2):
+        load(seed)
+        eager[seed] = [t.detach().clone() for t in body()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = body()
+    for seed in (2, 1, 2):
+        load(seed)
+        graph.replay()
+        torch.cuda.synchronize()
+        for i, (got, want) in enumerate(zip(outs, eager[seed])):
+            if not torch.equal(got, want):
+                bad.append((str(dtype), seed, i))
+    del graph, outs  # NCCL keeps a communicator while a graph holds its work
+distributed.destroy()
+print(f"rank {rank}: captured replays against eager calls, mismatches {bad}", flush=True)
+sys.exit(1 if bad else 0)
+'''
+
+
+@pytest.mark.gpu
+def test_collectives_captured_in_a_cuda_graph_give_the_eager_bits():
+    """In a 2-rank NCCL world, one rank per card: ``enter``, ``reduce_sum``
+    and ``gather`` (both ``summed`` cases) in a forward and backward
+    captured as a CUDA graph give, replay after replay on new inputs, the
+    bits of the same calls made eagerly, in f32 and bf16. Needs two cards:
+    NCCL refuses two ranks on one card."""
+    _cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: NCCL refuses two ranks on one card")
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", CAPTURE_WORKER], cwd=repo, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        env={**os.environ, "PYTHONPATH": str(repo), "RANK": str(r), "LOCAL_RANK": str(r),
+             "WORLD_SIZE": "2", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)})
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=300)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate()[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{text[-4000:]}"
+        assert "mismatches []" in text, text[-2000:]

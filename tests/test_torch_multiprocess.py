@@ -480,7 +480,8 @@ def test_local_world_size(monkeypatch):
     """A plain run starts one rank per visible card when there are several
     and ``mesh.data`` is not 1; under a launcher, on the CPU, on one card or
     with ``mesh.data=1`` it runs alone; under TP/SP data x seq x model ranks
-    (one card: meshless), and epoch dispatch is refused there."""
+    (one card: meshless), under either dispatch over NCCL; epoch dispatch
+    over ``--dist-backend gloo`` is refused there."""
     from segma_tpu_torch.cli import train as cli_train
     from segma_tpu_torch.parallel import mesh as tmesh
 
@@ -498,9 +499,10 @@ def test_local_world_size(monkeypatch):
     assert cli_train.local_world_size(load_config(default, ["mesh.model=2"]), "cuda") == 4
     assert cli_train.local_world_size(
         load_config(default, ["mesh.data=1", "mesh.model=2"]), "cuda") == 2
-    with pytest.raises(NotImplementedError, match="Queue 1, item 1"):
-        cli_train.local_world_size(
-            load_config(default, ["mesh.model=2", "train.dispatch=epoch"]), "cuda")
+    epoch_tp = load_config(default, ["mesh.model=2", "train.dispatch=epoch"])
+    assert cli_train.local_world_size(epoch_tp, "cuda") == 4  # NCCL ranks, one per card
+    with pytest.raises(ValueError, match="NCCL refuses two ranks on one card"):
+        cli_train.local_world_size(epoch_tp, "cuda", "gloo")
     monkeypatch.setattr(tmesh, "visible_cards", lambda: [torch.device("cuda", 0)])
     assert cli_train.local_world_size(load_config(default, ["mesh.model=2"]), "cuda") == 1
     monkeypatch.setattr(tmesh, "visible_cards", lambda: [torch.device("cuda", i) for i in range(4)])

@@ -225,18 +225,21 @@ def test_replicas_carry_the_source_weights(pair):
 
 @pytest.mark.parametrize("sizes", [dict(model=2), dict(seq=2), dict(data=1, seq=2, model=2)])
 def test_tensor_and_sequence_parallel_meshes_are_refused(pair, sizes):
-    """Refused by the trainer's check under epoch dispatch only, naming the
-    queue item; step dispatch trains over them
+    """Refused by the trainer's check under epoch dispatch over gloo ranks
+    on cards only, saying why; NCCL ranks on cards and gloo ranks on the
+    CPU train them under either dispatch, step dispatch everywhere
     (tests/test_torch_train_tensor_seq.py), and serving takes them
     (tests/test_torch_tensor_seq.py)."""
     _, model = pair
     mesh = make_mesh(devices=CPU4, **sizes)
     shape = tuple(mesh.shape.values())
     epoch = load_config(PORT_DEFAULT, ["train.dispatch=epoch"])
-    with pytest.raises(NotImplementedError, match="Queue 1, item 1"):
-        tmesh.check_dispatch(epoch, shape)
-    tmesh.check_dispatch(load_config(PORT_DEFAULT, ["train.dispatch=step"]), shape)
-    tmesh.check_dispatch(epoch, (4, 1, 1))  # data-parallel epoch dispatch stays
+    with pytest.raises(ValueError, match="a gloo collective on a card's tensors waits on the host"):
+        tmesh.check_dispatch(epoch, shape, "gloo", "cuda")
+    tmesh.check_dispatch(epoch, shape, "nccl", "cuda")
+    tmesh.check_dispatch(epoch, shape, "gloo", "cpu")
+    tmesh.check_dispatch(load_config(PORT_DEFAULT, ["train.dispatch=step"]), shape, "gloo", "cuda")
+    tmesh.check_dispatch(epoch, (4, 1, 1), "gloo", "cuda")  # data-parallel epoch dispatch stays
     pipe = tinf.InferencePipeline(model, device="cpu", mesh=mesh)
     assert pipe.members.shape == mesh.devices.shape
 

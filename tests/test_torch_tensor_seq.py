@@ -556,16 +556,18 @@ def test_service_over_a_tp_mesh_answers_as_one_device(whisper, tmp_path, monkeyp
 
 def test_training_refuses_tp_and_sp_naming_the_queue_item():
     """The trainer's check refuses ``train.dispatch=epoch`` over seq or model
-    above 1, naming the queue item; step dispatch, and epoch dispatch over a
-    data-only mesh, pass."""
-    from segma_tpu_torch.parallel.mesh import EPOCH_TP_SP, check_dispatch
+    above 1 where the ranks are gloo ranks on cards, saying why and that
+    step dispatch trains the mesh (it names no queue item: NCCL ranks on
+    cards train it under epoch dispatch); step dispatch, and epoch dispatch
+    over a data-only mesh, pass."""
+    from segma_tpu_torch.parallel.mesh import EPOCH_GLOO_CARD, check_dispatch
 
-    assert "Queue 1, item 1" in EPOCH_TP_SP
+    assert "Queue" not in EPOCH_GLOO_CARD and "train.dispatch=step" in EPOCH_GLOO_CARD
     epoch = load_config(PORT_DEFAULT, ["train.dispatch=epoch"])
     step = load_config(PORT_DEFAULT, ["train.dispatch=step"])
     for sizes in (dict(model=2), dict(seq=2), dict(data=1, seq=2, model=2)):
         shape = tuple(make_mesh(devices=["cpu"] * 4, **sizes).shape.values())
-        with pytest.raises(NotImplementedError, match="train.dispatch=epoch under tensor"):
-            check_dispatch(epoch, shape)
-        check_dispatch(step, shape)
-    check_dispatch(epoch, tuple(make_mesh(devices=["cpu"] * 4).shape.values()))
+        with pytest.raises(ValueError, match="NCCL refuses two ranks on one card"):
+            check_dispatch(epoch, shape, "gloo", "cuda:0")
+        check_dispatch(step, shape, "gloo", "cuda:0")
+    check_dispatch(epoch, tuple(make_mesh(devices=["cpu"] * 4).shape.values()), "gloo", "cuda:0")

@@ -27,9 +27,12 @@ HuBERT): the checkpoint is JAX's whole tree, read by JAX's ``load_params``
 and ``load_opt_state``; a run resumed at (1, 1, 2) ends bit for bit where
 the uninterrupted run ends, and resumed on one process, meshless, near it;
 an epoch of k=2 accumulation cycles near the meshless one;
-``train.dispatch=epoch``
-refused, naming the queue item. The loader: every rank of a data
-coordinate takes JAX's ``_loader`` batches of process (data, d).
+``train.dispatch=epoch`` from the device cache (the captured step's plain
+version) bit for bit where step dispatch ends, with and without k=2
+accumulation, and within JAX's pins of JAX's ``make_epoch_fn`` over the
+same mesh. ``parallel.mesh.check_dispatch`` refuses epoch dispatch only
+over gloo ranks on cards. The loader: every rank of a data coordinate takes
+JAX's ``_loader`` batches of process (data, d).
 """
 
 from __future__ import annotations
@@ -172,23 +175,36 @@ elif mode == "fits":
     # the CLI builds HuBERT-base: these fits take the tiny widths
     HubertEncoderConfig.base = classmethod(lambda cls: encoder_config(
         "surgical_hubert_hydra", spec["widths"]))
+    from segma_tpu_torch import checkpoint
     from segma_tpu_torch.cli.train import run_training
     from segma_tpu_torch.config import load_config
+    from segma_tpu_torch.train import Trainer
 
-    results = {}
-    for tag, extra, resume in spec["runs"]:
+    build, replay = checkpoint.build_model, Trainer._train_epoch_replay
+    calls = []
+
+    def counted(self, loader):  # the epochs that ran through EpochReplay
+        calls.append(1)
+        return replay(self, loader)
+
+    Trainer._train_epoch_replay = counted
+    results, replays = {}, {}
+    for tag, extra, resume, dropout in spec["runs"]:
+        def built(cfg, *args, _dropout=dropout, **kwargs):
+            model = build(cfg, *args, **kwargs)
+            if _dropout is not None:
+                model.module.dropout = _dropout
+            return model
+
+        checkpoint.build_model = built
+        calls.clear()
         cfg = load_config(default, extra)
         r = run_training(cfg, [], resume_from=resume, run_id=tag, output=spec["root"],
                          device="cpu")
         results[tag] = [{k: v for k, v in h.items() if "time" not in k and k != "samples_per_s"}
                         for h in r["history"]]
-    cfg = load_config(default, spec["epoch"])
-    try:
-        run_training(cfg, [], run_id="epoch", output=spec["root"], device="cpu")
-        refusal = None
-    except NotImplementedError as e:
-        refusal = str(e)
-    print("FITS " + json.dumps({"rank": world.rank, "results": results, "refusal": refusal}),
+        replays[tag] = len(calls)
+    print("FITS " + json.dumps({"rank": world.rank, "results": results, "replays": replays}),
           flush=True)
 '''
 
@@ -233,8 +249,9 @@ def _world(out: Path, mode: str, n: int, spec: dict) -> list[str]:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    for r, (p, text) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{text[-4000:]}"
+    failed = [f"rank {r} exited {p.returncode}:\n{text[-4000:]}"
+              for r, (p, text) in enumerate(zip(procs, outs)) if p.returncode != 0]
+    assert not failed, "\n".join(failed)
     return outs
 
 
@@ -533,23 +550,43 @@ def _fit_cfg(dataset: Path, *extra: str) -> list[str]:
     return [*FIT, f"data.dataset_path={dataset}", *extra]
 
 
+def _dispatch_cfg(dataset: Path, dispatch: str, *extra: str) -> list[str]:
+    """A (1, 1, 2) fit from the device cache under ``dispatch``, each
+    step's loss logged."""
+    return _fit_cfg(dataset, *MESH_2, "train.data_cache=device", "train.log_every_n_steps=1",
+                    f"train.dispatch={dispatch}", *extra)
+
+
+# (tag, dispatch, extra overrides, dropout): the dispatch pairs of the fits'
+# world, from the device cache: two epochs with dropout 0 (the epoch run is
+# also held to JAX's make_epoch_fn, whose dropout stream torch cannot
+# reproduce), and an epoch of k=2 accumulation cycles with the model's own
+# dropout (each replay draws the eager step's masks)
+DISPATCH_RUNS = [("dispatch_step", "step", ["train.max_epochs=2"], 0.0),
+                 ("dispatch_epoch", "epoch", ["train.max_epochs=2"], 0.0),
+                 ("k2_step", "step", ["train.max_epochs=1", "train.grad_accum_steps=2"], None),
+                 ("k2_epoch", "epoch", ["train.max_epochs=1", "train.grad_accum_steps=2"], None)]
+
+
 @pytest.fixture(scope="module")
 def fits(tmp_path_factory, dataset, tiny_hubert):
     """A 2-rank (1, 1, 2) world's fits: two epochs, one epoch and its
-    resume to two, a k=2 accumulation epoch, and the epoch-dispatch
-    refusal; then, on this process meshless, the same two epochs, the
-    accumulation epoch, and the one-epoch mesh run resumed."""
+    resume to two, a k=2 accumulation epoch, and ``DISPATCH_RUNS``; then,
+    on this process meshless, the same two epochs, the accumulation epoch,
+    and the one-epoch mesh run resumed; and JAX's fit of the epoch-dispatch
+    run (``make_epoch_fn``) over its (1, 1, 2) mesh of virtual devices."""
     tmp = tmp_path_factory.mktemp("tp_fits")
     root = tmp / "runs"
     half = root / "half" / "checkpoints" / "last"
     spec = {"root": str(root), "widths": HUBERT_TINY,
-            "runs": [["full", _fit_cfg(dataset, *MESH_2, "train.max_epochs=2"), None],
-                     ["half", _fit_cfg(dataset, *MESH_2, "train.max_epochs=1"), None],
-                     ["resumed", _fit_cfg(dataset, *MESH_2, "train.max_epochs=2"), str(half)],
+            "runs": [["full", _fit_cfg(dataset, *MESH_2, "train.max_epochs=2"), None, None],
+                     ["half", _fit_cfg(dataset, *MESH_2, "train.max_epochs=1"), None, None],
+                     ["resumed", _fit_cfg(dataset, *MESH_2, "train.max_epochs=2"), str(half),
+                      None],
                      ["accum", _fit_cfg(dataset, *MESH_2, "train.max_epochs=1",
-                                        "train.grad_accum_steps=2"), None]],
-            "epoch": _fit_cfg(dataset, *MESH_2, "train.max_epochs=1", "train.dispatch=epoch",
-                              "train.data_cache=device")}
+                                        "train.grad_accum_steps=2"), None, None],
+                     *([tag, _dispatch_cfg(dataset, dispatch, *extra), None, dropout]
+                       for tag, dispatch, extra, dropout in DISPATCH_RUNS)]}
     outs = _world(tmp, "fits", 2, spec)
     by_rank = {}
     for out in outs:
@@ -571,7 +608,41 @@ def fits(tmp_path_factory, dataset, tiny_hubert):
             cfg = load_config(PORT_DEFAULT, extra)
             meshless[tag] = run_training(cfg, [], resume_from=resume, run_id=tag,
                                          output=str(alone), device="cpu")
-    return {"root": root, "alone": alone, "ranks": by_rank, "meshless": meshless}
+    return {"root": root, "alone": alone, "ranks": by_rank, "meshless": meshless,
+            "jax": _jax_epoch_fit(dataset, tmp / "jax")}
+
+
+def _jax_epoch_fit(dataset: Path, run_dir: Path) -> dict:
+    """JAX's ``Trainer.fit`` of the ``dispatch_epoch`` run: ``make_epoch_fn``
+    over the (1, 1, 2) mesh of the first two virtual devices (the
+    parameters placed by ``shard_params``, the epoch's offsets and labels
+    over ``data``), from the port's initial weights, dropout 0. Returns the
+    per-step losses and the trainable tree."""
+    from segma_tpu.train import Trainer as JaxTrainer
+    from segma_tpu_torch.convert import torch_to_flax
+
+    extra = _dispatch_cfg(dataset, "epoch", "train.max_epochs=2")
+    init = checkpoint.build_model(load_config(PORT_DEFAULT, extra), device="cpu")
+    jcfg = jax_load_config(JAX_DEFAULT, extra)
+    jmodel, _ = _pair("surgical_hubert_hydra")
+    jmodel.module = jmodel.module.clone(dropout=0.0)
+    jmodel.params = jax.tree.map(jnp.asarray, torch_to_flax(init.module))
+    ds = JaxDataset.from_config(jcfg)
+    ds.load(use_cache=False)
+    dm = JaxLoader(dataset=ds, label_encoder=jmodel.label_encoder, config=jcfg,
+                   conv_settings=jmodel.conv_settings)
+    mesh = jax_make_mesh(devices=jax.devices()[:2], data=1, seq=1, model=2)
+    trainer = JaxTrainer(model=jmodel, config=jcfg, run_dir=run_dir, mesh=mesh, max_epochs=2)
+    result = trainer.fit(dm)
+    assert trainer.epoch_fn is not None
+    trainable, _ = jmodel.split_params(result["params"])
+    return {"steps": _step_losses(run_dir),
+            "params": _flat(jax.tree.map(np.asarray, trainable))}
+
+
+def _step_losses(run_dir: Path) -> list[tuple[int, float]]:
+    records = [json.loads(ln) for ln in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    return [(r["step"], r["train/loss_step"]) for r in records if "train/loss_step" in r]
 
 
 def _last(root: Path, run: str) -> Path:
@@ -647,14 +718,162 @@ def test_fit_on_the_mesh_is_near_the_meshless_fit(fits):
           STEPS_PER_EPOCH // 2, "accum")
 
 
-def test_epoch_dispatch_under_tensor_parallelism_names_the_queue_item(fits):
+@pytest.mark.parametrize("pair", ["dispatch", "k2"])
+def test_epoch_dispatch_on_the_mesh_equals_step_dispatch_bit_for_bit(fits, pair):
+    """In the (1, 1, 2) gloo world, epoch dispatch (``EpochReplay``'s body
+    run eagerly: the captured graph's plain version) ends where step
+    dispatch does from the device cache: each logged step loss, both
+    ranks' epoch metrics and ``last/``'s ``params.msgpack`` and
+    ``opt_state.msgpack`` bytes; the ``k2`` pair with dropout on and k=2
+    accumulation cycles (the data group's mean on the updating
+    micro-step)."""
+    root = fits["root"]
+    step, epoch = f"{pair}_step", f"{pair}_epoch"
     for rank in (0, 1):
-        refusal = fits["ranks"][rank]["refusal"]
-        assert refusal is not None and "Queue 1, item 1" in refusal
-        assert "train.dispatch=epoch under tensor" in refusal
+        got = fits["ranks"][rank]
+        assert got["replays"][epoch] == len(got["results"][epoch]) > 0
+        assert got["replays"][step] == 0
+        assert got["results"][epoch] == got["results"][step]
+    assert fits["ranks"][0]["results"][epoch] == fits["ranks"][1]["results"][epoch]
+    steps = _step_losses(root / step)
+    assert len(steps) == STEPS_PER_EPOCH * len(fits["ranks"][0]["results"][step])
+    assert _step_losses(root / epoch) == steps
+    for name in ("params.msgpack", "opt_state.msgpack"):
+        assert (_last(root, epoch) / name).read_bytes() == (_last(root, step) / name).read_bytes()
+
+
+def test_epoch_dispatch_on_the_mesh_equals_jax_make_epoch_fn(fits):
+    """The (1, 1, 2) world's epoch-dispatch fit against JAX's ``make_epoch_fn``
+    over the same mesh from the same weights: each step's loss at rtol 1e-5
+    (JAX's own step-vs-scan pin, tests/test_device_cache.py), the final
+    trainable tree within ``_near``'s rule."""
+    got = _step_losses(fits["root"] / "dispatch_epoch")
+    want = fits["jax"]["steps"]
+    assert [s for s, _ in got] == [s for s, _ in want] and len(got) == 2 * STEPS_PER_EPOCH
+    np.testing.assert_allclose([x for _, x in got], [x for _, x in want], rtol=1e-5)
+    _near(_flat(_tree(_last(fits["root"], "dispatch_epoch"))), fits["jax"]["params"],
+          len(got), "epoch dispatch against JAX's make_epoch_fn")
+
+
+@pytest.mark.parametrize("backend, device, refused",
+                         [("gloo", "cuda", True), ("nccl", "cuda", False), ("gloo", "cpu", False)])
+def test_check_dispatch_refuses_epoch_dispatch_only_over_gloo_on_cards(backend, device, refused):
+    """Epoch dispatch over seq or model above 1 is refused for gloo ranks on
+    cards, and only there: NCCL on cards captures the layers' collectives,
+    gloo on the CPU runs the epoch eagerly; step dispatch, and epoch
+    dispatch over a data-only mesh, pass everywhere. The message says why
+    and what trains the mesh instead."""
+    from segma_tpu_torch.parallel.mesh import EPOCH_GLOO_CARD, check_dispatch
+
+    epoch = load_config(PORT_DEFAULT, ["train.dispatch=epoch"])
+    step = load_config(PORT_DEFAULT, ["train.dispatch=step"])
+    for shape in ((1, 1, 2), (1, 2, 1), (2, 2, 2), (1, 1, 4)):
+        if refused:
+            with pytest.raises(ValueError) as e:
+                check_dispatch(epoch, shape, backend, device)
+            assert EPOCH_GLOO_CARD in str(e.value) and "gloo ranks on cards" in str(e.value)
+        else:
+            check_dispatch(epoch, shape, backend, device)
+        check_dispatch(step, shape, backend, device)
+    check_dispatch(epoch, (4, 1, 1), backend, device)
+    for words in ("a gloo collective", "waits on the host", "a graph cannot hold it",
+                  "NCCL refuses two ranks on one card", "train.dispatch=step"):
+        assert words in EPOCH_GLOO_CARD, words
+    assert "Queue" not in EPOCH_GLOO_CARD
 
 
 # -- the loader ----------------------------------------------------------------------
+
+
+class _TimedSampler:
+    """A sampler whose batches say which worker drew them and when, after a
+    random sleep: the threads finish in an order of their own."""
+
+    def __init__(self, worker: int, fail_at: int | None = None) -> None:
+        self.worker, self.n, self.fail_at = worker, 0, fail_at
+        self.rng = np.random.default_rng(worker)
+
+    def sample_batch(self, batch_size: int) -> dict[str, np.ndarray]:
+        import time
+
+        if self.n == self.fail_at:
+            raise OSError("disk gone")
+        time.sleep(float(self.rng.uniform(0.0, 0.01)))
+        self.n += 1
+        return {"x": np.full((batch_size,), 100 * self.worker + self.n)}
+
+
+@pytest.mark.parametrize("workers", [1, 3, 4])
+def test_prefetching_loader_yields_its_workers_batches_in_a_fixed_order(workers):
+    """With several sampler threads the batches come round-robin, worker 0
+    first and its share's remainder last, whichever thread is quicker, so
+    two ranks of a data coordinate with the same seeds take the same
+    sequence; a failing worker fails the epoch."""
+    from segma_tpu_torch.data import PrefetchingLoader
+
+    def drawn(fail_at=None):
+        samplers = [_TimedSampler(w, fail_at if w == workers - 1 else None)
+                    for w in range(workers)]
+        loader = PrefetchingLoader(samplers[0], 2, 10, extra_samplers=samplers[1:])
+        return [int(b["x"][0]) for b in loader]
+
+    shares = [10 // workers] * workers
+    shares[0] += 10 - sum(shares)
+    want = [100 * w + i + 1 for i in range(max(shares)) for w in range(workers) if i < shares[w]]
+    assert drawn() == drawn() == want
+    with pytest.raises(RuntimeError, match="worker failed"):
+        drawn(fail_at=1)
+
+
+def test_ranks_of_a_coordinate_take_the_same_batches_with_several_workers(dataset, monkeypatch):
+    """Under (1, 1, 4) the four ranks' loaders, each with
+    ``num_workers=4``, give one sequence of offsets and labels: every rank
+    of a data coordinate stacks the same epoch."""
+    from segma_tpu_torch.models.hubert.builders import HUBERT_CONV_SETTINGS as CS
+
+    cfg = load_config(PORT_DEFAULT, [*_fit_cfg(dataset), "train.data_cache=device",
+                                     "train.dataloader.num_workers=4", "mesh.data=1",
+                                     "mesh.model=4"])
+    ds = SegmaFileDataset.from_config(cfg)
+    ds.load(use_cache=False)
+    monkeypatch.setattr(distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(distributed, "world_size", lambda: 4)
+    epochs = []
+    for r in range(4):
+        monkeypatch.setattr(distributed, "rank", lambda r=r: r)
+        loader = SegmentationDataLoader(ds, MultiLabelEncoder(cfg.data.classes), cfg,
+                                        CS).train_dataloader()
+        loader.set_epoch(1)
+        epochs.append([(b["offsets"].tolist(), b["y"].tobytes()) for b in loader])
+    assert len(epochs[0]) == STEPS_PER_EPOCH
+    assert all(e == epochs[0] for e in epochs[1:])
+
+
+SAVE_CACHE = r'''
+import sys
+sys.path.insert(0, sys.argv[2])
+from segma_tpu_torch.config import load_config
+from segma_tpu_torch.data import SegmaFileDataset
+
+ds = SegmaFileDataset.from_config(load_config(sys.argv[2] + "/segma_tpu_torch/config/default.yml",
+                                              ["data.dataset_path=" + sys.argv[1]]))
+ds.load(use_cache=False)
+for _ in range(300):
+    ds.save_cache()
+ds.load_cache()
+'''
+
+
+def test_ranks_save_the_dataset_cache_at_once(dataset, tmp_path):
+    """The ranks of a world load the dataset in one working directory, and
+    each saves its metadata cache: two processes saving it over and over at
+    once both end, and the cache reads back."""
+    procs = [subprocess.Popen([sys.executable, "-c", SAVE_CACHE, str(dataset), str(REPO)],
+                              cwd=tmp_path, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for _ in range(2)]
+    outs = [p.communicate(timeout=WAIT_S)[0] for p in procs]
+    for p, text in zip(procs, outs):
+        assert p.returncode == 0, text[-3000:]
 
 
 def test_rank_batches_are_their_data_coordinate_s(dataset, monkeypatch):
