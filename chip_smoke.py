@@ -3790,7 +3790,7 @@ def phase_serve(card: str, device: str = "cuda") -> dict:
 
     import torch
 
-    from segma_tpu_torch import checkpoint, inference
+    from segma_tpu_torch import checkpoint, inference, telemetry
     from segma_tpu_torch.client import SegmaClient
     from segma_tpu_torch.ops import adpcm
     from segma_tpu_torch.serve import SegmentationService, _serve_until_signalled, make_server
@@ -3846,7 +3846,7 @@ def phase_serve(card: str, device: str = "cuda") -> dict:
             for k in range(2):  # the second run is warm
                 sync()
                 reset_launches()
-                inference.bytes_to_device = 0
+                telemetry.set_counts({"serve.bytes_to_device": 0})
                 t0 = time.perf_counter()
                 done = run(tmp / f"{label}_{k}")
                 sync()
@@ -3854,7 +3854,7 @@ def phase_serve(card: str, device: str = "cuda") -> dict:
                 if len(done) != SERVE_FILES:
                     raise AssertionError(f"{label}: {len(done)} of {SERVE_FILES} files served")
             paths[label] = _serve_launches(read_launches(), label)
-            shipped = inference.bytes_to_device
+            shipped = telemetry.counts()["serve.bytes_to_device"]
             busy = (device_busy(card, label, lambda: run(tmp / f"{label}_prof"), walls[1])
                     if on_gpu else 0.0)
             rttms[label] = {p.stem: (tmp / f"{label}_1" / "raw_rttm" / f"{p.stem}.rttm").read_text()
@@ -3975,12 +3975,12 @@ def phase_serve(card: str, device: str = "cuda") -> dict:
         client = SegmaClient(url0)
         sync()
         reset_launches()
-        inference.bytes_to_device = 0
+        telemetry.set_counts({"serve.bytes_to_device": 0})
         health = client.health()
         got_wav = as_samples(client.segment(wavs[0]))
-        wav_bytes = inference.bytes_to_device
+        wav_bytes = telemetry.counts()["serve.bytes_to_device"]
         got_l16 = as_samples(client.segment(pcms[0]))
-        l16_bytes = inference.bytes_to_device - wav_bytes
+        l16_bytes = telemetry.counts()["serve.bytes_to_device"] - wav_bytes
         if not (got_wav == got_l16 == offline0 and offline0):
             raise AssertionError("the WAV or L16 /segment differs from the pipeline's intervals")
         lat0, outs0 = one_shots(url0)

@@ -33,6 +33,15 @@ from pinned memory without blocking, and each file's packed decode is queued
 right behind its forward with its own CUDA event, so finishing file i waits
 for file i alone while the next group's forward runs.
 
+Spans (``telemetry``, recorded while it records): ``serve.load`` (the
+prefetch thread, a file), ``serve.queue_wait`` (the dispatching thread
+waiting for it), ``serve.dispatch`` (a group) with a ``serve.segment`` per
+``_infer`` call (the pad copy, the copy to the device, the forward
+enqueued), ``serve.finish`` (a file) with ``serve.decode_wait`` and
+``serve.write``; a file's spans carry ``file=<stem>``. Counters:
+``serve.chunks_real`` and ``serve.chunks_padded`` (each dispatch's bucket,
+the chunks the files need and the rest), ``serve.bytes_to_device``.
+
 ``python -m segma_tpu_torch.inference --config ... --wavs ... --output ...``
 is the predict CLI (``main``), with the JAX package's flags and ``--device``.
 
@@ -54,7 +63,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
-from segma_tpu_torch import resolve_device
+from segma_tpu_torch import resolve_device, telemetry
 from segma_tpu_torch.annotation import AudioAnnotation
 from segma_tpu_torch.config import Config
 from segma_tpu_torch.geometry import ConvolutionSettings
@@ -73,8 +82,6 @@ if TYPE_CHECKING:
 
 TAIL_MIN_SAMPLES = 400
 TRANSPORTS = ("int16", "mulaw", "adpcm", "f32")
-
-bytes_to_device = 0  # host buffers' bytes copied to the device since the last reset
 
 
 class Chunkyfier:
@@ -139,6 +146,12 @@ def _bucket(n: int, minimum: int = 1) -> int:
     """Round up to the next power of two."""
     n = max(n, minimum)
     return 1 << (n - 1).bit_length()
+
+
+def _count_chunks(real: int, dispatched: int) -> None:
+    """One dispatch's chunks: ``real`` that a file needs, the rest of the
+    ``dispatched`` bucket padding."""
+    telemetry.add_counts({"serve.chunks_real": real, "serve.chunks_padded": dispatched - real})
 
 
 def _expand(audio: torch.Tensor) -> torch.Tensor:
@@ -349,8 +362,7 @@ class InferencePipeline:
                     "through transport='mulaw')"
                 )
             padded = adpcm_encode(padded)
-        global bytes_to_device
-        bytes_to_device += padded.nbytes
+        telemetry.count("serve.bytes_to_device", padded.nbytes)
         return host_to_device(padded, self.device)
 
     def _n_frames(self, audio: np.ndarray | AdpcmAudio) -> tuple[int, int]:
@@ -377,13 +389,15 @@ class InferencePipeline:
 
         if n_chunks_needed <= self.max_bucket_chunks:
             n_chunks = _bucket(n_chunks_needed, minimum=self.min_chunks)
+            _count_chunks(n_chunks_needed, n_chunks)
             padded_len = n_chunks * ck.chunk_stride + ck.chunk_duration_f
-            if isinstance(audio, AdpcmAudio):
-                padded = audio.block_slice(0, n_blocks(padded_len))[None]
-            else:
-                padded = np.zeros((1, padded_len), audio.dtype)
-                padded[0, :n] = audio
-            return self._infer(self._ship(padded), n_chunks)[0], total_frames
+            with telemetry.span("serve.segment", chunks=n_chunks):
+                if isinstance(audio, AdpcmAudio):
+                    padded = audio.block_slice(0, n_blocks(padded_len))[None]
+                else:
+                    padded = np.zeros((1, padded_len), audio.dtype)
+                    padded[0, :n] = audio
+                return self._infer(self._ship(padded), n_chunks)[0], total_frames
 
         # long file: segments of at most max_bucket_chunks chunks (chunks are
         # independent windows, so splitting at chunk boundaries is exact)
@@ -392,17 +406,19 @@ class InferencePipeline:
         while start_chunk < n_chunks_needed:
             seg_chunks = min(self.max_bucket_chunks, n_chunks_needed - start_chunk)
             n_chunks = _bucket(seg_chunks, minimum=self.min_chunks)
+            _count_chunks(seg_chunks, n_chunks)
             padded_len = n_chunks * ck.chunk_stride + ck.chunk_duration_f
             off = start_chunk * ck.chunk_stride
-            if isinstance(audio, AdpcmAudio):
-                # exact: every model's chunk stride is a multiple of BLOCK
-                seg = audio.block_slice(off, n_blocks(padded_len))[None]
-            else:
-                seg = np.zeros((1, padded_len), audio.dtype)
-                take = min(padded_len, max(0, n - off))
-                if take > 0:
-                    seg[0, :take] = audio[off : off + take]
-            out = self._infer(self._ship(seg), n_chunks)[0]
+            with telemetry.span("serve.segment", chunks=n_chunks):
+                if isinstance(audio, AdpcmAudio):
+                    # exact: every model's chunk stride is a multiple of BLOCK
+                    seg = audio.block_slice(off, n_blocks(padded_len))[None]
+                else:
+                    seg = np.zeros((1, padded_len), audio.dtype)
+                    take = min(padded_len, max(0, n - off))
+                    if take > 0:
+                        seg[0, :take] = audio[off : off + take]
+                out = self._infer(self._ship(seg), n_chunks)[0]
             seg_logits.append(out[: seg_chunks * ck.n_windows])
             start_chunk += seg_chunks
         logits = torch.cat(seg_logits)
@@ -443,15 +459,18 @@ class InferencePipeline:
             padded_len = n_chunks * ck.chunk_stride + ck.chunk_duration_f
             for g in range(0, len(items), step):
                 group = items[g : g + step]
-                if tag == "adpcm":
-                    packed = np.stack(
-                        [audios[i].block_slice(0, n_blocks(padded_len)) for i, _tf in group]
-                    )
-                else:
-                    packed = np.zeros((len(group), padded_len), np.dtype(tag))
-                    for row, (i, _tf) in enumerate(group):
-                        packed[row, : audios[i].shape[0]] = audios[i]
-                logits = self._infer(self._ship(packed), n_chunks)
+                real = sum(-(-tf // ck.n_windows) for _i, tf in group)
+                _count_chunks(real, len(group) * n_chunks)
+                with telemetry.span("serve.segment", chunks=len(group) * n_chunks):
+                    if tag == "adpcm":
+                        packed = np.stack(
+                            [audios[i].block_slice(0, n_blocks(padded_len)) for i, _tf in group]
+                        )
+                    else:
+                        packed = np.zeros((len(group), padded_len), np.dtype(tag))
+                        for row, (i, _tf) in enumerate(group):
+                            packed[row, : audios[i].shape[0]] = audios[i]
+                    logits = self._infer(self._ship(packed), n_chunks)
                 for row, (i, tf) in enumerate(group):
                     results[i] = (logits[row], tf)
         return results
@@ -514,7 +533,8 @@ class InferencePipeline:
         if queued is None:
             return []
         if queued.event is not None:
-            queued.event.synchronize()
+            with telemetry.span("serve.decode_wait"):
+                queued.event.synchronize()
         enc = self.model.label_encoder
         intervals = unpack_run_intervals(
             queued.packed.numpy(), queued.cap, enc.base_labels, self.frame_settings
@@ -799,22 +819,24 @@ def _finish_file(
 ) -> list[tuple[int, int, str]]:
     """One file's queued decode -> intervals -> RTTM (and its logits for the
     tuner with ``dump_logits``)."""
-    if dump_logits:
-        # the one full (T, L) download: only the tuner's dump needs it
-        if queued is None:
-            logits = np.zeros((0, pipeline.model.n_labels), np.float32)
-        else:
-            logits = queued.logits[:total_frames].float().cpu().numpy()
-        save_logits(logits, pipeline.model.label_encoder, output_p, audio_path.stem)
-    intervals = pipeline.finish_decode(queued, thresholds)
-    sr = pipeline.model.config.audio.sample_rate
-    intervals = postprocess_intervals(
-        intervals,
-        min_duration_f=int(min_duration_s * sr),
-        merge_gap_f=int(merge_gap_s * sr),
-    )
-    write_intervals(intervals, audio_path, output_p, rttm_dirname)
-    return intervals
+    with telemetry.span("serve.finish", file=audio_path.stem):
+        if dump_logits:
+            # the one full (T, L) download: only the tuner's dump needs it
+            if queued is None:
+                logits = np.zeros((0, pipeline.model.n_labels), np.float32)
+            else:
+                logits = queued.logits[:total_frames].float().cpu().numpy()
+            save_logits(logits, pipeline.model.label_encoder, output_p, audio_path.stem)
+        intervals = pipeline.finish_decode(queued, thresholds)
+        sr = pipeline.model.config.audio.sample_rate
+        with telemetry.span("serve.write", file=audio_path.stem):
+            intervals = postprocess_intervals(
+                intervals,
+                min_duration_f=int(min_duration_s * sr),
+                merge_gap_f=int(merge_gap_s * sr),
+            )
+            write_intervals(intervals, audio_path, output_p, rttm_dirname)
+        return intervals
 
 
 def infer_file(
@@ -951,7 +973,9 @@ def run_inference_on_audios(
         try:
             for audio_path in files_to_infer_on:
                 try:
-                    q.put((audio_path, _load_mono(audio_path, transport, expect_sr=sr), None))
+                    with telemetry.span("serve.load", file=audio_path.stem):
+                        audio = _load_mono(audio_path, transport, expect_sr=sr)
+                    q.put((audio_path, audio, None))
                 except Exception as e:  # noqa: BLE001 — one bad file must not end the batch
                     q.put((audio_path, None, e))
         finally:
@@ -982,21 +1006,25 @@ def run_inference_on_audios(
         if not group:
             return
         t0 = time.perf_counter()
-        if len(group) == 1:
-            outs = [pipeline.logits_for_audio_async(group[0][1])]
-        else:
-            outs = pipeline.logits_for_audios_async([a for _, a in group], pack_files=pack_files)
-        new = [
-            (path, t0, None if lg is None else pipeline.queue_decode(lg, thr, valid_frames=tf), tf)
-            for (path, _), (lg, tf) in zip(group, outs)
-        ]
+        with telemetry.span("serve.dispatch", file="+".join(path.stem for path, _ in group)):
+            if len(group) == 1:
+                outs = [pipeline.logits_for_audio_async(group[0][1])]
+            else:
+                outs = pipeline.logits_for_audios_async([a for _, a in group],
+                                                        pack_files=pack_files)
+            new = [
+                (path, t0, None if lg is None else pipeline.queue_decode(lg, thr, valid_frames=tf),
+                 tf)
+                for (path, _), (lg, tf) in zip(group, outs)
+            ]
         group.clear()
         while pending:
             finalize(pending.popleft())
         pending.extend(new)
 
     while True:
-        item = q.get()
+        with telemetry.span("serve.queue_wait"):
+            item = q.get()
         if item is stop:
             break
         audio_path, audio, err = item

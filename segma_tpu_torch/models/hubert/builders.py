@@ -23,7 +23,7 @@ from pathlib import Path
 import torch
 from torch import nn
 
-from segma_tpu_torch import resolve_device
+from segma_tpu_torch import resolve_device, telemetry
 from segma_tpu_torch.config import Config
 from segma_tpu_torch.convert import load_flax_subtrees
 from segma_tpu_torch.models.base import ConvolutionSettings, SegmentationModel, ieee_f32
@@ -82,19 +82,21 @@ class HubertSegModule(nn.Module):
     ) -> torch.Tensor:
         """``train=True`` applies dropout with masks from ``generator``."""
         with ieee_f32(self.encoder.dtype):
-            with torch.no_grad():  # the CNN front end is always frozen
-                feats = self.feature_extractor(wav)
-            _, hidden = self.encoder(feats, output_hidden_states=True)
-            layer_outputs = hidden[1:]
-            stacked = torch.stack([layer_outputs[i] for i in self.picks])
-            if self.freeze_encoder:
-                stacked = stacked.detach()
-            x = self.layer_mix(stacked)
+            with telemetry.span("model.encoder"):
+                with torch.no_grad():  # the CNN front end is always frozen
+                    feats = self.feature_extractor(wav)
+                _, hidden = self.encoder(feats, output_hidden_states=True)
+                layer_outputs = hidden[1:]
+                stacked = torch.stack([layer_outputs[i] for i in self.picks])
+                if self.freeze_encoder:
+                    stacked = stacked.detach()
+                x = self.layer_mix(stacked)
             if train and self.dropout > 0:
                 if generator is None:
                     raise ValueError("training with dropout needs a torch.Generator")
                 x = dropout(x, self.dropout, generator)
-            return self.heads(x).float()
+            with telemetry.span("model.heads"):
+                return self.heads(x).float()
 
 
 def build_hubert_model(

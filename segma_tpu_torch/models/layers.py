@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from segma_tpu_torch import telemetry
 from segma_tpu_torch.config import LSTMConfig
 from segma_tpu_torch.models.base import no_tf32
 from segma_tpu_torch.ops import rnn
@@ -136,7 +137,7 @@ class BiLSTM(nn.Module):
         runs both directions of a layer in one call, so the whole sequence
         runs and is sliced."""
         x = x.float()
-        with no_tf32():
+        with no_tf32(), telemetry.span("model.bilstm", cuda_time=True):
             if train and self.cfg.dropout > 0 and self.cfg.num_layers > 1:
                 if generator is None:
                     raise ValueError("training with dropout needs a torch.Generator")

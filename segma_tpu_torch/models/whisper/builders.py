@@ -27,7 +27,7 @@ from pathlib import Path
 import torch
 from torch import nn
 
-from segma_tpu_torch import resolve_device
+from segma_tpu_torch import resolve_device, telemetry
 from segma_tpu_torch.config import Config, LSTMConfig
 from segma_tpu_torch.convert import load_flax_subtrees
 from segma_tpu_torch.models.base import (
@@ -114,42 +114,46 @@ class WhisperSegModule(nn.Module):
         """``train=True`` applies the BiLSTM's dropout with masks from
         ``generator``."""
         with ieee_f32(self.encoder.dtype):
-            with torch.no_grad():  # the frozen encoder: JAX's stop_gradient
+            with torch.no_grad(), telemetry.span("model.logmel"):
                 if self.fast_context:
                     feats = log_mel_spectrogram(wav).transpose(1, 2)  # (B, 80, T/160)
                 else:
                     feats = whisper_input_features(wav)  # (B, 80, 3000)
-                last, hidden = self.encoder(feats, output_hidden_states=self.tap == "weighted")
-            time = self.encoder.time_group(feats.shape[-1])
-            if self.tap == "weighted":
-                layer_outputs = hidden[1:]  # per-layer outputs, HF indexing
-                x = self.layer_mix(torch.stack([layer_outputs[i] for i in self.picks]), time)
-            else:
-                x = last
-            # under sequence parallelism the time axis comes back whole here,
-            # after the layer mix (pointwise over time: one gather, not one per
-            # layer): the LSTM and the heads want the whole sequence, and run
-            # alike on every member, so each keeps its own block of the
-            # gradient (not summed over seq)
-            x = gather(x, time, dim=1, summed=False)
+            with telemetry.span("model.encoder"):
+                with torch.no_grad():  # the frozen encoder: JAX's stop_gradient
+                    last, hidden = self.encoder(feats,
+                                                output_hidden_states=self.tap == "weighted")
+                time = self.encoder.time_group(feats.shape[-1])
+                if self.tap == "weighted":
+                    layer_outputs = hidden[1:]  # per-layer outputs, HF indexing
+                    x = self.layer_mix(torch.stack([layer_outputs[i] for i in self.picks]), time)
+                else:
+                    x = last
+                # under sequence parallelism the time axis comes back whole
+                # here, after the layer mix (pointwise over time: one gather,
+                # not one per layer): the LSTM and the heads want the whole
+                # sequence, and run alike on every member, so each keeps its
+                # own block of the gradient (not summed over seq)
+                x = gather(x, time, dim=1, summed=False)
             if self.trunc == "before_lstm":
                 x = x[:, : self.n_windows]
             if self.mixer == "lstm":
                 keep = self.n_windows if self.trunc == "after_lstm" else None
                 x = self.lstm_shared(x, keep=keep, train=train, generator=generator)
-            if self.head == "mlp":
-                logits = self.classifier(x)
-            elif self.head == "mlp_stack":
-                h = x.to(self.encoder.dtype)
-                for layer in (self.linear_0, self.linear_1):
-                    h = nn.functional.leaky_relu(linear(h, layer))  # slope 0.01, as flax
-                with no_tf32():
-                    logits = self.classifier(h.float())
-            else:
-                logits = self.heads(x)
-            if self.trunc == "after_head":
-                logits = logits[:, : self.n_windows]
-            return logits.float()
+            with telemetry.span("model.heads"):
+                if self.head == "mlp":
+                    logits = self.classifier(x)
+                elif self.head == "mlp_stack":
+                    h = x.to(self.encoder.dtype)
+                    for layer in (self.linear_0, self.linear_1):
+                        h = nn.functional.leaky_relu(linear(h, layer))  # slope 0.01, as flax
+                    with no_tf32():
+                        logits = self.classifier(h.float())
+                else:
+                    logits = self.heads(x)
+                if self.trunc == "after_head":
+                    logits = logits[:, : self.n_windows]
+                return logits.float()
 
 
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:

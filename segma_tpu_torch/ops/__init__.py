@@ -1,6 +1,7 @@
 """Operators: the log-mel frontend and attention, each with its CUDA kernel,
-and the kernel wrappers' launch counters (counted under a lock: the
-replicas of a mesh launch from threads of their own).
+and the kernel wrappers' launch counters (``telemetry``'s counters
+``launch.<kernel>``, counted under its lock: the replicas of a mesh launch
+from threads of their own).
 
 Importing this package registers the port's ``torch.library`` ops in the
 ``segma_tpu_torch`` namespace (``segma_tpu_torch::log10_mel``,
@@ -11,10 +12,11 @@ nothing else of the port.
 
 from __future__ import annotations
 
-import threading
 from typing import Any, Callable, Hashable
 
 import torch
+
+from segma_tpu_torch import telemetry
 
 # the kernel wrappers' counters, by kernel: log-mel, the bf16 flash forward
 # and backward (one per call, which runs the dq and the dkv kernel), the f32 ones
@@ -37,50 +39,29 @@ def cached_constant(cache: dict, key: Hashable, make: Callable[[], Any]) -> Any:
     return value
 
 
-class LaunchCounter:
-    """Counts by key, read and written under one lock: ``x += 1`` on a
-    module global is a read, an add and a store, and two threads launching
-    at once can lose one of their counts."""
-
-    def __init__(self, keys: tuple[str, ...]) -> None:
-        self._lock = threading.Lock()
-        self._counts = dict.fromkeys(keys, 0)
-
-    def add(self, counts: dict[str, int]) -> None:
-        with self._lock:
-            for key, n in counts.items():
-                self._counts[key] += n
-
-    def read(self) -> dict[str, int]:
-        with self._lock:
-            return dict(self._counts)
-
-    def set(self, counts: dict[str, int]) -> None:
-        with self._lock:
-            self._counts.update({key: counts[key] for key in self._counts})
-
-
-_launches = LaunchCounter(LAUNCH_KEYS)
+# the counter store is ``telemetry``'s; ``LaunchCounter`` is its class
+LaunchCounter = telemetry.Counters
 
 
 def count_launch(key: str) -> None:
     """One launch of kernel ``key``: each wrapper calls it where it launches."""
-    _launches.add({key: 1})
+    telemetry.count(f"launch.{key}")
 
 
 def launch_counts() -> dict[str, int]:
     """Each kernel wrapper's launches since its counter was last set."""
-    return _launches.read()
+    counts = telemetry.counts()
+    return {key: counts.get(f"launch.{key}", 0) for key in LAUNCH_KEYS}
 
 
 def set_launch_counts(counts: dict[str, int]) -> None:
     """Set the wrappers' counters (``launch_counts``'s keys)."""
-    _launches.set(counts)
+    telemetry.set_counts({f"launch.{key}": counts[key] for key in LAUNCH_KEYS})
 
 
 def add_launch_counts(counts: dict[str, int]) -> None:
     """Advance the counters by ``counts`` at once (a graph replay's)."""
-    _launches.add(counts)
+    telemetry.add_counts({f"launch.{key}": n for key, n in counts.items()})
 
 
 # the op registrations (after the helpers above, which the modules import)

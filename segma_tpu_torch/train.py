@@ -90,7 +90,7 @@ from typing import Any, Callable, ContextManager
 import numpy as np
 import torch
 
-from segma_tpu_torch import resolve_device
+from segma_tpu_torch import resolve_device, telemetry
 from segma_tpu_torch.checkpoint import (
     CheckpointManager,
     flax_split,
@@ -127,6 +127,7 @@ from segma_tpu_torch.utils.logging import MetricsLogger
 ADAMW_BETAS = (0.9, 0.999)
 ADAMW_EPS = 1e-8
 ADAMW_WEIGHT_DECAY = 1e-4  # optax.adamw's default
+_END = object()  # the end of a loader's batches
 
 
 def get_metric(metric: str) -> tuple[str, str]:
@@ -400,13 +401,14 @@ def forward_backward(
     of its ``compute_dtype``; a bf16 model's f32 parts scope their own), and
     so does every backward: the gradients of a bf16 model's f32 parts (its
     heads, BiLSTM, WavLM's f32 scores and bias) are f32 computations too."""
-    optimizer.zero_grad(set_to_none=True)
-    with ieee_f32(model.compute_dtype):
-        logits = model.module(wav, train=True, generator=generator)
-        loss, per_label = model.loss(logits, y)
-    with no_tf32():
-        loss.backward()
-    return loss.detach(), per_label.detach()
+    with telemetry.span("train.forward_backward"):
+        optimizer.zero_grad(set_to_none=True)
+        with ieee_f32(model.compute_dtype):
+            logits = model.module(wav, train=True, generator=generator)
+            loss, per_label = model.loss(logits, y)
+        with no_tf32():
+            loss.backward()
+        return loss.detach(), per_label.detach()
 
 
 def make_train_step(
@@ -433,10 +435,11 @@ def make_train_step(
             if bad:
                 raise FloatingPointError(f"non-finite {', '.join(bad[:8])}"
                                          + (f" and {len(bad) - 8} more" if len(bad) > 8 else ""))
-        if accum is None:
-            optimizer.step()
-        else:
-            accum.step(optimizer)
+        with telemetry.span("train.optimizer"):
+            if accum is None:
+                optimizer.step()
+            else:
+                accum.step(optimizer)
         return loss, per_label
 
     return train_step
@@ -538,10 +541,11 @@ class EpochReplay:
                                      grads=self.accum is None)
         finite = (_finite_flags(loss, self.model, self.world)[1].all() if self.debug_nans
                   else None)
-        if self.accum is None:
-            self.optimizer.step()
-        else:
-            self.accum.apply(self.optimizer, emit)
+        with telemetry.span("train.optimizer"):
+            if self.accum is None:
+                self.optimizer.step()
+            else:
+                self.accum.apply(self.optimizer, emit)
         return loss, per_label, finite
 
     def run(self, emit: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
@@ -686,12 +690,15 @@ class Trainer:
         the ranks must stop at the same step to run the same collectives."""
         if self.world is None or self.world.size == 1:
             return flag
-        return self.world.any(flag)
+        with telemetry.span("train.agree"):
+            return self.world.any(flag)
 
     # -- epochs --------------------------------------------------------------------
 
     def _put(self, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(v).to(self.device, non_blocking=True) for k, v in batch.items()}
+        with telemetry.span("train.put"):
+            return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
+                    for k, v in batch.items()}
 
     def _train_epoch(self, loader: Any, generator: torch.Generator) -> tuple[float, bool]:
         """(mean train loss, whether every step of the epoch ran): the loop
@@ -702,21 +709,31 @@ class Trainer:
         cosine = tc.scheduler.type == "cosine"
         losses = []
         n_seen = 0
-        for batch in loader:
+        batches = iter(loader)
+        while True:
+            # the iterator is explicit so that the wait for the next batch
+            # is timed alone
+            with telemetry.span("train.loader_wait"):
+                batch = next(batches, _END)
+            if batch is _END:
+                break
             if cosine:
                 set_learning_rate(self.optimizer, cosine_lr(
                     self.global_step, tc.lr, self._total_steps, tc.scheduler.warmup_steps,
                     tc.scheduler.min_lr_ratio))
+            device_batch = self._put(batch)
             try:
-                loss, per_label = self.train_step(self._put(batch), generator)
+                with telemetry.span("train.step", step=self.global_step + 1):
+                    loss, per_label = self.train_step(device_batch, generator)
             except FloatingPointError as e:
                 raise FloatingPointError(f"train step {self.global_step + 1}: {e}") from e
             losses.append(loss)
             self.global_step += 1
             if every and self.global_step % every == 0:
-                record = {"step": self.global_step, "train/loss_step": float(loss)}
-                for i, label in enumerate(labels):
-                    record[f"train/loss_step_{label}"] = float(per_label[i])
+                with telemetry.span("train.log"):
+                    record = {"step": self.global_step, "train/loss_step": float(loss)}
+                    for i, label in enumerate(labels):
+                        record[f"train/loss_step_{label}"] = float(per_label[i])
                 self.logger.log(record)
             n_seen += 1
             if self._agree(self._preempt_requested):
@@ -742,13 +759,14 @@ class Trainer:
         if self._agree(self._preempt_requested):  # a signal between epochs
             self._preempt_requested = True
             return float("nan"), False
-        offs, ys = [], []
-        for batch in loader:
-            if "offsets" not in batch:
-                raise BatchContractError("train.dispatch=epoch needs device-cache batches "
-                                         "(key 'offsets')")
-            offs.append(batch["offsets"])
-            ys.append(batch["y"])
+        with telemetry.span("train.replay_stack"):
+            offs, ys = [], []
+            for batch in loader:
+                if "offsets" not in batch:
+                    raise BatchContractError("train.dispatch=epoch needs device-cache batches "
+                                             "(key 'offsets')")
+                offs.append(batch["offsets"])
+                ys.append(batch["y"])
         n = len(offs)
         if n == 0:
             return float("nan"), False
@@ -975,9 +993,10 @@ class Trainer:
                 opt_state_tree(self.model, self.optimizer, self.accum, self.blocks))
 
     def _refresh_last(self, epoch: int, meta: dict) -> None:
-        params, opt_state = self._trees()
-        self.ckpt.refresh_last(epoch, params, meta, opt_state=opt_state,
-                               train_state=self._train_state())
+        with telemetry.span("train.checkpoint", epoch=epoch):
+            params, opt_state = self._trees()
+            self.ckpt.refresh_last(epoch, params, meta, opt_state=opt_state,
+                                   train_state=self._train_state())
 
     def _profiler(self) -> torch.profiler.profile:
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -992,7 +1011,17 @@ class Trainer:
         ``last/`` refreshed after every epoch. Writes ``metrics.jsonl`` and
         ``checkpoints/`` under ``run_dir``; with ``train.profiler`` set, a
         torch.profiler trace of the epoch after the first into
-        ``run_dir/profile``.
+        ``run_dir/profile`` (``epoch_<n>.json``), and the program's spans
+        over the same epoch beside it (``spans_epoch_<n>.jsonl``).
+
+        Spans (``telemetry``, recorded while it records): per step
+        ``train.loader_wait`` (the wait for the loader's next batch),
+        ``train.put``, ``train.step`` (the host's enqueue of a step) with
+        ``train.forward_backward`` and ``train.optimizer``, ``train.log``
+        (the loss read on log steps), ``train.agree`` (a world's vote); per
+        epoch ``train.replay_stack`` (epoch dispatch's host stacking),
+        ``train.validate``, ``train.checkpoint``. A replayed CUDA graph runs
+        no span.
 
         The loaders' device caches (``train.data_cache=device``, or ``auto``
         within budget) are uploaded once; how ``auto`` resolved is logged as
@@ -1070,6 +1099,7 @@ class Trainer:
                     prof = self._profiler() if epoch == profile_epoch else None
                     if prof is not None:
                         prof.start()
+                        t_prof = time.time_ns()
                     t0 = time.perf_counter()
                     if tc.dispatch == "epoch":
                         train_loss, completed = self._train_epoch_replay(train_loader)
@@ -1079,10 +1109,13 @@ class Trainer:
                     train_time = time.perf_counter() - t0
                     if prof is not None:
                         prof.stop()
+                        spans = telemetry.take(t_prof).spans
                         if self.is_main:
                             profile_dir = self.run_dir / "profile"
                             profile_dir.mkdir(parents=True, exist_ok=True)
                             prof.export_chrome_trace(str(profile_dir / f"epoch_{epoch}.json"))
+                            telemetry.write_spans(spans,
+                                                  profile_dir / f"spans_epoch_{epoch}.jsonl")
                             self.logger.log({"profile_dir": str(profile_dir)})
                     if self._agree(self._preempt_requested):
                         self._preempt_requested = True
@@ -1100,7 +1133,8 @@ class Trainer:
                         break
                     do_val = ((epoch + 1) % max(1, tc.val_every_n_epochs) == 0
                               or epoch == max_epochs - 1)
-                    metrics = self._val_epoch(val_loader) if do_val else {}
+                    with telemetry.span("train.validate", epoch=epoch):
+                        metrics = self._val_epoch(val_loader) if do_val else {}
                     metrics["train/loss"] = train_loss
                     metrics["lr"] = get_learning_rate(self.optimizer)
                     metrics["epoch"] = epoch
@@ -1120,9 +1154,10 @@ class Trainer:
                         if tc.scheduler.type == "plateau" and self.scheduler.step(monitored):
                             set_learning_rate(self.optimizer, tc.lr * self.scheduler.scale)
                         stop = self.early_stopping.step(monitored)
-                        params, opt_state = self._trees()
-                        self.ckpt.step(epoch, monitored, params, meta, opt_state=opt_state,
-                                       train_state=self._train_state())
+                        with telemetry.span("train.checkpoint", epoch=epoch):
+                            params, opt_state = self._trees()
+                            self.ckpt.step(epoch, monitored, params, meta, opt_state=opt_state,
+                                           train_state=self._train_state())
                         if stop:
                             self.logger.log({"early_stop": epoch})
                             break

@@ -87,6 +87,8 @@ REQUIRED = (
     "segma_tpu_torch.parallel.distributed",
     # tensor and sequence parallelism
     "segma_tpu_torch.parallel.sharding", "segma_tpu_torch.parallel.collectives",
+    # spans and counters
+    "segma_tpu_torch.telemetry",
 )
 
 

@@ -251,7 +251,9 @@ def test_profiler_traces_the_second_epoch(monkeypatch, tmp_path):
     profile = tmp_path / "run" / "profile"
     trace = json.loads((profile / "epoch_1.json").read_text())
     assert trace["traceEvents"]
-    assert sorted(p.name for p in profile.iterdir()) == ["epoch_1.json"]
+    assert sorted(p.name for p in profile.iterdir()) == ["epoch_1.json", "spans_epoch_1.jsonl"]
+    spans = [json.loads(ln) for ln in (profile / "spans_epoch_1.jsonl").read_text().splitlines()]
+    assert "train.step" in {s["name"] for s in spans}
     records = [json.loads(ln) for ln in (tmp_path / "run" / "metrics.jsonl").read_text()
                .splitlines()]
     assert [r["profile_dir"] for r in records if "profile_dir" in r] == [str(profile)]
