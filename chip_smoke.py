@@ -46,12 +46,18 @@ exits nonzero without printing the final result line:
    backend that takes f32 (the refusals are printed), with their bounds at
    the f32 CUDA-core peak and as 3xTF32 at the tensor-core peak; the
    backward's and SDPA's f32 gradients are printed against the float64
-   gradient.
+   gradient. The LSTM kernel (``lstm_checks``) through ``BiLSTM``'s kernel
+   path at LSTM_SHAPES against cuDNN's ``torch.lstm`` (LSTM_CUDNN_ATOL)
+   and the CPU's (LSTM_ATOL), one launch a layer, bitwise over two calls
+   and through the registered op; one layer call at the serving shape (64,
+   1500, H 128, both directions) timed beside the layer call with its input
+   GEMM, cuDNN's call (a yardstick the port no longer calls in serving), the
+   plain version and its bound; the clusters the card runs at once.
 4. serving slice: full-width Whisper-base ``surgical_hydra`` (random
    weights from a seed) serves a synthetic 10-minute int16 WAV through
    ``run_inference_on_audios``; the launch counters show that the path went
-   through both forward kernels, twice (first and second run in the
-   process); the RTTM is parsed; one more run under torch.profiler prints
+   through log-mel, the flash forward and the LSTM kernel, twice (first and
+   second run in the process); the RTTM is parsed; one more run under torch.profiler prints
    device time by kernel; the card's logits for the first two chunks are
    held against the same model on the CPU plain path; the WAV's logits are
    bit-equal with cuDNN's TF32 allowed (PyTorch's default) and not (the
@@ -199,7 +205,8 @@ exits nonzero without printing the final result line:
    ``mesh.model=2`` under both dispatches, and the epoch-dispatch fits
    (``_cards_epoch_worlds``).
 11. the ``kernels`` JSON line (log-mel, the bf16 and the f32 flash forward
-   and backward; each with its fast_context times where it has them, and
+   and backward, the LSTM's recurrence; each with its fast_context times
+   where it has them, and
    log-mel's at (32, 64000) as ``vad_train``) and
    the ``kernels:`` launch line, per path (the workflow's resumed fit and
    predict CLI run, each reference-model path, the train CLI, the
@@ -260,7 +267,7 @@ FLASH_F32_ATOL = 2e-5
 FLASH_F32_BWD_REL = 5e-5
 LSE_F32_ATOL = 1e-5
 TRAIN_ATTN_SHAPE = (32, 199, 12, 64)  # HuBERT-base training: batch 32, 4 s
-# Card (bf16 kernels, cuDNN LSTM) against CPU (bf16 plain path) logits: both
+# Card (bf16 kernels, the LSTM kernel) against CPU (bf16 plain path) logits: both
 # round to bf16 at every encoder op, in other orders, through six layers
 LOGITS_ATOL = 1e-2
 # f32 on the card (IEEE f32 kernels and cuBLAS, cuDNN without TF32) against
@@ -1113,7 +1120,7 @@ def phase_slice(card: str) -> dict:
     from segma_tpu_torch.inference import Chunkyfier, _bucket, run_inference_on_audios
     from segma_tpu_torch.models import Models
     from segma_tpu_torch.geometry import ConvolutionSettings
-    from segma_tpu_torch.ops import attention, logmel
+    from segma_tpu_torch.ops import attention, logmel, rnn
     from segma_tpu_torch.utils.encoders import MultiLabelEncoder
 
     cfg = surgical_hydra_config()
@@ -1127,6 +1134,7 @@ def phase_slice(card: str) -> dict:
             enc, cfg, device="cpu", generator=torch.Generator().manual_seed(0)
         )
     n_layers = model.module.enc_cfg.n_layers
+    lstm_layers = model.module.lstm_shared.cfg.num_layers
 
     ck = Chunkyfier(INNER_BATCH, cfg.audio.chunk_duration_f, ConvolutionSettings((320,), (320,), (0,)))
     n_samples = N_CHUNKS * ck.chunk_stride + ck.missing_n_frames + 8_000
@@ -1154,16 +1162,19 @@ def phase_slice(card: str) -> dict:
             )
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = {"logmel": logmel.launches, "flash_attn_fwd": attention.launches}
+            launches = {"logmel": logmel.launches, "flash_attn_fwd": attention.launches,
+                        "lstm_fwd": rnn.launches}
             if len(done) != 1:
                 raise AssertionError("run_inference_on_audios served no file")
             return wall, launches, torch.cuda.max_memory_allocated()
 
         for run, label in enumerate(("first run", "second run")):
             wall, launches, peak = drive(run)
-            if launches["logmel"] != n_inner or launches["flash_attn_fwd"] != n_layers * n_inner:
+            if (launches["logmel"] != n_inner or launches["flash_attn_fwd"] != n_layers * n_inner
+                    or launches["lstm_fwd"] != lstm_layers * n_inner):
                 raise AssertionError(
-                    f"launch counts {launches} != logmel {n_inner}, flash {n_layers * n_inner}"
+                    f"launch counts {launches} != logmel {n_inner}, flash {n_layers * n_inner}, "
+                    f"lstm {lstm_layers * n_inner}"
                 )
             print(
                 f"slice {label} [{card}]: wall {wall:.3f} s, {audio_s / wall:.2f}x real time, "
@@ -1245,6 +1256,141 @@ def lstm_tf32_check(card: str, model, pcm: np.ndarray) -> dict:
           f"before the repair (cuDNN TF32; {spread(times['before'])}); their outputs differ by "
           f"{float((unscoped - scoped).abs().max()):.3e}", flush=True)
     return out
+
+# The LSTM kernel's shapes (B, T, I, H, layers, bidirectional): serving's
+# (Whisper's 1500 positions), the truncating variants' 199 and odd batches,
+# whose last cluster holds fewer than 8 rows, at H 128 and the tests' 16
+LSTM_SHAPES = (
+    (INNER_BATCH, 1500, 512, 128, 2, True), (INNER_BATCH, 199, 512, 128, 2, True),
+    (1, 199, 512, 128, 2, True), (5, 1500, 512, 128, 2, True), (67, 199, 512, 128, 2, True),
+    (5, 300, 128, 16, 2, True), (3, 77, 40, 48, 1, False),
+)
+# The LSTM kernel against the CPU's f32 torch.lstm: f32 sums in another order
+# (each gate's sum over k in eight slices, then a butterfly over lanes), the
+# rounding carried through every step, so the outputs agree to this, not bit
+# for bit (the kernel read at most 1.8e-7 from the CPU at LSTM_SHAPES, an
+# H100). Against cuDNN's torch.lstm (TF32 off) the limit is wider: cuDNN
+# itself lies 2.3e-6 to 1.2e-5 from the CPU at these shapes and seeds
+LSTM_ATOL = 1e-5
+LSTM_CUDNN_ATOL = 5e-5
+
+
+def lstm_bounds(b: int, t: int, hidden: int, dirs: int) -> dict:
+    """The bound of one layer call's recurrence: the recurrent products, 2 H
+    4H FLOP a row, step and direction, at the f32 CUDA-core peak, and the
+    bytes, the input projection G (4H a row, step and direction) read once
+    and the output (H) written once."""
+    flops = 2 * b * t * dirs * 4 * hidden * hidden
+    n_bytes = 4 * b * t * dirs * 5 * hidden
+    ms, by = bound_ms(flops, PEAK_F32_FLOPS, n_bytes)
+    return {"bound_ms": ms, "bound_by": by, "ops_ms": flops / PEAK_F32_FLOPS * 1e3,
+            "bytes_ms": n_bytes / PEAK_BYTES_PER_S * 1e3}
+
+
+def lstm_layers(cfg) -> int:
+    """The LSTM kernel's launches an inner batch (or validation batch) of
+    ``cfg``'s model in inference: the layers of its BiLSTM (the Whisper
+    variants with one, sincnet_hydra), 0 without one. Training steps run
+    cuDNN and launch none."""
+    from segma_tpu_torch.models.whisper.builders import VARIANTS
+
+    name = cfg.model.name
+    if name != "sincnet_hydra" and VARIANTS.get(name, (None, None))[1] != "lstm":
+        return 0
+    return cfg.model.config.lstm.num_layers
+
+
+def lstm_checks(card: str) -> dict:
+    """The BiLSTM's kernel path (``BiLSTM`` under ``inference_mode``: the
+    input GEMM and ``csrc/lstm_fwd.cu``) against cuDNN's ``torch.lstm`` on the
+    card (LSTM_CUDNN_ATOL) and the CPU's f32 ``torch.lstm`` (LSTM_ATOL) at
+    LSTM_SHAPES, its launches one a
+    layer, bitwise over two calls and through the registered op; then one
+    layer call at the serving shape timed in turns: the kernel alone, the
+    layer call (GEMM and kernel), cuDNN's call (the yardstick the port no
+    longer calls in serving), and the plain version beside the bound."""
+    import copy
+    import ctypes
+
+    import torch
+
+    from segma_tpu_torch.config import LSTMConfig
+    from segma_tpu_torch.models.layers import BiLSTM
+    from segma_tpu_torch.ops import _build, rnn
+
+    lib = _build.library()
+    clusters = ctypes.c_int(0)
+    _build.check(lib.segma_lstm_fwd_clusters(128, ctypes.byref(clusters)), "clusters")
+    print(f"lstm_fwd [{card}]: {clusters.value} clusters of two CTAs at once at H 128 "
+          f"(serving needs {INNER_BATCH} for one wave)", flush=True)
+    errs, cudnn_errs = [], []
+    for b, t, i, h, layers, bidir in LSTM_SHAPES:
+        cfg = LSTMConfig(hidden_size=h, num_layers=layers, bidirectional=bidir, dropout=0.0)
+        with torch.random.fork_rng():
+            torch.manual_seed(b * t + h)
+            cpu = BiLSTM(i, cfg)
+        mod = copy.deepcopy(cpu).cuda()
+        x = torch.from_numpy(np.random.default_rng(t).standard_normal((b, t, i)).astype(np.float32))
+        with torch.inference_mode():
+            before = rnn.launches
+            got = mod(x.cuda())
+            torch.cuda.synchronize()
+            if rnn.launches != before + layers:
+                raise AssertionError(f"lstm_fwd {(b, t, i, h)}: {rnn.launches - before} launches")
+            cudnn = mod.lstm(x.cuda())[0]
+            ref = cpu(x)
+            label = f"lstm_fwd {(b, t, i)} H {h} x{layers}{' bidirectional' if bidir else ''}"
+            errs.append(check_close(f"{label} against the CPU", got.cpu(), ref, LSTM_ATOL))
+            check_close(f"{label} against cuDNN", got, cudnn, LSTM_CUDNN_ATOL)
+            cudnn_errs.append(float((cudnn.cpu() - ref).abs().max()))
+            print(f"check {label}: cuDNN against the CPU {cudnn_errs[-1]:.3e}", flush=True)
+            if not torch.equal(got, mod(x.cuda())):
+                raise AssertionError(f"{label}: two calls differ")
+            if not torch.equal(got, rnn.lstm(x.cuda(), mod.weights, layers, bidir, False)):
+                raise AssertionError(f"{label}: the registered op differs from the module")
+        del mod, got, cudnn
+        torch.cuda.empty_cache()
+    print(f"check lstm_fwd: one launch a layer, bitwise over two calls and through the "
+          f"registered op, at {len(LSTM_SHAPES)} shapes", flush=True)
+
+    b, t, i, h = INNER_BATCH, 1500, 512, 128
+    lstm = torch.nn.LSTM(i, h, bidirectional=True, batch_first=True).cuda()
+    weights = [getattr(lstm, n) for n in lstm._flat_weights_names]
+    x = torch.randn((b, t, i), device="cuda", generator=torch.Generator("cuda").manual_seed(4))
+    with torch.inference_mode():
+        layer = rnn._layer_weights(weights, 0, 2)
+        gates = rnn.input_gates(x, layer)
+        w_hh = torch.stack([w for _, w, _, _ in layer]).contiguous()
+        times = time_turns({
+            "kernel": lambda: rnn.launch(lib, gates, w_hh),
+            "layer call": lambda: rnn.lstm_cuda(x, weights, 1, True),
+            "input GEMM": lambda: rnn.input_gates(x, layer),
+            "cudnn": lambda: rnn.torch_lstm(x, weights, 1, True, False),
+        }, iters=5)
+        plain_ms = time_ms(lambda: rnn.lstm_plain(x, weights, 1, True), iters=1, warmup=1)
+    for name, ts in times.items():
+        print(f"time lstm {name} ({b}, {t}, {i}) H {h} bidirectional [{card}]: {spread(ts)}",
+              flush=True)
+    ms = median(times["kernel"])
+    bounds = lstm_bounds(b, t, h, 2)
+    print(
+        f"time lstm_fwd ({b}, {t}, H {h}, both directions) [{card}]: kernel {ms:.4f} ms "
+        f"({ms / t * 1e3:.3f} us a step), layer call {median(times['layer call']):.4f} ms "
+        f"(input GEMM {median(times['input GEMM']):.4f} ms), cuDNN's call "
+        f"{median(times['cudnn']):.4f} ms, plain {plain_ms:.3f} ms; bound "
+        f"{bounds['bound_ms']:.4f} ms ({bounds['bound_by']}; {100 * bounds['bound_ms'] / ms:.1f}% "
+        f"of it; bytes {bounds['bytes_ms']:.4f} ms)", flush=True,
+    )
+    return {
+        "name": "lstm_fwd", "route": "cuda", "source": "segma_tpu_torch/csrc/lstm_fwd.cu",
+        "replaces": "cuDNN's LSTM in inference (no TPU kernel: segma_tpu/models/layers.py "
+                    "BiLSTM is a lax.scan)",
+        "max_abs_err": max(errs), "cudnn_max_abs_err": max(cudnn_errs), "ms": ms,
+        "layer_call_ms": median(times["layer call"]),
+        "input_gemm_ms": median(times["input GEMM"]), "plain_ms": plain_ms,
+        "library_ms": median(times["cudnn"]), "clusters": clusters.value, **bounds,
+    }
+
 
 TRAIN_CLASSES = ["KCHI", "OCH", "MAL", "FEM"]  # data.classes of config/default.yml
 TRAIN_FILES, VAL_FILES, TEST_FILES = 8, 4, 1  # a test split is required by the dataset
@@ -1579,7 +1725,8 @@ def phase_serve_f32(card: str) -> dict:
             walls.append(time.perf_counter() - t0)
             launches = read_launches()
             want = {"logmel": n_inner, "flash_attn_fwd": 0, "flash_attn_bwd": 0,
-                    "flash_attn_fwd_f32": n_layers * n_inner, "flash_attn_bwd_f32": 0}
+                    "flash_attn_fwd_f32": n_layers * n_inner, "flash_attn_bwd_f32": 0,
+                    "lstm_fwd": lstm_layers(cfg) * n_inner}
             if launches != want:
                 raise AssertionError(f"f32 serving launch counts {launches} != {want}")
         if tf32_flags() != flags:
@@ -1665,7 +1812,7 @@ def phase_train_f32(card: str) -> dict:
         n_steps, n_val = len(dm.train_dataloader()), len(dm.val_dataloader())
         want = {"logmel": 0, "flash_attn_fwd": 0, "flash_attn_bwd": 0,
                 "flash_attn_fwd_f32": n_layers * (n_steps + n_val) * TRAIN_EPOCHS,
-                "flash_attn_bwd_f32": n_layers * n_steps * TRAIN_EPOCHS}
+                "flash_attn_bwd_f32": n_layers * n_steps * TRAIN_EPOCHS, "lstm_fwd": 0}
         if launches != want:
             raise AssertionError(f"f32 training launch counts {launches} != {want}")
         if tf32_flags() != flags:
@@ -2153,7 +2300,7 @@ def phase_workflow(card: str) -> dict:
         n_layers = TRAIN_CLI_LAYERS
         want = {"logmel": 0, "flash_attn_fwd": n_layers * (n_steps + n_val),
                 "flash_attn_bwd": n_layers * n_steps, "flash_attn_fwd_f32": 0,
-                "flash_attn_bwd_f32": 0}
+                "flash_attn_bwd_f32": 0, "lstm_fwd": 0}
         if [h["epoch"] for h in h_res] != [1] or resume_launches != want:
             raise AssertionError(f"resumed fit ran epochs {[h['epoch'] for h in h_res]} with "
                                  f"launches {resume_launches} (want {want})")
@@ -2223,7 +2370,8 @@ def phase_workflow(card: str) -> dict:
         launches["predict"] = read_launches()
         want = {"logmel": n_inner * len(val_uris),
                 "flash_attn_fwd": WHISPER_BASE["encoder_layers"] * n_inner * len(val_uris),
-                "flash_attn_bwd": 0, "flash_attn_fwd_f32": 0, "flash_attn_bwd_f32": 0}
+                "flash_attn_bwd": 0, "flash_attn_fwd_f32": 0, "flash_attn_bwd_f32": 0,
+                "lstm_fwd": lstm_layers(wcfg) * n_inner * len(val_uris)}
         if launches["predict"] != want:
             raise AssertionError(f"predict CLI launch counts {launches['predict']} != {want}")
         served = checkpoint.load_model_for_inference(wcfg, tmp / "whisper_ck", device="cuda")
@@ -2595,6 +2743,7 @@ def phase_reference_models(card: str) -> dict:
             n_inner = expected_inner_batches(cfg, n_samples) * len(val_uris)
             want = {k: 0 for k in got}
             want[kernel] = n_layers * n_inner
+            want["lstm_fwd"] = lstm_layers(cfg) * n_inner
             if cfg.model.name != "surgical_hubert_hydra":
                 want["logmel"] = n_inner
             if got != want:
@@ -2692,7 +2841,8 @@ def phase_reference_models(card: str) -> dict:
         got = read_launches()
         n_batches = TRAIN_EPOCHS * (n_steps + n_val)
         want = {"logmel": n_batches, "flash_attn_fwd": WHISPER_BASE["encoder_layers"] * n_batches,
-                "flash_attn_bwd": 0, "flash_attn_fwd_f32": 0, "flash_attn_bwd_f32": 0}
+                "flash_attn_bwd": 0, "flash_attn_fwd_f32": 0, "flash_attn_bwd_f32": 0,
+                "lstm_fwd": lstm_layers(tcfg) * TRAIN_EPOCHS * n_val}
         if got != want:
             raise AssertionError(f"whisperimax fit: launch counts {got} != {want}")
         launches["whisperimax fit"] = got
@@ -2938,6 +3088,7 @@ def phase_model_families(card: str) -> dict:
             want = dict.fromkeys(run["launches"], 0)
             if name in FAMILY_LOGMEL:  # every step and val batch, and no other path
                 want["logmel"] = TRAIN_EPOCHS * (run["n_steps"] + n_val)
+            want["lstm_fwd"] = lstm_layers(cfg) * TRAIN_EPOCHS * n_val  # validation only
             if run["launches"] != want:
                 raise AssertionError(f"{name} fit: launch counts {run['launches']} != {want}")
             launches[f"{name} fit"] = run["launches"]
@@ -3005,6 +3156,7 @@ def phase_model_families(card: str) -> dict:
                 want = dict.fromkeys(got, 0)
                 if name in FAMILY_LOGMEL:
                     want["logmel"] = n_inner
+                want["lstm_fwd"] = lstm_layers(cfg) * n_inner
                 if got != want:
                     raise AssertionError(f"{name} predict CLI {precision}: launch counts {got} "
                                          f"!= {want}")
@@ -3545,7 +3697,7 @@ def phase_train_cli(card: str) -> dict:
         n_steps = 4
         want = {"logmel": 0, "flash_attn_fwd": n_layers * TRAIN_CLI_EPOCHS * 2 * n_steps
                 + n_layers * 2 * 2, "flash_attn_bwd": n_layers * TRAIN_CLI_EPOCHS * n_steps,
-                "flash_attn_fwd_f32": 0, "flash_attn_bwd_f32": 0}
+                "flash_attn_fwd_f32": 0, "flash_attn_bwd_f32": 0, "lstm_fwd": 0}
         if launches != want:
             raise AssertionError(f"cli.train launch counts {launches} != {want} (remat: two "
                                  "forward launches per layer and step)")
@@ -3684,7 +3836,7 @@ SERVE_STREAMS = 4  # concurrent HTTP streaming sessions, and one WebSocket sessi
 SERVE_PUSH_S = 0.5
 SERVE_WINDOW_MS = 5.0
 ADPCM_SIGNAL_S = 600.0
-SERVE_LAUNCH_KEYS = ("logmel", "flash_attn_fwd")  # the serving path's kernels (bf16)
+SERVE_LAUNCH_KEYS = ("logmel", "flash_attn_fwd", "lstm_fwd")  # the serving path's kernels (bf16)
 
 
 def _p50_p90(xs: list[float]) -> str:
@@ -4123,7 +4275,8 @@ EXPORT_F32_BUCKET = 8  # the f32 artifact's one bucket, also its inner batch
 EXPORT_STREAM_BATCHES = (2,)
 EXPORT_STREAM_S = 60.0  # audio streamed over the artifact and the live model
 EXPORT_BUNDLE_CLIP_S = 20.0  # the clip each bundle model segments over HTTP
-EXPORT_OPS = ("segma_tpu_torch.log10_mel.default", "segma_tpu_torch.flash_attn_fwd.default")
+EXPORT_OPS = ("segma_tpu_torch.log10_mel.default", "segma_tpu_torch.flash_attn_fwd.default",
+              "segma_tpu_torch.lstm.default")
 # the artifact's loader, a fresh process: it imports segma_tpu_torch.ops and
 # segma_tpu_torch.export (and the stdlib, numpy, torch) and must not import
 # the model package; it writes the WAV's logits, its times, the launch
@@ -4270,9 +4423,12 @@ def phase_export(card: str) -> dict:
         n_inner = sum(-(-b // batch) for b in plan)
         counts = report["launches"]
         paths["export child bf16"] = counts
-        if counts["logmel"] != n_inner or counts["flash_attn_fwd"] != n_layers * n_inner:
-            raise AssertionError(f"artifact launches {counts}, not log-mel {n_inner} and flash "
-                                 f"{n_layers * n_inner} (plan {plan})")
+        lstm_layers = model.module.lstm_shared.cfg.num_layers
+        if (counts["logmel"] != n_inner or counts["flash_attn_fwd"] != n_layers * n_inner
+                or counts["lstm_fwd"] != lstm_layers * n_inner):
+            raise AssertionError(f"artifact launches {counts}, not log-mel {n_inner}, flash "
+                                 f"{n_layers * n_inner} and lstm {lstm_layers * n_inner} "
+                                 f"(plan {plan})")
         verdict = _same_or_near("bf16 artifact logits", np.load(tmp / "child.npy"),
                                 live_logits, LOGITS_ATOL)
         warm_s = min(report["walls"][1:])
@@ -4353,7 +4509,8 @@ def phase_export(card: str) -> dict:
         counts32 = paths["export f32"] = read_launches()
         plan32 = _bucket_plan(needed, [EXPORT_F32_BUCKET])
         if (counts32["logmel"] != len(plan32)
-                or counts32["flash_attn_fwd_f32"] != n_layers * len(plan32)):
+                or counts32["flash_attn_fwd_f32"] != n_layers * len(plan32)
+                or counts32["lstm_fwd"] != lstm_layers * len(plan32)):
             raise AssertionError(f"f32 artifact launches {counts32}, plan of {len(plan32)}")
         verdict32 = _same_or_near("f32 artifact logits", got32, ref32, LOGITS_F32_ATOL)
         print(f"export f32 [{card}]: {sum(walls32.values()):.1f} s for {len(walls32)} programs, "
@@ -6110,7 +6267,7 @@ def profile_run(card: str, label: str, fn, wall_s: float) -> list[str]:
     ranked = sorted(events, key=lambda e: -e.self_device_time_total)
     # the 15 longest, and the port's own kernels wherever they rank
     for rank, e in enumerate(ranked):
-        if rank < 15 or any(k in e.key for k in ("flash_", "logmel_")):
+        if rank < 15 or any(k in e.key for k in ("flash_", "logmel_", "lstm_fwd")):
             print(f"profile {label} kernel: {e.self_device_time_total / 1e3:9.2f} ms "
                   f"{e.count:6d}x #{rank + 1} {e.key[:100]}", flush=True)
     return [e.key for e in ranked]
@@ -6140,6 +6297,7 @@ def main() -> int:
     fwd.update(fwd_train)  # the training shape's times, with and without the LSE
     rows.append(bwd_row)
     rows.extend(flash_f32_checks(card))
+    rows.append(lstm_checks(card))
     with torch.inference_mode():
         fast = fast_context_kernel_times(card)
         unequal = flash_unequal_checks(card)
@@ -6220,7 +6378,7 @@ def main() -> int:
     by_name["logmel"]["vad_train"] = families["logmel"]
     # the artifacts' runs: the bf16 one in its loader child, the f32 one here
     for name, path in (("logmel", "export child bf16"), ("flash_attn_fwd", "export child bf16"),
-                       ("flash_attn_fwd_f32", "export f32")):
+                       ("flash_attn_fwd_f32", "export f32"), ("lstm_fwd", "export child bf16")):
         by_name[name]["launches_export"] = export[path][name]
     print(json.dumps({"kernels": rows}), flush=True)
     paths = {"serve": serve, "train": train, "workflow_resume": workflow["resume"],

@@ -3,7 +3,8 @@
 Sliding-window speech segmentation with the JAX package's ten models (the
 reference's six: the five Whisper variants, ``surgical_hydra`` by default,
 and ``surgical_hubert_hydra``; and ``surgical_wavlm_hydra``,
-``sincnet_hydra``, ``conv_vad`` and ``powerset_vad``), the log-mel frontend and flash attention as
+``sincnet_hydra``, ``conv_vad`` and ``powerset_vad``), the log-mel
+frontend, flash attention and the LSTM's recurrence in inference as
 hand-written CUDA kernels (``csrc/``), training, checkpoints in the JAX
 package's format, and the import of reference checkpoints. The
 package imports torch and numpy, and msgpack and yaml for checkpoints. Its

@@ -54,8 +54,9 @@ class LSTMConfig:
     bidirectional: bool
     dropout: float
     # JAX's lax.scan unroll factor: it changes how XLA schedules the steps,
-    # not the math. cuDNN's LSTM has no such knob, so the port reads it,
-    # checks it and writes it back, and it has no effect here
+    # not the math. The port's LSTM (cuDNN, or its kernel in inference) has
+    # no such knob, so the port reads it, checks it and writes it back, and
+    # it has no effect here
     unroll: int = 1
 
 

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the flash kernels, forward
 // (flash_attn.cu, and in f32 flash_attn_f32.cu) and backward
-// (flash_attn_bwd.cu, and in f32 flash_attn_bwd_f32.cu), and the log-mel
-// kernel (logmel.cu): TMA tensor maps and loads, mbarriers, named barriers,
+// (flash_attn_bwd.cu, and in f32 flash_attn_bwd_f32.cu), the log-mel kernel
+// (logmel.cu) and the LSTM's recurrence (lstm_fwd.cu, which takes the
+// mbarriers and cp.async): TMA tensor maps and loads, mbarriers, named barriers,
 // register reallocation, wgmma (bf16, and TF32 for the 3xTF32 products of
 // log-mel and the f32 flash kernels) with its shared-memory descriptors,
 // cp.async; and, in namespace tf32x3, the tiles and products the two f32

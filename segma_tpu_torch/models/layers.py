@@ -97,7 +97,7 @@ class BiLSTM(nn.Module):
     """Multi-layer (optionally bidirectional) LSTM, batch first, in IEEE f32
     whatever the model's dtype and the caller's TF32 flags (``no_tf32``).
 
-    One ``torch.nn.LSTM`` (cuDNN on the card); its gate order i, f, g, o and
+    One ``torch.nn.LSTM`` holds the weights; its gate order i, f, g, o and
     parameter names ``weight_ih_l{n}[_reverse]`` are what the weight bridge
     (``convert.flax_to_torch``) fills. A flax ``OptimizedLSTMCell`` has one
     bias per gate where torch has two, ``bias_ih`` and ``bias_hh``: here
@@ -105,12 +105,18 @@ class BiLSTM(nn.Module):
     so the optimizer updates and decays the one bias as optax does. cuDNN
     takes both biases or none, so ``bias_ih`` stays a parameter of the LSTM.
 
-    Dropout (``cfg.dropout``) applies between layers with ``train=True``, its
-    masks drawn from the caller's generator; the layers then run one
-    ``torch.lstm`` call each. Under a ``torch.export`` trace the LSTM is the
-    registered op ``ops.rnn.lstm``, which makes the module's own
-    ``torch.lstm`` call when the program runs and gives the trace its shape
-    at once (``aten.lstm`` is traced one cell step at a time).
+    Inference on a card (``train=False``, no gradient wanted: under
+    ``SegmentationModel.apply``'s ``inference_mode`` or validation's
+    ``no_grad``) runs the port's kernel, ``ops.rnn.lstm_cuda``: an f32 GEMM
+    and one launch of ``csrc/lstm_fwd.cu`` per layer, for a hidden size the
+    kernel takes (``ops.rnn.kernel_path``). Every other call is
+    ``torch.lstm`` (cuDNN on the card): training, a call that wants a
+    gradient, the CPU. Dropout (``cfg.dropout``) applies between layers with
+    ``train=True``, its masks drawn from the caller's generator; the layers
+    then run one ``torch.lstm`` call each. Under a ``torch.export`` trace the
+    LSTM is the registered op ``ops.rnn.lstm``, which routes the same way when
+    the program runs and gives the trace its shape at once (``aten.lstm`` is
+    traced one cell step at a time).
     """
 
     def __init__(self, input_size: int, cfg: LSTMConfig) -> None:
@@ -133,9 +139,9 @@ class BiLSTM(nn.Module):
         """``keep``: return ``out[:, :keep]`` only, as the JAX module does.
 
         The JAX module saves work by running the last layer's forward
-        direction on ``x[:, :keep]``; the result is the same rows. Here cuDNN
-        runs both directions of a layer in one call, so the whole sequence
-        runs and is sliced."""
+        direction on ``x[:, :keep]``; the result is the same rows. Here both
+        directions of a layer run in one call (one kernel launch, or one
+        cuDNN call), so the whole sequence runs and is sliced."""
         x = x.float()
         with no_tf32(), telemetry.span("model.bilstm", cuda_time=True):
             if train and self.cfg.dropout > 0 and self.cfg.num_layers > 1:
@@ -147,11 +153,26 @@ class BiLSTM(nn.Module):
                     x = self._layer(x, layer)
                 out = x
             elif torch.compiler.is_compiling():  # the module's own call, as one op
-                out = rnn.lstm(x, [getattr(self.lstm, n) for n in self.lstm._flat_weights_names],
-                               self.cfg.num_layers, self.cfg.bidirectional, self.lstm.training)
+                out = rnn.lstm(x, self.weights, self.cfg.num_layers, self.cfg.bidirectional,
+                               train)
+            elif self.takes_kernel(x, train):
+                out = rnn.lstm_cuda(x, self.weights, self.cfg.num_layers, self.cfg.bidirectional)
             else:
                 out, _ = self.lstm(x)
         return out[:, :keep] if keep is not None else out
+
+    def takes_kernel(self, x: torch.Tensor, train: bool) -> bool:
+        """Whether a call on ``x`` runs the kernel (``ops.rnn.kernel_path``):
+        a gradient is wanted where autograd records and ``x`` or a weight
+        requires one."""
+        needs_grad = torch.is_grad_enabled() and (
+            x.requires_grad or any(w.requires_grad for w in self.weights))
+        return rnn.kernel_path(x.device, self.cfg.hidden_size, train, needs_grad)
+
+    @property
+    def weights(self) -> list[torch.Tensor]:
+        """The LSTM's flat weights, four per layer and direction."""
+        return [getattr(self.lstm, n) for n in self.lstm._flat_weights_names]
 
     def _layer(self, x: torch.Tensor, layer: int) -> torch.Tensor:
         """Layer ``layer`` of the LSTM alone, on its own weights."""

@@ -1,7 +1,7 @@
-"""Operators: the log-mel frontend and attention, each with its CUDA kernel,
-and the kernel wrappers' launch counters (``telemetry``'s counters
-``launch.<kernel>``, counted under its lock: the replicas of a mesh launch
-from threads of their own).
+"""Operators: the log-mel frontend, attention and the LSTM's recurrence,
+each with its CUDA kernel, and the kernel wrappers' launch counters
+(``telemetry``'s counters ``launch.<kernel>``, counted under its lock: the
+replicas of a mesh launch from threads of their own).
 
 Importing this package registers the port's ``torch.library`` ops in the
 ``segma_tpu_torch`` namespace (``segma_tpu_torch::log10_mel``,
@@ -19,9 +19,10 @@ import torch
 from segma_tpu_torch import telemetry
 
 # the kernel wrappers' counters, by kernel: log-mel, the bf16 flash forward
-# and backward (one per call, which runs the dq and the dkv kernel), the f32 ones
+# and backward (one per call, which runs the dq and the dkv kernel), the f32
+# ones, and the LSTM's recurrence (one per layer call)
 LAUNCH_KEYS = ("logmel", "flash_attn_fwd", "flash_attn_bwd", "flash_attn_fwd_f32",
-               "flash_attn_bwd_f32")
+               "flash_attn_bwd_f32", "lstm_fwd")
 
 
 def cached_constant(cache: dict, key: Hashable, make: Callable[[], Any]) -> Any:

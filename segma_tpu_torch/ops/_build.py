@@ -125,6 +125,10 @@ def library() -> ctypes.CDLL:
             lib.segma_flash_attn_fwd_f32.restype = i
             lib.segma_flash_attn_bwd_f32.argtypes = [p] * 10 + [i, i, i, f, f, p]
             lib.segma_flash_attn_bwd_f32.restype = i
+            lib.segma_lstm_fwd.argtypes = [p, p, p, i, i, i, i, p]
+            lib.segma_lstm_fwd.restype = i
+            lib.segma_lstm_fwd_clusters.argtypes = [i, ctypes.POINTER(i)]
+            lib.segma_lstm_fwd_clusters.restype = i
             _lib = lib
     return _lib
 

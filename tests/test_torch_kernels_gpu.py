@@ -16,10 +16,10 @@ import pytest
 import torch
 
 from chip_smoke import (
-    FLASH_F32_BWD_EDGE_S, FLASH_F32_EDGE_S, LOGMEL_BULK_FACTOR, log_mel_float64,
-    wide_range_signals,
+    FLASH_F32_BWD_EDGE_S, FLASH_F32_EDGE_S, LOGMEL_BULK_FACTOR, LSTM_ATOL, LSTM_CUDNN_ATOL,
+    log_mel_float64, wide_range_signals,
 )
-from segma_tpu_torch.ops import attention, logmel
+from segma_tpu_torch.ops import attention, logmel, rnn
 
 LOGMEL_ATOL = 1e-5  # f32 frontend: 3xTF32 products, f32 sums
 FLASH_TOL = 2e-2  # bf16 output rounding against f32 scores
@@ -151,7 +151,7 @@ def test_flash_kernel_rejects_what_it_does_not_take():
 
 @pytest.mark.gpu
 def test_tiny_surgical_hydra_card_matches_cpu():
-    """Same random weights, bf16 throughout: card (kernels, cuDNN LSTM)
+    """Same random weights, bf16 throughout: card (kernels, the LSTM's too)
     against CPU (plain path) at atol 1e-2."""
     _cuda()
     from segma_tpu_torch.config import (
@@ -920,8 +920,9 @@ def test_registered_ops_equal_the_direct_launch(dtype):
 def test_tiny_exported_program_on_the_card_launches_the_kernels(tmp_path):
     """A tiny bf16 ``surgical_hydra`` exported for the cuda platform: its
     infer program holds the log-mel, flash-forward and LSTM ops, its run
-    launches log-mel once and the flash forward once per layer, and its
-    logits equal the live pipeline's at the same inner batch."""
+    launches log-mel once, the flash forward once per layer and the LSTM
+    kernel once per LSTM layer, and its logits equal the live pipeline's at
+    the same inner batch (both through the LSTM kernel)."""
     _cuda()
     from segma_tpu_torch.config import (
         AudioConfig, Config, DataConfig, LSTMConfig, ModelConfig, SurgicalHydraConfig,
@@ -961,6 +962,7 @@ def test_tiny_exported_program_on_the_card_launches_the_kernels(tmp_path):
     after = launch_counts()
     assert after["logmel"] == before["logmel"] + 1
     assert after["flash_attn_fwd"] == before["flash_attn_fwd"] + 2
+    assert after["lstm_fwd"] == before["lstm_fwd"] + 2
     ref = InferencePipeline(model, batch_size=2).logits_for_audio(wav)
     np.testing.assert_array_equal(got, ref)
 
@@ -996,6 +998,16 @@ def test_kernels_launch_on_the_tensor_s_card():
                 q, k, v, out, lse, dout, sm)):
             scale = max(1.0, float(ref_g.abs().max()))
             assert float((got_g.float() - ref_g.float()).abs().max()) <= bwd_rel * scale
+    lstm = torch.nn.LSTM(64, 16, bidirectional=True, batch_first=True).to(other)
+    weights = [getattr(lstm, n) for n in lstm._flat_weights_names]
+    x = torch.randn((3, 40, 64), generator=g).to(other)
+    with torch.inference_mode():
+        before = rnn.launches
+        got = rnn.lstm_cuda(x, weights, 1, True)
+        assert rnn.launches == before + 1 and got.device == other
+        assert torch.cuda.current_device() == 0
+        torch.testing.assert_close(got, rnn.lstm_plain(x, weights, 1, True), atol=LSTM_ATOL,
+                                   rtol=0)
     torch.cuda.synchronize(other)
 
 
@@ -1207,3 +1219,88 @@ def test_collectives_captured_in_a_cuda_graph_give_the_eager_bits():
     for r, (p, text) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{text[-4000:]}"
         assert "mismatches []" in text, text[-2000:]
+
+
+# The BiLSTM's kernel path (the input GEMM and csrc/lstm_fwd.cu) at (B, T, I,
+# H, layers, bidirectional, keep): serving (Whisper's 1500 positions, whole
+# and kept to 199), the truncating variants' 199, odd batches (the last
+# cluster's 8 rows not all live) at H 128 and the tests' H 16, and a
+# unidirectional H 48 (six units a CTA)
+LSTM_CASES = {
+    "serving": (64, 1500, 512, 128, 2, True, None),
+    "serving-keep199": (64, 1500, 512, 128, 2, True, 199),
+    "before-lstm": (64, 199, 512, 128, 2, True, None),
+    "b1": (1, 199, 512, 128, 2, True, None),
+    "b5": (5, 1500, 512, 128, 2, True, None),
+    "b67": (67, 199, 512, 128, 2, True, None),
+    "h16-b5": (5, 300, 128, 16, 2, True, None),
+    "h16-b67": (67, 199, 128, 16, 2, True, 100),
+    "h48-unidirectional": (3, 77, 40, 48, 1, False, None),
+}
+
+
+def _bilstm_pair(i: int, h: int, layers: int, bidir: bool, seed: int):
+    """The same random ``BiLSTM`` on the CPU and on the card."""
+    import copy
+
+    from segma_tpu_torch.config import LSTMConfig
+    from segma_tpu_torch.models.layers import BiLSTM
+
+    cfg = LSTMConfig(hidden_size=h, num_layers=layers, bidirectional=bidir, dropout=0.0)
+    with torch.random.fork_rng():
+        torch.manual_seed(seed)
+        cpu = BiLSTM(i, cfg)
+    return cpu, copy.deepcopy(cpu).cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(LSTM_CASES))
+def test_lstm_kernel_matches_cudnn_and_the_cpu(case):
+    """Under ``inference_mode`` ``BiLSTM`` runs the kernel, one launch a
+    layer, within LSTM_ATOL of the CPU's f32 ``torch.lstm`` and within
+    LSTM_CUDNN_ATOL of cuDNN's (TF32 off): f32 sums in another order than
+    either, the rounding carried through every step; cuDNN itself lies up to
+    1.2e-5 from the CPU (chip_smoke.py). Two calls, and the registered op,
+    give the same bits."""
+    _cuda()
+    b, t, i, h, layers, bidir, keep = LSTM_CASES[case]
+    cpu, card = _bilstm_pair(i, h, layers, bidir, seed=b + t)
+    x = torch.from_numpy(np.random.default_rng(t).standard_normal((b, t, i)).astype(np.float32))
+    with torch.inference_mode():
+        before = rnn.launches
+        got = card(x.cuda(), keep=keep)
+        torch.cuda.synchronize()
+        assert rnn.launches == before + layers
+        cudnn = card.lstm(x.cuda())[0][:, :keep]
+        ref = cpu(x, keep=keep)
+        assert got.shape == ref.shape == (b, keep or t, (2 if bidir else 1) * h)
+        errs = [float((got.cpu() - ref).abs().max()), float((got - cudnn).abs().max()),
+                float((cudnn.cpu() - ref).abs().max())]
+        print(f"lstm {case}: kernel from the CPU {errs[0]:.3e}, from cuDNN {errs[1]:.3e}; "
+              f"cuDNN from the CPU {errs[2]:.3e}")
+        assert errs[0] <= LSTM_ATOL and errs[1] <= LSTM_CUDNN_ATOL, errs
+        assert torch.equal(got, card(x.cuda(), keep=keep))
+        op = rnn.lstm(x.cuda(), card.weights, layers, bidir, False)
+        assert torch.equal(op[:, :keep], got)
+
+
+@pytest.mark.gpu
+def test_lstm_call_needing_a_gradient_takes_cudnn():
+    """With grad mode on and weights that require a gradient, or with
+    ``train=True``, ``BiLSTM`` calls ``torch.lstm`` (cuDNN) and launches no
+    kernel; under ``no_grad`` (validation) it takes the kernel."""
+    _cuda()
+    _, card = _bilstm_pair(64, 16, 2, True, seed=5)
+    x = torch.randn((3, 50, 64), generator=torch.Generator().manual_seed(6)).cuda()
+    before = rnn.launches
+    out = card(x)
+    assert rnn.launches == before and out.requires_grad
+    assert torch.equal(out, card.lstm(x)[0])
+    out.sum().backward()
+    assert all(w.grad is not None for w in card.weights if w.requires_grad)
+    with torch.no_grad():
+        trained = card(x, train=True)
+        assert rnn.launches == before
+        assert torch.equal(trained, card.lstm(x)[0])
+        card(x)
+    assert rnn.launches == before + 2

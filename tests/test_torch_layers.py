@@ -1,6 +1,7 @@
 """Building-block parity: BiLSTM (with and without ``keep``),
 LayerWeightedSum, HydraHeads and MLPHead against the flax modules with the
-same (bridged) weights, in f32 at atol 1e-5."""
+same (bridged) weights, in f32 at atol 1e-5; and the BiLSTM's kernel path
+on the CPU (``ops.rnn``): its plain version, its routing and size rules."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from segma_tpu.models import layers as jl
 from segma_tpu_torch.config import LSTMConfig
 from segma_tpu_torch.convert import lstm_state
 from segma_tpu_torch.models import layers
+from segma_tpu_torch.ops import rnn
 
 ATOL = 1e-5
 
@@ -204,3 +206,135 @@ def test_bf16_model_runs_its_f32_parts_without_tf32(monkeypatch, train):
     # heads, and the LSTM's one call or its two layers
     assert len(seen) == (3 if train else 2) and set(seen) == {(False, False)}
     assert after == (True, True)
+
+
+# The LSTM's kernel path (ops/rnn.py) on the CPU: the plain version of its
+# decomposition, the routing rule, and the size rule
+
+LSTM_PLAIN_CASES = {  # (B, T, I, H, layers, bidirectional)
+    "bidirectional-2": (2, 50, 8, 16, 2, True),
+    "unidirectional-1": (3, 12, 5, 8, 1, False),
+    "odd-h48": (5, 33, 24, 48, 2, True),
+    "one-step": (1, 1, 4, 16, 2, True),
+}
+
+
+@pytest.mark.parametrize("case", list(LSTM_PLAIN_CASES))
+def test_lstm_plain_matches_torch_lstm(case):
+    """The kernel's decomposition, in PyTorch operations (one input GEMM a
+    layer with both biases, then the steps, the reverse direction from the
+    last), against ``torch.lstm``: the same f32 operations per step in
+    another order, over at most 50 steps."""
+    b, t, i, h, n_layers, bidir = LSTM_PLAIN_CASES[case]
+    torch.manual_seed(t)
+    lstm = torch.nn.LSTM(i, h, num_layers=n_layers, bidirectional=bidir, batch_first=True)
+    weights = [getattr(lstm, n) for n in lstm._flat_weights_names]
+    x = torch.from_numpy(_x((b, t, i), seed=t))
+    with torch.no_grad():
+        got = rnn.lstm_plain(x, weights, n_layers, bidir)
+        np.testing.assert_allclose(got.numpy(), lstm(x)[0].numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("device,hidden,train,needs_grad,want", [
+    ("cuda", 128, False, False, True),
+    ("cuda", 16, False, False, True),
+    ("cuda", 256, False, False, True),
+    ("cpu", 128, False, False, False),
+    ("cuda", 128, True, False, False),
+    ("cuda", 128, False, True, False),
+    ("cuda", 24, False, False, False),
+    ("cuda", 272, False, False, False),
+    ("cuda", 8, False, False, False),
+], ids=["serving", "h16", "h256", "cpu", "training", "gradient", "h24", "h272", "h8"])
+def test_lstm_kernel_path_rule(device, hidden, train, needs_grad, want):
+    assert rnn.kernel_path(torch.device(device), hidden, train, needs_grad) is want
+
+
+@pytest.mark.parametrize("mode,want", [
+    ("inference_mode", False), ("no_grad", False), ("grad", True),
+    ("grad_frozen", False), ("grad_frozen_input", True),
+])
+def test_bilstm_asks_for_the_kernel_without_gradient(monkeypatch, mode, want):
+    """``BiLSTM.takes_kernel`` hands ``kernel_path`` whether a gradient is
+    wanted: grad mode on and the input or a weight requiring one."""
+    mod = layers.BiLSTM(5, LSTMConfig(hidden_size=16, num_layers=2, bidirectional=True,
+                                      dropout=0.0))
+    seen = []
+    monkeypatch.setattr(rnn, "kernel_path", lambda *args: seen.append(args) or False)
+    x = torch.from_numpy(_x((2, 7, 5)))
+    if mode.startswith("grad_frozen"):
+        for w in mod.weights:
+            w.requires_grad_(False)
+        x.requires_grad_(mode == "grad_frozen_input")
+    context = {"inference_mode": torch.inference_mode, "no_grad": torch.no_grad}.get(
+        mode, torch.enable_grad)
+    with context():
+        mod.takes_kernel(x, False)
+    assert seen == [(x.device, 16, False, want)]
+
+
+@pytest.mark.parametrize("takes", [True, False], ids=["kernel", "torch_lstm"])
+def test_bilstm_forward_follows_the_rule(monkeypatch, takes):
+    """Where the rule takes the call, ``BiLSTM`` runs ``rnn.lstm_cuda`` (here
+    stood in for by the plain version) on its flat weights, and ``keep``
+    slices its output; else its own ``torch.lstm`` call."""
+    mod = layers.BiLSTM(5, LSTMConfig(hidden_size=16, num_layers=2, bidirectional=True,
+                                      dropout=0.0))
+    calls = []
+
+    def fake(x, weights, n_layers, bidir):
+        calls.append((tuple(x.shape), n_layers, bidir))
+        assert all(w is v for w, v in zip(weights, mod.lstm._flat_weights))
+        return rnn.lstm_plain(x, weights, n_layers, bidir)
+
+    monkeypatch.setattr(rnn, "lstm_cuda", fake)
+    monkeypatch.setattr(mod, "takes_kernel", lambda x, train: takes)
+    x = torch.from_numpy(_x((2, 9, 5), seed=3))
+    with torch.inference_mode():
+        got = mod(x, keep=4)
+        ref = mod.lstm(x)[0][:, :4]
+    assert calls == ([((2, 9, 5), 2, True)] if takes else [])
+    if takes:
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-6)
+    else:
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("hidden", [8, 24, 264, 512])
+def test_lstm_kernel_refuses_an_unsupported_hidden_size_before_any_launch(monkeypatch, hidden):
+    """The size rule raises before the library is built or a kernel launched."""
+    def never(*_):
+        raise AssertionError("reached the kernel library")
+
+    monkeypatch.setattr(rnn._build, "library", never)
+    monkeypatch.setattr(rnn, "launch", never)
+    lstm = torch.nn.LSTM(4, hidden, batch_first=True)
+    with pytest.raises(ValueError, match="hidden size"):
+        rnn.lstm_cuda(torch.zeros((1, 3, 4)), list(lstm._flat_weights), 1, False)
+    assert not rnn.supports(hidden)
+
+
+def test_lstm_kernel_refuses_a_cpu_tensor_before_any_launch(monkeypatch):
+    def never(*_):
+        raise AssertionError("reached the kernel library")
+
+    monkeypatch.setattr(rnn._build, "library", never)
+    lstm = torch.nn.LSTM(4, 16, batch_first=True)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rnn.lstm_cuda(torch.zeros((1, 3, 4)), list(lstm._flat_weights), 1, False)
+
+
+@pytest.mark.parametrize("mode", ["inference_mode", "no_grad", "grad", "train"])
+def test_bilstm_on_the_cpu_is_its_torch_lstm(mode):
+    """On the CPU every call is the module's own ``torch.lstm``, bit for bit;
+    the registered op's CPU implementation too."""
+    mod = layers.BiLSTM(5, LSTMConfig(hidden_size=16, num_layers=2, bidirectional=True,
+                                      dropout=0.0))
+    x = torch.from_numpy(_x((2, 13, 5), seed=4))
+    context = {"inference_mode": torch.inference_mode, "no_grad": torch.no_grad}.get(
+        mode, torch.enable_grad)
+    with context():
+        got = mod(x, train=mode == "train")
+        ref = mod.lstm(x)[0]
+        op = rnn.lstm(x, mod.weights, 2, True, mode == "train")
+    assert torch.equal(got, ref) and torch.equal(op, ref)
