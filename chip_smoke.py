@@ -218,7 +218,15 @@ exits nonzero without printing the final result line:
    a replay counting its captured launches), ``launches_tensor_seq`` and
    ``launches_train_tensor_seq``; both flash
    forwards carry ``unequal_lengths``,
-   their times, bounds and SDPA times at FLASH_UNEQUAL_SHAPES.
+   their times, bounds and SDPA times at FLASH_UNEQUAL_SHAPES; then the
+   ``wavlm_attn`` JSON line: WavLM's gated-bias attention kernel
+   (``wavlm_attn_checks``: against its plain version at WAVLM_ATTN_SHAPES,
+   timed at WAVLM_TIMED_SHAPES beside the plain version and SDPA with the
+   materialised bias), WavLM-Large at its published widths
+   (``wavlm_large_steps``: one step's gradients, f32 and bf16, against the
+   plain f32 reference; f32 and bf16 steps from the same weights; a served
+   inner batch), and the kernel's launches
+   on every path.
 12. last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -1287,6 +1295,18 @@ def lstm_bounds(b: int, t: int, hidden: int, dirs: int) -> dict:
             "bytes_ms": n_bytes / PEAK_BYTES_PER_S * 1e3}
 
 
+def wavlm_layers(cfg) -> int:
+    """The gated-bias attention kernel's launches an inner batch (or
+    validation batch) of ``cfg``'s model in inference: a WavLM's layers in
+    bf16 (its snapshot's, WavLM-base's without one), 0 otherwise. Training
+    steps run the plain attention and launch none."""
+    if cfg.model.name != "surgical_wavlm_hydra" or cfg.train.precision == "f32":
+        return 0
+    from segma_tpu_torch.models.wavlm.convert import read_wavlm_config
+
+    return read_wavlm_config(Path(cfg.model.config.wav_encoder)).n_layers
+
+
 def lstm_layers(cfg) -> int:
     """The LSTM kernel's launches an inner batch (or validation batch) of
     ``cfg``'s model in inference: the layers of its BiLSTM (the Whisper
@@ -1390,6 +1410,249 @@ def lstm_checks(card: str) -> dict:
         "input_gemm_ms": median(times["input GEMM"]), "plain_ms": plain_ms,
         "library_ms": median(times["cudnn"]), "clusters": clusters.value, **bounds,
     }
+
+
+# WavLM's gated-bias attention (op segma_tpu_torch::wavlm_attn_fwd): WavLM-Large's
+# serving shape, WavLM-base's, 30 s windows' lengths, and the edges of the
+# kernel's 128-row and 128-key tiles; (B, T, H, 64)
+WAVLM_ATTN_SHAPES = ((INNER_BATCH, 199, 16, 64), (INNER_BATCH, 199, 12, 64), (8, 800, 16, 64),
+                     (8, 1500, 16, 64), (3, 1, 2, 64), (2, 127, 4, 64), (2, 129, 4, 64),
+                     (2, 256, 3, 64), (1, 4096, 2, 64))
+WAVLM_TIMED_SHAPES = WAVLM_ATTN_SHAPES[:4]
+# WavLM-Large's encoder config (huggingface.co/microsoft/wavlm-large), the port's keys
+WAVLM_LARGE = dict(hidden_size=1024, n_layers=24, n_heads=16, ffn_dim=4096,
+                   feat_extract_norm="layer", conv_bias=False, stable_layer_norm=True)
+WAVLM_LARGE_STEPS = 3
+WAVLM_LARGE_GRAD_ATOL = 1e-4  # the f32 port's gradients, per leaf (tests' GRAD_ATOL)
+WAVLM_LARGE_BF16_GRAD_GAP = 0.1  # the bf16 port's, all leaves' relative norm
+
+
+def wavlm_attn_inputs(shape, seed: int):
+    """q, k, v N(0, 1) in bf16, gates in (1, 3) as WavLM's ``a (b c - 1) +
+    2`` with c near 1 gives, and N(0, 1) rows (the benchmark's draw of the
+    relative-position table): a bias as large as the scores."""
+    import torch
+
+    b, t, h, d = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    gate = 1.0 + 2.0 * torch.rand((b, h, t), device="cuda", generator=g)
+    rel = torch.randn((h, 2 * t - 1), device="cuda", generator=g)
+    return q, k, v, gate, rel
+
+
+def wavlm_attn_bound_ms(b: int, t: int, h: int, d: int) -> float:
+    """The two products at the bf16 peak, or q, k, v read and the output
+    written once in bf16 with the f32 gate and rows read, at HBM rate."""
+    n_bytes = 8 * b * t * h * d + 4 * b * h * t + 4 * h * (2 * t - 1)
+    return bound_ms(4 * b * h * t * t * d, PEAK_BF16_FLOPS, n_bytes)[0]
+
+
+def wavlm_attn_checks(card: str) -> dict:
+    """The gated-bias attention kernel against ``wavlm_attention_plain`` (f32
+    scores, the bias materialised) at WAVLM_ATTN_SHAPES within the bf16
+    flash forward's tolerance, one launch a call, bitwise over two launches
+    and through the registered op; then timed in turns at WAVLM_TIMED_SHAPES
+    beside the plain version and, as the library's yardstick, SDPA with the
+    materialised (B, H, T, T) bias as its bf16 ``attn_mask``."""
+    import torch
+    import torch.nn.functional as F
+
+    from segma_tpu_torch.ops import attention, launch_counts
+    from segma_tpu_torch.ops.attention import relative_bias
+
+    sm = 64**-0.5
+    errs = []
+    for shape in WAVLM_ATTN_SHAPES:
+        q, k, v, gate, rel = wavlm_attn_inputs(shape, sum(shape))
+        before = launch_counts()["wavlm_attn_fwd"]
+        out = attention.wavlm_attn_fwd(q, k, v, gate, rel, sm)
+        if launch_counts()["wavlm_attn_fwd"] != before + 1:
+            raise AssertionError(f"wavlm_attn_fwd {shape}: not one launch")
+        ref = attention.wavlm_attention_plain(q.float(), k.float(), v.float(), gate, rel, sm)
+        errs.append(check_close(f"wavlm_attn_fwd {shape}", out, ref, FLASH_ATOL, FLASH_RTOL))
+        if not torch.equal(out, attention.wavlm_attn_fwd(q, k, v, gate, rel, sm)):
+            raise AssertionError(f"wavlm_attn_fwd {shape}: two launches differ")
+        if not torch.equal(out, attention.wavlm_attn_op(q, k, v, gate, rel, sm)):
+            raise AssertionError(f"wavlm_attn_fwd {shape}: the registered op differs")
+        del q, k, v, gate, rel, out, ref
+        torch.cuda.empty_cache()
+    print(f"check wavlm_attn_fwd: one launch a call, bitwise over two launches and through "
+          f"the registered op, at {len(WAVLM_ATTN_SHAPES)} shapes", flush=True)
+
+    timed = {}
+    for shape in WAVLM_TIMED_SHAPES:
+        b, t, h, d = shape
+        q, k, v, gate, rel = wavlm_attn_inputs(shape, 7)
+        mask = (gate[..., None] * relative_bias(rel, t)[None]).to(torch.bfloat16)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        times = time_turns({
+            "kernel": lambda: attention.wavlm_attn_fwd(q, k, v, gate, rel, sm),
+            "op": lambda: attention.wavlm_attn_op(q, k, v, gate, rel, sm),
+            "sdpa, mask given": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                                       scale=sm),
+        })
+        plain_ms = time_ms(lambda: attention.wavlm_attention_plain(q, k, v, gate, rel, sm),
+                           iters=3)
+        bound = wavlm_attn_bound_ms(b, t, h, d)
+        row = {name: median(ts) for name, ts in times.items()}
+        row.update(plain_ms=plain_ms, bound_ms=bound, share=100 * bound / row["kernel"])
+        timed[str(shape)] = row
+        for name, ts in times.items():
+            print(f"time wavlm_attn {name} {shape} [{card}]: {spread(ts)}", flush=True)
+        print(f"time wavlm_attn_fwd {shape} [{card}]: kernel {row['kernel']:.4f} ms (op "
+              f"{row['op']:.4f}), bound {bound:.4f} ms ({row['share']:.1f}% of it), plain "
+              f"{plain_ms:.3f} ms, SDPA with the materialised bias {row['sdpa, mask given']:.4f} "
+              f"ms", flush=True)
+        del q, k, v, gate, rel, mask, qt, kt, vt
+        torch.cuda.empty_cache()
+    return {"name": "wavlm_attn_fwd", "route": "cuda",
+            "source": "segma_tpu_torch/csrc/flash_attn.cu (kBias)",
+            "replaces": "none: WavLM's biased attention is XLA "
+                        "(segma_tpu/models/wavlm/encoder.py)",
+            "max_abs_err": max(errs), "timed": timed}
+
+
+def wavlm_large_grads(model, twin) -> dict:
+    """One step's gradients of WavLM-Large at its published widths on the
+    card, 2 crops of 4 s, dropout off, at the initial weights: ``model`` (bf16)
+    and ``twin`` (the same weights in f32), each through ``forward_backward``,
+    against autograd through the plain f32 reference ``tests/plain_wavlm.py``
+    (HF's ``WavLMEncoderStableLayerNorm`` written out, nothing of the port).
+    The f32 port holds each leaf within WAVLM_LARGE_GRAD_ATOL x max(1,
+    max|g|), the CPU tests' pin at tiny widths; the bf16 port, the leaves'
+    relative norm of the difference taken together within
+    WAVLM_LARGE_BF16_GRAD_GAP."""
+    import torch
+
+    from segma_tpu_torch.train import forward_backward, make_optimizer
+    from tests import plain_wavlm
+
+    enc = twin.module.enc_cfg
+    keys = dict(hidden_size=enc.hidden_size, num_hidden_layers=enc.n_layers,
+                num_attention_heads=enc.n_heads, intermediate_size=enc.ffn_dim,
+                conv_dim=list(enc.conv_dim), conv_kernel=list(enc.conv_kernels),
+                conv_stride=list(enc.conv_strides), num_conv_pos_embeddings=enc.pos_conv_kernel,
+                num_conv_pos_embedding_groups=enc.pos_conv_groups, num_buckets=enc.num_buckets,
+                max_bucket_distance=enc.max_distance, feat_extract_norm=enc.feat_extract_norm,
+                conv_bias=enc.conv_bias, do_stable_layer_norm=enc.stable_layer_norm,
+                layer_norm_eps=1e-5)
+    rng = np.random.default_rng(25)
+    wav = torch.from_numpy((rng.standard_normal((2, 64_000)) * 0.1).astype(np.float32)).to(model.device)
+    y = torch.from_numpy((rng.random((2, model.n_windows, 4)) > 0.7).astype(np.float32)).to(model.device)
+    got = {}
+    for m in (model, twin):
+        dropout, m.module.dropout = m.module.dropout, 0.0
+        forward_backward(m, make_optimizer(m, 1e-4), wav, y, None)
+        m.module.dropout = dropout
+        got[m.compute_dtype] = {n: p.grad for n, p in m.module.named_parameters()
+                                if p.grad is not None}
+    named = dict(twin.module.named_parameters())
+    sd = {k: v.detach().clone().requires_grad_(v.requires_grad) for k, v in named.items()}
+    twin.loss(plain_wavlm.logits(sd, keys, wav), y)[0].backward()
+    want = {n: sd[n].grad for n in got[torch.float32]}
+    if set(want) != set(got[torch.bfloat16]) or any(g is None for g in want.values()):
+        raise AssertionError("WavLM-Large gradients: the port and the reference differ in leaves")
+    def leaf_gap(dtype) -> float:
+        return max(float((got[dtype][n].float() - w).abs().max()) / max(1.0, float(w.abs().max()))
+                   for n, w in want.items())
+
+    diff = sum(float((got[torch.bfloat16][n].float() - w).square().sum()) for n, w in want.items())
+    norm = sum(float(w.square().sum()) for w in want.values())
+    f32_gap, bf16_gap = leaf_gap(torch.float32), (diff / norm) ** 0.5
+    row = {"leaves": len(want), "f32_gap": f32_gap, "bf16_gap": bf16_gap,
+           "bf16_leaf_gap": leaf_gap(torch.bfloat16)}
+    print(f"check WavLM-Large gradients against the plain f32 reference: {row}", flush=True)
+    if f32_gap > WAVLM_LARGE_GRAD_ATOL or bf16_gap > WAVLM_LARGE_BF16_GRAD_GAP:
+        raise AssertionError(f"WavLM-Large gradients off the reference: {row}")
+    for m in (model, twin):
+        m.module.zero_grad(set_to_none=True)
+    return row
+
+
+def wavlm_large_steps(card: str) -> dict:
+    """WavLM-Large (``surgical_wavlm_hydra`` at its published widths and
+    layout, random weights) on the card: one step's gradients against the
+    plain f32 reference (``wavlm_large_grads``); WAVLM_LARGE_STEPS training
+    steps of 8 crops of 4 s (``make_train_step``, as ``Trainer.fit``'s step
+    dispatch runs them) in f32 and then in bf16 from the same weights and
+    batches, with finite losses; then one served inner batch of INNER_BATCH
+    windows with one gated-bias launch a layer."""
+    import warnings
+
+    import torch
+
+    from segma_tpu_torch.config import (
+        AudioConfig, Config, DataConfig, ModelConfig, SurgicalHubertHydraConfig, TrainConfig,
+    )
+    from segma_tpu_torch.models import Models
+    from segma_tpu_torch.models.wavlm.encoder import WavLMEncoderConfig
+    from segma_tpu_torch.ops import launch_counts
+    from segma_tpu_torch.train import make_optimizer, make_train_step
+    from segma_tpu_torch.utils.encoders import MultiLabelEncoder
+
+    def build(precision: str):
+        cfg = Config(data=DataConfig(classes=list(TRAIN_CLASSES)),
+                     audio=AudioConfig(chunk_duration_s=4.0, sample_rate=16_000,
+                                       strict_frames=True),
+                     model=ModelConfig(name="surgical_wavlm_hydra",
+                                       config=SurgicalHubertHydraConfig(
+                                           wav_encoder="wavlm_large_random", encoder_layers=[],
+                                           reduction="weighted", classifier=256)),
+                     train=TrainConfig(lr=1e-4, batch_size=8, precision=precision))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # random encoder weights, on purpose
+            return cfg, Models["surgical_wavlm_hydra"](
+                MultiLabelEncoder(cfg.data.classes), cfg, device="cuda",
+                generator=torch.Generator().manual_seed(0),
+                enc_cfg=WavLMEncoderConfig(**WAVLM_LARGE))
+
+    cfg, model = build("bf16")
+    twin = build("f32")[1]
+    twin.module.load_state_dict(model.module.state_dict())
+    n_params = sum(p.numel() for p in model.module.parameters())
+    grads = wavlm_large_grads(model, twin)
+    rng = np.random.default_rng(24)
+    batches = [{"x": torch.from_numpy((rng.standard_normal((8, 64_000)) * 0.1)
+                                      .astype(np.float32)).cuda(),
+                "y": torch.from_numpy((rng.random((8, model.n_windows, 4)) > 0.7)
+                                      .astype(np.float32)).cuda()}
+               for _ in range(WAVLM_LARGE_STEPS)]
+
+    def steps(m) -> list[float]:
+        step = make_train_step(m, make_optimizer(m, cfg.train.lr))
+        return [float(step(batch, torch.Generator(device="cuda").manual_seed(i))[0])
+                for i, batch in enumerate(batches)]
+
+    losses_f32 = steps(twin)
+    del twin
+    before = launch_counts()
+    t0 = time.perf_counter()
+    losses = steps(model)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / WAVLM_LARGE_STEPS
+    trained = launch_counts()["wavlm_attn_fwd"] - before["wavlm_attn_fwd"]
+    if not np.isfinite(losses + losses_f32).all() or trained:
+        raise AssertionError(f"WavLM-Large steps: losses {losses}, f32 {losses_f32}, "
+                             f"{trained} kernel launches")
+    with torch.inference_mode():
+        wav = torch.randn((INNER_BATCH, 64_000), device="cuda") * 0.1
+        before = launch_counts()["wavlm_attn_fwd"]
+        logits = model.apply(wav)
+        torch.cuda.synchronize()
+        served = launch_counts()["wavlm_attn_fwd"] - before
+    if served != WAVLM_LARGE["n_layers"] or not torch.isfinite(logits).all():
+        raise AssertionError(f"WavLM-Large served: {served} launches")
+    print(f"check WavLM-Large [{card}]: {n_params} parameters, {WAVLM_LARGE_STEPS} steps of "
+          f"8 crops, losses bf16 {losses}, f32 {losses_f32} (same weights and batches), "
+          f"{step_s:.3f} s a bf16 step (the first included), no kernel launch in training; "
+          f"one inner batch of {INNER_BATCH} served with {served} launches, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return {"losses": losses, "losses_f32": losses_f32, "step_s": step_s, "params": n_params,
+            "served_launches": served, "grads": grads}
 
 
 TRAIN_CLASSES = ["KCHI", "OCH", "MAL", "FEM"]  # data.classes of config/default.yml
@@ -1726,7 +1989,7 @@ def phase_serve_f32(card: str) -> dict:
             launches = read_launches()
             want = {"logmel": n_inner, "flash_attn_fwd": 0, "flash_attn_bwd": 0,
                     "flash_attn_fwd_f32": n_layers * n_inner, "flash_attn_bwd_f32": 0,
-                    "lstm_fwd": lstm_layers(cfg) * n_inner}
+                    "lstm_fwd": lstm_layers(cfg) * n_inner, "wavlm_attn_fwd": 0}
             if launches != want:
                 raise AssertionError(f"f32 serving launch counts {launches} != {want}")
         if tf32_flags() != flags:
@@ -1812,7 +2075,8 @@ def phase_train_f32(card: str) -> dict:
         n_steps, n_val = len(dm.train_dataloader()), len(dm.val_dataloader())
         want = {"logmel": 0, "flash_attn_fwd": 0, "flash_attn_bwd": 0,
                 "flash_attn_fwd_f32": n_layers * (n_steps + n_val) * TRAIN_EPOCHS,
-                "flash_attn_bwd_f32": n_layers * n_steps * TRAIN_EPOCHS, "lstm_fwd": 0}
+                "flash_attn_bwd_f32": n_layers * n_steps * TRAIN_EPOCHS, "lstm_fwd": 0,
+                "wavlm_attn_fwd": 0}
         if launches != want:
             raise AssertionError(f"f32 training launch counts {launches} != {want}")
         if tf32_flags() != flags:
@@ -2300,7 +2564,7 @@ def phase_workflow(card: str) -> dict:
         n_layers = TRAIN_CLI_LAYERS
         want = {"logmel": 0, "flash_attn_fwd": n_layers * (n_steps + n_val),
                 "flash_attn_bwd": n_layers * n_steps, "flash_attn_fwd_f32": 0,
-                "flash_attn_bwd_f32": 0, "lstm_fwd": 0}
+                "flash_attn_bwd_f32": 0, "lstm_fwd": 0, "wavlm_attn_fwd": 0}
         if [h["epoch"] for h in h_res] != [1] or resume_launches != want:
             raise AssertionError(f"resumed fit ran epochs {[h['epoch'] for h in h_res]} with "
                                  f"launches {resume_launches} (want {want})")
@@ -2371,7 +2635,7 @@ def phase_workflow(card: str) -> dict:
         want = {"logmel": n_inner * len(val_uris),
                 "flash_attn_fwd": WHISPER_BASE["encoder_layers"] * n_inner * len(val_uris),
                 "flash_attn_bwd": 0, "flash_attn_fwd_f32": 0, "flash_attn_bwd_f32": 0,
-                "lstm_fwd": lstm_layers(wcfg) * n_inner * len(val_uris)}
+                "lstm_fwd": lstm_layers(wcfg) * n_inner * len(val_uris), "wavlm_attn_fwd": 0}
         if launches["predict"] != want:
             raise AssertionError(f"predict CLI launch counts {launches['predict']} != {want}")
         served = checkpoint.load_model_for_inference(wcfg, tmp / "whisper_ck", device="cuda")
@@ -2842,7 +3106,7 @@ def phase_reference_models(card: str) -> dict:
         n_batches = TRAIN_EPOCHS * (n_steps + n_val)
         want = {"logmel": n_batches, "flash_attn_fwd": WHISPER_BASE["encoder_layers"] * n_batches,
                 "flash_attn_bwd": 0, "flash_attn_fwd_f32": 0, "flash_attn_bwd_f32": 0,
-                "lstm_fwd": lstm_layers(tcfg) * TRAIN_EPOCHS * n_val}
+                "lstm_fwd": lstm_layers(tcfg) * TRAIN_EPOCHS * n_val, "wavlm_attn_fwd": 0}
         if got != want:
             raise AssertionError(f"whisperimax fit: launch counts {got} != {want}")
         launches["whisperimax fit"] = got
@@ -3089,6 +3353,7 @@ def phase_model_families(card: str) -> dict:
             if name in FAMILY_LOGMEL:  # every step and val batch, and no other path
                 want["logmel"] = TRAIN_EPOCHS * (run["n_steps"] + n_val)
             want["lstm_fwd"] = lstm_layers(cfg) * TRAIN_EPOCHS * n_val  # validation only
+            want["wavlm_attn_fwd"] = wavlm_layers(cfg) * TRAIN_EPOCHS * n_val  # validation only
             if run["launches"] != want:
                 raise AssertionError(f"{name} fit: launch counts {run['launches']} != {want}")
             launches[f"{name} fit"] = run["launches"]
@@ -3157,6 +3422,7 @@ def phase_model_families(card: str) -> dict:
                 if name in FAMILY_LOGMEL:
                     want["logmel"] = n_inner
                 want["lstm_fwd"] = lstm_layers(cfg) * n_inner
+                want["wavlm_attn_fwd"] = wavlm_layers(pcfg) * n_inner
                 if got != want:
                     raise AssertionError(f"{name} predict CLI {precision}: launch counts {got} "
                                          f"!= {want}")
@@ -3697,7 +3963,8 @@ def phase_train_cli(card: str) -> dict:
         n_steps = 4
         want = {"logmel": 0, "flash_attn_fwd": n_layers * TRAIN_CLI_EPOCHS * 2 * n_steps
                 + n_layers * 2 * 2, "flash_attn_bwd": n_layers * TRAIN_CLI_EPOCHS * n_steps,
-                "flash_attn_fwd_f32": 0, "flash_attn_bwd_f32": 0, "lstm_fwd": 0}
+                "flash_attn_fwd_f32": 0, "flash_attn_bwd_f32": 0, "lstm_fwd": 0,
+                "wavlm_attn_fwd": 0}
         if launches != want:
             raise AssertionError(f"cli.train launch counts {launches} != {want} (remat: two "
                                  "forward launches per layer and step)")
@@ -5391,8 +5658,9 @@ def phase_tensor_seq(card: str) -> dict:
                 fmodel = Models[name](MultiLabelEncoder(fcfg.data.classes), fcfg, device="cuda",
                                       generator=torch.Generator().manual_seed(0))
             flimit = _bf16_limit(name, fcfg, fam_chunks)
-            # WavLM's biased attention is torch ops, as in JAX: no kernel on its path
-            keys = ("flash_attn_fwd",) if name == "surgical_hubert_hydra" else ()
+            # WavLM's gated-bias attention serves through its own kernel
+            keys = (("flash_attn_fwd",) if name == "surgical_hubert_hydra"
+                    else ("wavlm_attn_fwd",))
             paths.update(_mesh_serving(card, name, fmodel, fam_wav, tmp / name, ((1, 1, 2),),
                                        flimit, keys))
             del fmodel
@@ -6299,6 +6567,9 @@ def main() -> int:
     rows.extend(flash_f32_checks(card))
     rows.append(lstm_checks(card))
     with torch.inference_mode():
+        wavlm_row = wavlm_attn_checks(card)
+    wavlm_row["large"] = wavlm_large_steps(card)
+    with torch.inference_mode():
         fast = fast_context_kernel_times(card)
         unequal = flash_unequal_checks(card)
     for row in rows:  # a seq member's query block against its group's keys
@@ -6390,6 +6661,10 @@ def main() -> int:
              **{f"live serve {label}": counts for label, counts in live.items()},
              **export, **parallel, **tensor_seq, **train_tp}
     print(f"kernels: {json.dumps(paths)}", flush=True)
+    # WavLM's gated-bias attention, with its launches on every path that ran it
+    wavlm_row["launches"] = {label: counts.get("wavlm_attn_fwd", 0)
+                             for label, counts in paths.items() if isinstance(counts, dict)}
+    print(json.dumps({"wavlm_attn": wavlm_row}), flush=True)
     print(card, flush=True)
     print(json.dumps({
         "ok": True,

@@ -62,18 +62,7 @@ class AudioAnnotation:
 
     def to_rttm(self) -> str:
         """Serialize to an RTTM ``SPEAKER`` line."""
-        return " ".join(
-            [
-                "SPEAKER",
-                self.uid,
-                "<NA>",
-                f"{round(self.start_time_s, self.PRECISION)}",
-                f"{round(self.duration_s, self.PRECISION)}",
-                "<NA> <NA>",
-                self.label,
-                "<NA> <NA>",
-            ]
-        )
+        return rttm_line(self.uid, self.start_time_s, self.duration_s, self.label)
 
     @classmethod
     def from_rttm(cls, line: str) -> "AudioAnnotation":
@@ -98,3 +87,11 @@ class AudioAnnotation:
 
     def __repr__(self) -> str:
         return self.write()
+
+
+def rttm_line(uid: str, start_s: float, duration_s: float, label: str) -> str:
+    """One RTTM ``SPEAKER`` line, times rounded to ``AudioAnnotation.PRECISION``
+    digits: the one formatter of every RTTM the package writes."""
+    digits = AudioAnnotation.PRECISION
+    return (f"SPEAKER {uid} <NA> {round(start_s, digits)} {round(duration_s, digits)} "
+            f"<NA> <NA> {label} <NA> <NA>")

@@ -51,6 +51,18 @@
 // The launch picks one of two instantiations: at Sq = Skv the kernel is
 // compiled with one length, as it was before it took two (taking both cost
 // 4.6% at the serving shape, flash_ab.py), at Sq != Skv with both.
+//
+// WavLM's gated relative-position bias (kBias, self-attention only; entry
+// segma_wavlm_attn_fwd): every score (i, j) of head h in batch b takes
+// gate[b, h, i] * rel[h, S - 1 + j - i] before the softmax, gate (B, H, S)
+// and rel (H, 2S - 1) in f32. The bias depends on j - i alone, so no
+// (B, H, S, S) tensor exists: at each work item the consumers stage the
+// head's rel row, times log2(e), in shared memory (two buffers by the
+// item's parity, zero outside the row), keep their two rows' gates in
+// registers, and add g * rel to the f32 score fragment, scaled to the exp2
+// domain, before the row max. A thread's rows r and r + 8 read the same
+// diagonal 8 keys apart, so a tile takes 34 shared loads a thread, not 64.
+// The Whisper instantiations (kBias false) compile to the code they had.
 // No atomics, and an item's arithmetic does not depend on which block runs
 // it: two calls on the same inputs give the same bits.
 
@@ -72,6 +84,9 @@ constexpr int TILE_BYTES = BK * 64 * 2;  // one K or V tile, 16 KB
 constexpr int Q_BYTES = BQ * 64 * 2;
 constexpr int THREADS = 128 * (NC + 1);
 constexpr int SMEM_BYTES = Q_BYTES + 2 * STAGES * TILE_BYTES + 1024;  // + alignment slack
+constexpr int REL_BAR = 3;       // the named barrier of the consumers' staged rel row
+constexpr int BIAS_MAX_S = 4096; // longest sequence with a bias: its two rows 64 KB
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -158,6 +173,23 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float& m0, float& m
   l1 = l1 * a1 + sum1;
 }
 
+// Add the gated bias to a tile of raw scores and scale them to the exp2
+// domain: rb points at the staged row's entry of (row r, key 8 * 0 + 2 quad)
+// of this tile, so rb[8 n + e] is (r, key 8 n + 2 quad + e) and rb[8 n + e
+// - 8] the same key's for row r + 8; g0, g1 are rows r, r + 8's gates. The
+// softmax then runs with scale 1.
+__device__ __forceinline__ void add_bias(float (&s)[64], const float* rb, float g0, float g1,
+                                         float scale_log2) {
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[4 * n + e] = fmaf(s[4 * n + e], scale_log2, g0 * rb[8 * n + e]);
+      s[4 * n + 2 + e] = fmaf(s[4 * n + 2 + e], scale_log2, g1 * rb[8 * n + e - 8]);
+    }
+  }
+}
+
 // Rescale the O accumulator by a0, a1 and convert the probabilities to the
 // bf16 A operand of the next P V: the C fragments of score column blocks
 // 2 kk and 2 kk + 1 are the A fragments of k-step kk.
@@ -193,14 +225,17 @@ __device__ __forceinline__ Item decode(int item, int n_qt, int H) {
 
 // kEqual: self-attention (Skv = Sq), compiled with one length as the kernel
 // was before it took two (the same code, so the same time); otherwise a seq
-// member's Sq query rows against skv_arg keys.
-template <bool kEqual>
+// member's Sq query rows against skv_arg keys. kBias (with kEqual): WavLM's
+// gated relative-position bias from gate and rel.
+template <bool kEqual, bool kBias>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ o,
-                 float* __restrict__ lse, int Sq, int skv_arg, int H, int n_items,
+                 float* __restrict__ lse, const float* __restrict__ gate,
+                 const float* __restrict__ rel, int Sq, int skv_arg, int H, int n_items,
                  float scale_log2) {
+  static_assert(kEqual || !kBias, "the bias is self-attention's");
   const int Skv = kEqual ? Sq : skv_arg;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * STAGES + 2];  // full[], empty[], q full, q empty
@@ -218,6 +253,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   const int n_qt = (Sq + BQ - 1) / BQ;
   const int n_tiles = (Skv + BK - 1) / BK;
   const int wg = threadIdx.x / 128;
+  // kBias: two staged rel rows after the K and V stages, each of the
+  // differences j - i from -(n_qt BQ - 1) to n_tiles BK - 1
+  const int rel_len = n_qt * BQ + n_tiles * BK;
+  float* rel_smem = reinterpret_cast<float*>(
+      smem_raw + (base - smem_addr(smem_raw)) + Q_BYTES + 2 * STAGES * TILE_BYTES);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -290,6 +330,27 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       // as its scores are in, while P_{j-1} V_{j-1} (and the other consumer's
       // products) still run. No product sits under a condition: ptxas would
       // serialise them.
+      float g0 = 0.f, g1 = 0.f;   // kBias: the gates of this thread's rows r, r + 8
+      const float* rb = nullptr;  // kBias: the staged row at (r, key 2 quad of tile 0)
+      if constexpr (kBias) {
+        const int r = it.qt * BQ + c * 64 + (t / 32) * 16 + lane / 4;
+        // buffer round & 1 was last read in round - 2, before every consumer
+        // thread reached the previous round's REL_BAR
+        float* row = rel_smem + (round & 1) * rel_len;
+        const float* src = rel + (size_t)it.h * (2 * Sq - 1);
+        const int off = Sq - n_qt * BQ;  // the source column of entry 0
+        for (int u = threadIdx.x - 128; u < rel_len - 1; u += 128 * NC) {
+          const int col = off + u;
+          row[u] = col >= 0 && col < 2 * Sq - 1 ? src[col] * LOG2E : 0.f;
+        }
+        const float* grow = gate + ((size_t)it.b * H + it.h) * Sq;
+        g0 = r < Sq ? grow[r] : 0.f;
+        g1 = r + 8 < Sq ? grow[r + 8] : 0.f;
+        rb = row + n_qt * BQ - 1 + 2 * quad - r;
+        named_sync(REL_BAR, 128 * NC);
+      }
+      const float sm_log2 = kBias ? 1.f : scale_log2;  // the softmax's scale
+
       mbar_wait(q_full, round & 1);
       int st = tile % STAGES;
       mbar_wait(full_bar + 8 * st, (tile / STAGES) & 1);
@@ -304,7 +365,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
         __syncwarp();
         if (lane == 0) mbar_arrive(q_empty);  // Q is read
       }
-      softmax_tile(s, m0, m1, l0, l1, a0, a1, Skv, quad, scale_log2);
+      if constexpr (kBias) add_bias(s, rb, g0, g1, scale_log2);
+      softmax_tile(s, m0, m1, l0, l1, a0, a1, Skv, quad, sm_log2);
       rescale_and_pack(acc, p, s, a0, a1);
 
       for (int j = 1; j < n_tiles; ++j) {
@@ -325,7 +387,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
           __syncwarp();
           if (lane == 0) mbar_arrive(q_empty);  // Q is read
         }
-        softmax_tile(s, m0, m1, l0, l1, a0, a1, Skv - j * BK, quad, scale_log2);
+        if constexpr (kBias) add_bias(s, rb + j * BK, g0, g1, scale_log2);
+        softmax_tile(s, m0, m1, l0, l1, a0, a1, Skv - j * BK, quad, sm_log2);
         wgmma_wait<0>();  // P_{j-1} V_{j-1}
         fence_regs<32>(acc);
         fence_regs<32>(p);
@@ -352,7 +415,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       const float inv1 = 1.f / l1;
       const int r0 = it.qt * BQ + c * 64 + (t / 32) * 16 + lane / 4;
       const int r1 = r0 + 8;
-      if (lse != nullptr && quad == 0) {
+      if (!kBias && lse != nullptr && quad == 0) {
         // ln(sum exp(score * sm_scale)) = (max * scale_log2 + log2(sum)) * ln 2
         const size_t row0 = ((size_t)it.b * H + it.h) * Sq;
         if (r0 < Sq) lse[row0 + r0] = (m0 * scale_log2 + log2f(l0)) * 0.6931471805599453f;
@@ -394,11 +457,43 @@ extern "C" int segma_flash_attn_fwd(const void* q, const void* k, const void* v,
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
   const int n_items = (seq_q + BQ - 1) / BQ * heads * batch;
-  const auto kernel = seq_q == seq_kv ? flash_fwd_kernel<true> : flash_fwd_kernel<false>;
+  const auto kernel =
+      seq_q == seq_kv ? flash_fwd_kernel<true, false> : flash_fwd_kernel<false, false>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   kernel<<<n_items < n_sm ? n_items : n_sm, THREADS, SMEM_BYTES,
            static_cast<cudaStream_t>(stream)>>>(
-      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), seq_q,
-      seq_kv, heads, n_items, scale_log2);
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), nullptr,
+      nullptr, seq_q, seq_kv, heads, n_items, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// WavLM's attention: q, k, v, o contiguous (batch, seq, heads, 64) bf16,
+// 16-byte aligned; gate contiguous (batch, heads, seq) f32; rel contiguous
+// (heads, 2 seq - 1) f32 with rel[h, seq - 1 + j - i] the bias of query i and
+// key j. out = softmax(q k^T sm_scale + gate[:, :, i] rel[:, seq - 1 + j - i]) v;
+// scale_log2 is sm_scale * log2(e). Returns cudaErrorInvalidValue for seq
+// past BIAS_MAX_S or a map that cannot be encoded, else cudaGetLastError().
+extern "C" int segma_wavlm_attn_fwd(const void* q, const void* k, const void* v, void* o,
+                                    const void* gate, const void* rel, int batch, int seq,
+                                    int heads, float scale_log2, void* stream) {
+  alignas(64) CUtensorMap map_q, map_k, map_v;
+  if (seq > BIAS_MAX_S || !bshd_tensor_map(&map_q, q, batch, seq, heads, BQ) ||
+      !bshd_tensor_map(&map_k, k, batch, seq, heads, BK) ||
+      !bshd_tensor_map(&map_v, v, batch, seq, heads, BK)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int device = 0, n_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  const int n_qt = (seq + BQ - 1) / BQ;
+  const int n_items = n_qt * heads * batch;
+  const int rel_len = n_qt * BQ + (seq + BK - 1) / BK * BK;
+  const int smem = SMEM_BYTES + 2 * rel_len * static_cast<int>(sizeof(float));
+  const auto kernel = flash_fwd_kernel<true, true>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  kernel<<<n_items < n_sm ? n_items : n_sm, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), nullptr,
+      static_cast<const float*>(gate), static_cast<const float*>(rel), seq, seq, heads, n_items,
+      scale_log2);
   return static_cast<int>(cudaGetLastError());
 }

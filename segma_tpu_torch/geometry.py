@@ -81,12 +81,18 @@ class ConvolutionSettings:
         start = max(0, rf_start(first)), end = rf_end(last) + 1 — matching
         the reference's ``create_intervals`` (``inference.py:237-263``).
         Every decode path (packed device runs, mask fallback, streaming
-        emit/flush) must build intervals through this one method.
+        emit/flush) must build intervals through ``run_bounds``, which this
+        method calls for one run.
         """
-        return (
-            max(0, self.rf_start_i(int(first_frame))),
-            self.rf_end_i(int(last_frame)) + 1,
-        )
+        start, end = self.run_bounds(first_frame, last_frame)
+        return int(start), int(end)
+
+    def run_bounds(self, first: np.ndarray, last: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """``run_interval`` over arrays of runs at once: the int64 (starts,
+        ends) of [max(0, rf_start(first)), rf_end(last) + 1). The serving
+        decode unpacks a file's runs, up to hundreds of thousands, with it."""
+        first, last = np.asarray(first, np.int64), np.asarray(last, np.int64)
+        return np.maximum(self.rf_start_i(first), 0), self.rf_end_i(last) + 1
 
     @property
     def rf_size(self) -> int:

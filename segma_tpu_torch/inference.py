@@ -64,7 +64,7 @@ import numpy as np
 import torch
 
 from segma_tpu_torch import resolve_device, telemetry
-from segma_tpu_torch.annotation import AudioAnnotation
+from segma_tpu_torch.annotation import rttm_line
 from segma_tpu_torch.config import Config
 from segma_tpu_torch.geometry import ConvolutionSettings
 from segma_tpu_torch.ops import cached_constant
@@ -619,11 +619,11 @@ def unpack_run_intervals(
     counts, s_idx, e_idx = packed[:, 0], packed[:, 1 : cap + 1], packed[:, cap + 1 :]
     if int(counts.max(initial=0)) > cap:
         return None
+    starts, ends = frame_settings.run_bounds(s_idx, e_idx)
     intervals: list[tuple[int, int, str]] = []
     for li, label in enumerate(labels):
         k = int(counts[li])
-        for s, e in zip(s_idx[li, :k], e_idx[li, :k]):
-            intervals.append((*frame_settings.run_interval(s, e), label))
+        intervals.extend(zip(starts[li, :k].tolist(), ends[li, :k].tolist(), [label] * k))
     return intervals
 
 
@@ -676,10 +676,11 @@ def intervals_from_boundaries(
     """(T, L) run-boundary masks -> sample intervals."""
     intervals: list[tuple[int, int, str]] = []
     for label_i, label in enumerate(label_encoder.base_labels):
-        run_starts = np.where(starts[:, label_i])[0]
-        run_ends = np.where(ends[:, label_i])[0]
-        for s, e in zip(run_starts, run_ends):
-            intervals.append((*conv_settings.run_interval(s, e), label))
+        run_starts = np.flatnonzero(starts[:, label_i])
+        run_ends = np.flatnonzero(ends[:, label_i])
+        n = min(len(run_starts), len(run_ends))
+        lo, hi = conv_settings.run_bounds(run_starts[:n], run_ends[:n])
+        intervals.extend(zip(lo.tolist(), hi.tolist(), [label] * n))
     return intervals
 
 
@@ -696,10 +697,10 @@ def create_intervals(
     )
     diff = np.diff(padded, axis=0)
     for label_i, label in enumerate(label_encoder.base_labels):
-        starts = np.where(diff[:, label_i] == 1)[0]
-        ends = np.where(diff[:, label_i] == -1)[0]  # exclusive frame index
-        for s, e in zip(starts, ends):
-            intervals.append((*conv_settings.run_interval(s, e - 1), label))
+        starts = np.flatnonzero(diff[:, label_i] == 1)
+        ends = np.flatnonzero(diff[:, label_i] == -1)  # exclusive frame index
+        lo, hi = conv_settings.run_bounds(starts, ends - 1)
+        intervals.extend(zip(lo.tolist(), hi.tolist(), [label] * len(starts)))
     return intervals
 
 
@@ -732,20 +733,18 @@ def write_intervals(
     output_p: Path,
     rttm_dirname: str = "raw_rttm",
 ) -> Path:
-    """Write intervals as RTTM under ``output_p / rttm_dirname``."""
+    """Write intervals as RTTM under ``output_p / rttm_dirname``, in one
+    write (a file's intervals can number hundreds of thousands, written on
+    the serving thread)."""
     rttm_out = output_p / rttm_dirname
     rttm_out.mkdir(exist_ok=True, parents=True)
     uri = audio_path.stem
     out = rttm_out / f"{uri}.rttm"
-    with out.open("w") as rttm_f:
-        for start_f, end_f, label in intervals:
-            aa = AudioAnnotation(
-                uid=uri,
-                start_time_s=float(frames_to_seconds(start_f)),
-                duration_s=float(frames_to_seconds(end_f - start_f)),
-                label=str(label),
-            )
-            rttm_f.write(aa.to_rttm() + "\n")
+    out.write_text("".join(
+        rttm_line(uri, float(frames_to_seconds(start_f)),
+                  float(frames_to_seconds(end_f - start_f)), str(label)) + "\n"
+        for start_f, end_f, label in intervals
+    ))
     return out
 
 

@@ -1,6 +1,11 @@
 """Offline HuBERT checkpoint -> flax-layout parameter tree (a copy of
 ``segma_tpu/models/hubert/convert.py``; numpy, plus torch for ``*.bin``).
 
+Both layouts of HF's configs: the base models' (``feat_extract_norm``
+"group", post-norm layers) and the Large models' (``"layer"``: a LayerNorm
+after every conv; ``do_stable_layer_norm``: pre-norm layers), with or
+without ``conv_bias`` (``layout_keys``).
+
 Accepts both checkpoint families:
 
 - HF ``HubertModel`` snapshots (config.json + model.safetensors /
@@ -24,8 +29,28 @@ from typing import Any
 import numpy as np
 import torch
 
-from segma_tpu_torch.models.hubert.encoder import HubertEncoderConfig
+from segma_tpu_torch.models.hubert.encoder import FEAT_EXTRACT_NORMS, HubertEncoderConfig
 from segma_tpu_torch.utils.safetensors import load_file
+
+
+def layout_keys(cfg: dict) -> dict:
+    """The layout of an HF HuBERT or WavLM config.json, as the encoder
+    config's keywords: ``feat_extract_norm`` ("group", the base models', or
+    "layer", the Large ones'), ``conv_bias`` and ``do_stable_layer_norm``
+    (HF's defaults where absent). Raises ValueError, naming the key, on a
+    value the port cannot build."""
+    norm = cfg.get("feat_extract_norm", "group")
+    if norm not in FEAT_EXTRACT_NORMS:
+        raise ValueError(f"config.json: feat_extract_norm={norm!r} cannot be built (the port "
+                         f"builds {' or '.join(map(repr, FEAT_EXTRACT_NORMS))})")
+    flags = {}
+    for key in ("conv_bias", "do_stable_layer_norm"):
+        value = cfg.get(key, False)
+        if not isinstance(value, bool):
+            raise ValueError(f"config.json: {key}={value!r} cannot be built (needs true or false)")
+        flags[key] = value
+    return dict(feat_extract_norm=norm, conv_bias=flags["conv_bias"],
+                stable_layer_norm=flags["do_stable_layer_norm"])
 
 
 def read_hubert_config(snapshot: Path) -> HubertEncoderConfig:
@@ -45,6 +70,7 @@ def read_hubert_config(snapshot: Path) -> HubertEncoderConfig:
         conv_strides=tuple(cfg["conv_stride"]),
         pos_conv_kernel=cfg.get("num_conv_pos_embeddings", 128),
         pos_conv_groups=cfg.get("num_conv_pos_embedding_groups", 16),
+        **layout_keys(cfg),
     )
 
 
@@ -134,9 +160,15 @@ def convert_hubert_state_dict(
     transformer) params."""
     fe: dict = {}
     for i in range(len(cfg.conv_kernels)):
-        w = sd[f"feature_extractor.conv_layers.{i}.conv.weight"]
+        pre = f"feature_extractor.conv_layers.{i}"
+        w = sd[f"{pre}.conv.weight"]
         fe[f"conv_{i}"] = {"kernel": np.ascontiguousarray(w.transpose(2, 1, 0))}
-    fe["group_norm"] = _layernorm(sd, "feature_extractor.conv_layers.0.layer_norm")
+        if cfg.conv_bias:
+            fe[f"conv_{i}"]["bias"] = sd[f"{pre}.conv.bias"]
+        if cfg.feat_extract_norm == "layer":  # a LayerNorm after every conv
+            fe[f"layer_norm_{i}"] = _layernorm(sd, f"{pre}.layer_norm")
+    if cfg.feat_extract_norm == "group":  # HF names conv 0's GroupNorm layer_norm too
+        fe["group_norm"] = _layernorm(sd, "feature_extractor.conv_layers.0.layer_norm")
 
     tr: dict = {
         "feature_layer_norm": _layernorm(sd, "feature_projection.layer_norm"),

@@ -1,14 +1,23 @@
 """HuBERT (wav2vec2-style) encoder in PyTorch (counterpart of
 ``segma_tpu/models/hubert/encoder.py``).
 
-- feature extractor: 7 bias-free strided convs (k/s: 10/5, 3/2 x4, 2/2 x2),
-  GroupNorm with one group per channel on the first conv only (statistics in
-  f32, eps 1e-5), exact GELU; rf_step 320 samples (20 ms);
+- feature extractor: 7 strided convs (k/s: 10/5, 3/2 x4, 2/2 x2), bias-free
+  unless ``conv_bias``, exact GELU; rf_step 320 samples (20 ms). HF's
+  ``feat_extract_norm="group"``: GroupNorm with one group per channel on the
+  first conv only; ``"layer"``: a LayerNorm over the channels after every
+  conv (statistics in f32, eps 1e-5, both);
 - feature projection: LayerNorm(512) -> Linear(768);
 - positional conv embedding: grouped conv (k=128, groups=16, padding 64 on
   both sides) with the last frame dropped, exact GELU, added, then LayerNorm;
 - post-norm transformer layers; the hidden states are the INPUT of each
   layer plus the final output (HF indexing, n_layers + 1 entries).
+
+``stable_layer_norm`` (HF's ``do_stable_layer_norm``, the Large models'
+layout): pre-norm layers, ``x + attn(LN(x))`` then ``x + ffn(LN(x))``; the
+positional conv is added without a LayerNorm, and the encoder's
+``layer_norm`` is applied after the last layer. The hidden states are then
+each layer's un-normed input and the normed final output, as HF returns
+them.
 
 Parameters are kept in f32 and cast to the compute dtype where they are
 used, as flax does with ``dtype=bf16``. Self-attention is the Whisper port's
@@ -39,6 +48,9 @@ from segma_tpu_torch.models.whisper.encoder import MultiHeadAttention, layer_nor
 from segma_tpu_torch.parallel.collectives import SOLO, enter
 
 
+FEAT_EXTRACT_NORMS = ("group", "layer")
+
+
 @dataclass(frozen=True)
 class HubertEncoderConfig:
     hidden_size: int = 768
@@ -50,6 +62,14 @@ class HubertEncoderConfig:
     conv_strides: tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
     pos_conv_kernel: int = 128
     pos_conv_groups: int = 16
+    feat_extract_norm: str = "group"  # FEAT_EXTRACT_NORMS
+    conv_bias: bool = False
+    stable_layer_norm: bool = False
+
+    def __post_init__(self) -> None:
+        if self.feat_extract_norm not in FEAT_EXTRACT_NORMS:
+            raise ValueError(f"feat_extract_norm must be one of {FEAT_EXTRACT_NORMS}, "
+                             f"got {self.feat_extract_norm!r}")
 
     @classmethod
     def base(cls) -> "HubertEncoderConfig":
@@ -74,15 +94,20 @@ class FeatureExtractor(nn.Module):
         self.dtype = dtype
         c_in = 1
         for i, (dim, k, s) in enumerate(zip(cfg.conv_dim, cfg.conv_kernels, cfg.conv_strides)):
-            setattr(self, f"conv_{i}", nn.Conv1d(c_in, dim, k, stride=s, bias=False))
+            setattr(self, f"conv_{i}", nn.Conv1d(c_in, dim, k, stride=s, bias=cfg.conv_bias))
+            if cfg.feat_extract_norm == "layer":
+                setattr(self, f"layer_norm_{i}", nn.LayerNorm(dim, eps=1e-5))
             c_in = dim
-        self.group_norm = nn.GroupNorm(cfg.conv_dim[0], cfg.conv_dim[0], eps=1e-5)
+        if cfg.feat_extract_norm == "group":
+            self.group_norm = nn.GroupNorm(cfg.conv_dim[0], cfg.conv_dim[0], eps=1e-5)
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
         x = wav[:, None, :].to(self.dtype)  # (B, 1, T)
         for i in range(len(self.cfg.conv_dim)):
             x = _conv(x, getattr(self, f"conv_{i}"))
-            if i == 0:
+            if self.cfg.feat_extract_norm == "layer":  # over the channels, every conv
+                x = layer_norm(x.transpose(1, 2), getattr(self, f"layer_norm_{i}")).transpose(1, 2)
+            elif i == 0:
                 # one group per channel: per-channel statistics over time
                 gn = self.group_norm
                 x = F.group_norm(x.float(), gn.num_groups, gn.weight, gn.bias, gn.eps).to(x.dtype)
@@ -91,27 +116,40 @@ class FeatureExtractor(nn.Module):
 
 
 class HubertTransformerLayer(nn.Module):
-    """Post-norm block: x + attn -> LN -> x + ff -> LN. Under tensor
-    parallelism ``intermediate_dense`` holds the member's block of output
-    features (its input a ``collectives.enter``) and ``output_dense`` is
-    row-parallel (``models.layers.row_linear``)."""
+    """Post-norm block: x + attn -> LN -> x + ff -> LN; under
+    ``stable_layer_norm`` pre-norm: x + attn(LN(x)) -> x + ff(LN(x)). Under
+    tensor parallelism ``intermediate_dense`` holds the member's block of
+    output features (its input a ``collectives.enter``) and ``output_dense``
+    is row-parallel (``models.layers.row_linear``). WavLM's layer is this
+    block with its own attention."""
 
     model_group = SOLO
 
-    def __init__(self, cfg: HubertEncoderConfig) -> None:
+    def __init__(self, cfg: HubertEncoderConfig, attention: nn.Module | None = None) -> None:
         super().__init__()
-        self.attention = MultiHeadAttention(cfg.hidden_size, cfg.n_heads, k_bias=True)
+        self.stable = cfg.stable_layer_norm
+        self.attention = (MultiHeadAttention(cfg.hidden_size, cfg.n_heads, k_bias=True)
+                          if attention is None else attention)
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
         self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.ffn_dim)
         self.output_dense = nn.Linear(cfg.ffn_dim, cfg.hidden_size)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = layer_norm(x + self.attention(x), self.layer_norm)
+    def feed_forward(self, x: torch.Tensor) -> torch.Tensor:
         model = self.model_group
-        h = row_linear(F.gelu(linear(enter(x, model), self.intermediate_dense)),
-                       self.output_dense, model)
-        return layer_norm(x + h, self.final_layer_norm)
+        return row_linear(F.gelu(linear(enter(x, model), self.intermediate_dense)),
+                          self.output_dense, model)
+
+    def block(self, x: torch.Tensor, attend) -> torch.Tensor:
+        """``x`` through ``attend`` (the attention on its input) and the MLP."""
+        if self.stable:
+            x = x + attend(layer_norm(x, self.layer_norm))
+            return x + self.feed_forward(layer_norm(x, self.final_layer_norm))
+        x = layer_norm(x + attend(x), self.layer_norm)
+        return layer_norm(x + self.feed_forward(x), self.final_layer_norm)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.block(x, self.attention)
 
 
 class HubertTransformer(nn.Module):
@@ -134,13 +172,19 @@ class HubertTransformer(nn.Module):
 
     def embed(self, feats: torch.Tensor) -> torch.Tensor:
         """Conv features -> the first layer's input: projection, positional
-        conv, LayerNorm."""
+        conv, LayerNorm (none under ``stable_layer_norm``)."""
         x = layer_norm(feats.to(self.dtype), self.feature_layer_norm)
         x = linear(x, self.feature_projection)
         pos = _conv(x.transpose(1, 2), self.pos_conv).transpose(1, 2)
         if self.cfg.pos_conv_kernel % 2 == 0:  # SamePad: drop the extra frame
             pos = pos[:, :-1, :]
-        return layer_norm(x + F.gelu(pos), self.layer_norm)
+        x = x + F.gelu(pos)
+        return x if self.cfg.stable_layer_norm else layer_norm(x, self.layer_norm)
+
+    def final(self, x: torch.Tensor) -> torch.Tensor:
+        """The last layer's output -> the encoder's: LayerNorm under
+        ``stable_layer_norm``, as it is."""
+        return layer_norm(x, self.layer_norm) if self.cfg.stable_layer_norm else x
 
     def forward(
         self, feats: torch.Tensor, output_hidden_states: bool = False
@@ -155,5 +199,6 @@ class HubertTransformer(nn.Module):
                                                       preserve_rng_state=False)
             else:
                 x = layer(x)
+        x = self.final(x)
         hidden_states.append(x)
         return x, (tuple(hidden_states) if output_hidden_states else ())

@@ -6,8 +6,10 @@ front end always frozen, the transformer trainable unless
 ``freeze_encoder``, the weighted reduction, dropout 0.5 in training, fused
 hydra heads in f32, ``train.remat``. Same frame geometry (rf_step 320).
 When ``model.config.wav_encoder`` names an HF ``WavLMModel`` snapshot, the
-front end and the transformer are its weights (``wavlm/convert.py``);
-without one they are random, as in the JAX package.
+front end and the transformer are its weights (``wavlm/convert.py``), in the
+layout its ``config.json`` gives (WavLM-base's, or WavLM-Large's LayerNorm
+front end and pre-LayerNorm layers); without one they are random, as in the
+JAX package, and ``enc_cfg`` sets the size and layout.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 ``segma_tpu/models/wavlm/convert.py``; numpy, reading safetensors with the
 port's own reader or ``*.bin`` with torch).
 
-HuBERT's layout (``models/hubert/convert.py``) plus each layer's
+HuBERT's layout (``models/hubert/convert.py``, either layout of the
+config: WavLM-base's or WavLM-Large's) plus each layer's
 ``gru_rel_pos_linear`` and ``gru_rel_pos_const`` (1, H, 1, 1), and layer
 0's ``rel_attn_embed.weight`` (buckets, H), which the tree holds as the
 bare leaf ``rel_attn_embed``.
@@ -19,6 +20,7 @@ from segma_tpu_torch.models.hubert.convert import (
     _load_raw,
     _normalize_keys,
     convert_hubert_state_dict,
+    layout_keys,
 )
 from segma_tpu_torch.models.wavlm.encoder import WavLMEncoderConfig
 
@@ -42,6 +44,7 @@ def read_wavlm_config(snapshot: Path) -> WavLMEncoderConfig:
         pos_conv_groups=cfg.get("num_conv_pos_embedding_groups", 16),
         num_buckets=cfg.get("num_buckets", 320),
         max_distance=cfg.get("max_bucket_distance", 800),
+        **layout_keys(cfg),
     )
 
 

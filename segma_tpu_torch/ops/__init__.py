@@ -5,7 +5,8 @@ replicas of a mesh launch from threads of their own).
 
 Importing this package registers the port's ``torch.library`` ops in the
 ``segma_tpu_torch`` namespace (``segma_tpu_torch::log10_mel``,
-``::flash_attn_fwd``, ``::flash_attn_fwd_lse`` and ``::lstm``): a program
+``::flash_attn_fwd``, ``::flash_attn_fwd_lse``, ``::wavlm_attn_fwd`` and
+``::lstm``): a program
 saved by ``torch.export`` names them, and loading one needs this import and
 nothing else of the port.
 """
@@ -20,9 +21,10 @@ from segma_tpu_torch import telemetry
 
 # the kernel wrappers' counters, by kernel: log-mel, the bf16 flash forward
 # and backward (one per call, which runs the dq and the dkv kernel), the f32
-# ones, and the LSTM's recurrence (one per layer call)
+# ones, the LSTM's recurrence (one per layer call) and WavLM's gated-bias
+# attention forward (one per layer)
 LAUNCH_KEYS = ("logmel", "flash_attn_fwd", "flash_attn_bwd", "flash_attn_fwd_f32",
-               "flash_attn_bwd_f32", "lstm_fwd")
+               "flash_attn_bwd_f32", "lstm_fwd", "wavlm_attn_fwd")
 
 
 def cached_constant(cache: dict, key: Hashable, make: Callable[[], Any]) -> Any:
@@ -30,13 +32,16 @@ def cached_constant(cache: dict, key: Hashable, make: Callable[[], Any]) -> Any:
     ``torch.export`` or ``torch.compile`` traces, the cache is neither read
     nor filled: ``make()`` builds the constant in the traced program, as a
     table stored from a trace would be a fake tensor that later eager calls
-    (and the next trace) would read. Two threads filling one key at once
-    store equal tensors."""
+    (and the next trace) would read. A constant made under
+    ``torch.inference_mode`` is made outside it, so that a model served
+    first can still be trained (autograd refuses to save an inference
+    tensor). Two threads filling one key at once store equal tensors."""
     if torch.compiler.is_compiling():
         return make()
     value = cache.get(key)
     if value is None:
-        value = cache.setdefault(key, make())
+        with torch.inference_mode(False):
+            value = cache.setdefault(key, make())
     return value
 
 

@@ -119,6 +119,8 @@ def library() -> ctypes.CDLL:
             f = ctypes.c_float
             lib.segma_flash_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
             lib.segma_flash_attn_fwd.restype = i
+            lib.segma_wavlm_attn_fwd.argtypes = [p] * 6 + [i, i, i, f, p]
+            lib.segma_wavlm_attn_fwd.restype = i
             lib.segma_flash_attn_bwd.argtypes = [p] * 10 + [i, i, i, f, f, p]
             lib.segma_flash_attn_bwd.restype = i
             lib.segma_flash_attn_fwd_f32.argtypes = [p, p, p, p, p, i, i, i, i, f, p]

@@ -27,6 +27,12 @@ gives the shapes, so ``torch.export`` records the op as one node of a
 program and the program launches the kernel when it runs. A call that
 autograd does not record (serving, and every exported program) goes through
 the op; ``FlashAttention.forward`` calls it too.
+
+WavLM's attention, with its gated relative-position bias added to every
+score, is the op ``segma_tpu_torch::wavlm_attn_fwd`` (forward only, bf16,
+head dim 64, self-attention): the bias kernel of ``csrc/flash_attn.cu`` on
+the card, ``wavlm_attention_plain`` on the CPU. ``wavlm_kernel_path`` says
+when ``models/wavlm`` calls it; elsewhere that attention stays plain torch.
 """
 
 from __future__ import annotations
@@ -226,6 +232,89 @@ def _flash_fwd_lse_cuda(q, k, v, sm_scale):
 def _flash_fwd_lse_fake(q, k, v, sm_scale):
     b, s, h, _ = q.shape
     return torch.empty_like(q), q.new_empty((b, h, s), dtype=torch.float32)
+
+
+WAVLM_MAX_LEN = 4096  # BIAS_MAX_S of csrc/flash_attn.cu: the staged rel rows' room
+
+
+def relative_bias(rel: torch.Tensor, length: int) -> torch.Tensor:
+    """(H, 2T - 1) rows -> the (H, T, T) bias: entry (h, i, j) is
+    ``rel[h, T - 1 + j - i]``."""
+    pos = torch.arange(length, device=rel.device)
+    return rel[:, (length - 1) + pos[None, :] - pos[:, None]]
+
+
+def wavlm_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, gate: torch.Tensor, rel: torch.Tensor,
+    sm_scale: float,
+) -> torch.Tensor:
+    """softmax(q kᵀ sm_scale + gate[b, h, i] rel[h, T - 1 + j - i]) v over
+    (B, T, H, D) q, k, v, the (B, H, T) f32 gate and the (H, 2T - 1) f32
+    rows: f32 scores of q scaled in its dtype, the f32 softmax cast to q's
+    dtype for the product with v, as ``models/wavlm``'s plain attention."""
+    bias = relative_bias(rel, q.shape[1])
+    scores = torch.einsum("bqhd,bkhd->bhqk", _f32(q * sm_scale), _f32(k))
+    attn = torch.softmax(scores + gate[..., None] * bias[None], dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", _f32(attn), _f32(v)).to(q.dtype)
+
+
+def wavlm_attn_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, gate: torch.Tensor, rel: torch.Tensor,
+    sm_scale: float,
+) -> torch.Tensor:
+    """Launch the bias kernel on contiguous bf16 (B, T, H, 64) CUDA tensors
+    q, k, v, the contiguous (B, H, T) f32 gate and (H, 2T - 1) f32 rows, on
+    their card; returns (B, T, H, 64) bf16."""
+    b, s, h = _check_inputs("wavlm_attn_fwd", q=q, k=k, v=v)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"wavlm_attn_fwd: q is {q.dtype}, needs bfloat16")
+    if s > WAVLM_MAX_LEN:
+        raise ValueError(f"wavlm_attn_fwd: length {s} > {WAVLM_MAX_LEN}")
+    for arg, x, shape in (("gate", gate, (b, h, s)), ("rel", rel, (h, 2 * s - 1))):
+        if (tuple(x.shape) != shape or x.dtype != torch.float32 or not x.is_contiguous()
+                or x.device != q.device):
+            raise ValueError(f"wavlm_attn_fwd: {arg} must be contiguous {shape} float32 on "
+                             f"{q.device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
+    out = torch.empty_like(q)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        err = lib.segma_wavlm_attn_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), gate.data_ptr(),
+            rel.data_ptr(), b, s, h, sm_scale * math.log2(math.e), _stream(q))
+    _build.check(err, "segma_wavlm_attn_fwd")
+    count_launch("wavlm_attn_fwd")
+    return out
+
+
+@torch.library.custom_op("segma_tpu_torch::wavlm_attn_fwd", mutates_args=(), device_types="cpu")
+def wavlm_attn_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, gate: torch.Tensor,
+                  rel: torch.Tensor, sm_scale: float) -> torch.Tensor:
+    """WavLM's gated-bias attention in q's dtype: the plain version on the CPU."""
+    return wavlm_attention_plain(q, k, v, gate, rel, sm_scale)
+
+
+@wavlm_attn_op.register_kernel("cuda")
+def _wavlm_attn_cuda(q, k, v, gate, rel, sm_scale):
+    return wavlm_attn_fwd(q, k, v, gate, rel, sm_scale)
+
+
+@wavlm_attn_op.register_fake
+def _wavlm_attn_fake(q, k, v, gate, rel, sm_scale):
+    return torch.empty_like(q)
+
+
+def wavlm_kernel_path(x: torch.Tensor, head_dim: int, recorded: bool) -> bool:
+    """Whether WavLM's attention over ``x`` (B, T, D) runs the op: on the
+    card, in bf16, at head dim 64, and not ``recorded`` by autograd (serving,
+    validation, exported programs). Such a call over more than WAVLM_MAX_LEN
+    positions raises a ValueError: the kernel cannot take it, and the plain
+    path's (B, H, T, T) f32 scores would not fit either."""
+    if not (x.is_cuda and x.dtype == torch.bfloat16 and head_dim == HEAD_DIM and not recorded):
+        return False
+    if x.shape[1] > WAVLM_MAX_LEN:
+        raise ValueError(f"WavLM's bf16 attention on the card takes up to WAVLM_MAX_LEN = "
+                         f"{WAVLM_MAX_LEN} positions, not {x.shape[1]}: serve shorter chunks")
+    return True
 
 
 class FlashAttention(torch.autograd.Function):

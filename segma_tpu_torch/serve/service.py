@@ -23,7 +23,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from segma_tpu_torch.annotation import AudioAnnotation
+from segma_tpu_torch.annotation import rttm_line
 from segma_tpu_torch.inference import _load_mono, default_thresholds
 from segma_tpu_torch.serve.stats import _Stats
 from segma_tpu_torch.streaming import (
@@ -320,16 +320,11 @@ class SegmentationService:
         ).encode()
 
     def to_rttm(self, intervals: list[tuple], uri: str) -> bytes:
-        lines = [
-            AudioAnnotation(
-                uid=uri,
-                start_time_s=float(frames_to_seconds(s, self.sample_rate)),
-                duration_s=float(frames_to_seconds(e - s, self.sample_rate)),
-                label=str(label),
-            ).to_rttm()
+        return "".join(
+            rttm_line(uri, float(frames_to_seconds(s, self.sample_rate)),
+                      float(frames_to_seconds(e - s, self.sample_rate)), str(label)) + "\n"
             for s, e, label in intervals
-        ]
-        return ("\n".join(lines) + ("\n" if lines else "")).encode()
+        ).encode()
 
     def health(self) -> bytes:
         from segma_tpu_torch import __version__

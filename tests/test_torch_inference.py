@@ -178,6 +178,49 @@ def test_golden_rttm_byte_identical(tmp_path, models):
     assert out2.read_bytes() == GOLDEN.read_bytes()
 
 
+@pytest.mark.parametrize("settings", [((320,), (320,), (0,)),
+                                      ((10, 3, 3, 3, 3, 2, 2), (5, 2, 2, 2, 2, 2, 2), (0,) * 7)])
+def test_runs_and_rttm_lines_equal_their_per_interval_forms(settings, tmp_path):
+    """``unpack_run_intervals`` and the mask path's
+    ``intervals_from_boundaries`` give each run's ``run_interval`` (the decode
+    invariant), and ``write_intervals`` the lines of
+    ``AudioAnnotation.to_rttm``, for Python and numpy integers, from sample 0
+    (whose start clamps) and from 1 (a start printed as 6.25e-05)."""
+    from segma_tpu_torch.annotation import AudioAnnotation
+    from segma_tpu_torch.utils.conversions import frames_to_seconds
+
+    fs = ConvolutionSettings(*settings)
+    rng = np.random.default_rng(9)
+    cap = 300
+    packed = np.zeros((4, 1 + 2 * cap), np.int32)
+    for li, k in enumerate((0, 1, 150, cap)):
+        first = np.sort(rng.choice(10**7, k, replace=False))
+        packed[li, 0] = k
+        packed[li, 1:k + 1] = first
+        packed[li, cap + 1:cap + 1 + k] = first + rng.integers(0, 40, k)
+    packed[2, 1] = 0
+    got = tinf.unpack_run_intervals(packed, cap, LABELS, fs)
+    want = [(*fs.run_interval(s, e), label) for li, label in enumerate(LABELS)
+            for s, e in zip(packed[li, 1:packed[li, 0] + 1],
+                            packed[li, cap + 1:cap + 1 + packed[li, 0]])]
+    assert got == want and all(type(v) is int for s, e, _ in got for v in (s, e))
+    # the mask path: run-boundary masks of the same runs
+    starts, ends = np.zeros((10**7 + 64, 4), bool), np.zeros((10**7 + 64, 4), bool)
+    for li in range(4):
+        k = packed[li, 0]
+        starts[packed[li, 1:k + 1], li] = True
+        ends[packed[li, cap + 1:cap + 1 + k], li] = True
+    masks = tinf.intervals_from_boundaries(starts, ends, fs, MultiLabelEncoder(list(LABELS)))
+    assert sorted(masks) == sorted(want)
+    intervals = [*got[:50], (1, 321, "KCHI"), (np.int64(7), np.int64(16_007), "FEM")]
+    out = tinf.write_intervals(intervals, Path("x/uri.wav"), tmp_path)
+    lines = [AudioAnnotation(uid="uri", start_time_s=float(frames_to_seconds(s)),
+                             duration_s=float(frames_to_seconds(e - s)),
+                             label=str(label)).to_rttm() + "\n"
+             for s, e, label in intervals]
+    assert out.read_text() == "".join(lines) and "6.25e-05" in lines[-2]
+
+
 def test_postprocess_and_threshold_vector_match_jax():
     rng = np.random.default_rng(5)
     intervals = [

@@ -1304,3 +1304,97 @@ def test_lstm_call_needing_a_gradient_takes_cudnn():
         assert torch.equal(trained, card.lstm(x)[0])
         card(x)
     assert rnn.launches == before + 2
+
+
+# -- WavLM's gated relative-position bias, fused into the bf16 flash forward --------
+
+WAVLM_ATTN_CASES = {
+    "large-serving": (64, 199, 16, 64), "base-serving": (16, 199, 12, 64),
+    "t800": (2, 800, 16, 64), "t1500": (2, 1500, 4, 64), "one": (3, 1, 2, 64),
+    "t127": (2, 127, 4, 64), "t129": (2, 129, 4, 64), "t256": (2, 256, 3, 64),
+}
+
+
+def _wavlm_inputs(shape, seed):
+    """bf16 q, k, v N(0, 1), gates in (1, 3), N(0, 1) rows: a bias as large
+    as the scores."""
+    b, t, h, _ = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    gate = 1.0 + 2.0 * torch.rand((b, h, t), device="cuda", generator=g)
+    return q, k, v, gate, torch.randn((h, 2 * t - 1), device="cuda", generator=g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(WAVLM_ATTN_CASES))
+def test_wavlm_attn_kernel_matches_plain(case):
+    """The bias kernel within the bf16 flash forward's tolerance (FLASH_TOL)
+    of the plain version on f32 inputs, one launch a call, the same bits over
+    two launches and through the registered op."""
+    from segma_tpu_torch.ops import launch_counts
+
+    _cuda()
+    shape = WAVLM_ATTN_CASES[case]
+    q, k, v, gate, rel = _wavlm_inputs(shape, seed=sum(shape))
+    sm = 64**-0.5
+    before = launch_counts()["wavlm_attn_fwd"]
+    out = attention.wavlm_attn_fwd(q, k, v, gate, rel, sm)
+    assert launch_counts()["wavlm_attn_fwd"] == before + 1
+    ref = attention.wavlm_attention_plain(q.float(), k.float(), v.float(), gate, rel, sm)
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    assert float((out.float() - ref).abs().max()) <= FLASH_TOL * max(1.0, float(ref.abs().max()))
+    # without the bias (the rows zeroed) the output moves: the bias is not dropped
+    bare = attention.wavlm_attention_plain(q.float(), k.float(), v.float(), gate,
+                                           torch.zeros_like(rel), sm)
+    if shape[1] > 1:
+        assert float((bare - ref).abs().max()) > 10 * FLASH_TOL
+    assert torch.equal(out, attention.wavlm_attn_fwd(q, k, v, gate, rel, sm))
+    assert torch.equal(out, attention.wavlm_attn_op(q, k, v, gate, rel, sm))
+
+
+@pytest.mark.gpu
+def test_wavlm_attn_kernel_rejects_what_it_does_not_take():
+    _cuda()
+    q, k, v, gate, rel = _wavlm_inputs((2, 64, 2, 64), seed=1)
+    sm = 64**-0.5
+    with pytest.raises(ValueError, match="bfloat16"):
+        attention.wavlm_attn_fwd(q.float(), k.float(), v.float(), gate, rel, sm)
+    with pytest.raises(ValueError, match="rel"):
+        attention.wavlm_attn_fwd(q, k, v, gate, rel[:, 1:], sm)
+    with pytest.raises(ValueError, match="gate"):
+        attention.wavlm_attn_fwd(q, k, v, gate.double(), rel, sm)
+    long = (1, attention.WAVLM_MAX_LEN + 1, 1, 64)
+    lq = torch.zeros(long, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="length"):
+        attention.wavlm_attn_fwd(lq, lq, lq, torch.ones(1, 1, long[1], device="cuda"),
+                                 torch.zeros(1, 2 * long[1] - 1, device="cuda"), sm)
+
+
+HEAD_64 = dict(hidden_size=128, n_heads=2)  # the kernel's head dim
+
+
+@pytest.mark.gpu
+def test_tiny_wavlm_large_layout_on_the_card_takes_the_kernel_unrecorded():
+    """A WavLM-Large-layout model at tiny widths (two heads of 64) in bf16 on the
+    card: served, one kernel launch a layer, within the bf16 pin (6e-2, as
+    tests/test_torch_wavlm.py) of the same model's plain path on the card
+    (recorded by autograd: no launch); in f32 no launch."""
+    from segma_tpu_torch.ops import launch_counts
+    from tests.test_torch_wavlm_large import tiny_model
+
+    _cuda()
+    model = tiny_model("bf16", device="cuda", **HEAD_64)
+    wav = torch.from_numpy((np.random.default_rng(3).standard_normal((4, 16_000)) * 0.1)
+                           .astype(np.float32)).cuda()
+    layers = model.module.enc_cfg.n_layers
+    before = launch_counts()["wavlm_attn_fwd"]
+    served = model.apply(wav)
+    assert launch_counts()["wavlm_attn_fwd"] == before + layers
+    plain = model.module(wav)
+    assert plain.requires_grad and launch_counts()["wavlm_attn_fwd"] == before + layers
+    assert float((served - plain.detach()).abs().max()) <= 6e-2
+    assert torch.equal(served, model.apply(wav))
+    f32 = tiny_model("f32", device="cuda", **HEAD_64)
+    f32.apply(wav)
+    assert launch_counts()["wavlm_attn_fwd"] == before + 2 * layers
